@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's exact query path on one CUDA card.
 
-    python3 chip_smoke.py [--n 1000000] [--batches 8]
+    python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
 
 Phases, each printing lines that start with its name:
 
 1. device   the card's name, count and power limit (nvidia-smi);
-2. build    nvcc builds the four kernels from src/repro_torch/kernels/csrc
-            (one process each, in parallel), then again with -Xptxas -v
-            for their register and shared-memory use;
+2. build    nvcc builds the six kernels from the five sources in
+            src/repro_torch/kernels/csrc (one process each, in parallel),
+            then again with -Xptxas -v for their register and
+            shared-memory use;
 3. main     GaussMix (n rows, d = 8, seed 0) -> host LIMSIndex(K=64, m=3,
             N=20, degree 8) -> LIMSSnapshot.build on the card ->
             range (0.01% selectivity) and kNN (k = 10) batches of 64
@@ -21,7 +22,25 @@ Phases, each printing lines that start with its name:
             card's pdist_rankeval at every data point;
 5. kernels  each kernel against its plain PyTorch version at the main
             path's shapes, timed with CUDA events beside its plain
-            version, its bound and (pdist only) torch.cdist(q, p)**2.
+            version, its bound and (pdist only) torch.cdist(q, p)**2;
+6. builder  the device index builder (LIMSIndex(backend="device")) at
+            the same n: (a) GaussMix L2, held against main's host index
+            (structures, then every range and kNN batch through a
+            snapshot of it); (b) Skewed L1 and (c) Skewed L-infinity,
+            each against a host build of its own (structures, 64 range
+            and 64 kNN queries, query 0 against an f64 brute-force
+            scan); structure differences pass only at ties within one
+            ulp of the host's f64 distances.  The launch counters are
+            zeroed before each build: pdist_l1 and pdist_linf must have
+            run in (b) and (c), and their kernel rows are timed at the
+            shape pivot_columns launched them with (torch.cdist p=1 /
+            p=inf as the library yardstick); (d) retrain: the largest
+            cluster of the (a) index and of main's host index loses 1%
+            of its rows and gains as many; a device retrain of one and a
+            host retrain of the other answer identically, and "auto"
+            picks the device for it.  (c) runs at --linf-n rows (default
+            200,000, a cut that keeps the whole script within twice the
+            query path's time); --linf-n 1000000 runs it uncut.
 
 Before the last line it prints the kernels as one JSON object and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.  Any
@@ -57,12 +76,18 @@ B = 64                          # queries per batch
 K_NN = 10
 SELECTIVITY = 1e-4              # the paper's default 0.01%
 
-# the Pallas kernel each CUDA kernel replaces
+K_CLUSTERS, M, RINGS, DEGREE = 64, 3, 20, 8   # bench_build.py:39
+LINF_N = 200_000                # (c)'s cut n; --linf-n overrides it
+# kernels of the query path; pdist_l1 and pdist_linf run in the builder
+MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
+# the Pallas kernel (or kernel body) each CUDA kernel replaces
 REPLACES = {
     "pdist": "src/repro/kernels/pdist.py:55",
     "rankeval": "src/repro/kernels/rankeval.py:69",
     "range_filter": "src/repro/kernels/range_filter.py:35",
     "pdist_rankeval": "src/repro/kernels/fused.py:58",
+    "pdist_l1": "src/repro/kernels/pdist.py:36",
+    "pdist_linf": "src/repro/kernels/pdist.py:43",
 }
 
 
@@ -126,7 +151,8 @@ def phase_build():
     from repro_torch.kernels import _cuda
     t0 = time.perf_counter()
     built = _cuda.build(force=True)
-    print(f"build: {len(built)} kernels with nvcc in "
+    print(f"build: {len(built)} sources ({len(_cuda.SIGNATURES)} kernels) "
+          f"with nvcc in "
           f"{time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{b.name} {b.seconds:.2f} s' for b in built.values())})",
           flush=True)
@@ -135,22 +161,29 @@ def phase_build():
     for b in verbose.values():
         use = re.findall(r"Used (\d+) registers.*?(?:, (\d+) bytes smem)?$",
                          b.log, re.M)
-        regs, smem = use[-1] if use else ("?", "")
-        print(f"build: {b.name} registers={regs} static_smem={smem or 0} B",
-              flush=True)
+        regs = "/".join(u[0] for u in use) or "?"
+        smem = "/".join(u[1] or "0" for u in use) or "0"
+        print(f"build: {b.name} registers={regs} static_smem={smem} B "
+              f"(per entry function)", flush=True)
 
 
-def make_queries(X, rng, n_batches: int):
+def make_queries(X, rng, n_batches: int, metric: str = "l2"):
     """Batches of B data rows plus N(0, 0.003) noise, each with the
-    radius at its SELECTIVITY quantile of true distances (f64, on the
-    card: torch.quantile's linear interpolation, like np.quantile)."""
+    radius at its SELECTIVITY quantile of true ``metric`` distances (f64,
+    on the card: torch.quantile's linear interpolation, like
+    np.quantile)."""
     Xd = torch.from_numpy(X).to(DEVICE)
     out = []
     for _ in range(n_batches):
         Q = X[rng.choice(len(X), B)] + rng.normal(0.0, 0.003, (B, D))
         r = np.empty(B)
         for i, q in enumerate(torch.from_numpy(Q).to(DEVICE)):
-            dist = torch.sqrt(((Xd - q) ** 2).sum(dim=1))
+            if metric == "l2":
+                dist = torch.sqrt(((Xd - q) ** 2).sum(dim=1))
+            elif metric == "l1":
+                dist = (Xd - q).abs().sum(dim=1)
+            else:
+                dist = (Xd - q).abs().amax(dim=1)
             r[i] = float(torch.quantile(dist, SELECTIVITY))
         out.append((Q, r))
     return out
@@ -161,6 +194,13 @@ def same_range(got, want) -> bool:
     wi, wd = want
     a, b = np.argsort(gi), np.argsort(wi)
     return np.array_equal(gi[a], wi[b]) and np.array_equal(gd[a], wd[b])
+
+
+def same_knn(got, want) -> bool:
+    """Equal f64 distances in order and equal id sets (ties may order
+    ids differently)."""
+    return (np.array_equal(got[1], want[1])
+            and np.array_equal(np.sort(got[0]), np.sort(want[0])))
 
 
 def phase_main(X, ix, batches, snap_cls, executor_cls):
@@ -225,8 +265,9 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
     print(f"main: launches {json.dumps(counts)} "
           f"max_memory_allocated={peak}", flush=True)
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the main path")
 
     # one batch of each kind against an f64 brute-force scan
     Q, rs = batches[0]
@@ -244,7 +285,7 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     print(f"main: batch 0 equals the f64 brute-force scan "
           f"(range hits/query={np.mean([len(g[0]) for g in got_r]):.1f})",
           flush=True)
-    return counts, snap
+    return counts, snap, host_range, host_knn
 
 
 def phase_error_bound(ix, snap):
@@ -300,26 +341,8 @@ def phase_kernels(ix, snap, batches, counts):
                   (snap.model_lo, snap.model_hi, snap.model_n))
     out = []
 
-    def row(name, err, call, iters, plain, plain_iters, nbytes, flops,
-            library=None):
-        """Time ``call`` (the wrapper) and ``plain`` with CUDA events,
-        and the kernel's own device time under the profiler."""
-        ms = time_ms(call, iters)
-        plain_ms = time_ms(plain, plain_iters)
-        library_ms = time_ms(library, 10) if library else None
-        kernel_ms = device_busy(call)[1]
-        b_ms, by = bound(nbytes, flops)
-        out.append({"name": name, "route": "cuda",
-                    "source": f"src/repro_torch/kernels/csrc/"
-                              f"{_cuda.SOURCES[name]}",
-                    "replaces": REPLACES[name], "launches": counts[name],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": by,
-                    "library_ms": library_ms})
-        print(f"kernels: {name} max_abs_err={err} ms={ms:.4f} "
-              f"profiler_device_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}",
-              flush=True)
+    def row(name, *args, **kw):
+        out.append(kernel_row(name, counts[name], *args, **kw))
 
     # pdist: the kNN distance matrix (B, P)
     got = ops.pdist(q, rows)
@@ -397,6 +420,27 @@ def phase_kernels(ix, snap, batches, counts):
         + 8.0 * G * B,
         2 * D * (B + G) + B * G * (2 * D + 4 + 3 + 2 * rank_ops(C)))
     return out
+
+
+def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
+               flops, library=None) -> dict:
+    """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
+    the kernel's own device time under the profiler; print the row and
+    return it for the JSON line."""
+    from repro_torch.kernels import _cuda
+    ms = time_ms(call, iters)
+    plain_ms = time_ms(plain, plain_iters)
+    library_ms = time_ms(library, 10) if library else None
+    kernel_ms = device_busy(call)[1]
+    b_ms, by = bound(nbytes, flops)
+    print(f"kernels: {name} max_abs_err={err} ms={ms:.4f} "
+          f"profiler_device_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{_cuda.SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
 
 
 def device_busy(fn) -> tuple[float, float, list]:
@@ -484,6 +528,218 @@ def phase_profile(ex, batches):
           f"busy={dev / wall:.4f} top={json.dumps(top)}", flush=True)
 
 
+# ----------------------------------------------------------------- builder
+def lims_index(X, metric, **kw):
+    from repro_torch.core import LIMSIndex, MetricSpace
+    return LIMSIndex(MetricSpace(X, metric), n_clusters=K_CLUSTERS, m=M,
+                     n_rings=RINGS, degree=DEGREE, **kw)
+
+
+def compare_structures(tag, X, metric, host, dev) -> None:
+    """Centers, assignment and pivot ids of the device build against
+    the host build's.  A difference passes only at a tie: the host's f64
+    distances of the two candidates within one ulp (the reference's own
+    allowance, repro/build/cluster.py:12-14).  The first differing
+    center or assignment makes everything after it incomparable, so the
+    comparison stops there."""
+    from repro_torch.core.metrics import dist_one_to_many
+    hc, dc = host.clustering, dev.clustering
+    ties = []
+
+    def tie(a, b, what):
+        check(abs(a - b) <= np.spacing(max(abs(a), abs(b))),
+              f"builder: {tag} {what} differs from the host build and is "
+              f"no tie ({a!r} vs {b!r})")
+        ties.append(f"{what}: {a!r} vs {b!r}")
+
+    n_c = int((hc.center_idx != dc.center_idx).sum())
+    n_a = int((hc.assign != dc.assign).sum())
+    n_p = sum(int((h.pivot_idx != d.pivot_idx).sum())
+              for h, d in zip(host.clusters, dev.clusters))
+    if n_c:
+        c = int(np.nonzero(hc.center_idx != dc.center_idx)[0][0])
+        d_near = np.min([dist_one_to_many(X[g], X, metric)
+                         for g in hc.center_idx[:c]], axis=0)
+        tie(d_near[hc.center_idx[c]], d_near[dc.center_idx[c]],
+            f"center {c}")
+    elif n_a:
+        for i in np.nonzero(hc.assign != dc.assign)[0]:
+            both = hc.center_idx[[hc.assign[i], dc.assign[i]]]
+            d = dist_one_to_many(X[i], X[both], metric)
+            tie(d[0], d[1], f"assignment of row {i}")
+    else:
+        for h, d in zip(host.clusters, dev.clusters):
+            bad = np.nonzero(h.pivot_idx != d.pivot_idx)[0]
+            if len(bad):
+                j = int(bad[0])
+                d_near = h.pivot_d_stored[:, :j].min(axis=1)
+                at = [int(np.nonzero(h.store_ids == g)[0][0])
+                      for g in (h.pivot_idx[j], d.pivot_idx[j])]
+                tie(d_near[at[0]], d_near[at[1]],
+                    f"cluster {h.cid} pivot {j}")
+    print(f"builder: {tag} structure differences from the host build: "
+          f"centers={n_c} assignment={n_a} pivot_ids={n_p}; ties "
+          f"(host f64 distances of the two candidates): {ties}",
+          flush=True)
+
+
+def print_build(tag, dev, t_dev, t_host, counts) -> None:
+    t = {k: round(v, 4) for k, v in dev.device_build_timings.items()}
+    print(f"builder: {tag} device build stages_s={json.dumps(t)} "
+          f"LIMSIndex(backend='device') total_s={t_dev:.3f} (stages + host "
+          f"f64 materialization); host build total_s={t_host:.3f}; "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}; "
+          f"launches {json.dumps(counts)}", flush=True)
+
+
+def phase_builder_l2(X, ix, t_host, batches, host_range, host_knn):
+    """(a): device build of main's GaussMix L2 index, its structures
+    against main's host index, and every main batch through a snapshot
+    of it on the card."""
+    from repro_torch.core import LIMSSnapshot, QueryExecutor
+    from repro_torch.kernels import _cuda
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ixd = lims_index(X, "l2", backend="device")
+    t_dev = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    check(counts["pdist"] > 0, "builder: l2 build launched no pdist")
+    print_build("l2 GaussMix", ixd, t_dev, t_host, counts)
+    compare_structures("l2", X, "l2", ix, ixd)
+    ex = QueryExecutor(LIMSSnapshot.build(ixd, device=DEVICE))
+    for (Q, rs), want_r, want_k in zip(batches, host_range, host_knn):
+        for b, got in enumerate(ex.range_query_batch(Q, rs)):
+            check(same_range(got, want_r[b]), f"builder: l2 range query {b} "
+                  f"of the device-built snapshot differs from the host index")
+        ids, ds = ex.knn_query_batch(Q, K_NN)
+        for b in range(B):
+            check(same_knn((ids[b], ds[b]), want_k[b]), f"builder: l2 kNN "
+                  f"query {b} of the device-built snapshot differs")
+    print(f"builder: l2 snapshot of the device-built index: all "
+          f"{len(batches)} range and kNN batches equal the host index",
+          flush=True)
+    return ixd
+
+
+def phase_builder_lp(metric, n):
+    """(b) or (c): Skewed (the paper's L1 data set) with ``metric``:
+    a host and a device build, their structures, 64 range and 64 kNN
+    queries through both, query 0 against brute force; then the
+    kernel's row at pivot_columns' launch shape."""
+    from repro_torch.build import cluster_major
+    from repro_torch.core.metrics import dist_one_to_many
+    from repro_torch.data.datasets import skewed
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.pdist import METRICS
+    name, plain = METRICS[metric]
+    X = skewed(n, D, seed=0)
+    t0 = time.perf_counter()
+    host = lims_index(X, metric)
+    t_host = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    dev = lims_index(X, metric, backend="device")
+    t_dev = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    check(counts[name] > 0, f"builder: the {metric} build launched no {name}")
+    print_build(f"{metric} Skewed n={n}", dev, t_dev, t_host, counts)
+    compare_structures(metric, X, metric, host, dev)
+
+    (Q, rs), = make_queries(X, np.random.default_rng(2), 1, metric)
+    t_q = {"host": 0.0, "device": 0.0}
+    for b, (q, r) in enumerate(zip(Q, rs)):
+        t0 = time.perf_counter()
+        want_r, want_k = host.range_query(q, r)[:2], host.knn_query(q, K_NN)[:2]
+        t1 = time.perf_counter()
+        got_r, got_k = dev.range_query(q, r)[:2], dev.knn_query(q, K_NN)[:2]
+        t_q["host"] += t1 - t0
+        t_q["device"] += time.perf_counter() - t1
+        check(same_range(got_r, want_r) and same_knn(got_k, want_k),
+              f"builder: {metric} query {b}: the device-built index differs "
+              f"from the host build")
+        if b == 0:
+            dist = dist_one_to_many(q, X, metric)
+            hit = np.nonzero(dist <= r)[0]
+            top = np.argsort(dist, kind="stable")[:K_NN]
+            check(same_range(got_r, (hit, dist[hit]))
+                  and same_knn(got_k, (top, dist[top])),
+                  f"builder: {metric} query 0 differs from brute force")
+    print(f"builder: {metric} {B} range (selectivity {SELECTIVITY}) and {B} "
+          f"kNN (k={K_NN}) queries identical between the device- and "
+          f"host-built index; query 0 equals the f64 brute-force scan; "
+          f"host query path s={json.dumps(t_q)}", flush=True)
+
+    # the kernel at the shape pivot_columns launched it with: the first
+    # chunk of 16 clusters (every full chunk has this shape)
+    member_idx, _, _, n_max = cluster_major(dev.clustering.members)
+    cc = min(16, dev.K)
+    Xf = torch.from_numpy(X.astype(np.float32)).to(DEVICE)
+    p = Xf[torch.from_numpy(member_idx[:cc].reshape(-1)).to(DEVICE)]
+    q = Xf[torch.from_numpy(
+        np.stack([ci.pivot_idx for ci in dev.clusters[:cc]]).reshape(-1)
+    ).to(DEVICE)]
+    del Xf, host, dev
+    got = ops.pdist(q, p, metric)
+    want = plain(q, p)
+    check(torch.equal(got, want), f"{name} differs from its plain version")
+    err = float((got - want).abs().max())
+    del got, want
+    nq, npts = q.shape[0], p.shape[0]
+    print(f"kernels: {name} at pivot_columns' launch shape ({nq}, {npts}, "
+          f"d {D}) (cc={cc}, n_max={n_max}) equals its plain version bit "
+          f"for bit", flush=True)
+    return kernel_row(
+        name, counts[name], err, lambda: ops.pdist(q, p, metric), 20,
+        lambda: plain(q, p), 3, 4.0 * (nq * D + npts * D + nq * npts),
+        3.0 * D * nq * npts,
+        library=lambda: torch.cdist(q, p, p=1.0 if metric == "l1"
+                                    else float("inf")))
+
+
+def phase_retrain(X, ix, ixd, batches):
+    """(d): the largest cluster of the device-built index ``ixd`` and of
+    the host-built ``ix`` loses 1% of its rows and gains as many new
+    ones; a device retrain of one and a host retrain of the other must
+    answer identically, and "auto" must pick the device."""
+    from repro_torch.core.index import RETRAIN_AUTO_ROWS
+    c = int(np.argmax([ci.n for ci in ixd.clusters]))
+    rng = np.random.default_rng(3)
+    stored = ixd.clusters[c].store_ids
+    gone = rng.choice(stored, size=len(stored) // 100, replace=False)
+    new = X[rng.choice(stored, size=len(gone))] + rng.normal(
+        0.0, 0.003, (len(gone), D))
+    for index in (ixd, ix):
+        for g in gone:
+            check(index.delete(X[g]) == 1, f"builder: delete of row {g}")
+        for row in new:
+            index.insert(row)
+    rows = ixd.clusters[c].n - len(gone) + len(ixd.clusters[c].buf_ids)
+    times = {}
+    for index, backend in ((ixd, "device"), (ix, "host"), (ixd, "auto")):
+        sync()
+        t0 = time.perf_counter()
+        index.retrain_cluster(c, backend=backend)
+        sync()
+        times[backend] = time.perf_counter() - t0
+    check(ixd.last_retrain_backend == "device",
+          f"builder: auto picked {ixd.last_retrain_backend} for {rows} rows")
+    Q, rs = batches[0]
+    for b, (q, r) in enumerate(zip(Q, rs)):
+        check(same_range(ixd.range_query(q, r)[:2], ix.range_query(q, r)[:2])
+              and same_knn(ixd.knn_query(q, K_NN)[:2],
+                           ix.knn_query(q, K_NN)[:2]),
+              f"builder: query {b} differs after the device and host "
+              f"retrains")
+    print(f"builder: retrain cluster {c} ({rows} rows after -{len(gone)} "
+          f"+{len(new)}): device_s={times['device']:.4f} "
+          f"host_s={times['host']:.4f} auto_s={times['auto']:.4f} (auto "
+          f"picked {ixd.last_retrain_backend}; RETRAIN_AUTO_ROWS="
+          f"{RETRAIN_AUTO_ROWS}); batch 0's {B} range and {B} kNN queries "
+          f"identical after both", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -492,6 +748,9 @@ def main() -> int:
                     help="query batches of 64 per kind (default 8)")
     ap.add_argument("--profile", action="store_true",
                     help="also print where one batch's time goes")
+    ap.add_argument("--linf-n", type=int, default=LINF_N,
+                    help=f"Skewed rows of the builder's L-infinity part "
+                         f"(default {LINF_N:,}; the other parts run at --n)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -510,22 +769,36 @@ def main() -> int:
     name, count, smi = phase_device()
     phase_build()
 
-    t0 = time.perf_counter()
     X = gauss_mix(args.n, D, seed=0)
-    ix = LIMSIndex(MetricSpace(X, "l2"), n_clusters=64, m=3, n_rings=20,
-                   degree=8)
+    t0 = time.perf_counter()
+    ix = LIMSIndex(MetricSpace(X, "l2"), n_clusters=K_CLUSTERS, m=M,
+                   n_rings=RINGS, degree=DEGREE)
+    t_host = time.perf_counter() - t0
     sizes = [ci.n for ci in ix.clusters]
-    print(f"main: GaussMix n={args.n} d={D}; host LIMSIndex K={ix.K} m=3 "
-          f"N=20 degree=8 built in {time.perf_counter() - t0:.2f} s; "
+    print(f"main: GaussMix n={args.n} d={D}; host LIMSIndex K={ix.K} m={M} "
+          f"N={RINGS} degree={DEGREE} built in {t_host:.2f} s; "
           f"cluster rows max={max(sizes)} mean={np.mean(sizes):.1f}",
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
 
-    counts, snap = phase_main(X, ix, batches, LIMSSnapshot, QueryExecutor)
+    counts, snap, host_range, host_knn = phase_main(
+        X, ix, batches, LIMSSnapshot, QueryExecutor)
     phase_error_bound(ix, snap)
     kernels = phase_kernels(ix, snap, batches, counts)
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
+    del snap
+
+    t0 = time.perf_counter()
+    ixd = phase_builder_l2(X, ix, t_host, batches, host_range, host_knn)
+    kernels.append(phase_builder_lp("l1", args.n))
+    if args.linf_n != args.n:
+        print(f"builder: CUT: the L-infinity part (c) runs at "
+              f"n={args.linf_n}, not {args.n}", flush=True)
+    kernels.append(phase_builder_lp("linf", args.linf_n))
+    phase_retrain(X, ix, ixd, batches)
+    print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for k in kernels:
         check(all(v is not None for key, v in k.items()
                   if key != "library_ms"), f"incomplete row {k}")

@@ -14,9 +14,10 @@ Faithful implementation of the paper's index (Fig. 1) and query algorithms
 All results are exact; learned models only ever *accelerate* locating
 ranks, never decide membership.
 
-Port of ``repro/core/index.py`` with the host builder only: the device
-builder (``backend="device"``) raises ``NotImplementedError``, and
-snapshot spill is not ported yet.
+Port of ``repro/core/index.py``.  ``backend="device"`` builds through
+the batched device pipeline in ``repro_torch.build`` on ``device``
+(default ``cuda``; raises without a card) and materializes the same host
+structures from it; snapshot spill is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from ..kernels.dispatch import resolve_device
 from .clustering import Clustering, kcenter, kmeans
 from .mapping import PivotMapping, build_mapping, lims_value, ring_of_rank
 from .metrics import MetricSpace
@@ -33,7 +36,10 @@ from .paging import DEFAULT_PAGE_BYTES, PageStore
 from .pivots import fft_pivots
 from .rankmodel import PolyRankModel, SearchStats, binary_search, exponential_search
 
-_NO_DEVICE_BUILDER = "device builder: later slice"
+# ``retrain_cluster(backend="auto")`` rebuilds on the host below this
+# many member rows, where device dispatch overhead dominates (the
+# reference's crossover value, kept as is)
+RETRAIN_AUTO_ROWS = 4096
 
 
 @dataclass
@@ -104,15 +110,22 @@ class ClusterIndex:
 class LIMSIndex:
     """Exact metric similarity index (paper: LIMS). ``learned=False`` gives
     the N-LIMS ablation: identical structure/pages, binary search instead of
-    model + exponential search.  Only ``backend="host"`` is ported."""
+    model + exponential search.  ``backend="device"`` builds through the
+    batched device pipeline in ``repro_torch.build`` on ``device``
+    (default ``cuda``): same structures, same exact results, heavy stages
+    on the card.  ``device`` is also where device retrains run."""
 
     def __init__(self, space: MetricSpace, n_clusters: int | None = None,
                  m: int = 3, n_rings: int = 20, degree: int = 8,
                  pos_degree: int = 8, page_bytes: int = DEFAULT_PAGE_BYTES,
                  seed: int = 0, clusterer: str = "kcenter",
                  learned: bool = True, max_intervals: int = 4096,
-                 backend: str = "host"):
+                 backend: str = "host", device=None):
         t0 = time.perf_counter()
+        if backend not in ("host", "device"):
+            raise ValueError(f"unknown build backend {backend!r}")
+        if backend == "device":
+            resolve_device(device)          # no card: raise before any work
         self.space = space
         self.m = m
         self.n_rings = n_rings
@@ -122,6 +135,7 @@ class LIMSIndex:
         self.learned = learned
         self.max_intervals = max_intervals
         self.backend = backend
+        self.device = device
         # backend the most recent retrain_cluster actually ran with
         # (records "auto"'s routing decision; None before any retrain)
         self.last_retrain_backend: str | None = None
@@ -133,12 +147,22 @@ class LIMSIndex:
             n_clusters = select_k(space, grid, m=m, seed=seed).best_k
         self.K = min(n_clusters, n)
 
+        # ``backend="device"`` runs clustering, pivot selection and every
+        # model fit on the device (repro_torch.build); the host structures
+        # below are then materialized from its output with all
+        # exactness-bearing quantities (columns, extents, ring
+        # boundaries) recomputed in f64
+        prebuilt = None
         if backend == "device":
-            raise NotImplementedError(_NO_DEVICE_BUILDER)
-        if backend != "host":
-            raise ValueError(f"unknown build backend {backend!r}")
-        if clusterer == "kcenter":
-            self.clustering: Clustering = kcenter(space, self.K, seed=seed)
+            from ..build.builder import device_build
+            prebuilt = device_build(
+                space, self.K, m=m, n_rings=n_rings, degree=degree,
+                pos_degree=pos_degree, seed=seed, clusterer=clusterer,
+                learned=learned, device=device)
+            self.clustering: Clustering = prebuilt.clustering
+            self.device_build_timings = dict(prebuilt.timings)
+        elif clusterer == "kcenter":
+            self.clustering = kcenter(space, self.K, seed=seed)
         elif clusterer == "kmeans":
             self.clustering = kmeans(space, self.K, seed=seed)
         else:
@@ -147,7 +171,7 @@ class LIMSIndex:
 
         self.clusters: list[ClusterIndex] = []
         for c in range(self.K):
-            self.clusters.append(self._build_cluster(c))
+            self.clusters.append(self._build_cluster(c, prebuilt=prebuilt))
         self.tombstones: set[int] = set()
         # payloads of inserted objects (gid >= space.n): ``space.data``
         # only covers build-time rows, so retrains must look rows that a
@@ -162,13 +186,20 @@ class LIMSIndex:
         self.default_delta_r = 2.0 * float(np.median(widths)) if widths else 1.0
 
     # ------------------------------------------------------------------ build
-    def _build_cluster(self, c: int) -> ClusterIndex:
-        """Build one cluster's host structures in exact f64."""
+    def _build_cluster(self, c: int, prebuilt=None) -> ClusterIndex:
+        """Build one cluster's host structures.  ``prebuilt`` (a
+        ``repro_torch.build.DeviceBuildResult``) supplies device-chosen
+        pivots and device-fit models; the pivot-distance columns, mapping
+        and extents are recomputed here in exact f64 either way: that is
+        what keeps the device build path exact."""
         space, m = self.space, self.m
         mem = self.clustering.members[c]
         d1 = self.clustering.dist_to_center[mem]
-        centroid = int(self.clustering.center_idx[c])
-        piv = fft_pivots(space, mem, centroid, m, d1)
+        if prebuilt is None:
+            centroid = int(self.clustering.center_idx[c])
+            piv = fft_pivots(space, mem, centroid, m, d1)
+        else:
+            piv = prebuilt.pivot_gids[c]
         pivot_d = np.empty((len(mem), m), dtype=np.float64)
         pivot_d[:, 0] = d1
         for j in range(1, m):
@@ -177,11 +208,15 @@ class LIMSIndex:
             else:
                 pivot_d[:, j] = space.dist(space.data[piv[j]], mem)
         mapping = build_mapping(pivot_d, self.n_rings)
-        deg = self.degree if self.learned else 1
-        rank_models = [PolyRankModel.fit(mapping.d_sorted[j], deg)
-                       for j in range(m)]
-        pos_model = PolyRankModel.fit(
-            mapping.lims_sorted.astype(np.float64), self.pos_degree)
+        if prebuilt is None:
+            deg = self.degree if self.learned else 1
+            rank_models = [PolyRankModel.fit(mapping.d_sorted[j], deg)
+                           for j in range(m)]
+            pos_model = PolyRankModel.fit(
+                mapping.lims_sorted.astype(np.float64), self.pos_degree)
+        else:
+            rank_models = prebuilt.rank_models[c]
+            pos_model = prebuilt.pos_models[c]
         order = mapping.order
         rows = space.data[mem[order]]
         store = PageStore(rows, record_bytes=space.record_nbytes(),
@@ -461,20 +496,29 @@ class LIMSIndex:
         self._live -= removed
         return removed
 
-    def retrain_cluster(self, c: int, backend: str | None = None) -> None:
+    def retrain_cluster(self, c: int, backend: str | None = None,
+                        device=None) -> None:
         """Partial reconstruction (§5.3): rebuild one cluster's index,
         folding its insert buffer in and dropping tombstones.
 
-        Only the host rebuild is ported: ``"auto"`` takes it, and
-        ``"device"`` raises ``NotImplementedError``.  ``None`` uses the
-        backend the index was built with.  The chosen backend lands in
-        ``last_retrain_backend``.
+        ``backend="device"`` routes pivot selection and model fitting
+        through the device builder (``repro_torch.build.retrain_device``)
+        on ``device`` (default: the index's, else ``cuda``); the
+        pivot-distance matrix, mapping and extents are recomputed in
+        exact f64 either way, so results stay exact.  ``"auto"`` routes
+        on the member row count: the host numpy rebuild below
+        ``RETRAIN_AUTO_ROWS`` rows, where device dispatch overhead
+        dominates; custom / non-vector metrics, and a target that is not
+        a present CUDA device, always take the host path.  The chosen
+        backend lands in ``last_retrain_backend``.  ``None`` uses the
+        backend the index was built with.
         """
         backend = self.backend if backend is None else backend
         if backend not in ("host", "device", "auto"):
             raise ValueError(f"unknown build backend {backend!r}")
+        device = self.device if device is None else device
         if backend == "device":
-            raise NotImplementedError(_NO_DEVICE_BUILDER)
+            resolve_device(device)          # no card: raise before any work
         ci = self.clusters[c]
         live = [int(g) for g in ci.store_ids if g not in self.tombstones]
         # build-time rows come from space.data; rows a previous retrain
@@ -488,28 +532,41 @@ class LIMSIndex:
                 all_ids.append(gid)
         if not all_rows:
             return
-        self.last_retrain_backend = "host"
+        if backend == "auto":
+            device_ok = (self.space._custom is None and self.space.is_vector
+                         and torch.device(device or "cuda").type == "cuda"
+                         and torch.cuda.is_available())
+            backend = "device" if device_ok and \
+                len(all_rows) >= RETRAIN_AUTO_ROWS else "host"
+        self.last_retrain_backend = backend
         sub = MetricSpace(np.stack(all_rows), self.space.metric,
                           self.space._custom)
         deg = self.degree if self.learned else 1
-        # single-cluster LIMS over the member set, centroid = pivot 0
-        mem = np.arange(sub.n)
-        d1 = sub.dist(ci.pivot_rows[0], mem)
-        piv_rows = [ci.pivot_rows[0]]
-        pivot_d = np.empty((sub.n, self.m))
-        pivot_d[:, 0] = d1
-        d_near = d1.copy()
-        for j in range(1, self.m):
-            nxt = int(np.argmax(d_near))
-            piv_rows.append(sub.data[nxt])
-            dj = sub.dist(sub.data[nxt], mem)
-            pivot_d[:, j] = dj
-            d_near = np.minimum(d_near, dj)
-        mapping = build_mapping(pivot_d, self.n_rings)
-        ci.rank_models = [PolyRankModel.fit(mapping.d_sorted[j], deg)
-                          for j in range(self.m)]
-        ci.pos_model = PolyRankModel.fit(
-            mapping.lims_sorted.astype(np.float64), self.pos_degree)
+        if backend == "device":
+            from ..build.builder import retrain_device
+            piv_rows, pivot_d, ci.rank_models, ci.pos_model = retrain_device(
+                sub, ci.pivot_rows[0], self.m, self.n_rings, deg,
+                self.pos_degree, device=device)
+            mapping = build_mapping(pivot_d, self.n_rings)
+        else:
+            # single-cluster LIMS over the member set, centroid = pivot 0
+            mem = np.arange(sub.n)
+            d1 = sub.dist(ci.pivot_rows[0], mem)
+            piv_rows = [ci.pivot_rows[0]]
+            pivot_d = np.empty((sub.n, self.m))
+            pivot_d[:, 0] = d1
+            d_near = d1.copy()
+            for j in range(1, self.m):
+                nxt = int(np.argmax(d_near))
+                piv_rows.append(sub.data[nxt])
+                dj = sub.dist(sub.data[nxt], mem)
+                pivot_d[:, j] = dj
+                d_near = np.minimum(d_near, dj)
+            mapping = build_mapping(pivot_d, self.n_rings)
+            ci.rank_models = [PolyRankModel.fit(mapping.d_sorted[j], deg)
+                              for j in range(self.m)]
+            ci.pos_model = PolyRankModel.fit(
+                mapping.lims_sorted.astype(np.float64), self.pos_degree)
         order = mapping.order
         ci.mapping = mapping
         ci.pivot_rows = np.stack(piv_rows)

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with nvcc and bind them with ctypes.
 
-Each source in ``csrc/`` (one per kernel) compiles on its own into a
-shared library with a plain C interface::
+Each source in ``csrc/`` (one per kernel, or per family of kernels, as
+``pdist_lp.cu`` holds ``pdist_l1`` and ``pdist_linf``) compiles on its
+own into a shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -fmad=false -prec-div=true -prec-sqrt=true
@@ -51,10 +52,13 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "rankeval": ("rankeval", (_P,) * 7 + (_I,) * 4),
     "range_filter": ("range_filter", (_P,) * 5 + (_I,) * 3),
     "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
+    "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I)),
+    "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I)),
 }
-# kernel name -> its source under csrc/
+# kernel name -> its source under csrc/ (one source may hold several)
 SOURCES = {"pdist": "pdist.cu", "rankeval": "rankeval.cu",
-           "range_filter": "range_filter.cu", "pdist_rankeval": "fused.cu"}
+           "range_filter": "range_filter.cu", "pdist_rankeval": "fused.cu",
+           "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu"}
 
 # launches per kernel since the last reset_launches(): only launch() adds
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -96,46 +100,46 @@ def _digest(source: str, flags: tuple[str, ...]) -> str:
 
 def build(extra_flags: tuple[str, ...] = (), build_dir: Path = BUILD_DIR,
           force: bool = False) -> dict[str, Built]:
-    """Compile every kernel, one nvcc process each, all started
-    together.  Raises ``RuntimeError`` with nvcc's output if any fails.
-    ``extra_flags`` (for example ``("-Xptxas", "-v")``) join the hash,
-    so they build libraries of their own; ``force`` rebuilds a library
-    that exists."""
+    """Compile every source, one nvcc process each, all started
+    together; returns the libraries by source name.  Raises
+    ``RuntimeError`` with nvcc's output if any fails.  ``extra_flags``
+    (for example ``("-Xptxas", "-v")``) join the hash, so they build
+    libraries of their own; ``force`` rebuilds a library that exists."""
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     flags = NVCC_FLAGS + tuple(extra_flags)
     exe = nvcc()
     procs = {}
-    for name, src in SOURCES.items():
+    for src in dict.fromkeys(SOURCES.values()):
         out = build_dir / f"{Path(src).stem}-{_digest(src, flags)}.so"
         if out.exists() and not force:
-            procs[name] = (out, None, time.perf_counter())
+            procs[src] = (out, None, time.perf_counter())
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [exe, *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (out, subprocess.Popen(
+        procs[src] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), time.perf_counter())
     built = {}
     failed = []
-    for name, (out, proc, t0) in procs.items():
+    for src, (out, proc, t0) in procs.items():
         log = ""
         if proc is not None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{log}")
+                failed.append(f"{src} (exit {proc.returncode}):\n{log}")
                 continue
             os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
-        built[name] = Built(name, out, time.perf_counter() - t0, log)
+        built[src] = Built(src, out, time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return built
 
 
 def _load() -> None:
-    for name, b in build().items():
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(b.path)), symbol)
+    libs = {src: ctypes.CDLL(str(b.path)) for src, b in build().items()}
+    for name, (symbol, argtypes) in SIGNATURES.items():
+        fn = getattr(libs[SOURCES[name]], symbol)
         fn.argtypes = list(argtypes) + [_P]
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn

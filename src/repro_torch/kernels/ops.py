@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/ops.py``, with the reference's return contracts:
 
-* ``pdist(q, p)`` -> (nq, np) f32 squared L2;
+* ``pdist(q, p, metric="sql2")`` -> (nq, np) f32 squared L2, or L1 /
+  L-infinity for ``metric="l1"`` / ``"linf"``;
 * ``rankeval(x, coef, lo, hi, n)`` -> (rank, rid), (G, B) int32;
 * ``range_filter(q, p, r)`` -> (uint8 mask (nq, np), int32 counts per
   (query, 128-point tile));
@@ -34,9 +35,11 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def pdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(nq, np) f32 squared L2 distances."""
-    return _pdist.pdist(_f32(q), _f32(p))
+def pdist(q: torch.Tensor, p: torch.Tensor,
+          metric: str = "sql2") -> torch.Tensor:
+    """(nq, np) f32 pairwise distances. metric: sql2 | l1 | linf; sql2
+    returns squared distances (take ``torch.sqrt`` or square radii)."""
+    return _pdist.pdist(_f32(q), _f32(p), metric)
 
 
 def rankeval(x, coef, lo, hi, n, n_rings: int = 20):

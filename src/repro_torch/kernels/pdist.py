@@ -1,12 +1,18 @@
-"""pdist (sql2): squared L2 distances by the Gram trick.
+"""pdist: pairwise distances, squared L2 (sql2), L1 and L-infinity.
 
-Port of ``repro/kernels/pdist.py`` (``pdist_pallas``, body
-``_pdist_l2_kernel``); the l1/linf bodies are not ported yet.  On a CUDA
-tensor :func:`pdist` launches ``csrc/pdist.cu``; on a CPU tensor it runs
-:func:`pdist_plain`, which repeats the kernel's f32 operation order
-(``csrc/gram.cuh``): every sum taken over d from k = 0 upwards, every
-product and sum rounded on its own, then ``(qn + pn) - 2g`` clamped at 0
-in a way that keeps a NaN.
+Port of ``repro/kernels/pdist.py`` (``pdist_pallas`` with its three
+bodies ``_pdist_l2_kernel``, ``_pdist_l1_kernel`` and
+``_pdist_linf_kernel``).  On a CUDA tensor :func:`pdist` launches
+``csrc/pdist.cu`` (sql2) or ``csrc/pdist_lp.cu`` (l1, linf); on a CPU
+tensor it runs the plain version, which repeats its kernel's f32
+operation order:
+
+* sql2 (``csrc/gram.cuh``): every sum taken over d from k = 0 upwards,
+  every product and sum rounded on its own, then ``(qn + pn) - 2g``
+  clamped at 0 in a way that keeps a NaN;
+* l1: ``|q_k - p_k|`` summed from k = 0 upwards;
+* linf: the running max from 0 over k = 0 upwards, taking a NaN operand
+  (as ``jnp.max`` does).
 """
 from __future__ import annotations
 
@@ -39,6 +45,38 @@ def pdist_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return gram_sq_plain(q.to(torch.float32), p.to(torch.float32))
 
 
+def _diff_abs(q: torch.Tensor, p: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.abs(q[:, k, None] - p[None, :, k])
+
+
+def pdist_l1_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(nq, np) f32 L1 distances in ``pdist_lp.cu``'s operation order."""
+    q, p = q.to(torch.float32), p.to(torch.float32)
+    s = torch.zeros(q.shape[0], p.shape[0], dtype=torch.float32,
+                    device=q.device)
+    for k in range(q.shape[1]):
+        s = s + _diff_abs(q, p, k)
+    return s
+
+
+def pdist_linf_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(nq, np) f32 L-infinity distances in ``pdist_lp.cu``'s order:
+    the max takes ``a`` when ``a > m`` or ``a`` is NaN."""
+    q, p = q.to(torch.float32), p.to(torch.float32)
+    m = torch.zeros(q.shape[0], p.shape[0], dtype=torch.float32,
+                    device=q.device)
+    for k in range(q.shape[1]):
+        a = _diff_abs(q, p, k)
+        m = torch.where((a > m) | torch.isnan(a), a, m)
+    return m
+
+
+# metric -> (CUDA kernel name, plain version)
+METRICS = {"sql2": ("pdist", pdist_plain),
+           "l1": ("pdist_l1", pdist_l1_plain),
+           "linf": ("pdist_linf", pdist_linf_plain)}
+
+
 def check_operands(*ts: torch.Tensor) -> torch.device:
     """The common device of ``ts``; raises on mixed devices, non-f32 or
     non-contiguous CUDA operands (the kernels take dense f32 only)."""
@@ -53,19 +91,25 @@ def check_operands(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def pdist_cuda(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
+               kernel: str = "pdist") -> torch.Tensor:
     nq, d = q.shape
     npts, d2 = p.shape
     if d != d2:
         raise ValueError(f"feature widths differ: {d} vs {d2}")
     out = torch.empty(nq, npts, dtype=torch.float32, device=q.device)
-    _cuda.launch("pdist", q.data_ptr(), p.data_ptr(), out.data_ptr(), nq,
+    _cuda.launch(kernel, q.data_ptr(), p.data_ptr(), out.data_ptr(), nq,
                  npts, d)
     return out
 
 
-def pdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(nq, np) f32 squared L2 distances between rows of q and p."""
+def pdist(q: torch.Tensor, p: torch.Tensor,
+          metric: str = "sql2") -> torch.Tensor:
+    """(nq, np) f32 distances between rows of q and p: squared L2
+    (``sql2``), L1 or L-infinity."""
+    if metric not in METRICS:
+        raise ValueError(f"pdist: unknown metric {metric!r}")
+    kernel, plain = METRICS[metric]
     if check_operands(q, p).type == "cuda":
-        return pdist_cuda(q, p)
-    return pdist_plain(q, p)
+        return pdist_cuda(q, p, kernel)
+    return plain(q, p)

@@ -10,10 +10,17 @@ from __future__ import annotations
 import torch
 
 
-def pdist_ref(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Squared L2 by direct differences, f32."""
+def pdist_ref(q: torch.Tensor, p: torch.Tensor,
+              metric: str = "sql2") -> torch.Tensor:
+    """Squared L2, L1 or L-infinity by direct differences, f32."""
     d = q.to(torch.float32)[:, None, :] - p.to(torch.float32)[None, :, :]
-    return torch.sum(d * d, dim=-1)
+    if metric == "sql2":
+        return torch.sum(d * d, dim=-1)
+    if metric == "l1":
+        return torch.sum(torch.abs(d), dim=-1)
+    if metric == "linf":
+        return torch.amax(torch.abs(d), dim=-1)
+    raise ValueError(f"pdist_ref: unknown metric {metric!r}")
 
 
 def rankeval_ref(x, coef, lo, hi, n, n_rings: int = 20):

@@ -154,12 +154,37 @@ def test_updates_and_retrain_equal():
 
 
 def test_device_builder_is_a_later_slice(pair):
+    """The device builder (the port's second slice) runs on the card
+    unless the caller names another device: without a card,
+    ``backend="device"`` raises a clear error before any work, for a
+    build and for a retrain."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device works")
     X = pair[0]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         LIMSIndex(MetricSpace(X[:100], "l2"), n_clusters=2,
                   backend="device")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         pair[2].retrain_cluster(0, backend="device")
+    with pytest.raises(ValueError, match="backend"):
+        LIMSIndex(MetricSpace(X[:100], "l2"), n_clusters=2, backend="tpu")
+
+
+def test_auto_retrain_without_card_takes_host():
+    """``retrain_cluster(backend="auto")`` takes the device only for a
+    present CUDA device and at least RETRAIN_AUTO_ROWS rows; on a
+    machine without a card, or for a CPU target, it records "host"."""
+    from repro_torch.core.index import RETRAIN_AUTO_ROWS
+    assert RETRAIN_AUTO_ROWS == 4096
+    X = datasets.gauss_mix(9000, 4, seed=2)
+    ix = LIMSIndex(MetricSpace(X, "l2"), n_clusters=2, m=3, n_rings=8)
+    big = max(range(ix.K), key=lambda c: ix.clusters[c].n)
+    assert ix.clusters[big].n >= RETRAIN_AUTO_ROWS
+    ix.retrain_cluster(big, backend="auto", device="cpu")
+    assert ix.last_retrain_backend == "host"
+    if not torch.cuda.is_available():
+        ix.retrain_cluster(big, backend="auto")
+        assert ix.last_retrain_backend == "host"
 
 
 # ------------------------------------------------------ package boundary
@@ -171,6 +196,7 @@ def test_port_imports_neither_jax_nor_repro():
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.env, repro_torch.convert\n"
         "import repro_torch.core, repro_torch.data.datasets\n"
+        "import repro_torch.build\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

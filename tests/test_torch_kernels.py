@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels.fused import pdist_rankeval_plain
-from repro_torch.kernels.pdist import gram_sq_plain, pdist_plain
+from repro_torch.kernels.pdist import (gram_sq_plain, pdist_l1_plain,
+                                       pdist_linf_plain, pdist_plain)
 from repro_torch.kernels.range_filter import range_filter_plain
 from repro_torch.kernels.rankeval import rank_math_plain
 
@@ -70,6 +71,53 @@ def test_pdist_matches_reference(ref_ops, nq, npts, d, bf16):
     np.testing.assert_allclose(got, ref.pdist_ref(_t(q), _t(p)).numpy(),
                                rtol=1e-4, atol=1e-4 * d)
     assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("nq,npts,d", [(64, 128, 8), (137, 301, 33),
+                                       (1, 257, 128), (128, 128, 4)])
+def test_pdist_lp_matches_reference(ref_ops, ref_ref, nq, npts, d, bf16,
+                                    metric):
+    """L1 and L-infinity against the reference's Pallas bodies and both
+    oracles.  linf is a max of exact differences, so it is equal; l1
+    sums d nonnegative f32 terms in another order, so the two differ by
+    at most d * 2**-24 relative."""
+    q = _normal((nq, d), 1)
+    p = _normal((npts, d), 2)
+    if bf16:
+        q = _t(q).to(torch.bfloat16).float().numpy()
+        p = _t(p).to(torch.bfloat16).float().numpy()
+    got = ops.pdist(_t(q), _t(p), metric).numpy()
+    for want in (np.asarray(ref_ops.pdist(q, p, metric)),
+                 np.asarray(ref_ref.pdist_ref(q, p, metric)),
+                 ref.pdist_ref(_t(q), _t(p), metric).numpy()):
+        if metric == "linf":
+            assert np.array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=d * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+def test_pdist_lp_nan_rows(ref_ops, metric):
+    """A NaN operand gives NaN in its row and column, as ``jnp.sum`` and
+    ``jnp.max`` give; a max written with fmaxf would drop it."""
+    q = _normal((5, 8), 3)
+    p = _normal((40, 8), 4)
+    q[1, 6] = np.nan
+    p[17, 0] = np.nan
+    want = np.asarray(ref_ops.pdist(q, p, metric))
+    got = ops.pdist(_t(q), _t(p), metric).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[1]).all() and np.isnan(got[:, 17]).all()
+    assert np.isnan(got).sum() == 40 + 5 - 1
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=8 * 2.0 ** -24)
+
+
+def test_pdist_unknown_metric_rejected():
+    with pytest.raises(ValueError, match="metric"):
+        ops.pdist(torch.zeros(2, 3), torch.zeros(4, 3), "l3")
 
 
 def test_gram_clamp_keeps_nan():
@@ -222,12 +270,15 @@ def test_cpu_tensors_launch_nothing():
     before = dict(_cuda.LAUNCHES)
     a = [_t(x) for x in _plan_inputs()]
     ops.pdist(a[0], a[1])
+    ops.pdist(a[0], a[1], "l1")
+    ops.pdist(a[0], a[1], "linf")
     ops.range_filter(a[0], a[1], a[6])
     ops.pdist_rankeval(*a)
     _staged(*a)
     assert _cuda.LAUNCHES == before
     assert set(_cuda.LAUNCHES) == {"pdist", "rankeval", "range_filter",
-                                   "pdist_rankeval"}
+                                   "pdist_rankeval", "pdist_l1",
+                                   "pdist_linf"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -250,9 +301,10 @@ def test_mixed_devices_rejected():
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the same card
-    inputs: pdist within rtol 1e-5 / atol 1e-5*d, rankeval and
-    range_filter exactly (they share the plain versions' operation
-    order), fused vs staged bitwise; one counted launch per call."""
+    inputs: pdist within rtol 1e-5 / atol 1e-5*d; pdist l1 and linf,
+    rankeval and range_filter exactly (they share the plain versions'
+    operation order), NaN rows included; fused vs staged bitwise; one
+    counted launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -263,6 +315,14 @@ def test_kernels_match_plain_on_card():
     np.testing.assert_allclose(got.cpu().numpy(),
                                pdist_plain(q, p).cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * 8)
+    p_nan = p.clone()
+    p_nan[17, 3] = float("nan")
+    for metric, plain in (("l1", pdist_l1_plain), ("linf", pdist_linf_plain)):
+        got = ops.pdist(q, p_nan, metric)
+        want = plain(q, p_nan)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.isnan(got[:, 17]).all()
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     x = torch.cat([q[:, :1].T.expand(30, -1), q[:, 1:2].T.expand(30, -1)],
                   dim=1).contiguous()
     rk, rid = ops.rankeval(x, coef, lo, hi, n)
@@ -280,4 +340,5 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(f, s) and torch.equal(f, pl)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES == {"pdist": 2, "rankeval": 2, "range_filter": 1,
-                              "pdist_rankeval": 1}
+                              "pdist_rankeval": 1, "pdist_l1": 1,
+                              "pdist_linf": 1}
