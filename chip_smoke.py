@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's exact query path on one CUDA card.
+"""Drive the PyTorch/CUDA port's exact query path, index builder and
+dense-LM serving path on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
+                          [--seed 0]
 
 Phases, each printing lines that start with its name:
 
 1. device   the card's name, count and power limit (nvidia-smi);
-2. build    nvcc builds the six kernels from the five sources in
+2. build    nvcc builds the seven kernels from the six sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
             then again with -Xptxas -v for their register and
             shared-memory use;
@@ -41,6 +43,32 @@ Phases, each printing lines that start with its name:
             picks the device for it.  (c) runs at --linf-n rows (default
             200,000, a cut that keeps the whole script within twice the
             query path's time); --linf-n 1000000 runs it uncut.
+7. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+            random weights from --seed: (a) float32 at a cut depth of 4
+            layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
+            and a decode step of tokens[:, -1] give forward_seq's logits
+            at -2 and -1, and the forward with the flash kernel gives the
+            forward with the plain dense_attention, each within 4e-3 of
+            the logits' max |value|; the plain path's own deviations and
+            a control whose attention runs on bf16-rounded q, k, v are
+            printed, and the control must miss the bar; (b) bfloat16 at
+            full depth (32 layers): 4 requests of 2,000-token prompts,
+            prefill and 32 greedy decode steps, with prefill and decode
+            rates and peak memory.  The launch counters are zeroed just before the
+            prefill: flash_attention must launch exactly once per layer,
+            and its layer-0 and layer-31 outputs must equal the plain
+            version on the same q, k, v within one bf16 ulp; then its
+            kernel row at the prefill's padded shape, with
+            scaled_dot_product_attention as the library yardstick, and an
+            f32 kernel-vs-plain check at a small shape;
+8. retrieval  the twin of examples/retrieval_serving.py steps 1-4: an
+            encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
+            on the card (its attention through the flash kernel), a host
+            LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
+            the card answers 16 kNN queries (k = 5), identical to the host
+            index and to an f64 brute-force scan.  Counters are zeroed
+            before the encoding: flash_attention and the query kernels
+            must run.
 
 Before the last line it prints the kernels as one JSON object and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.  Any
@@ -51,6 +79,7 @@ sources are missing beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -59,6 +88,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -69,6 +99,11 @@ SRC = ROOT / "src"
 # published H100 SXM peaks (the data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
+# an f32 operand times a bf16 one on the tensor cores: the f32 value
+# splits exactly into three bf16 parts, so one product is three bf16
+# products, each exact in the f32 accumulator
+BF16X3_TC_FLOP_PER_S = BF16_TC_FLOP_PER_S / 3
 
 DEVICE = "cuda"
 D = 8                           # GaussMix width every repro benchmark uses
@@ -88,7 +123,22 @@ REPLACES = {
     "pdist_rankeval": "src/repro/kernels/fused.py:58",
     "pdist_l1": "src/repro/kernels/pdist.py:36",
     "pdist_linf": "src/repro/kernels/pdist.py:43",
+    "flash_attention": "src/repro/kernels/flash_attention.py:74",
 }
+
+LM_ARCH = "llama3-8b"
+# (a)'s cut depth, and its bar on max |diff| relative to the compared
+# logits' max |value| (as tests/test_torch_models.py's _close_scaled):
+# above what the plain dense_attention path reads against forward_seq,
+# and below what the same forward reads with its attention rounded to
+# bf16 (the control), which the script checks too (PERF.md, PR 13)
+LM_F32_LAYERS = 4
+LM_F32_REL = 4e-3
+LM_REQUESTS, LM_PROMPT, LM_DECODE = 4, 2_000, 32
+# examples/retrieval_serving.py:42-45
+ENCODER = dict(name="encoder-20m", family="dense", n_layers=4, d_model=256,
+               n_heads=4, n_kv_heads=4, d_ff=1024, vocab=8192, head_dim=64,
+               attn_impl="dense", remat="none", dtype="float32")
 
 
 def fail(msg: str) -> None:
@@ -121,9 +171,12 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time in ms: bytes at the HBM rate against ``flops`` at
+    ``flop_per_s``, the card's fastest rate for the operand types."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -423,7 +476,7 @@ def phase_kernels(ix, snap, batches, counts):
 
 
 def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
-               flops, library=None) -> dict:
+               flops, library=None, flop_per_s=F32_FLOP_PER_S) -> dict:
     """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
     the kernel's own device time under the profiler; print the row and
     return it for the JSON line."""
@@ -432,7 +485,7 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
     plain_ms = time_ms(plain, plain_iters)
     library_ms = time_ms(library, 10) if library else None
     kernel_ms = device_busy(call)[1]
-    b_ms, by = bound(nbytes, flops)
+    b_ms, by = bound(nbytes, flops, flop_per_s)
     print(f"kernels: {name} max_abs_err={err} ms={ms:.4f} "
           f"profiler_device_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}", flush=True)
@@ -443,7 +496,7 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
 
 
-def device_busy(fn) -> tuple[float, float, list]:
+def device_busy(fn, n_top: int = 6) -> tuple[float, float, list]:
     """(wall ms, device ms, top device activities) of one call of
     ``fn`` under torch.profiler.  Only the device's own events count
     (kernels and copies); the CPU ops that launched them are skipped,
@@ -460,7 +513,7 @@ def device_busy(fn) -> tuple[float, float, list]:
     evs = [(e.key[:48], e.device_time_total / 1e3)
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     evs = sorted((e for e in evs if e[1] > 0), key=lambda e: -e[1])
-    return wall, sum(t for _, t in evs), evs[:6]
+    return wall, sum(t for _, t in evs), evs[:n_top]
 
 
 def phase_profile(ex, batches):
@@ -740,6 +793,332 @@ def phase_retrain(X, ix, ixd, batches):
           f"identical after both", flush=True)
 
 
+# ---------------------------------------------------------------------- lm
+def lm_model(cfg, seed: int):
+    """The port's own random parameters for ``cfg`` on the card."""
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return init_params(zoo.model_specs(cfg), g, cfg.dtype, device=DEVICE)
+
+
+def lm_tokens(shape, vocab: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, vocab, size=shape).astype(np.int32)).to(DEVICE)
+
+
+def assert_close(got, want, tol, what):
+    err = float((got.float() - want.float()).abs().max())
+    try:
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    except AssertionError as e:
+        fail(f"{what}: {e}")
+    return err
+
+
+def lm_deviations(params, tokens, cfg):
+    """Logits of forward_seq + _unembed, and of prefill(tokens[:, :-1])
+    and a decode step of tokens[:, -1], with the model's attention as
+    it is patched."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models import zoo
+    x, _, _ = tr.forward_seq(params, tokens, cfg)
+    logits = tr._unembed(params, x, cfg)
+    lp, cache = zoo.prefill_fn(cfg, tokens.shape[1] + 8)(
+        params, {"tokens": tokens[:, :-1]})
+    ld, _ = zoo.decode_fn(cfg)(params, tokens[:, -1], cache)
+    return logits, lp[:, 0], ld[:, 0]
+
+
+def rel_dev(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_lm_consistency(seed: int):
+    """(a): float32 at Llama-3-8B widths and a cut depth.  Prefill and
+    decode against the forward, and the kernel forward against the
+    dense_attention forward, within LM_F32_REL of the logits' scale;
+    the plain path's own readings and a bf16-attention control are
+    printed beside them, and the control must exceed the bar."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tr
+    full = get_arch(LM_ARCH)
+    print(f"lm: CUT: (a) float32 runs {LM_F32_LAYERS} of {full.n_layers} "
+          f"layers at full width (d_model {full.d_model}, {full.n_q_heads} "
+          f"q heads, {full.n_kv_heads} kv heads, hd {full.hd}, d_ff "
+          f"{full.d_ff}, vocab {full.vocab})", flush=True)
+    cfg = dataclasses.replace(full, n_layers=LM_F32_LAYERS, dtype="float32")
+    params = lm_model(cfg, seed)
+    tokens = lm_tokens((2, 64), cfg.vocab, seed)
+    kernel = tr.attention
+
+    def control(q, k, v, cfg_):
+        """The model's attention on q, k and v rounded to bf16."""
+        return kernel(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                      cfg_).to(q.dtype)
+
+    runs = {}
+    for path, attn in (("kernel", kernel), ("plain", tr.plain_attention),
+                       ("control", control)):
+        with mock.patch.object(tr, "attention", attn):
+            runs[path] = lm_deviations(params, tokens, cfg)
+    del params
+    torch.cuda.empty_cache()
+    p_fwd = runs["plain"][0]
+    # (prefill at -2, decode at -1, whole forward) against their
+    # references: a path's own forward, or the plain forward
+    dev = {path: (rel_dev(lp, ref[:, -2]), rel_dev(ld, ref[:, -1]),
+                  rel_dev(fwd, p_fwd))
+           for path, (fwd, lp, ld) in runs.items()
+           for ref in [p_fwd if path == "control" else fwd]}
+    fmt = lambda t: " / ".join(f"{x:.3g}" for x in t)
+    print(f"lm: (a) float32 {LM_F32_LAYERS} layers, B=2 S=64, logits max "
+          f"|{float(p_fwd.abs().max()):.4g}|; max |diff| / max |want| of "
+          f"prefill at -2 / decode at -1 / forward against the plain "
+          f"forward: kernel path {fmt(dev['kernel'])}, plain path "
+          f"{fmt(dev['plain'])} (prefill and decode against each path's "
+          f"own forward); bf16-attention control against the plain "
+          f"forward {fmt(dev['control'])}; bar {LM_F32_REL:g}", flush=True)
+    check(all(bool(torch.isfinite(t).all()) for t in runs["kernel"]),
+          "lm: (a) logits not finite")
+    for what, d in zip(("prefill logits differ from forward_seq's at -2",
+                        "decode logits differ from forward_seq's at -1",
+                        "the forward with the flash kernel differs from "
+                        "the one with dense_attention"), dev["kernel"]):
+        check(d <= LM_F32_REL, f"lm: (a) {what}: {d:.3g} > {LM_F32_REL:g}")
+    check(min(dev["control"]) > LM_F32_REL,
+          f"lm: (a) the bar {LM_F32_REL:g} does not separate the bf16 "
+          f"control ({fmt(dev['control'])})")
+
+
+def phase_lm_serving(seed: int):
+    """(b): bfloat16 Llama-3-8B at full depth: prefill of 4 x 2,000
+    tokens and 32 greedy decode steps, the counted LM main path.
+    Returns the kernel's launch count and the captured layer-0 q, k, v
+    (for the kernel row)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import transformer as tr
+    from repro_torch.models import zoo
+    from repro_torch.models.params import count_params, tree_bytes
+    cfg = get_arch(LM_ARCH)
+    specs = zoo.model_specs(cfg)
+    cache_len = LM_PROMPT + LM_DECODE
+    sync()
+    t0 = time.perf_counter()
+    params = lm_model(cfg, seed)
+    sync()
+    t_init = time.perf_counter() - t0
+    c_bytes = 2 * np.prod(tr.cache_spec(cfg, LM_REQUESTS, cache_len)["k"][0]
+                          ) * 2
+    print(f"lm: (b) {cfg.name} bfloat16, {cfg.n_layers} layers, "
+          f"{count_params(specs):,} parameters ({tree_bytes(specs, cfg.dtype):,}"
+          f" bytes) drawn on the card in {t_init:.2f} s; cache {c_bytes:,} "
+          f"bytes (B={LM_REQUESTS}, T={cache_len})", flush=True)
+    prefill, decode = zoo.prefill_fn(cfg, cache_len), zoo.decode_fn(cfg)
+    tokens = lm_tokens((LM_REQUESTS, LM_PROMPT), cfg.vocab, seed + 1)
+    # warm-up (cuBLAS handles, the first launch), not counted
+    lw, cw = prefill(params, {"tokens": tokens[:1, :128]})
+    decode(params, lw[:, 0].argmax(-1), cw)
+    del lw, cw
+
+    captured = {}
+    calls = []
+
+    def spy(q, k, v, cfg_):
+        o = real(q, k, v, cfg_)
+        if len(calls) in (0, cfg.n_layers - 1):
+            captured[len(calls)] = (q, k, v, o)
+        calls.append(1)
+        return o
+
+    real = tr.attention
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(tr, "attention", spy):
+        logits, cache = prefill(params, {"tokens": tokens})
+    sync()
+    t_prefill = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        token = logits[:, 0].argmax(-1)
+        logits, cache = decode(params, token, cache)
+        finite &= torch.isfinite(logits).all()
+    sync()
+    t_decode = time.perf_counter() - t0
+    counts_all = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(finite), "lm: (b) logits are not all finite")
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"lm: (b) flash_attention launched {counts['flash_attention']} "
+          f"times in the prefill, not once per layer ({cfg.n_layers})")
+    check(cache["pos"] == cache_len, "lm: (b) the cache did not fill")
+    n_tok = LM_REQUESTS * LM_PROMPT
+    print(f"lm: (b) prefill {LM_REQUESTS} x {LM_PROMPT} tokens in "
+          f"{t_prefill:.4f} s = {n_tok / t_prefill:.1f} tokens/s; "
+          f"{LM_DECODE} greedy decode steps in {t_decode:.4f} s = "
+          f"{t_decode * 1e3 / LM_DECODE:.3f} "
+          f"ms/step, {LM_REQUESTS * LM_DECODE / t_decode:.1f} tokens/s; "
+          f"max_memory_allocated={peak}; launches over the prefill "
+          f"{json.dumps(counts)}, after decode {json.dumps(counts_all)}; "
+          f"logits finite", flush=True)
+    errs = []
+    for layer, (q, k, v, o) in sorted(captured.items()):
+        want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
+        errs.append(assert_close(
+            o.transpose(1, 2), want, 2.0 ** -7,
+            f"lm: (b) layer {layer}: flash_attention differs from its plain "
+            f"version by more than one bf16 ulp"))
+    check(sorted(captured) == [0, cfg.n_layers - 1],
+          "lm: (b) layers 0 and 31 were not captured")
+    print(f"lm: (b) flash_attention == flash_attention_ref on layer 0's and "
+          f"layer {cfg.n_layers - 1}'s q, k, v (max |diff| "
+          f"{errs[0]:.4g}, {errs[1]:.4g}; rtol = atol = 2**-7)", flush=True)
+    # where the time goes: one prefill and one decode step under the
+    # profiler, device activities by name (after the counted run)
+    batch = {"tokens": tokens}
+    del logits
+    for what, fn in (("prefill", lambda: prefill(params, batch)),
+                     ("decode step", lambda: decode(
+                         params, token, dict(cache, pos=cache_len - 1)))):
+        wall, dev, top = device_busy(fn, n_top=10)
+        print(f"lm: (b) profile {what}: wall_ms={wall:.3f} device_ms="
+              f"{dev:.3f} busy={dev / wall:.4f} top={json.dumps(top)}",
+              flush=True)
+    q, k, v, _ = captured[0]
+    del params, cache, captured
+    torch.cuda.empty_cache()
+    return counts["flash_attention"], (q, k, v)
+
+
+def phase_flash_kernel(launches, qkv):
+    """The kernel row at the prefill's padded shape, and an f32 check of
+    kernel against plain version at a small shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    for causal in (True, False):
+        q, k, v = (torch.from_numpy(np.random.default_rng(i).normal(
+            size=s).astype(np.float32)).to(DEVICE) for i, s in
+            enumerate(((2, 8, 200, 128), (2, 2, 300, 128), (2, 2, 300, 128))))
+        err = assert_close(ops.flash_attention(q, k, v, causal=causal),
+                           flash_attention_ref(q, k, v, causal=causal), 1e-4,
+                           "kernels: f32 flash_attention differs from plain")
+        print(f"kernels: flash_attention f32 (2, 8, 200, 128) x (2, 2, 300, "
+              f"128) causal={causal}: max |diff| from plain {err:.3g} "
+              f"(bar 1e-4)", flush=True)
+    q, k, v = (t.transpose(1, 2) for t in qkv)
+    b, hq, s, d = q.shape
+    hk = k.shape[1]
+    pad = (-s) % fa.TILE
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)).contiguous()
+                  for t in (q, k, v))
+    sp = s + pad
+    got = fa.flash_attention(qp, kp, vp, causal=True, kv_len=s)
+    want = flash_attention_ref(qp, kp, vp, causal=True, kv_len=s)
+    err = assert_close(got, want, 2.0 ** -7, "kernels: flash_attention at the "
+                       "prefill shape differs from plain")
+    del got, want
+    # live (q, k) pairs the mask keeps: row i sees keys < min(i + 1, s)
+    live = sum(min(i + 1, s) for i in range(sp))
+    flops = 4.0 * b * hq * d * live
+    nbytes = 2.0 * (2 * b * hq * sp * d + 2 * b * hk * sp * d)
+    print(f"kernels: flash_attention at the prefill's padded shape "
+          f"({b}, {hq}, {sp}, {d}) x ({b}, {hk}, {sp}, {d}) bf16 causal, "
+          f"kv_len {s}: {live:,} live pairs per head, {flops:.4g} flops; "
+          f"bound at the tensor cores' rate for an f32 x bf16 product "
+          f"(3 bf16 passes, {BF16X3_TC_FLOP_PER_S / 1e12:.1f} TFLOP/s) "
+          f"{flops / BF16X3_TC_FLOP_PER_S * 1e3:.4f} ms; notes: at the f32 "
+          f"rate of the CUDA cores, which this kernel uses, "
+          f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms; one bf16 pass (SDPA's "
+          f"precision) {flops / BF16_TC_FLOP_PER_S * 1e3:.4f} ms",
+          flush=True)
+    try:
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qp, kp, vp, is_causal=True, enable_gqa=True)
+        sdpa()
+    except TypeError:       # a torch without enable_gqa: repeat k and v
+        kr, vr = (t.repeat_interleave(hq // hk, 1) for t in (kp, vp))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qp, kr, vr, is_causal=True)
+    return kernel_row(
+        "flash_attention", launches, err,
+        lambda: fa.flash_attention(qp, kp, vp, causal=True, kv_len=s), 10,
+        lambda: flash_attention_ref(qp, kp, vp, causal=True, kv_len=s), 3,
+        nbytes, flops, library=sdpa, flop_per_s=BF16X3_TC_FLOP_PER_S)
+
+
+# --------------------------------------------------------------- retrieval
+def phase_retrieval(seed: int):
+    """The port's twin of examples/retrieval_serving.py steps 1-4."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import BatchedLIMS, LIMSIndex, MetricSpace
+    from repro_torch.core.metrics import dist_one_to_many
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.transformer import forward_seq
+    cfg = ModelConfig(**ENCODER)
+    params = lm_model(cfg, seed)
+    rng = np.random.default_rng(0)
+    anchors = rng.integers(0, cfg.vocab, (100, 32))
+    corpus_tokens = np.repeat(anchors, 50, axis=0)
+    for i in range(5_000):
+        corpus_tokens[i, rng.integers(0, 32)] = rng.integers(0, cfg.vocab)
+    q_tokens = anchors[:16].copy()
+    for i in range(16):
+        q_tokens[i, rng.integers(0, 32)] = rng.integers(0, cfg.vocab)
+
+    def encode(tokens):
+        t = torch.from_numpy(tokens.astype(np.int32)).to(DEVICE)
+        x, _, _ = forward_seq(params, t, cfg)
+        return x.mean(dim=1)[:, :32].double().cpu().numpy()
+
+    sync()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    corpus = encode(corpus_tokens)
+    t_enc = time.perf_counter() - t0
+    q_emb = encode(q_tokens)
+    check(np.isfinite(corpus).all(), "retrieval: embeddings not finite")
+    t0 = time.perf_counter()
+    ix = LIMSIndex(MetricSpace(corpus, "l2"), n_clusters=100, m=3, n_rings=20)
+    t_ix = time.perf_counter() - t0
+    bx = BatchedLIMS(ix, device=DEVICE)
+    bx.knn_query_batch(q_emb, 5)
+    sync()
+    t0 = time.perf_counter()
+    ids, ds = bx.knn_query_batch(q_emb, 5)
+    t_q = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    for name in ("flash_attention", "pdist", "rankeval", "pdist_rankeval"):
+        check(counts[name] > 0, f"retrieval: {name} was not launched")
+    for i, q in enumerate(q_emb):
+        h_ids, h_ds = ix.knn_query(q, 5)[:2]
+        d_all = dist_one_to_many(q, corpus, "l2")
+        top = np.argsort(d_all, kind="stable")[:5]
+        check(np.array_equal(ds[i], h_ds)
+              and np.array_equal(np.sort(ids[i]), np.sort(h_ids)),
+              f"retrieval: query {i} differs from the host index")
+        check(np.array_equal(ds[i], d_all[top])
+              and np.array_equal(np.sort(ids[i]), np.sort(top)),
+              f"retrieval: query {i} differs from the f64 brute-force scan")
+    print(f"retrieval: {cfg.name} (4 layers, d 256, f32) embedded "
+          f"{len(corpus):,} docs of 32 tokens to d=32 in {t_enc:.3f} s on "
+          f"the card; host LIMSIndex(K=100, m=3, N=20) in {t_ix:.2f} s; "
+          f"BatchedLIMS 16 kNN (k=5) in {t_q * 1e3:.2f} ms; all 16 "
+          f"identical to the host index and to the f64 brute-force scan; "
+          f"launches {json.dumps(counts)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -751,6 +1130,8 @@ def main() -> int:
     ap.add_argument("--linf-n", type=int, default=LINF_N,
                     help=f"Skewed rows of the builder's L-infinity part "
                          f"(default {LINF_N:,}; the other parts run at --n)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM phases' weights and tokens")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -798,6 +1179,17 @@ def main() -> int:
     kernels.append(phase_builder_lp("linf", args.linf_n))
     phase_retrain(X, ix, ixd, batches)
     print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del X, ix, ixd, batches, host_range, host_knn
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_lm_consistency(args.seed)
+    launches, qkv = phase_lm_serving(args.seed)
+    kernels.append(phase_flash_kernel(launches, qkv))
+    del qkv
+    phase_retrieval(args.seed)
+    print(f"lm: and retrieval: in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for k in kernels:
         check(all(v is not None for key, v in k.items()

@@ -1,0 +1,8 @@
+"""deepseek-7b [dense] — llama-arch, MHA (GQA kv=32) [arXiv:2401.02954]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-7b", family="dense",
+    n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32,
+    d_ff=11008, vocab=102400, head_dim=128, rope_theta=10_000.0,
+)

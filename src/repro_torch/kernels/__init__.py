@@ -1,3 +1,4 @@
-"""Kernel layer of the port: four hand-written CUDA kernels for Hopper
+"""Kernel layer of the port: hand-written CUDA kernels for Hopper
 (``csrc/``), each beside its plain PyTorch version, and the wrappers in
-:mod:`.ops` that the query path calls.  Port of ``repro/kernels``."""
+:mod:`.ops` that the query path, the builder and the LM call.  Port of
+``repro/kernels``."""

@@ -17,7 +17,10 @@ also spell every step with round-to-nearest intrinsics).
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns the launch's ``cudaGetLastError()``; :func:`launch` raises on a
-nonzero code and otherwise counts the launch in :data:`LAUNCHES`.
+nonzero code and otherwise counts the launch in :data:`LAUNCHES`.  A
+kernel with one entry point per operand type (``flash_attention_f32``
+and ``flash_attention_bf16``, one template) names them in
+:data:`VARIANTS`; its launches are counted under the kernel's name.
 Nothing here is touched when a module is imported: the CPU tests import
 every module on machines without nvcc or a card.
 """
@@ -54,16 +57,20 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
     "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I)),
     "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I)),
+    "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 8),
 }
+# kernel name -> the variants of its C symbol (one per operand type)
+VARIANTS = {"flash_attention": ("f32", "bf16")}
 # kernel name -> its source under csrc/ (one source may hold several)
 SOURCES = {"pdist": "pdist.cu", "rankeval": "rankeval.cu",
            "range_filter": "range_filter.cu", "pdist_rankeval": "fused.cu",
-           "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu"}
+           "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu",
+           "flash_attention": "flash_attention.cu"}
 
 # launches per kernel since the last reset_launches(): only launch() adds
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
 
-_FUNCS: dict[str, ctypes._CFuncPtr] = {}
+_FUNCS: dict[tuple[str, str | None], ctypes._CFuncPtr] = {}
 
 
 @dataclass
@@ -139,20 +146,22 @@ def build(extra_flags: tuple[str, ...] = (), build_dir: Path = BUILD_DIR,
 def _load() -> None:
     libs = {src: ctypes.CDLL(str(b.path)) for src, b in build().items()}
     for name, (symbol, argtypes) in SIGNATURES.items():
-        fn = getattr(libs[SOURCES[name]], symbol)
-        fn.argtypes = list(argtypes) + [_P]
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        for variant in VARIANTS.get(name, (None,)):
+            fn = getattr(libs[SOURCES[name]], symbol.format(variant))
+            fn.argtypes = list(argtypes) + [_P]
+            fn.restype = ctypes.c_int
+            _FUNCS[name, variant] = fn
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream.  ``args`` are
-    the C arguments before the stream (device pointers as ints).  Raises
-    ``RuntimeError`` if the launch reports a CUDA error."""
+def launch(name: str, *args, variant: str | None = None) -> None:
+    """Launch kernel ``name`` (its entry point ``variant``, for a kernel
+    listed in :data:`VARIANTS`) on PyTorch's current stream.  ``args``
+    are the C arguments before the stream (device pointers as ints).
+    Raises ``RuntimeError`` if the launch reports a CUDA error."""
     if not _FUNCS:
         _load()
     stream = torch.cuda.current_stream().cuda_stream
-    err = _FUNCS[name](*args, stream)
+    err = _FUNCS[name, variant](*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")

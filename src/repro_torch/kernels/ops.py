@@ -8,7 +8,8 @@ Port of ``repro/kernels/ops.py``, with the reference's return contracts:
 * ``range_filter(q, p, r)`` -> (uint8 mask (nq, np), int32 counts per
   (query, 128-point tile));
 * ``pdist_rankeval(q, piv, coef, lo, hi, n, rg)`` -> (dq (B, G) f32,
-  rank_lo (G, B) int32, rank_hi (G, B) int32).
+  rank_lo (G, B) int32, rank_hi (G, B) int32);
+* ``flash_attention(q, k, v, causal)`` -> (B, Hq, Sq, D) in q's dtype.
 
 The wrappers cast to contiguous f32 and hand off to the kernel modules,
 where the tensor's device picks the CUDA kernel or its plain version.
@@ -16,12 +17,15 @@ The CUDA kernels mask their ragged edges themselves, so only
 ``range_filter`` pads: its points grow to whole count tiles with the
 finite far row ``FAR`` (the reference pads with +inf, whose Gram cells
 are NaN; a far row's are +inf, which no ball holds), and the mask is
-sliced back.
+sliced back.  ``flash_attention`` pads Sq and Sk to whole 128-row
+tiles, masks the padded keys with ``kv_len`` and slices the rows back,
+as the reference's wrapper does.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _flash
 from . import fused as _fused
 from . import pdist as _pdist
 from . import range_filter as _range_filter
@@ -70,5 +74,27 @@ def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20):
                                  _f32(hi), _f32(n), _f32(rg), n_rings)
 
 
+def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
+                    bk: int = 128):
+    """Padded flash attention: (B,Hq,Sq,D) x (B,Hk,Sk,D) -> (B,Hq,Sq,D).
+    ``bq`` and ``bk`` are the padding multiples, multiples of 128 (the
+    kernel's tiles divide 128; the plain version steps over 128-wide kv
+    blocks)."""
+    if bq % _flash.TILE or bk % _flash.TILE:
+        raise ValueError(f"bq {bq} and bk {bk} must be multiples of "
+                         f"{_flash.TILE}")
+    sq, sk = q.shape[2], k.shape[2]
+    pq, pk = (-sq) % bq, (-sk) % bk
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if pq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pq))
+    if pk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pk))
+    out = _flash.flash_attention(q, k, v, causal=causal,
+                                 kv_len=sk if pk else None)
+    return out[:, :, :sq]
+
+
 __all__ = ["pdist", "rankeval", "range_filter", "pdist_rankeval",
-           "fused_plan_enabled", "FAR"]
+           "flash_attention", "fused_plan_enabled", "FAR"]

@@ -57,3 +57,52 @@ def range_filter_ref(q, p, r, bp: int = 128):
     hp = torch.nn.functional.pad(hit, (0, (-npts) % bp))
     cnt = hp.reshape(nq, -1, bp).sum(dim=-1, dtype=torch.int32)
     return hit.to(torch.uint8), cnt
+
+
+_NEG = -1e30    # the masked score of repro/kernels/flash_attention.py:23
+_BK = 128       # kv block width of the reference wrapper's default tiling
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        kv_len: int | None = None):
+    """Online-softmax GQA attention: the plain version of
+    ``csrc/flash_attention.cu`` and the CPU lane of
+    ``ops.flash_attention``.
+
+    q (B, Hq, Sq, D), k and v (B, Hk, Sk, D) -> (B, Hq, Sq, D) in q's
+    dtype.  It repeats ``_flash_kernel``'s recurrence over 128-wide kv
+    blocks: q cast to f32 and scaled by 1/sqrt(D) in f32, f32 scores,
+    masked scores at -1e30, running max and sum, the output divided by
+    max(l, 1e-30).  The causal mask is ``qpos >= kpos`` from the top left
+    (the kernel's, not ``attention_ref``'s bottom-right alignment); keys
+    at or beyond ``kv_len`` are masked."""
+    b, hq, sq, d = q.shape
+    _, hk, sk, _ = k.shape
+    g = hq // hk
+    f32 = torch.float32
+    qf = (q.to(f32) * (1.0 / (d ** 0.5))).reshape(b, hk, g, sq, d)
+    m = torch.full((b, hk, g, sq), _NEG, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hk, g, sq, d, dtype=f32, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for j0 in range(0, sk, _BK):
+        if causal and j0 > sq - 1:
+            break                   # this block and all after lie above
+        kb = k[:, :, j0:j0 + _BK].to(f32)
+        vb = v[:, :, j0:j0 + _BK].to(f32)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qf, kb)
+        if causal or kv_len is not None:
+            kpos = j0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+            ok = qpos >= kpos if causal else torch.ones_like(qpos >= kpos)
+            if kv_len is not None:
+                ok = ok & (kpos < kv_len)
+            s = torch.where(ok, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        m = m_new
+        acc = acc * alpha[..., None] + torch.einsum("bkgqt,bktd->bkgqd", p,
+                                                    vb)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -198,6 +198,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core, repro_torch.data.datasets\n"
         "import repro_torch.build\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs.registry\n"
+        "import repro_torch.models.params, repro_torch.models.layers\n"
+        "import repro_torch.models.transformer, repro_torch.models.zoo\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert bad == ['jax'], bad\n"

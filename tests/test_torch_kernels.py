@@ -275,10 +275,12 @@ def test_cpu_tensors_launch_nothing():
     ops.range_filter(a[0], a[1], a[6])
     ops.pdist_rankeval(*a)
     _staged(*a)
+    q = torch.from_numpy(_normal((1, 4, 100, 16), 1))
+    ops.flash_attention(q, q[:, :2], q[:, :2])
     assert _cuda.LAUNCHES == before
     assert set(_cuda.LAUNCHES) == {"pdist", "rankeval", "range_filter",
                                    "pdist_rankeval", "pdist_l1",
-                                   "pdist_linf"}
+                                   "pdist_linf", "flash_attention"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -341,4 +343,47 @@ def test_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES == {"pdist": 2, "rankeval": 2, "range_filter": 1,
                               "pdist_rankeval": 1, "pdist_l1": 1,
-                              "pdist_linf": 1}
+                              "pdist_linf": 1, "flash_attention": 0}
+
+
+# (B, Hq, Hk, Sq, Sk, D, causal): GQA and not, padded and not, causal
+# with Sq != Sk, every head width the kernel is built for
+FLASH_CASES = [
+    (2, 8, 2, 256, 256, 64, True),
+    (1, 4, 4, 100, 100, 32, True),
+    (2, 8, 4, 128, 384, 64, False),
+    (1, 2, 1, 64, 300, 16, False),
+    (2, 32, 8, 200, 200, 128, True),
+    (1, 4, 2, 100, 300, 128, True),
+    (1, 4, 2, 300, 100, 128, True),
+]
+
+
+@pytest.mark.gpu
+def test_flash_attention_matches_plain_on_card():
+    """The CUDA flash_attention kernel against its plain version
+    (``ref.flash_attention_ref``, the same recurrence over 128-wide kv
+    blocks) on the same card inputs: f32 within 1e-4 absolute (summation
+    order and kv tile width differ), bf16 within one bf16 ulp (rtol =
+    atol = 2**-7: both round the same f32 value to bf16 once); one
+    counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _cuda.reset_launches()
+    n = 0
+    for b, hq, hk, sq, sk, d, causal in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (_t(_normal(s, seed)).to(dev, dtype) for s, seed in
+                       (((b, hq, sq, d), 7), ((b, hk, sk, d), 8),
+                        ((b, hk, sk, d), 9)))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            n += 1
+            assert got.dtype == dtype and got.shape == (b, hq, sq, d)
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            torch.testing.assert_close(got.float(), want.float(), rtol=0.0
+                                       if dtype == torch.float32 else tol,
+                                       atol=tol)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == n
