@@ -10,8 +10,8 @@ Phases, each printing lines that start with its name:
 1. device   the card's name, count and power limit (nvidia-smi);
 2. build    nvcc builds the seven kernels from the six sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
-            then again with -Xptxas -v for their register and
-            shared-memory use;
+            then again with -Xptxas -v for their register,
+            shared-memory and spill use;
 3. main     GaussMix (n rows, d = 8, seed 0) -> host LIMSIndex(K=64, m=3,
             N=20, degree 8) -> LIMSSnapshot.build on the card ->
             range (0.01% selectivity) and kNN (k = 10) batches of 64
@@ -56,9 +56,14 @@ Phases, each printing lines that start with its name:
             prefill and 32 greedy decode steps, with prefill and decode
             rates and peak memory.  The launch counters are zeroed just before the
             prefill: flash_attention must launch exactly once per layer,
-            and its layer-0 and layer-31 outputs must equal the plain
-            version on the same q, k, v within one bf16 ulp; then its
-            kernel row at the prefill's padded shape, with
+            and its layer-0 and layer-31 outputs must equal the f64
+            answer on the same q, k, v within one bf16 ulp (rtol = atol
+            = 2**-7), and lie nearer it than the plain version wherever
+            they part from the plain version by more than that; then the
+            body each type and head width takes (bf16 at D 64 and 128:
+            the tensor cores), the HGMMA count of the flash library's
+            SASS, its kernel row at the prefill's padded shape (bound: 1.5
+            bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
 8. retrieval  the twin of examples/retrieval_serving.py steps 1-4: an
@@ -100,10 +105,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
-# an f32 operand times a bf16 one on the tensor cores: the f32 value
-# splits exactly into three bf16 parts, so one product is three bf16
-# products, each exact in the f32 accumulator
-BF16X3_TC_FLOP_PER_S = BF16_TC_FLOP_PER_S / 3
+# flash_attention's bf16 body does Q K^T in one bf16 pass and P V in two
+# (P split into bf16 hi + lo): 1.5 passes of the function's flops
+FLASH_TC_PASSES = 1.5
 
 DEVICE = "cuda"
 D = 8                           # GaussMix width every repro benchmark uses
@@ -216,8 +220,10 @@ def phase_build():
                          b.log, re.M)
         regs = "/".join(u[0] for u in use) or "?"
         smem = "/".join(u[1] or "0" for u in use) or "0"
+        spills = "/".join(re.findall(r"(\d+) bytes spill stores", b.log))
         print(f"build: {b.name} registers={regs} static_smem={smem} B "
-              f"(per entry function)", flush=True)
+              f"spill_stores={spills or '?'} B (per entry function)",
+              flush=True)
 
 
 def make_queries(X, rng, n_batches: int, metric: str = "l2"):
@@ -818,6 +824,58 @@ def assert_close(got, want, tol, what):
     return err
 
 
+def exact_attention(q, k, v, kv_len=None):
+    """Causal GQA attention of (B, H, S, D) tensors in f64 with the
+    kernel's mask (top-left origin, keys at or beyond ``kv_len``
+    masked): the arbiter where a kernel and its plain version part."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = hq // hk
+    pos = torch.arange(sk, device=q.device)
+    ok = ((torch.arange(sq, device=q.device)[:, None] >= pos[None, :])
+          & (pos < (sk if kv_len is None else kv_len))[None, :])
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for bi in range(b):
+        for h in range(hk):
+            s = torch.einsum("gqd,kd->gqk", q[bi, h * g:(h + 1) * g].double(),
+                             k[bi, h].double()) / d ** 0.5
+            out[bi, h * g:(h + 1) * g] = torch.softmax(
+                s.masked_fill(~ok, float("-inf")), -1) @ v[bi, h].double()
+    return out
+
+
+def check_flash_bf16(got, q, k, v, kv_len, what):
+    """Holds a bf16 flash_attention output to the f64 answer within
+    rtol = atol = 2**-7 everywhere, and reads it against its plain
+    version (flash_attention_ref) at the same bar: wherever the two part
+    by more than the bar, the output must lie nearer the f64 answer than
+    the plain version does.  The plain version's f32 scores carry the
+    rounding of a sequential f32 dot product of q * scale and k; at rows
+    whose leading keys nearly tie, with |v| ~ 100, that alone moves an
+    output by about the bar (PERF.md, Findings).  Returns max |got - plain|
+    and the readings."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    tol = 2.0 ** -7
+    plain = flash_attention_ref(q, k, v, causal=True, kv_len=kv_len).double()
+    exact = exact_attention(q, k, v, kv_len)
+    got = got.double()
+    share = lambda a, ref: (a - ref).abs() / (tol * (1.0 + ref.abs()))
+    got_off, plain_off = share(got, exact), share(plain, exact)
+    beyond = share(got, plain) > 1
+    n_beyond, n_plain_off = int(beyond.sum()), int((plain_off > 1).sum())
+    n_blamed = int((beyond & (got_off >= plain_off)).sum())
+    worst = float(got_off.max())
+    err = float((got - plain).abs().max())
+    readings = (f"max |diff| from plain {err:.4g}; {n_beyond} elements "
+                f"beyond rtol = atol = 2**-7 of plain, {n_blamed} of them "
+                f"no nearer the f64 answer than plain; max share of the bar "
+                f"from the f64 answer: kernel {worst:.4g}, plain "
+                f"{float(plain_off.max()):.4g} (plain beyond it at "
+                f"{n_plain_off} elements)")
+    check(n_blamed == 0 and worst <= 1.0, f"{what}: {readings}")
+    return err, readings
+
+
 def lm_deviations(params, tokens, cfg):
     """Logits of forward_seq + _unembed, and of prefill(tokens[:, :-1])
     and a decode step of tokens[:, -1], with the model's attention as
@@ -901,7 +959,6 @@ def phase_lm_serving(seed: int):
     (for the kernel row)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import transformer as tr
     from repro_torch.models import zoo
     from repro_torch.models.params import count_params, tree_bytes
@@ -971,19 +1028,16 @@ def phase_lm_serving(seed: int):
           f"max_memory_allocated={peak}; launches over the prefill "
           f"{json.dumps(counts)}, after decode {json.dumps(counts_all)}; "
           f"logits finite", flush=True)
-    errs = []
-    for layer, (q, k, v, o) in sorted(captured.items()):
-        want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=True)
-        errs.append(assert_close(
-            o.transpose(1, 2), want, 2.0 ** -7,
-            f"lm: (b) layer {layer}: flash_attention differs from its plain "
-            f"version by more than one bf16 ulp"))
     check(sorted(captured) == [0, cfg.n_layers - 1],
           "lm: (b) layers 0 and 31 were not captured")
-    print(f"lm: (b) flash_attention == flash_attention_ref on layer 0's and "
-          f"layer {cfg.n_layers - 1}'s q, k, v (max |diff| "
-          f"{errs[0]:.4g}, {errs[1]:.4g}; rtol = atol = 2**-7)", flush=True)
+    for layer, (q, k, v, o) in sorted(captured.items()):
+        _, readings = check_flash_bf16(
+            o.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), None, f"lm: (b) layer {layer}: "
+            f"flash_attention differs by more than one bf16 ulp")
+        print(f"lm: (b) layer {layer}: flash_attention against "
+              f"flash_attention_ref and the f64 answer on its q, k, v: "
+              f"{readings}", flush=True)
     # where the time goes: one prefill and one decode step under the
     # profiler, device activities by name (after the counted run)
     batch = {"tokens": tokens}
@@ -1001,12 +1055,65 @@ def phase_lm_serving(seed: int):
     return counts["flash_attention"], (q, k, v)
 
 
+def flash_bodies_and_sass():
+    """Which body the flash library launches for each type and head
+    width (its own flash_attention_body), and the HGMMA (wgmma)
+    instructions in each kernel's SASS, read with cuobjdump from the CUDA
+    toolkit or Triton's copy ("not available" without one).  Fails if
+    bf16 at D 128 is not the tensor-core body, or if readable SASS shows
+    no HGMMA in it."""
+    import ctypes
+    import importlib.util
+    import shutil
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
+    lib = _cuda.build()[_cuda.SOURCES["flash_attention"]].path
+    body = ctypes.CDLL(str(lib)).flash_attention_body
+    body.argtypes = [ctypes.c_int, ctypes.c_int]
+    names = {1: "tensor cores (flash_tc_kernel)",
+             0: "CUDA cores (flash_kernel)"}
+    print("kernels: flash_attention bodies: " + "; ".join(
+        f"{dt} D {d}: {names[body(bf, d)]}" for dt, bf in (("f32", 0),
+                                                          ("bf16", 1))
+        for d in fa.HEAD_DIMS), flush=True)
+    check(body(1, 128) == 1, "kernels: bf16 D 128 does not take the "
+          "tensor-core body")
+    exes = [shutil.which("cuobjdump"),
+            *(str(Path(r, "bin", "cuobjdump")) for r in _cuda.CUDA_ROOTS)]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        exes.append(str(Path(spec.origin).parent / "backends" / "nvidia"
+                        / "bin" / "cuobjdump"))
+    exe = next((e for e in exes if e and Path(e).is_file()), None)
+    sass = subprocess.run([exe, "--dump-sass", str(lib)],
+                          capture_output=True, text=True,
+                          timeout=300) if exe else None
+    if sass is None or sass.returncode != 0:
+        print("kernels: flash_attention SASS HGMMA count: not available "
+              f"({'no cuobjdump' if exe is None else sass.stderr.strip()})",
+              flush=True)
+        return
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
+        m = re.search(r"(flash_tc_kernel|flash_kernel)I(f|13__nv_bfloat16)?"
+                      r"Li(\d+)E", fn.split("\n", 1)[0])
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            counts[f"{m.group(1)}<{dt}, {m.group(3)}>"] = fn.count("HGMMA")
+    print(f"kernels: flash_attention SASS HGMMA count ({exe}): "
+          f"{json.dumps(counts)}", flush=True)
+    check(counts.get("flash_tc_kernel<bf16, 128>", 0) > 0,
+          "kernels: no HGMMA in flash_tc_kernel<bf16, 128>'s SASS")
+
+
 def phase_flash_kernel(launches, qkv):
-    """The kernel row at the prefill's padded shape, and an f32 check of
-    kernel against plain version at a small shape."""
+    """The kernel row at the prefill's padded shape, the bodies and
+    HGMMA count of the flash library, and an f32 check of kernel against
+    plain version at a small shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
+    flash_bodies_and_sass()
     for causal in (True, False):
         q, k, v = (torch.from_numpy(np.random.default_rng(i).normal(
             size=s).astype(np.float32)).to(DEVICE) for i, s in
@@ -1024,25 +1131,27 @@ def phase_flash_kernel(launches, qkv):
     qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)).contiguous()
                   for t in (q, k, v))
     sp = s + pad
-    got = fa.flash_attention(qp, kp, vp, causal=True, kv_len=s)
-    want = flash_attention_ref(qp, kp, vp, causal=True, kv_len=s)
-    err = assert_close(got, want, 2.0 ** -7, "kernels: flash_attention at the "
-                       "prefill shape differs from plain")
-    del got, want
+    err, readings = check_flash_bf16(
+        fa.flash_attention(qp, kp, vp, causal=True, kv_len=s), qp, kp, vp, s,
+        "kernels: flash_attention at the prefill shape")
+    print(f"kernels: flash_attention at the prefill's padded shape against "
+          f"flash_attention_ref and the f64 answer: {readings}", flush=True)
     # live (q, k) pairs the mask keeps: row i sees keys < min(i + 1, s)
     live = sum(min(i + 1, s) for i in range(sp))
     flops = 4.0 * b * hq * d * live
     nbytes = 2.0 * (2 * b * hq * sp * d + 2 * b * hk * sp * d)
+    ms_at = lambda passes, rate: passes * flops / rate * 1e3
     print(f"kernels: flash_attention at the prefill's padded shape "
           f"({b}, {hq}, {sp}, {d}) x ({b}, {hk}, {sp}, {d}) bf16 causal, "
           f"kv_len {s}: {live:,} live pairs per head, {flops:.4g} flops; "
-          f"bound at the tensor cores' rate for an f32 x bf16 product "
-          f"(3 bf16 passes, {BF16X3_TC_FLOP_PER_S / 1e12:.1f} TFLOP/s) "
-          f"{flops / BF16X3_TC_FLOP_PER_S * 1e3:.4f} ms; notes: at the f32 "
-          f"rate of the CUDA cores, which this kernel uses, "
-          f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms; one bf16 pass (SDPA's "
-          f"precision) {flops / BF16_TC_FLOP_PER_S * 1e3:.4f} ms",
-          flush=True)
+          f"bound at the work the tensor-core body does ({FLASH_TC_PASSES:g} "
+          f"bf16 passes: Q K^T once, P V as P_hi V + P_lo V) at "
+          f"{BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+          f"{ms_at(FLASH_TC_PASSES, BF16_TC_FLOP_PER_S):.4f} ms; notes: "
+          f"3 bf16 passes (an f32 x bf16 product, the earlier bound) "
+          f"{ms_at(3, BF16_TC_FLOP_PER_S):.4f} ms, the CUDA cores' f32 "
+          f"rate {ms_at(1, F32_FLOP_PER_S):.4f} ms, one bf16 pass (SDPA's "
+          f"precision) {ms_at(1, BF16_TC_FLOP_PER_S):.4f} ms", flush=True)
     try:
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             qp, kp, vp, is_causal=True, enable_gqa=True)
@@ -1055,7 +1164,8 @@ def phase_flash_kernel(launches, qkv):
         "flash_attention", launches, err,
         lambda: fa.flash_attention(qp, kp, vp, causal=True, kv_len=s), 10,
         lambda: flash_attention_ref(qp, kp, vp, causal=True, kv_len=s), 3,
-        nbytes, flops, library=sdpa, flop_per_s=BF16X3_TC_FLOP_PER_S)
+        nbytes, FLASH_TC_PASSES * flops, library=sdpa,
+        flop_per_s=BF16_TC_FLOP_PER_S)
 
 
 # --------------------------------------------------------------- retrieval

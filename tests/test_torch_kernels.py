@@ -347,7 +347,8 @@ def test_kernels_match_plain_on_card():
 
 
 # (B, Hq, Hk, Sq, Sk, D, causal): GQA and not, padded and not, causal
-# with Sq != Sk, every head width the kernel is built for
+# with Sq != Sk, every head width the kernel is built for; each in f32
+# and bf16
 FLASH_CASES = [
     (2, 8, 2, 256, 256, 64, True),
     (1, 4, 4, 100, 100, 32, True),
@@ -357,33 +358,121 @@ FLASH_CASES = [
     (1, 4, 2, 100, 300, 128, True),
     (1, 4, 2, 300, 100, 128, True),
 ]
+# bf16 cases for the tensor-core body, (case, scale of q and k): several
+# kv tiles with kv_len inside the last (2000 padded to 2048), Sq != Sk in
+# both directions at whole 128-row tiles (the top-left origin), Hq/Hk = 4,
+# and q, k scaled by 16 so the scaled scores have a standard deviation of
+# ~256, where P holds near-1 and tiny entries and its bf16 hi/lo split
+# matters
+FLASH_TC_CASES = [
+    ((1, 8, 2, 2000, 2000, 128, True), 1.0),
+    ((1, 8, 2, 2000, 2000, 128, False), 1.0),
+    ((1, 4, 1, 256, 640, 128, True), 1.0),
+    ((1, 4, 1, 640, 256, 128, True), 1.0),
+    ((2, 16, 4, 384, 384, 128, True), 1.0),
+    ((1, 8, 2, 2000, 2000, 128, True), 16.0),
+    ((2, 16, 4, 640, 640, 64, True), 16.0),
+]
+_FLASH_CARD = ([(c, 1.0, dt) for c in FLASH_CASES
+                for dt in (torch.float32, torch.bfloat16)]
+               + [(c, scale, torch.bfloat16) for c, scale in FLASH_TC_CASES])
 
 
 @pytest.mark.gpu
-def test_flash_attention_matches_plain_on_card():
+@pytest.mark.parametrize("case,scale,dtype", _FLASH_CARD)
+def test_flash_attention_matches_plain_on_card(case, scale, dtype):
     """The CUDA flash_attention kernel against its plain version
     (``ref.flash_attention_ref``, the same recurrence over 128-wide kv
-    blocks) on the same card inputs: f32 within 1e-4 absolute (summation
-    order and kv tile width differ), bf16 within one bf16 ulp (rtol =
-    atol = 2**-7: both round the same f32 value to bf16 once); one
-    counted launch per call."""
+    blocks) on the same card inputs, through ``ops.flash_attention``
+    (padding, kv_len): f32 within 1e-4 absolute (summation order and kv
+    tile width differ), bf16 within one bf16 ulp (rtol = atol = 2**-7:
+    both round an f32 value to bf16 once; bf16 at D 64 and 128 runs on
+    the tensor cores, with P split into bf16 hi + lo); one counted launch
+    per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, hq, hk, sq, sk, d, causal = case
     dev = torch.device("cuda")
     _cuda.reset_launches()
-    n = 0
-    for b, hq, hk, sq, sk, d, causal in FLASH_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (_t(_normal(s, seed)).to(dev, dtype) for s, seed in
-                       (((b, hq, sq, d), 7), ((b, hk, sk, d), 8),
-                        ((b, hk, sk, d), 9)))
-            got = ops.flash_attention(q, k, v, causal=causal)
-            want = ref.flash_attention_ref(q, k, v, causal=causal)
-            n += 1
-            assert got.dtype == dtype and got.shape == (b, hq, sq, d)
-            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-            torch.testing.assert_close(got.float(), want.float(), rtol=0.0
-                                       if dtype == torch.float32 else tol,
-                                       atol=tol)
+    q, k, v = (_t(_normal(s, seed) * f).to(dev, dtype) for s, seed, f in
+               (((b, hq, sq, d), 7, scale), ((b, hk, sk, d), 8, scale),
+                ((b, hk, sk, d), 9, 1.0)))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, hq, sq, d)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0
+                               if dtype == torch.float32 else tol, atol=tol)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["flash_attention"] == n
+    assert _cuda.LAUNCHES["flash_attention"] == 1
+
+
+def _tc_body_emulation(q, k, v, causal, kv_len, p_split=True):
+    """The tensor-core body's rounding steps in plain torch: S from the
+    bf16 operands accumulated in f32 (each product exact), then scaled in
+    f32 by log2(e)/sqrt(D) rounded once to f32; the online softmax over
+    128-wide kv tiles in base 2 (exp2); P split into bf16 hi + lo for
+    P V, or with ``p_split=False`` rounded once to bf16 (the one-pass
+    alternative).  q, k, v padded bf16 (B, H, S, D) -> bf16."""
+    b, hq, sq, d = q.shape
+    _, hk, sk, _ = k.shape
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hk, hq // hk, sq, d)
+    scale2 = torch.tensor(np.log2(np.e) / np.sqrt(d), dtype=f32)
+    m = torch.full((b, hk, hq // hk, sq), -1e30, dtype=f32)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hk, hq // hk, sq, d, dtype=f32)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, 128):
+        kb, vb = (t[:, :, k0:k0 + 128].to(f32) for t in (k, v))
+        s = torch.einsum("bkgqd,bktd->bkgqt", qf, kb) * scale2
+        kpos = k0 + torch.arange(128)[None, :]
+        ok = (kpos < kv_len) & ((qpos >= kpos) if causal else True)
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp2(s - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        m = m_new
+        hi = p.to(torch.bfloat16).to(f32)
+        parts = [hi, (p - hi).to(torch.bfloat16).to(f32)] if p_split else [hi]
+        pv = sum(torch.einsum("bkgqt,bktd->bkgqd", x, vb) for x in parts)
+        acc = acc * alpha[..., None] + pv
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, d).to(torch.bfloat16)
+
+
+def test_tc_precision_plan_matches_reference(ref_ops):
+    """The tensor-core body's precision plan (one bf16 pass for Q K^T,
+    scale after, exp2, P as bf16 hi + lo for P V) emulated on the CPU
+    against the Pallas kernel in interpret mode, bf16, at scores of
+    standard deviation ~256 (q and k scaled by 16), Hq/Hk = 4 and
+    Sq = Sk = 300 padded to 384 (kv_len inside the last tile): within
+    the card check's 2**-7.  The one-pass-P alternative's error is
+    printed beside it, not asserted."""
+    import jax.numpy as jnp
+    b, hq, hk, s, d = 1, 8, 2, 300, 128
+    q, k, v = (_normal(sh, seed) * f for sh, seed, f in
+               (((b, hq, s, d), 21, 16.0), ((b, hk, s, d), 22, 16.0),
+                ((b, hk, s, d), 23, 1.0)))
+    want = np.asarray(ref_ops.flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=True).astype(jnp.float32))
+    qt, kt, vt = (torch.nn.functional.pad(
+        _t(a).to(torch.bfloat16), (0, 0, 0, 84)) for a in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qt[:, :2].float(),
+                          kt[:, :1].float()) / np.sqrt(d)
+    assert 200.0 < float(scores[..., :s, :s].std()) < 320.0
+    bar = 2.0 ** -7 * (1.0 + np.abs(want))
+    got = {}
+    for split in (True, False):
+        out = _tc_body_emulation(qt, kt, vt, True, s, p_split=split)
+        got[split] = out[:, :, :s].float().numpy()
+    print("; ".join(
+        f"{name}: max |emulation - reference| "
+        f"{np.abs(got[split] - want).max():.4g}, max share of the bar "
+        f"{(np.abs(got[split] - want) / bar).max():.4g}"
+        for name, split in (("P as bf16 hi + lo", True),
+                            ("P rounded once", False))))
+    np.testing.assert_allclose(got[True], want, rtol=2.0 ** -7,
+                               atol=2.0 ** -7)
