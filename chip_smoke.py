@@ -23,8 +23,12 @@ Phases, each printing lines that start with its name:
 4. E        the certified rank-error bound covers the error of the
             card's pdist_rankeval at every data point;
 5. kernels  each kernel against its plain PyTorch version at the main
-            path's shapes, timed with CUDA events beside its plain
-            version, its bound and (pdist only) torch.cdist(q, p)**2;
+            path's shapes, bit for bit (range_filter: mask and counts),
+            timed with CUDA events beside its plain version, its bound and
+            (pdist only) torch.cdist(q, p)**2; pdist and range_filter
+            also print their issue floor (the fixed f32 operation order's
+            instructions at the SMs' clock) as a note, and pdist a second
+            line at the planner's (64, 192);
 6. builder  the device index builder (LIMSIndex(backend="device")) at
             the same n: (a) GaussMix L2, held against main's host index
             (structures, then every range and kNN batch through a
@@ -278,10 +282,22 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     print(f"main: host LIMSIndex range {nq / (t1 - t0):.2f} q/s, "
           f"kNN {nq / (t2 - t1):.2f} q/s (one CPU thread)", flush=True)
 
+    # the (nq, np) of each pdist and range_filter launch of the counted run
+    shapes = {"pdist": {}, "range_filter": {}}
+    real_launch = _cuda.launch
+
+    def spy(name, *args, **kw):
+        real_launch(name, *args, **kw)
+        if name in shapes:      # the C arguments after the pointers
+            nq, npts = args[3:5] if name == "pdist" else args[5:7]
+            shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
+
     sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
+    spying = mock.patch.object(_cuda, "launch", spy)
+    spying.start()
     t0 = time.perf_counter()
     snap = snap_cls.build(ix, device=DEVICE)
     sync()
@@ -320,6 +336,7 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
               f"host_syncs/batch={syncs}; last compact gather={frac}",
               flush=True)
     sync()
+    spying.stop()
     counts = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
     print(f"main: launches {json.dumps(counts)} "
@@ -327,6 +344,12 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     for name in MAIN_KERNELS:
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
+    for name, by in shapes.items():
+        check(sum(by.values()) == counts[name],
+              f"{name}: the shape tally misses launches")
+        print(f"main: {name} launches by (nq, np): "
+              + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
+              flush=True)
 
     # one batch of each kind against an f64 brute-force scan
     Q, rs = batches[0]
@@ -344,7 +367,7 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     print(f"main: batch 0 equals the f64 brute-force scan "
           f"(range hits/query={np.mean([len(g[0]) for g in got_r]):.1f})",
           flush=True)
-    return counts, snap, host_range, host_knn
+    return counts, shapes, snap, host_range, host_knn
 
 
 def phase_error_bound(ix, snap):
@@ -380,7 +403,7 @@ def phase_error_bound(ix, snap):
           f"{int((E >= n_g).sum())} of {E.size}", flush=True)
 
 
-def phase_kernels(ix, snap, batches, counts):
+def phase_kernels(ix, snap, batches, counts, shapes):
     from repro_torch.core.planner import _BALL_ABS, _R_ABS, _R_REL
     from repro_torch.core.snapshot import rank_columns
     from repro_torch.kernels import _cuda, ops
@@ -403,17 +426,32 @@ def phase_kernels(ix, snap, batches, counts):
     def row(name, *args, **kw):
         out.append(kernel_row(name, counts[name], *args, **kw))
 
-    # pdist: the kNN distance matrix (B, P)
+    # pdist: the kNN distance matrix (B, P), bit for bit
     got = ops.pdist(q, rows)
     want = pdist_plain(q, rows)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * D)
-    err = float((got - want).abs().max())
+    check(torch.equal(got, want), "pdist differs from its plain version")
     del got, want
-    row("pdist", err, lambda: ops.pdist(q, rows), 20,
+    row("pdist", 0.0, lambda: ops.pdist(q, rows), 20,
         lambda: pdist_plain(q, rows), 3,
         4.0 * (B * D + P * D + B * P),
         B * P * (2 * D + 4) + 2 * D * (B + P),
-        library=lambda: torch.cdist(q, rows) ** 2)
+        library=lambda: torch.cdist(q, rows) ** 2,
+        note=f"main-path launches at this shape: "
+             f"{shapes['pdist'].get((B, P), 0)} of {counts['pdist']}; "
+             + issue_floor(B * P, 2 * D + 4))
+    # and at the plan_knn seed's shape (B, G), where the launch is the
+    # cost; a printed line only (the JSON row is the (B, P) one)
+    got = ops.pdist(q, piv)
+    check(torch.equal(got, pdist_plain(q, piv)),
+          f"pdist differs from its plain version at ({B}, {G})")
+    kernel_row("pdist", counts["pdist"], 0.0, lambda: ops.pdist(q, piv), 200,
+               lambda: pdist_plain(q, piv), 20,
+               4.0 * (B * D + G * D + B * G),
+               B * G * (2 * D + 4) + 2 * D * (B + G),
+               library=lambda: torch.cdist(q, piv) ** 2,
+               shape=f"({B}, {G})",
+               note=f"main-path launches at this shape: "
+                    f"{shapes['pdist'].get((B, G), 0)} of {counts['pdist']}")
 
     # rankeval: the snapshot's E certification (G, n_col)
     x = torch.from_numpy(rank_columns(ix)).to(DEVICE)
@@ -433,28 +471,23 @@ def phase_kernels(ix, snap, batches, counts):
     r = rf * (1.0 + _R_REL) + _BALL_ABS
     r2 = r * r
     mask, cnt = ops.range_filter(q, rows, r)
-    mask_p, _ = range_filter_plain(q, rows, r2)
-    diff = mask != mask_p
-    n_diff = int(diff.sum())
-    if n_diff:
-        d2 = pdist_plain(q, rows)
-        near = (d2 - r2[:, None]).abs() <= 1e-5 * torch.clamp(r2, min=1.0)[
-            :, None]
-        check(bool(near[diff].all()),
-              "range_filter mask differs away from the ball boundary")
-        del d2, near
-    tiles = torch.nn.functional.pad(mask, (0, (-P) % 128)).reshape(
-        B, -1, 128).sum(-1, dtype=torch.int32)
-    check(torch.equal(cnt, tiles), "range_filter counts differ from the "
-          "sums of its own mask")
+    mask_p, cnt_p = range_filter_plain(q, rows, r2)
+    n_diff = int((mask != mask_p).sum())
     print(f"kernels: range_filter mask cells differing from plain: {n_diff} "
-          f"of {B * P}; hits={int(mask.sum())}", flush=True)
-    del mask_p, diff
-    row("range_filter", float(n_diff > 0),
+          f"of {B * P}; count tiles differing: "
+          f"{int((cnt != cnt_p).sum())}; hits={int(mask.sum())}", flush=True)
+    check(n_diff == 0 and torch.equal(cnt, cnt_p),
+          "range_filter mask or counts differ from its plain version")
+    del mask, cnt, mask_p, cnt_p
+    row("range_filter", 0.0,
         lambda: ops.range_filter(q, rows, r), 20,
         lambda: range_filter_plain(q, rows, r2), 3,
         4.0 * (B * D + P * D + B) + B * P + 4.0 * B * (-(-P // 128)),
-        B * P * (2 * D + 5) + 2 * D * (B + P))
+        B * P * (2 * D + 5) + 2 * D * (B + P),
+        note=f"main-path launches at this shape: "
+             f"{shapes['range_filter'].get((B, P), 0)} of "
+             f"{counts['range_filter']} (the others on compacted buckets); "
+             + issue_floor(B * P, 2 * D + 6))
 
     # pdist_rankeval: the fused plan stage (B, G) against the staged
     # pdist -> sqrt -> rankeval chain and its plain version, bitwise
@@ -469,9 +502,11 @@ def phase_kernels(ix, snap, batches, counts):
         check(torch.equal(f, s), "fused and staged plans differ")
     print("kernels: pdist_rankeval equals the staged pdist -> sqrt -> "
           "rankeval chain bit for bit", flush=True)
-    row("pdist_rankeval",
-        max(float((f.double() - p.double()).abs().max())
-            for f, p in zip(fused, plain)),
+    err = max(float((f.double() - p.double()).abs().max())
+              for f, p in zip(fused, plain))
+    check(err == 0.0, f"pdist_rankeval differs from its plain version by "
+          f"{err}")
+    row("pdist_rankeval", err,
         lambda: ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg), 200,
         lambda: pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg,
                                      snap.n_rings), 20,
@@ -481,20 +516,39 @@ def phase_kernels(ix, snap, batches, counts):
     return out
 
 
+def issue_floor(cells: int, instr_per_cell: int) -> str:
+    """A note for the kernels: lines: the time the card needs to issue
+    ``instr_per_cell`` f32 instructions for each of ``cells`` outputs (the
+    fixed no-FMA operation order of gram.cuh), at 128 lanes per SM and the
+    SMs' maximum clock from nvidia-smi.  Beside the bound, not in it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = cells * instr_per_cell / (sms * 128 * mhz * 1e6) * 1e3
+    return (f"issue_floor_ms={ms:.4f} ({instr_per_cell} f32 instructions "
+            f"a cell, {sms} SMs x 128 lanes at {mhz:.0f} MHz)")
+
+
 def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
-               flops, library=None, flop_per_s=F32_FLOP_PER_S) -> dict:
+               flops, library=None, flop_per_s=F32_FLOP_PER_S, note="",
+               shape="") -> dict:
     """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
-    the kernel's own device time under the profiler; print the row and
-    return it for the JSON line."""
+    the kernel's own device time under the profiler; print the row (with
+    ``note``, and ``shape`` where it is not the row's main-path shape)
+    and return it for the JSON line."""
     from repro_torch.kernels import _cuda
     ms = time_ms(call, iters)
     plain_ms = time_ms(plain, plain_iters)
     library_ms = time_ms(library, 10) if library else None
     kernel_ms = device_busy(call)[1]
     b_ms, by = bound(nbytes, flops, flop_per_s)
-    print(f"kernels: {name} max_abs_err={err} ms={ms:.4f} "
+    print(f"kernels: {name}{' at ' + shape if shape else ''} "
+          f"max_abs_err={err} ms={ms:.4f} "
           f"profiler_device_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}", flush=True)
+          f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}"
+          f"{' ' + note if note else ''}", flush=True)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{_cuda.SOURCES[name]}",
             "replaces": REPLACES[name], "launches": launches,
@@ -1227,6 +1281,52 @@ def phase_retrieval(seed: int):
           f"BatchedLIMS 16 kNN (k=5) in {t_q * 1e3:.2f} ms; all 16 "
           f"identical to the host index and to the f64 brute-force scan; "
           f"launches {json.dumps(counts)}", flush=True)
+    d32_bodies(torch.from_numpy(q_emb.astype(np.float32)).to(DEVICE),
+               torch.from_numpy(corpus.astype(np.float32)).to(DEVICE), seed)
+
+
+def d32_bodies(q_emb, corpus, seed: int) -> None:
+    """pdist and range_filter at d = 32 through their register body and
+    through the generic one (Points<0>, which the C entry points take for
+    operands that are not 16-B aligned): equal bit for bit, and timed at
+    the retrieval example's (16, 5,000) and at a shape that moves bytes."""
+    from repro_torch.kernels import pdist as _pdist
+    from repro_torch.kernels import range_filter as _rf
+
+    def offset(t):          # the same values, 4 bytes past a 16-B boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    big = (torch.randn(B, 32, generator=g, device=DEVICE),
+           torch.randn(1 << 20, 32, generator=g, device=DEVICE))
+    for q, p in ((q_emb, corpus), big):
+        p_gen = offset(p)
+        d2 = _pdist.pdist(q, p)
+        check(torch.equal(d2, _pdist.pdist(q, p_gen))
+              and torch.equal(d2, _pdist.pdist_plain(q, p)),
+              f"retrieval: pdist's d = 32 bodies differ at {tuple(q.shape)} "
+              f"x {tuple(p.shape)}")
+        r2 = d2.kthvalue(max(1, p.shape[0] // 100), dim=1).values
+        m, c = _rf.range_filter(q, p, r2)
+        m_g, c_g = _rf.range_filter(q, p_gen, r2)
+        m_p, c_p = _rf.range_filter_plain(q, p, r2)
+        check(all(torch.equal(a, b) for a, b in
+                  ((m, m_g), (c, c_g), (m, m_p), (c, c_p))),
+              f"retrieval: range_filter's d = 32 bodies differ at "
+              f"{tuple(q.shape)} x {tuple(p.shape)}")
+        del d2, m, c, m_g, c_g, m_p, c_p
+        it = 200 if p.shape[0] < 100_000 else 20
+        t = [time_ms(lambda: _pdist.pdist(q, p), it),
+             time_ms(lambda: _pdist.pdist(q, p_gen), it),
+             time_ms(lambda: _rf.range_filter(q, p, r2), it),
+             time_ms(lambda: _rf.range_filter(q, p_gen, r2), it)]
+        print(f"retrieval: d=32 at ({q.shape[0]}, {p.shape[0]}): pdist "
+              f"register body {t[0]:.4f} ms, generic body {t[1]:.4f} ms; "
+              f"range_filter register {t[2]:.4f} ms, generic {t[3]:.4f} ms "
+              f"(wrapper ms, CUDA events; bit for bit equal)", flush=True)
 
 
 def main() -> int:
@@ -1272,10 +1372,10 @@ def main() -> int:
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
 
-    counts, snap, host_range, host_knn = phase_main(
+    counts, shapes, snap, host_range, host_knn = phase_main(
         X, ix, batches, LIMSSnapshot, QueryExecutor)
     phase_error_bound(ix, snap)
-    kernels = phase_kernels(ix, snap, batches, counts)
+    kernels = phase_kernels(ix, snap, batches, counts, shapes)
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
     del snap

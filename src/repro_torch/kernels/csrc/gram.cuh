@@ -11,6 +11,17 @@
 // contraction, so the result does not depend on -fmad or on the caller.
 #pragma once
 
+// The last step, from the two norms and the dot product: unclamped, then
+// clamped.
+__device__ __forceinline__ float gram_raw(float qn, float pn, float g) {
+    return __fsub_rn(__fadd_rn(qn, pn), __fmul_rn(2.f, g));
+}
+
+__device__ __forceinline__ float gram_finish(float qn, float pn, float g) {
+    const float v = gram_raw(qn, pn, g);
+    return v < 0.f ? 0.f : v;
+}
+
 __device__ __forceinline__ float sq_norm(const float* x, int stride, int d) {
     float s = 0.f;
     for (int k = 0; k < d; ++k) {
@@ -27,6 +38,5 @@ __device__ __forceinline__ float gram_sq(float qn, float pn,
     for (int k = 0; k < d; ++k)
         g = __fadd_rn(g, __fmul_rn(q[(long long)k * q_stride],
                                    p[(long long)k * p_stride]));
-    const float v = __fsub_rn(__fadd_rn(qn, pn), __fmul_rn(2.f, g));
-    return v < 0.f ? 0.f : v;
+    return gram_finish(qn, pn, g);
 }

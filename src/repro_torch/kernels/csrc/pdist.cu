@@ -1,56 +1,105 @@
 // pdist (sql2): squared L2 distances between every query row and every point
 // row, out[i, j] = max((|q_i|^2 + |p_j|^2) - 2 q_i.p_j, 0) in f32.
 //
-// Replaces the Pallas kernel repro/kernels/pdist.py::pdist_pallas, body
-// _pdist_l2_kernel (the l1/linf bodies are not ported yet).
+// Replaces the Pallas kernel repro/kernels/pdist.py::pdist_pallas (:55),
+// body _pdist_l2_kernel (:25); the l1/linf bodies are pdist_lp.cu.
 //
 // What bounds it on an H100: the output write.  At the kNN distance matrix's
 // shape (64 queries x 4.6M slots, d = 8) it writes 1.18 GB and reads 0.15 GB,
-// about 0.40 ms at 3.35 TB/s, against under 0.1 ms of f32 arithmetic.  The
-// design therefore computes each output once, keeps both operand tiles in
-// shared memory, and has neighbouring threads write neighbouring columns so
-// every warp's store is one contiguous 128-byte line.
+// 0.40 ms at 3.35 TB/s; the fixed f32 operation order (no FMA) costs about
+// 2d + 4 = 20 instructions an output, under 0.2 ms of issue at the card's
+// clock.  So the design (stream.cuh) streams the output: each point is read
+// once, by the thread that owns it with three neighbours, into registers; a
+// block holds all query rows (up to QCAP at a time) in shared memory and
+// walks them, and for each row a thread stores its four outputs as one
+// 16-byte streaming store (st.global.cs: the matrix does not fit the 50 MB
+// L2 and is not read back here), neighbouring threads on neighbouring
+// addresses.  A row starts 16-B aligned only when np % 4 == 0 (the main
+// path's 4,607,872 and the planner's 192 are); otherwise, and for the
+// ragged last points, the thread stores its outputs one by one.
 //
-// First, unoptimised version: one 32 x 256 output tile per block, no tensor
-// cores (so TF32 cannot enter), plain stores, no software pipelining.
+// The arithmetic is gram.cuh's, bit for bit (the plain version and the
+// fused pdist_rankeval repeat it).
 #include <cuda_runtime.h>
 
-#include "gram.cuh"
+#include "stream.cuh"
 
 namespace {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BP = 256;         // points per block = threads per block
-constexpr int PSTR = BP + 1;    // transposed point tile stride (no bank clash)
+using namespace stream;
 
-__global__ void __launch_bounds__(BP)
-pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                  float* __restrict__ out, int nq, int np, int d) {
-    extern __shared__ float smem[];
-    float* q_s = smem;                  // (BQ, d) row-major
-    float* p_s = q_s + BQ * d;          // (d, PSTR): point j of the tile at column j
-    float* qn_s = p_s + d * PSTR;       // (BQ,)
-    const int j = threadIdx.x;
-    const long long p0 = (long long)blockIdx.x * BP;
-    const int q0 = blockIdx.y * BQ;
-    const int nqt = min(BQ, nq - q0);
-    const int npt = (int)min((long long)BP, (long long)np - p0);
-
-    for (int e = j; e < nqt * d; e += BP) q_s[e] = q[(long long)q0 * d + e];
-    for (int e = j; e < npt * d; e += BP) {
-        const int jj = e / d;
-        p_s[(e - jj * d) * PSTR + jj] = p[p0 * d + e];
+// Query rows [0, nc) of the chunk in shared memory against the thread's
+// points; o is the thread's first output of the chunk's first row.  WHOLE:
+// the thread's four outputs of a row are in range and 16-B aligned.
+template <bool WHOLE, int D>
+__device__ __forceinline__ void pdist_rows(const Points<D>& pts,
+                                           const float* q_s,
+                                           const float* qn_s, int dd, int nc,
+                                           float* o, long long np,
+                                           long long live) {
+#pragma unroll 2
+    for (int i = 0; i < nc; ++i) {
+        float g[PPT];
+        pts.gram(q_s + i * dd, dd, g);
+        const float qn = qn_s[i];
+        float v[PPT];
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) v[j] = gram_finish(qn, pts.n[j], g[j]);
+        float* oi = o + i * np;
+        if (WHOLE) {
+            __stcs(reinterpret_cast<float4*>(oi),
+                   make_float4(v[0], v[1], v[2], v[3]));
+        } else {
+#pragma unroll
+            for (int j = 0; j < PPT; ++j)
+                if (j < live) __stcs(oi + j, v[j]);
+        }
     }
-    __syncthreads();
-    if (j < nqt) qn_s[j] = sq_norm(q_s + j * d, 1, d);
-    __syncthreads();
-    if (j >= npt) return;
+}
 
-    const float pn = sq_norm(p_s + j, PSTR, d);
-    float* o = out + (long long)q0 * np + p0 + j;
-    for (int i = 0; i < nqt; ++i)
-        o[(long long)i * np] = gram_sq(qn_s[i], pn, q_s + i * d, 1,
-                                       p_s + j, PSTR, d);
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
+                  float* __restrict__ out, int nq, int np, int d, int qcap,
+                  bool vec) {
+    extern __shared__ float4 smem[];
+    const int dd = D > 0 ? D : d;
+    float* q_s = reinterpret_cast<float*>(smem);     // (qcap, dd)
+    float* qn_s = q_s + qcap * dd;                   // (qcap,)
+    const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
+    Points<D> pts;
+    pts.load(p, pt, np, dd);
+    const long long live = np - pt;         // points of the thread in range
+    const bool whole = vec && live >= PPT;
+
+    for (int c0 = 0; c0 < nq; c0 += qcap) {
+        const int nc = min(qcap, nq - c0);
+        __syncthreads();                    // the previous chunk is done
+        if ((int)threadIdx.x < nc)
+            qn_s[threadIdx.x] = load_query<D>(q, c0 + threadIdx.x, dd,
+                                              q_s + threadIdx.x * dd);
+        __syncthreads();
+        float* o = out + (long long)c0 * np + pt;
+        if (whole)
+            pdist_rows<true>(pts, q_s, qn_s, dd, nc, o, np, live);
+        else if (live > 0)
+            pdist_rows<false>(pts, q_s, qn_s, dd, nc, o, np, live);
+    }
+}
+
+template <int D>
+int launch(const float* q, const float* p, float* out, int nq, int np, int d,
+           cudaStream_t stream) {
+    const int qcap = query_cap(d, 1);
+    if (qcap < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)qcap * (d + 1) * sizeof(float);
+    const cudaError_t e = allow_smem(pdist_sql2_kernel<D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = np % 4 == 0 && aligned(out, 16);
+    const unsigned grid = (unsigned)((np + BP - 1) / BP);
+    pdist_sql2_kernel<D><<<grid, THREADS, smem, stream>>>(q, p, out, nq, np,
+                                                          d, qcap, vec);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -60,15 +109,11 @@ pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
 extern "C" int pdist_sql2(const void* q, const void* p, void* out, int nq,
                           int np, int d, void* stream) {
     if (nq <= 0 || np <= 0) return 0;
-    const size_t smem = (size_t)(BQ * d + d * PSTR + BQ) * sizeof(float);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            pdist_sql2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    const float *qf = (const float*)q, *pf = (const float*)p;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (body_width(d, q, p)) {
+        case 8: return launch<8>(qf, pf, (float*)out, nq, np, d, s);
+        case 32: return launch<32>(qf, pf, (float*)out, nq, np, d, s);
+        default: return launch<0>(qf, pf, (float*)out, nq, np, d, s);
     }
-    const dim3 grid((unsigned)((np + BP - 1) / BP), (unsigned)((nq + BQ - 1) / BQ));
-    pdist_sql2_kernel<<<grid, BP, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)p, (float*)out, nq, np, d);
-    return (int)cudaGetLastError();
 }

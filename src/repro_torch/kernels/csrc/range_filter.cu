@@ -3,79 +3,152 @@
 // (query, 128-point tile).
 //
 // Replaces the Pallas kernel repro/kernels/range_filter.py::range_filter_pallas
-// (body _range_filter_kernel).  The distance comes from gram.cuh, shared with
-// pdist.cu.
+// (:35), body _range_filter_kernel (:20).  The distance is gram.cuh's, shared
+// with pdist.cu and fused.cu, and the mask equals the plain version's bit for
+// bit.
 //
-// What bounds it on an H100: the mask write.  Over the full slot array (64
-// queries x 4.6M slots, d = 8) it writes 295 MB of mask and reads 147 MB of
-// rows, about 0.13 ms at 3.35 TB/s; the distances never leave the chip.  One
-// block per (32 queries, 128-point tile); each warp counts its hits with a
-// ballot, and the block adds its four warps' counts, so counts need no
-// atomics and are the same in every run.
+// What bounds it on an H100: instruction issue, not bytes.  Over the full
+// slot array (64 queries x 4.6M slots, d = 8) it writes 295 MB of mask and
+// reads 147 MB of rows, 0.13 ms at 3.35 TB/s; the distances never leave the
+// chip.  But the fixed f32 operation order (no FMA: d products and d - 1
+// sums for g, then qn + pn, 2g and the difference) and the test cost about
+// 20 instructions a cell, about 0.18 ms of issue at the card's clock.  So the
+// design (stream.cuh) spends as few other instructions as it can, and keeps
+// enough independent work in flight to hide the f32 latency:
+//   * each point is read once, into the registers of the thread that owns it
+//     with three neighbours; a block holds all query rows with their norms
+//     and r2 (up to QCAP at a time) in shared memory;
+//   * for each row a thread packs its four mask bytes into one 4-byte
+//     streaming store (a warp writes 128 contiguous bytes);
+//   * a warp is one 128-point count tile: one warp reduction adds its lanes'
+//     hits, lane l keeps row l's count and the lanes store 32 rows' counts
+//     together, so counts need no shared memory or atomics and are the same
+//     in every run;
+//   * the clamp is folded into the threshold (r2_test); rows are unrolled by
+//     4 and the d = 8 body is held to 80 registers, so 6 blocks of 128
+//     threads share an SM.
+// Mask rows whose start is not 4-B aligned (np % 4 != 0) and the ragged last
+// points are stored byte by byte.
 //
 // Padding: callers pad points with the finite 1e30, whose squared norm is
-// +inf, so a padded cell is +inf and never a hit.  The clamp in gram.cuh
-// keeps a NaN, and NaN <= r2 is false, so a NaN cell is never a hit either.
-//
-// First, unoptimised version: byte-wide mask stores, no pipelining.
+// +inf, so a padded cell is +inf and never a hit.  A NaN distance passes no
+// test, so a NaN cell is never a hit either; points past np get a NaN norm
+// and so never count.
 #include <cuda_runtime.h>
 
-#include "gram.cuh"
+#include "stream.cuh"
 
 namespace {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BP = 128;         // points per block (= count tile = threads)
-constexpr int PSTR = BP + 1;
-constexpr int WARPS = BP / 32;
+using namespace stream;
 
-__global__ void __launch_bounds__(BP)
+constexpr int TILE = 32 * PPT;          // points per count tile: one warp
+static_assert(TILE == 128, "the wrappers' count tile is 128 points");
+
+// The test d2 <= r2 on the unclamped distance v against r2e = (r2 < 0 ? NaN
+// : r2).  It decides as (v < 0 ? 0 : v) <= r2 does: for r2 >= 0 a negative v
+// passes both (0 <= r2 and v < 0 <= r2), any other v is its own clamp; a
+// negative r2 holds no clamped distance and NaN holds none; a NaN v passes
+// neither.  So the clamp costs nothing here.
+__device__ __forceinline__ float r2_test(float r2) {
+    return r2 < 0.f ? nan_f() : r2;
+}
+
+// Query rows [0, nc) of the chunk against the thread's points: m is the
+// thread's first mask byte of the chunk's first row, c the warp's count of
+// it.  WHOLE: the thread's four bytes of a row are in range and 4-B aligned.
+// Each row's count is one warp reduction of the lanes' hits; lane l keeps
+// row i0 + l's, and every 32 rows the lanes store theirs together.
+template <bool WHOLE, int D>
+__device__ __forceinline__ void filter_rows(
+        const Points<D>& pts, const float* q_s, const float2* qr_s,
+        int dd, int nc, unsigned char* m, int* c, long long np,
+        long long ntiles, long long live, int lane) {
+    for (int i0 = 0; i0 < nc; i0 += 32) {
+        const int n32 = min(32, nc - i0);
+        unsigned mine = 0;
+        unsigned char* mi = m + i0 * np;
+#pragma unroll 4
+        for (int ii = 0; ii < n32; ++ii, mi += np) {
+            const int i = i0 + ii;
+            float g[PPT];
+            pts.gram(q_s + i * dd, dd, g);
+            const float2 qr = qr_s[i];
+            const unsigned w =
+                (gram_raw(qr.x, pts.n[0], g[0]) <= qr.y ? 0x1u : 0u)
+                | (gram_raw(qr.x, pts.n[1], g[1]) <= qr.y ? 0x100u : 0u)
+                | (gram_raw(qr.x, pts.n[2], g[2]) <= qr.y ? 0x10000u : 0u)
+                | (gram_raw(qr.x, pts.n[3], g[3]) <= qr.y ? 0x1000000u : 0u);
+            if (WHOLE) {
+                __stcs(reinterpret_cast<unsigned*>(mi), w);
+            } else {
+#pragma unroll
+                for (int j = 0; j < PPT; ++j)
+                    if (j < live) mi[j] = (unsigned char)((w >> (8 * j)) & 1u);
+            }
+            const unsigned total = __reduce_add_sync(0xffffffffu, __popc(w));
+            if (ii == lane) mine = total;
+        }
+        if (lane < n32) c[(i0 + lane) * ntiles] = (int)mine;
+    }
+}
+
+// The register body at d = 8 is held to 6 blocks an SM (at most 80
+// registers): more warps to hide the latency of its dependent f32 chains.
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 8 ? 6 : 1)
 range_filter_kernel(const float* __restrict__ q, const float* __restrict__ p,
                     const float* __restrict__ r2,
                     unsigned char* __restrict__ mask, int* __restrict__ cnt,
-                    int nq, int np, int d) {
-    extern __shared__ float smem[];
-    __shared__ int wcnt[BQ][WARPS];
-    float* q_s = smem;                  // (BQ, d)
-    float* p_s = q_s + BQ * d;          // (d, PSTR)
-    float* qn_s = p_s + d * PSTR;       // (BQ,)
-    const int j = threadIdx.x;
-    const int lane = j & 31;
-    const int warp = j >> 5;
-    const long long p0 = (long long)blockIdx.x * BP;
-    const int q0 = blockIdx.y * BQ;
-    const int nqt = min(BQ, nq - q0);
-    const int npt = (int)min((long long)BP, (long long)np - p0);
+                    int nq, int np, int d, int qcap, bool vec) {
+    extern __shared__ float4 smem[];
+    const int dd = D > 0 ? D : d;
+    float2* qr_s = reinterpret_cast<float2*>(smem);   // (qcap,) of (qn, r2e)
+    float* q_s = reinterpret_cast<float*>(qr_s + qcap);   // (qcap, dd)
+    const int lane = threadIdx.x & 31;
+    const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
+    const long long tile = pt / TILE;
+    const long long ntiles = ((long long)np + TILE - 1) / TILE;
+    Points<D> pts;
+    pts.load(p, pt, np, dd);
+    const long long live = np - pt;         // points of the thread in range
+    const bool whole = vec && live >= PPT;
 
-    for (int e = j; e < nqt * d; e += BP) q_s[e] = q[(long long)q0 * d + e];
-    for (int e = j; e < npt * d; e += BP) {
-        const int jj = e / d;
-        p_s[(e - jj * d) * PSTR + jj] = p[p0 * d + e];
-    }
-    __syncthreads();
-    if (j < nqt) qn_s[j] = sq_norm(q_s + j * d, 1, d);
-    __syncthreads();
-
-    const bool live = j < npt;
-    const float pn = live ? sq_norm(p_s + j, PSTR, d) : 0.f;
-    unsigned char* m = mask + (long long)q0 * np + p0 + j;
-    for (int i = 0; i < nqt; ++i) {
-        bool hit = false;
-        if (live) {
-            const float d2 = gram_sq(qn_s[i], pn, q_s + i * d, 1, p_s + j,
-                                     PSTR, d);
-            hit = d2 <= r2[q0 + i];
-            m[(long long)i * np] = (unsigned char)hit;
+    for (int c0 = 0; c0 < nq; c0 += qcap) {
+        const int nc = min(qcap, nq - c0);
+        __syncthreads();                    // the previous chunk is done
+        if ((int)threadIdx.x < nc) {
+            const int i = c0 + threadIdx.x;
+            const float qn = load_query<D>(q, i, dd, q_s + threadIdx.x * dd);
+            qr_s[threadIdx.x] = make_float2(qn, r2_test(__ldg(r2 + i)));
         }
-        const unsigned bal = __ballot_sync(0xffffffffu, hit);
-        if (lane == 0) wcnt[i][warp] = __popc(bal);
+        __syncthreads();
+        if (tile >= ntiles) continue;       // the whole warp lies past np
+        unsigned char* m = mask + (long long)c0 * np + pt;
+        int* c = cnt + (long long)c0 * ntiles + tile;
+        if (__all_sync(0xffffffffu, whole))
+            filter_rows<true>(pts, q_s, qr_s, dd, nc, m, c, np, ntiles, live,
+                              lane);
+        else
+            filter_rows<false>(pts, q_s, qr_s, dd, nc, m, c, np, ntiles,
+                               live, lane);
     }
-    __syncthreads();
-    if (j < nqt) {
-        int c = 0;
-        for (int w = 0; w < WARPS; ++w) c += wcnt[j][w];
-        cnt[(long long)(q0 + j) * gridDim.x + blockIdx.x] = c;
-    }
+}
+
+template <int D>
+int launch(const float* q, const float* p, const float* r2,
+           unsigned char* mask, int* cnt, int nq, int np, int d,
+           cudaStream_t stream) {
+    const int qcap = query_cap(d, 2);
+    if (qcap < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)qcap * (d + 2) * sizeof(float);
+    const cudaError_t e = allow_smem(range_filter_kernel<D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = np % PPT == 0 && aligned(mask, PPT);
+    const unsigned grid = (unsigned)((np + BP - 1) / BP);
+    range_filter_kernel<D><<<grid, THREADS, smem, stream>>>(
+        q, p, r2, mask, cnt, nq, np, d, qcap, vec);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -86,16 +159,13 @@ extern "C" int range_filter(const void* q, const void* p, const void* r2,
                             void* mask, void* cnt, int nq, int np, int d,
                             void* stream) {
     if (nq <= 0 || np <= 0) return 0;
-    const size_t smem = (size_t)(BQ * d + d * PSTR + BQ) * sizeof(float);
-    if (smem > 48 * 1024 - sizeof(int) * BQ * WARPS) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            range_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    const float *qf = (const float*)q, *pf = (const float*)p,
+                *rf = (const float*)r2;
+    unsigned char* mf = (unsigned char*)mask;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (body_width(d, q, p)) {
+        case 8: return launch<8>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
+        case 32: return launch<32>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
+        default: return launch<0>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
     }
-    const dim3 grid((unsigned)((np + BP - 1) / BP), (unsigned)((nq + BQ - 1) / BQ));
-    range_filter_kernel<<<grid, BP, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)p, (const float*)r2,
-        (unsigned char*)mask, (int*)cnt, nq, np, d);
-    return (int)cudaGetLastError();
 }

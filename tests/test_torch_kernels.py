@@ -57,7 +57,8 @@ def _rank_inputs(g, b, c, seed=3):
 # ---------------------------------------------------------------- pdist
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("nq,npts,d", [(64, 128, 8), (137, 301, 33),
-                                       (1, 257, 128), (128, 128, 4)])
+                                       (1, 257, 128), (128, 128, 4),
+                                       (137, 4099, 8), (65, 1001, 8)])
 def test_pdist_matches_reference(ref_ops, nq, npts, d, bf16):
     q = _normal((nq, d), 1)
     p = _normal((npts, d), 2)
@@ -174,7 +175,8 @@ def test_rankeval_matches_host_model():
 
 # ----------------------------------------------------------- range_filter
 @pytest.mark.parametrize("nq,npts,d", [(64, 256, 16), (137, 301, 33),
-                                       (5, 45, 8), (3, 1, 4)])
+                                       (5, 45, 8), (3, 1, 4),
+                                       (137, 4099, 8), (65, 1001, 8)])
 def test_range_filter_matches_reference(ref_ops, ref_ref, nq, npts, d):
     """Mask equal to the reference kernel's; counts equal to the
     reference oracle's per 128-point tile, including the last tile,
@@ -303,20 +305,16 @@ def test_mixed_devices_rejected():
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the same card
-    inputs: pdist within rtol 1e-5 / atol 1e-5*d; pdist l1 and linf,
-    rankeval and range_filter exactly (they share the plain versions'
-    operation order), NaN rows included; fused vs staged bitwise; one
-    counted launch per call."""
+    inputs, bit for bit (each shares its plain version's operation
+    order): pdist sql2, l1 and linf, rankeval and range_filter, NaN rows
+    included; fused vs staged bitwise; one counted launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     _cuda.reset_launches()
     q, piv, coef, lo, hi, n, rg = (_t(a).to(dev) for a in _plan_inputs())
     p = _t(_normal((1000, 8), 2)).to(dev)
-    got = ops.pdist(q, p)
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               pdist_plain(q, p).cpu().numpy(),
-                               rtol=1e-5, atol=1e-5 * 8)
+    assert torch.equal(ops.pdist(q, p), pdist_plain(q, p))
     p_nan = p.clone()
     p_nan[17, 3] = float("nan")
     for metric, plain in (("l1", pdist_l1_plain), ("linf", pdist_linf_plain)):
@@ -344,6 +342,85 @@ def test_kernels_match_plain_on_card():
     assert _cuda.LAUNCHES == {"pdist": 2, "rankeval": 2, "range_filter": 1,
                               "pdist_rankeval": 1, "pdist_l1": 1,
                               "pdist_linf": 1, "flash_attention": 0}
+
+
+def _same(got, want):
+    """Equal bit for bit, NaN where the other is NaN."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got, nan=-1.0),
+                            torch.nan_to_num(want, nan=-1.0)))
+
+
+# (nq, np, d) for the streaming pdist and range_filter: query counts on
+# both sides of the 64-row chunk a block holds (65 and 137 cross it),
+# point counts that are not multiples of 4 (rows not 16-B aligned) or of
+# 128 (a partial count tile), the register bodies (d 8, 32) and the body
+# for any other width (4, 16, 33, 128)
+STREAM_CASES = ([(nq, n, 8) for nq in (1, 37, 48, 64, 65, 137)
+                 for n in (1, 127, 192, 1001, 4099)]
+                + [(37, n, d) for d in (4, 16, 32, 33, 128)
+                   for n in (127, 4099)]
+                + [(65, 1001, 32), (137, 4099, 32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,npts,d", STREAM_CASES)
+def test_streaming_kernels_match_plain_on_card(nq, npts, d):
+    """pdist and range_filter against their plain versions, bit for bit,
+    at ragged shapes, with a NaN point row and a ``FAR`` row: pdist's
+    matrix, and range_filter's mask and counts through the kernel's own
+    wrapper (no padding: np as given) with each query's squared radius
+    set exactly at one of its cells' d2, so ``<=`` is tested on the
+    boundary, and through ``ops.range_filter`` (padded to whole tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import range_filter as rf_mod
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1000 * nq + 10 * npts + d)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    p = rng.normal(size=(npts, d)).astype(np.float32)
+    if npts >= 3:
+        p[npts // 2, d // 2] = np.nan
+        p[npts - 2] = ops.FAR
+    q, p = _t(q).to(dev), _t(p).to(dev)
+    _cuda.reset_launches()
+    d2 = ops.pdist(q, p)
+    want = pdist_plain(q, p)
+    assert d2.shape == (nq, npts) and _same(d2, want)
+    rows = torch.arange(nq, device=dev)
+    j = torch.from_numpy(rng.integers(0, npts, nq)).to(dev)
+    r2 = want[rows, j]
+    r2 = torch.where(torch.isfinite(r2), r2, torch.ones_like(r2))
+    mask, cnt = rf_mod.range_filter(q, p, r2)
+    m_p, c_p = range_filter_plain(q, p, r2)
+    assert mask.shape == (nq, npts) and cnt.shape == (nq, -(-npts // 128))
+    assert torch.equal(mask, m_p) and torch.equal(cnt, c_p)
+    on_edge = torch.isfinite(want[rows, j])
+    assert bool((mask[rows, j][on_edge] == 1).all())
+    r = torch.from_numpy(rng.uniform(1.0, 4.0, nq).astype(np.float32)).to(
+        dev)
+    mask, cnt = ops.range_filter(q, p, r)
+    m_p, c_p = range_filter_plain(q, p, r * r)
+    assert torch.equal(mask, m_p) and torch.equal(cnt, c_p)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["pdist"] == 1
+    assert _cuda.LAUNCHES["range_filter"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,G", [(37, 30), (64, 192), (137, 192)])
+def test_fused_matches_staged_on_card(B, G):
+    """The fused pdist_rankeval against the staged pdist -> sqrt ->
+    rankeval chain on the card at d = 8, bit for bit: the streaming pdist
+    and fused.cu share gram.cuh's operation order; (64, 192) is the
+    planner's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    args = [_t(a).to(dev) for a in _plan_inputs(B=B, G=G, seed=B + G)]
+    fused = ops.pdist_rankeval(*args, n_rings=20)
+    for f, s in zip(fused, _staged(*args)):
+        assert torch.equal(f, s)
 
 
 # (B, Hq, Hk, Sq, Sk, D, causal): GQA and not, padded and not, causal
