@@ -38,9 +38,14 @@ Phases, each printing lines that start with its name:
             scan); structure differences pass only at ties within one
             ulp of the host's f64 distances.  The launch counters are
             zeroed before each build: pdist_l1 and pdist_linf must have
-            run in (b) and (c), and their kernel rows are timed at the
-            shape pivot_columns launched them with (torch.cdist p=1 /
-            p=inf as the library yardstick); (d) retrain: the largest
+            run exactly once in (b) and (c), pivot_columns' one grouped
+            launch (each cluster's m pivots against its own n_max member
+            slots); their kernel rows are timed at that shape (batched
+            torch.cdist p=1 / p=inf as the library yardstick), with a
+            printed line at the reference's chunked launch shape (48,
+            16 n_max); (e) L1 and L-infinity at d = 256 on GaussMix, n =
+            20,000, checked as (b) and (c) are (a width the first
+            pdist_lp.cu could not launch); (d) retrain: the largest
             cluster of the (a) index and of main's host index loses 1%
             of its rows and gains as many; a device retrain of one and a
             host retrain of the other answer identically, and "auto"
@@ -114,6 +119,7 @@ BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
 FLASH_TC_PASSES = 1.5
 
 DEVICE = "cuda"
+PROFILER_WINDOWS = 5            # one-call profiler windows per kernel row
 D = 8                           # GaussMix width every repro benchmark uses
 B = 64                          # queries per batch
 K_NN = 10
@@ -121,6 +127,9 @@ SELECTIVITY = 1e-4              # the paper's default 0.01%
 
 K_CLUSTERS, M, RINGS, DEGREE = 64, 3, 20, 8   # bench_build.py:39
 LINF_N = 200_000                # (c)'s cut n; --linf-n overrides it
+# (e): L1 and L-infinity builds at a width the old pdist_lp.cu tile could
+# not launch (d >= 202), on GaussMix, at an n that keeps (e) near 30 s
+WIDE_D, WIDE_N = 256, 20_000
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -238,7 +247,8 @@ def make_queries(X, rng, n_batches: int, metric: str = "l2"):
     Xd = torch.from_numpy(X).to(DEVICE)
     out = []
     for _ in range(n_batches):
-        Q = X[rng.choice(len(X), B)] + rng.normal(0.0, 0.003, (B, D))
+        Q = X[rng.choice(len(X), B)] + rng.normal(0.0, 0.003,
+                                                  (B, X.shape[1]))
         r = np.empty(B)
         for i, q in enumerate(torch.from_numpy(Q).to(DEVICE)):
             if metric == "l2":
@@ -533,20 +543,29 @@ def issue_floor(cells: int, instr_per_cell: int) -> str:
 
 def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
                flops, library=None, flop_per_s=F32_FLOP_PER_S, note="",
-               shape="") -> dict:
+               shape="", bare=None) -> dict:
     """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
-    the kernel's own device time under the profiler; print the row (with
-    ``note``, and ``shape`` where it is not the row's main-path shape)
-    and return it for the JSON line."""
+    the kernel's own device time under the profiler: the median over
+    the windows of PROFILER_WINDOWS single calls that hold device
+    records (torch.profiler drops a one-call window's device records
+    at random; the row says how many held them).  ``bare`` (a bare
+    ``_cuda.launch`` into a preallocated output) is timed with CUDA
+    events too.  Print the row (with ``note``, and ``shape`` where it is
+    not the row's main-path shape) and return it for the JSON line."""
     from repro_torch.kernels import _cuda
     ms = time_ms(call, iters)
     plain_ms = time_ms(plain, plain_iters)
     library_ms = time_ms(library, 10) if library else None
-    kernel_ms = device_busy(call)[1]
+    windows = [device_busy(call)[1] for _ in range(PROFILER_WINDOWS)]
+    held = [w for w in windows if w > 0.0]
+    kernel_ms = f"{np.median(held):.4f}" if held else "none"
+    launch_ms = f" launch_ms={time_ms(bare, iters):.4f}" if bare else ""
     b_ms, by = bound(nbytes, flops, flop_per_s)
     print(f"kernels: {name}{' at ' + shape if shape else ''} "
-          f"max_abs_err={err} ms={ms:.4f} "
-          f"profiler_device_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"max_abs_err={err} ms={ms:.4f}{launch_ms} "
+          f"profiler_device_ms={kernel_ms} ({len(held)} of "
+          f"{PROFILER_WINDOWS} windows held device records) "
+          f"plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({by}) library_ms={library_ms}"
           f"{' ' + note if note else ''}", flush=True)
     return {"name": name, "route": "cuda",
@@ -735,18 +754,23 @@ def phase_builder_l2(X, ix, t_host, batches, host_range, host_knn):
     return ixd
 
 
-def phase_builder_lp(metric, n):
-    """(b) or (c): Skewed (the paper's L1 data set) with ``metric``:
-    a host and a device build, their structures, 64 range and 64 kNN
-    queries through both, query 0 against brute force; then the
-    kernel's row at pivot_columns' launch shape."""
+def phase_builder_lp(metric, n, data="skewed", d=D, rows=True):
+    """(b), (c) or (e): ``data`` (Skewed, the paper's L1 data set, or
+    GaussMix) at width ``d`` with ``metric``: a host and a device build,
+    their structures, 64 range and 64 kNN queries through both, query 0
+    against brute force; the kernel launched once in the build; then
+    the kernel against its plain version at pivot_columns' grouped
+    launch shape and, with ``rows``, its row there (returned) and a
+    printed line at the reference's chunked launch shape."""
     from repro_torch.build import cluster_major
     from repro_torch.core.metrics import dist_one_to_many
-    from repro_torch.data.datasets import skewed
+    from repro_torch.data.datasets import gauss_mix, skewed
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.pdist import METRICS
     name, plain = METRICS[metric]
-    X = skewed(n, D, seed=0)
+    X = (skewed if data == "skewed" else gauss_mix)(n, d, seed=0)
+    tag = f"{metric} {'Skewed' if data == 'skewed' else 'GaussMix'} n={n}" \
+          + ("" if d == D else f" d={d}")
     t0 = time.perf_counter()
     host = lims_index(X, metric)
     t_host = time.perf_counter() - t0
@@ -756,9 +780,10 @@ def phase_builder_lp(metric, n):
     dev = lims_index(X, metric, backend="device")
     t_dev = time.perf_counter() - t0
     counts = dict(_cuda.LAUNCHES)
-    check(counts[name] > 0, f"builder: the {metric} build launched no {name}")
-    print_build(f"{metric} Skewed n={n}", dev, t_dev, t_host, counts)
-    compare_structures(metric, X, metric, host, dev)
+    check(counts[name] == 1, f"builder: the {tag} build launched {name} "
+          f"{counts[name]} times, not once")
+    print_build(tag, dev, t_dev, t_host, counts)
+    compare_structures(tag, X, metric, host, dev)
 
     (Q, rs), = make_queries(X, np.random.default_rng(2), 1, metric)
     t_q = {"host": 0.0, "device": 0.0}
@@ -770,7 +795,7 @@ def phase_builder_lp(metric, n):
         t_q["host"] += t1 - t0
         t_q["device"] += time.perf_counter() - t1
         check(same_range(got_r, want_r) and same_knn(got_k, want_k),
-              f"builder: {metric} query {b}: the device-built index differs "
+              f"builder: {tag} query {b}: the device-built index differs "
               f"from the host build")
         if b == 0:
             dist = dist_one_to_many(q, X, metric)
@@ -778,37 +803,69 @@ def phase_builder_lp(metric, n):
             top = np.argsort(dist, kind="stable")[:K_NN]
             check(same_range(got_r, (hit, dist[hit]))
                   and same_knn(got_k, (top, dist[top])),
-                  f"builder: {metric} query 0 differs from brute force")
-    print(f"builder: {metric} {B} range (selectivity {SELECTIVITY}) and {B} "
+                  f"builder: {tag} query 0 differs from brute force")
+    print(f"builder: {tag} {B} range (selectivity {SELECTIVITY}) and {B} "
           f"kNN (k={K_NN}) queries identical between the device- and "
           f"host-built index; query 0 equals the f64 brute-force scan; "
           f"host query path s={json.dumps(t_q)}", flush=True)
 
-    # the kernel at the shape pivot_columns launched it with: the first
-    # chunk of 16 clusters (every full chunk has this shape)
+    # the kernel at the shape pivot_columns launches it with: every
+    # cluster's m pivots against its own n_max member slots
     member_idx, _, _, n_max = cluster_major(dev.clustering.members)
-    cc = min(16, dev.K)
+    K = dev.K
     Xf = torch.from_numpy(X.astype(np.float32)).to(DEVICE)
-    p = Xf[torch.from_numpy(member_idx[:cc].reshape(-1)).to(DEVICE)]
+    p = Xf[torch.from_numpy(member_idx).to(DEVICE)]
     q = Xf[torch.from_numpy(
-        np.stack([ci.pivot_idx for ci in dev.clusters[:cc]]).reshape(-1)
-    ).to(DEVICE)]
+        np.stack([ci.pivot_idx for ci in dev.clusters])).to(DEVICE)]
     del Xf, host, dev
-    got = ops.pdist(q, p, metric)
+    m = q.shape[1]
+    got = ops.pdist_grouped(q, p, metric)
     want = plain(q, p)
-    check(torch.equal(got, want), f"{name} differs from its plain version")
+    check(torch.equal(got, want), f"{name} differs from its plain version "
+          f"at pivot_columns' shape ({K}, {m}, {n_max}, d {d})")
     err = float((got - want).abs().max())
     del got, want
-    nq, npts = q.shape[0], p.shape[0]
-    print(f"kernels: {name} at pivot_columns' launch shape ({nq}, {npts}, "
-          f"d {D}) (cc={cc}, n_max={n_max}) equals its plain version bit "
-          f"for bit", flush=True)
-    return kernel_row(
-        name, counts[name], err, lambda: ops.pdist(q, p, metric), 20,
-        lambda: plain(q, p), 3, 4.0 * (nq * D + npts * D + nq * npts),
-        3.0 * D * nq * npts,
-        library=lambda: torch.cdist(q, p, p=1.0 if metric == "l1"
-                                    else float("inf")))
+    print(f"kernels: {name} at pivot_columns' grouped launch ({K}, {m}, "
+          f"{n_max}, d {d}) equals its plain version bit for bit", flush=True)
+    if not rows:
+        return None
+    p_norm = 1.0 if metric == "l1" else float("inf")
+    out = torch.empty(K, m, n_max, device=DEVICE)
+    row = kernel_row(
+        name, counts[name], err, lambda: ops.pdist_grouped(q, p, metric), 20,
+        lambda: plain(q, p), 3,
+        4.0 * (K * m * d + K * n_max * d + K * m * n_max),
+        3.0 * d * K * m * n_max,
+        library=lambda: torch.cdist(q, p, p=p_norm),
+        shape=f"pivot_columns' grouped launch ({K}, {m}, {n_max}, d {d})",
+        bare=lambda: _cuda.launch(name, q.data_ptr(), p.data_ptr(),
+                                  out.data_ptr(), K, m, n_max, d,
+                                  device=q.device))
+
+    # and at the reference's launch shape, the chunked (cc·m, cc·n_max)
+    # pdist_pallas call (G = 1): a printed line only
+    cc = min(16, K)
+    q1 = q[:cc].reshape(cc * m, d)
+    p1 = p[:cc].reshape(cc * n_max, d)
+    del q, p, out
+    got = ops.pdist(q1, p1, metric)
+    check(torch.equal(got, plain(q1, p1)), f"{name} differs from its plain "
+          f"version at ({cc * m}, {cc * n_max}, d {d})")
+    del got
+    nq, npts = q1.shape[0], p1.shape[0]
+    out = torch.empty(nq, npts, device=DEVICE)
+    kernel_row(
+        name, counts[name], 0.0, lambda: ops.pdist(q1, p1, metric), 20,
+        lambda: plain(q1, p1), 3, 4.0 * (nq * d + npts * d + nq * npts),
+        3.0 * d * nq * npts,
+        library=lambda: torch.cdist(q1, p1, p=p_norm),
+        shape=f"the full function's ({nq}, {npts}, d {d}) (cc={cc}, "
+              f"n_max={n_max})",
+        note="(the reference's chunked launch; not on the path now)",
+        bare=lambda: _cuda.launch(name, q1.data_ptr(), p1.data_ptr(),
+                                  out.data_ptr(), 1, nq, npts, d,
+                                  device=q1.device))
+    return row
 
 
 def phase_retrain(X, ix, ixd, batches):
@@ -1387,6 +1444,9 @@ def main() -> int:
         print(f"builder: CUT: the L-infinity part (c) runs at "
               f"n={args.linf_n}, not {args.n}", flush=True)
     kernels.append(phase_builder_lp("linf", args.linf_n))
+    for metric in ("l1", "linf"):
+        phase_builder_lp(metric, WIDE_N, data="gaussmix", d=WIDE_D,
+                         rows=False)
     phase_retrain(X, ix, ixd, batches)
     print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
           flush=True)

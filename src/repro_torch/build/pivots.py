@@ -10,13 +10,15 @@ the cluster and the remaining pivot slots repeat the last distinct
 pivot).
 
 ``pivot_columns`` computes the full (K, m, n_max) pivot-distance matrix
-through the port's ``pdist`` kernels: pivots of a cluster chunk form the
-query rows, the chunk's member rows the point rows, and the block
-diagonal of the resulting (cc·m, cc·n_max) launch is gathered per
-cluster, so the kernel is the same function as ``pdist_pallas`` and
-computes cc times the cells it needs.  These f32 columns feed the
-rank-model fits only: the exact f64 columns exactness depends on are
-recomputed on the host.
+through the port's ``pdist`` kernels.  For l1 and linf one grouped
+launch compares each cluster's m pivots with its own n_max member slots
+and writes (K, m, n_max) directly.  For l2 (and cosine, which has no
+kernel) it keeps the reference's chunked launch: pivots of a cluster
+chunk form the query rows, the chunk's member rows the point rows, and
+the block diagonal of the resulting (cc·m, cc·n_max) matrix is gathered
+per cluster, cc times the cells it needs.  Both give the same f32
+values cell for cell.  These f32 columns feed the rank-model fits only:
+the exact f64 columns exactness depends on are recomputed on the host.
 """
 from __future__ import annotations
 
@@ -76,14 +78,19 @@ def fft_sweeps(rows: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor,
 def pivot_columns(rows: torch.Tensor, pivot_rows: torch.Tensor, metric: str,
                   chunk: int = 16) -> torch.Tensor:
     """(K, m, n_max) f32 member→pivot distances through the ``pdist``
-    kernels, chunked over clusters.
+    kernels.
 
-    One launch covers a chunk of ``cc`` clusters: queries are the
-    chunk's cc·m pivots, points its cc·n_max member slots; the needed
-    per-cluster block diagonal of the (cc·m, cc·n_max) result is then
-    gathered, so the kernel waste factor is ``cc``, not K.  Cosine has
-    no kernel: it takes the plain ``cdist``, as the reference does.
+    l1 / linf: one grouped launch, cluster k's m pivots against its own
+    n_max member slots (padded slots included).  l2 and cosine are
+    chunked over clusters: one launch covers a chunk of ``cc`` =
+    ``chunk`` clusters, queries the chunk's cc·m pivots, points its
+    cc·n_max member slots, and the needed per-cluster block diagonal of
+    the (cc·m, cc·n_max) result is then gathered, so the kernel waste
+    factor is ``cc``, not K.  Cosine has no kernel: it takes the plain
+    ``cdist``, as the reference does.
     """
+    if metric in ops.GROUPED:
+        return ops.pdist_grouped(pivot_rows, rows, metric)
     K, n_max, d = rows.shape
     m = pivot_rows.shape[1]
     outs = []
@@ -95,8 +102,6 @@ def pivot_columns(rows: torch.Tensor, pivot_rows: torch.Tensor, metric: str,
         if metric == "l2":
             dist = torch.sqrt(torch.clamp(ops.pdist(q, p, metric="sql2"),
                                           min=0.0))
-        elif metric in ("l1", "linf"):
-            dist = ops.pdist(q, p, metric=metric)
         elif metric == "cosine":
             dist = cdist(q, p, metric)
         else:

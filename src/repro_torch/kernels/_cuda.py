@@ -16,8 +16,9 @@ identical to the plain PyTorch versions' operation order (the sources
 also spell every step with round-to-nearest intrinsics).
 
 Every C entry point takes its pointers and the stream as ``void*`` and
-returns the launch's ``cudaGetLastError()``; :func:`launch` raises on a
-nonzero code and otherwise counts the launch in :data:`LAUNCHES`.  A
+returns the launch's ``cudaGetLastError()``; :func:`launch` makes the
+operands' device current, passes that device's current stream, raises
+on a nonzero code and otherwise counts the launch in :data:`LAUNCHES`.  A
 kernel with one entry point per operand type (``flash_attention_f32``
 and ``flash_attention_bf16``, one template) names them in
 :data:`VARIANTS`; its launches are counted under the kernel's name.
@@ -55,8 +56,8 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "rankeval": ("rankeval", (_P,) * 7 + (_I,) * 4),
     "range_filter": ("range_filter", (_P,) * 5 + (_I,) * 3),
     "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
-    "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I)),
-    "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I)),
+    "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I, _I)),
+    "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I, _I)),
     "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 8),
 }
 # kernel name -> the variants of its C symbol (one per operand type)
@@ -153,15 +154,18 @@ def _load() -> None:
             _FUNCS[name, variant] = fn
 
 
-def launch(name: str, *args, variant: str | None = None) -> None:
+def launch(name: str, *args, device: torch.device,
+           variant: str | None = None) -> None:
     """Launch kernel ``name`` (its entry point ``variant``, for a kernel
-    listed in :data:`VARIANTS`) on PyTorch's current stream.  ``args``
-    are the C arguments before the stream (device pointers as ints).
-    Raises ``RuntimeError`` if the launch reports a CUDA error."""
+    listed in :data:`VARIANTS`) on ``device``, the operands' device:
+    with it made current, on its current stream.  ``args`` are the C
+    arguments before the stream (device pointers as ints).  Raises
+    ``RuntimeError`` if the launch reports a CUDA error."""
     if not _FUNCS:
         _load()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _FUNCS[name, variant](*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _FUNCS[name, variant](*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")

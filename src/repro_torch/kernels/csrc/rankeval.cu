@@ -11,7 +11,9 @@
 // card's rate.  At the staged plan's shape (192 x 2B) it is a single small
 // launch and bound by launch overhead.  One thread per value, neighbouring
 // threads on neighbouring values of one group, so loads and stores coalesce;
-// the group's coefficients sit in shared memory.
+// the group's coefficients sit in shared memory.  Groups run along the
+// grid's y dimension, which stops at 65,535: past that a block walks the
+// groups blockIdx.y, blockIdx.y + gridDim.y, ..., so G has no cap.
 //
 // First, unoptimised version.
 #include <cuda_runtime.h>
@@ -21,22 +23,28 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_GRID_Y = 65535;       // the grid's y dimension at most
 
 __global__ void __launch_bounds__(THREADS)
 rankeval_kernel(const float* __restrict__ x, const float* __restrict__ coef,
                 const float* __restrict__ lo, const float* __restrict__ hi,
                 const float* __restrict__ n, int* __restrict__ rank,
-                int* __restrict__ rid, int B, int n_coef, int n_rings) {
+                int* __restrict__ rid, int G, int B, int n_coef,
+                int n_rings) {
     extern __shared__ float c_s[];
-    const int g = blockIdx.y;
-    for (int k = threadIdx.x; k < n_coef; k += THREADS)
-        c_s[k] = coef[(long long)g * n_coef + k];
-    __syncthreads();
     const long long b = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (b >= B) return;
-    const long long i = (long long)g * B + b;
-    rank_math(x[i], c_s, n_coef, lo[g], hi[g], n[g], n_rings, rank + i,
-              rid + i);
+    for (int g = blockIdx.y; g < G; g += gridDim.y) {
+        if (g != (int)blockIdx.y)
+            __syncthreads();            // the last group's c_s is read
+        for (int k = threadIdx.x; k < n_coef; k += THREADS)
+            c_s[k] = coef[(long long)g * n_coef + k];
+        __syncthreads();
+        if (b < B) {
+            const long long i = (long long)g * B + b;
+            rank_math(x[i], c_s, n_coef, lo[g], hi[g], n[g], n_rings,
+                      rank + i, rid + i);
+        }
+    }
 }
 
 }  // namespace
@@ -46,11 +54,12 @@ extern "C" int rankeval(const void* x, const void* coef, const void* lo,
                         const void* hi, const void* n, void* rank, void* rid,
                         int G, int B, int n_coef, int n_rings, void* stream) {
     if (G <= 0 || B <= 0) return 0;
-    const dim3 grid((unsigned)((B + THREADS - 1) / THREADS), (unsigned)G);
+    const dim3 grid((unsigned)((B + THREADS - 1) / THREADS),
+                    (unsigned)(G < MAX_GRID_Y ? G : MAX_GRID_Y));
     rankeval_kernel<<<grid, THREADS, (size_t)n_coef * sizeof(float),
                       (cudaStream_t)stream>>>(
         (const float*)x, (const float*)coef, (const float*)lo,
-        (const float*)hi, (const float*)n, (int*)rank, (int*)rid, B, n_coef,
-        n_rings);
+        (const float*)hi, (const float*)n, (int*)rank, (int*)rid, G, B,
+        n_coef, n_rings);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// The streaming tile shared by pdist.cu and range_filter.cu.
+// The streaming tile shared by pdist.cu, range_filter.cu and pdist_lp.cu.
 //
-// Both kernels are bound by their output stream: every (query, point) cell
+// The kernels are bound by their output stream: every (query, point) cell
 // costs a handful of f32 operations and one store, and the points are read
 // once.  So a block of THREADS threads owns BP = THREADS * PPT consecutive
 // points and ALL query rows (in chunks of at most QCAP rows held in shared
@@ -23,7 +23,15 @@
 // Points<D> holds the coordinates in registers, for a width D known at
 // compile time (a multiple of 4, rows 16-B aligned); Points<0> is the
 // body for any other width: it reads the coordinates from device memory
-// (through L1) for each query row.
+// (through L1) for each query row.  NORM (the default) also sums each
+// point's squared norm for the Gram bodies; the L1 / L-infinity bodies
+// (pdist_lp.cu) pass NORM = false and leave the norms unset.
+//
+// lp<Op>() is those bodies' loop: Op::step folds a = |q[k] - x[k]| into
+// the running value from k = 0 upwards, each difference rounded to
+// nearest (__fsub_rn).  The value starts at the first term, not at +0,
+// and that changes no result: a is +0 or more, or NaN, so +0 + a is a
+// and `a > +0 || a != a ? a : +0` is a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,7 +52,7 @@ static_assert(QCAP <= THREADS, "one thread loads each query row");
 // no ball holds; its outputs are never stored.
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
 
-template <int D>
+template <int D, bool NORM = true>
 struct Points {
     static_assert(D > 0 && D % 4 == 0, "register body needs D % 4 == 0");
     float x[PPT][D];
@@ -70,11 +78,13 @@ struct Points {
 #pragma unroll
                 for (int k = 0; k < D; ++k) x[j][k] = 0.f;
             }
-            float s = 0.f;
+            if constexpr (NORM) {
+                float s = 0.f;
 #pragma unroll
-            for (int k = 0; k < D; ++k)
-                s = __fadd_rn(s, __fmul_rn(x[j][k], x[j][k]));
-            n[j] = live ? s : nan_f();
+                for (int k = 0; k < D; ++k)
+                    s = __fadd_rn(s, __fmul_rn(x[j][k], x[j][k]));
+                n[j] = live ? s : nan_f();
+            }
         }
     }
 
@@ -96,10 +106,31 @@ struct Points {
             }
         }
     }
+
+    // v[j] = Op over k of |q[k] - x_j[k]| for the query row q in shared
+    // memory.
+    template <class Op>
+    __device__ __forceinline__ void lp(const float* __restrict__ q, int,
+                                       float (&v)[PPT]) const {
+        const float4* q4 = reinterpret_cast<const float4*>(q);
+#pragma unroll
+        for (int k4 = 0; k4 < D / 4; ++k4) {
+            const float4 w = q4[k4];
+#pragma unroll
+            for (int j = 0; j < PPT; ++j) {
+                const float* xj = x[j] + 4 * k4;
+                const float a = fabsf(__fsub_rn(w.x, xj[0]));
+                v[j] = k4 == 0 ? a : Op::step(v[j], a);
+                v[j] = Op::step(v[j], fabsf(__fsub_rn(w.y, xj[1])));
+                v[j] = Op::step(v[j], fabsf(__fsub_rn(w.z, xj[2])));
+                v[j] = Op::step(v[j], fabsf(__fsub_rn(w.w, xj[3])));
+            }
+        }
+    }
 };
 
-template <>
-struct Points<0> {
+template <bool NORM>
+struct Points<0, NORM> {
     const float* x;         // the first point's row (clamped in bounds)
     int last;               // the last of the thread's points in range
     int d;
@@ -110,9 +141,11 @@ struct Points<0> {
         d = dd;
         last = (int)(np - pt > PPT ? PPT - 1 : np - pt - 1);
         x = p + (last >= 0 ? pt : np - 1) * d;
+        if constexpr (NORM) {
 #pragma unroll
-        for (int j = 0; j < PPT; ++j)
-            n[j] = j <= last ? sq_norm(row(j), 1, d) : nan_f();
+            for (int j = 0; j < PPT; ++j)
+                n[j] = j <= last ? sq_norm(row(j), 1, d) : nan_f();
+        }
     }
 
     // Point j's row, or the last live one's in place of a point past np.
@@ -128,6 +161,19 @@ struct Points<0> {
             g[j] = 0.f;
             for (int k = 0; k < d; ++k)
                 g[j] = __fadd_rn(g[j], __fmul_rn(q[k], __ldg(xj + k)));
+        }
+    }
+
+    template <class Op>
+    __device__ __forceinline__ void lp(const float* __restrict__ q, int,
+                                       float (&v)[PPT]) const {
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+            const float* xj = row(j);
+            float a = fabsf(__fsub_rn(q[0], __ldg(xj)));
+            for (int k = 1; k < d; ++k)
+                a = Op::step(a, fabsf(__fsub_rn(q[k], __ldg(xj + k))));
+            v[j] = a;
         }
     }
 };

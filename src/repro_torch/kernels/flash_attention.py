@@ -62,7 +62,7 @@ def flash_attention_cuda(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
     out = torch.empty_like(q)
     _cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, hq, hk, sq, sk, d, kv_len, int(causal),
-                 variant=_VARIANT[q.dtype])
+                 device=q.device, variant=_VARIANT[q.dtype])
     return out
 
 

@@ -38,7 +38,8 @@ def pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings: int):
     _cuda.launch("pdist_rankeval", q.data_ptr(), piv.data_ptr(),
                  coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), n.data_ptr(),
                  rg.data_ptr(), dq.data_ptr(), rank_lo.data_ptr(),
-                 rank_hi.data_ptr(), B, G, d, n_coef, n_rings)
+                 rank_hi.data_ptr(), B, G, d, n_coef, n_rings,
+                 device=q.device)
     return dq, rank_lo, rank_hi
 
 

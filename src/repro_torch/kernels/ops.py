@@ -4,6 +4,9 @@ Port of ``repro/kernels/ops.py``, with the reference's return contracts:
 
 * ``pdist(q, p, metric="sql2")`` -> (nq, np) f32 squared L2, or L1 /
   L-infinity for ``metric="l1"`` / ``"linf"``;
+* ``pdist_grouped(q, p, metric)`` -> (G, nq, np) f32 L1 / L-infinity
+  for G groups at once (no reference counterpart: the device builder's
+  per-cluster launch, ``pdist`` of each group);
 * ``rankeval(x, coef, lo, hi, n)`` -> (rank, rid), (G, B) int32;
 * ``range_filter(q, p, r)`` -> (uint8 mask (nq, np), int32 counts per
   (query, 128-point tile));
@@ -31,6 +34,7 @@ from . import pdist as _pdist
 from . import range_filter as _range_filter
 from . import rankeval as _rankeval
 from .dispatch import fused_plan_enabled
+from .pdist import GROUPED
 
 FAR = 1e30      # padding-row coordinate: outside every ball, finite
 
@@ -44,6 +48,14 @@ def pdist(q: torch.Tensor, p: torch.Tensor,
     """(nq, np) f32 pairwise distances. metric: sql2 | l1 | linf; sql2
     returns squared distances (take ``torch.sqrt`` or square radii)."""
     return _pdist.pdist(_f32(q), _f32(p), metric)
+
+
+def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
+                  metric: str) -> torch.Tensor:
+    """(G, nq, np) f32 distances of q (G, nq, d) to p (G, np, d) within
+    each group, ``pdist(q[g], p[g], metric)`` for every g in one launch.
+    metric: l1 | linf (ValueError for any other)."""
+    return _pdist.pdist_grouped(_f32(q), _f32(p), metric)
 
 
 def rankeval(x, coef, lo, hi, n, n_rings: int = 20):
@@ -96,5 +108,6 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
     return out[:, :, :sq]
 
 
-__all__ = ["pdist", "rankeval", "range_filter", "pdist_rankeval",
-           "flash_attention", "fused_plan_enabled", "FAR"]
+__all__ = ["pdist", "pdist_grouped", "rankeval", "range_filter",
+           "pdist_rankeval", "flash_attention", "fused_plan_enabled", "FAR",
+           "GROUPED"]

@@ -13,6 +13,10 @@ operation order:
 * l1: ``|q_k - p_k|`` summed from k = 0 upwards;
 * linf: the running max from 0 over k = 0 upwards, taking a NaN operand
   (as ``jnp.max`` does).
+
+:func:`pdist_grouped` (l1, linf) takes G groups at once, q (G, nq, d)
+against p (G, np, d), in one launch of the same kernels: the device
+builder's per-cluster pivot columns.
 """
 from __future__ import annotations
 
@@ -46,26 +50,31 @@ def pdist_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def _diff_abs(q: torch.Tensor, p: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.abs(q[:, k, None] - p[None, :, k])
+    return torch.abs(q[..., :, k, None] - p[..., None, :, k])
+
+
+def _lp_zeros(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(*q.shape[:-1], p.shape[-2], dtype=torch.float32,
+                       device=q.device)
 
 
 def pdist_l1_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(nq, np) f32 L1 distances in ``pdist_lp.cu``'s operation order."""
+    """(nq, np) f32 L1 distances in ``pdist_lp.cu``'s operation order;
+    (G, nq, np) for groups q (G, nq, d) and p (G, np, d)."""
     q, p = q.to(torch.float32), p.to(torch.float32)
-    s = torch.zeros(q.shape[0], p.shape[0], dtype=torch.float32,
-                    device=q.device)
-    for k in range(q.shape[1]):
+    s = _lp_zeros(q, p)
+    for k in range(q.shape[-1]):
         s = s + _diff_abs(q, p, k)
     return s
 
 
 def pdist_linf_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(nq, np) f32 L-infinity distances in ``pdist_lp.cu``'s order:
-    the max takes ``a`` when ``a > m`` or ``a`` is NaN."""
+    """(nq, np) f32 L-infinity distances in ``pdist_lp.cu``'s order
+    (the max takes ``a`` when ``a > m`` or ``a`` is NaN); (G, nq, np)
+    for groups q (G, nq, d) and p (G, np, d)."""
     q, p = q.to(torch.float32), p.to(torch.float32)
-    m = torch.zeros(q.shape[0], p.shape[0], dtype=torch.float32,
-                    device=q.device)
-    for k in range(q.shape[1]):
+    m = _lp_zeros(q, p)
+    for k in range(q.shape[-1]):
         a = _diff_abs(q, p, k)
         m = torch.where((a > m) | torch.isnan(a), a, m)
     return m
@@ -75,6 +84,8 @@ def pdist_linf_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 METRICS = {"sql2": ("pdist", pdist_plain),
            "l1": ("pdist_l1", pdist_l1_plain),
            "linf": ("pdist_linf", pdist_linf_plain)}
+# the metrics whose kernels take groups (pdist_grouped)
+GROUPED = ("l1", "linf")
 
 
 def check_operands(*ts: torch.Tensor) -> torch.device:
@@ -93,13 +104,20 @@ def check_operands(*ts: torch.Tensor) -> torch.device:
 
 def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
                kernel: str = "pdist") -> torch.Tensor:
-    nq, d = q.shape
-    npts, d2 = p.shape
+    """One launch: (nq, np) from q (nq, d) and p (np, d); the l1 / linf
+    kernels also take groups, q (G, nq, d) and p (G, np, d) -> (G, nq,
+    np)."""
+    *gq, nq, d = q.shape
+    *gp, npts, d2 = p.shape
     if d != d2:
         raise ValueError(f"feature widths differ: {d} vs {d2}")
-    out = torch.empty(nq, npts, dtype=torch.float32, device=q.device)
-    _cuda.launch(kernel, q.data_ptr(), p.data_ptr(), out.data_ptr(), nq,
-                 npts, d)
+    if gq != gp or len(gq) > (0 if kernel == "pdist" else 1):
+        raise ValueError(f"{kernel}: groups of q {tuple(q.shape)} and p "
+                         f"{tuple(p.shape)} do not match")
+    out = torch.empty(*gq, nq, npts, dtype=torch.float32, device=q.device)
+    groups = () if kernel == "pdist" else (gq[0] if gq else 1,)
+    _cuda.launch(kernel, q.data_ptr(), p.data_ptr(), out.data_ptr(),
+                 *groups, nq, npts, d, device=q.device)
     return out
 
 
@@ -109,6 +127,24 @@ def pdist(q: torch.Tensor, p: torch.Tensor,
     (``sql2``), L1 or L-infinity."""
     if metric not in METRICS:
         raise ValueError(f"pdist: unknown metric {metric!r}")
+    kernel, plain = METRICS[metric]
+    if check_operands(q, p).type == "cuda":
+        return pdist_cuda(q, p, kernel)
+    return plain(q, p)
+
+
+def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
+                  metric: str) -> torch.Tensor:
+    """(G, nq, np) f32 distances between the rows of q[g] and p[g] for
+    every group g, q (G, nq, d) and p (G, np, d): L1 or L-infinity only.
+    On CUDA tensors one launch for all groups."""
+    if metric not in GROUPED:
+        raise ValueError(f"pdist_grouped: metric {metric!r} is not one of "
+                         f"{GROUPED}")
+    if q.dim() != 3 or p.dim() != 3 or q.shape[0] != p.shape[0] \
+            or q.shape[2] != p.shape[2]:
+        raise ValueError(f"pdist_grouped: q {tuple(q.shape)} and p "
+                         f"{tuple(p.shape)} are not (G, nq, d), (G, np, d)")
     kernel, plain = METRICS[metric]
     if check_operands(q, p).type == "cuda":
         return pdist_cuda(q, p, kernel)

@@ -38,7 +38,8 @@ def range_filter_cuda(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
     cnt = torch.empty(nq, -(-npts // TILE), dtype=torch.int32,
                       device=q.device)
     _cuda.launch("range_filter", q.data_ptr(), p.data_ptr(), r2.data_ptr(),
-                 mask.data_ptr(), cnt.data_ptr(), nq, npts, d)
+                 mask.data_ptr(), cnt.data_ptr(), nq, npts, d,
+                 device=q.device)
     return mask, cnt
 
 

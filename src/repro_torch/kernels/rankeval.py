@@ -51,7 +51,8 @@ def rankeval_cuda(x, coef, lo, hi, n, n_rings: int):
     rid = torch.empty_like(rank)
     _cuda.launch("rankeval", x.data_ptr(), coef.data_ptr(), lo.data_ptr(),
                  hi.data_ptr(), n.data_ptr(), rank.data_ptr(),
-                 rid.data_ptr(), g, b, coef.shape[1], n_rings)
+                 rid.data_ptr(), g, b, coef.shape[1], n_rings,
+                 device=x.device)
     return rank, rid
 
 

@@ -162,6 +162,68 @@ def test_pivot_columns_match_reference(built, ref):
         np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
+def _chunked_columns(rows, prow, metric, chunk):
+    """The reference's chunked pivot columns through the port's
+    ``ops.pdist``: a chunk's (cc·m, cc·n_max) matrix, then its
+    per-cluster block diagonal."""
+    from repro_torch.kernels import ops
+    K, n_max, d = rows.shape
+    m = prow.shape[1]
+    outs = []
+    for c0 in range(0, K, chunk):
+        cc = min(chunk, K - c0)
+        dist = ops.pdist(prow[c0:c0 + cc].reshape(cc * m, d),
+                         rows[c0:c0 + cc].reshape(cc * n_max, d), metric)
+        ar = torch.arange(cc, device=dist.device)
+        outs.append(dist.reshape(cc, m, cc, n_max)[ar, :, ar, :])
+    return torch.cat(outs)
+
+
+def _lp_columns_inputs(device, K=7, n_max=384, m=3, d=8):
+    """Cluster-major rows with zero-padded slots past each cluster's
+    count, and each cluster's m pivot rows among its members."""
+    rng = np.random.default_rng(K + n_max + d)
+    X = skewed(K * n_max, d, seed=5).astype(np.float32)
+    rows = X.reshape(K, n_max, d).copy()
+    counts = rng.integers(1, n_max + 1, K)
+    for k in range(K):
+        rows[k, counts[k]:] = rows[k, 0]        # padding holds row 0
+    prow = np.stack([rows[k, rng.integers(0, counts[k], m)]
+                     for k in range(K)])
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(prow).to(device))
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("chunk", [1, 3, 16])
+def test_pivot_columns_grouped_equals_chunked(metric, chunk):
+    """For l1 and linf ``pivot_columns`` is one grouped launch; it
+    equals the chunked launch and gather bit for bit, padded slots
+    included, whatever the chunk (which it no longer reads)."""
+    rows, prow = _lp_columns_inputs(CPU)
+    got = pivot_columns(rows, prow, metric, chunk=chunk)
+    assert got.shape == (7, 3, 384)
+    assert torch.equal(got, _chunked_columns(rows, prow, metric, chunk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("K,n_max,d", [(7, 384, 8), (64, 1024, 8),
+                                       (5, 256, 256)])
+def test_pivot_columns_grouped_equals_chunked_on_card(metric, K, n_max, d):
+    """On the card: the grouped launch against the chunked launch and
+    gather (the G = 1 kernel), ``torch.equal``; one launch in all for
+    the grouped columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rows, prow = _lp_columns_inputs(torch.device("cuda"), K, n_max, d=d)
+    _cuda.reset_launches()
+    got = pivot_columns(rows, prow, metric)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["pdist_" + metric] == 1
+    assert torch.equal(got, _chunked_columns(rows, prow, metric, 16))
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_one_to_all_close_to_host(metric):
     """The f64 sweep distances against the host's ``dist_one_to_many``:

@@ -9,14 +9,17 @@ themselves are held against those plain versions by the ``gpu``-marked
 test at the end, which skips where there is no card.  The reference is
 imported inside fixtures, so that test also runs where JAX is absent.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels.fused import pdist_rankeval_plain
-from repro_torch.kernels.pdist import (gram_sq_plain, pdist_l1_plain,
-                                       pdist_linf_plain, pdist_plain)
+from repro_torch.kernels.pdist import (METRICS, gram_sq_plain,
+                                       pdist_l1_plain, pdist_linf_plain,
+                                       pdist_plain)
 from repro_torch.kernels.range_filter import range_filter_plain
 from repro_torch.kernels.rankeval import rank_math_plain
 
@@ -119,6 +122,51 @@ def test_pdist_lp_nan_rows(ref_ops, metric):
 def test_pdist_unknown_metric_rejected():
     with pytest.raises(ValueError, match="metric"):
         ops.pdist(torch.zeros(2, 3), torch.zeros(4, 3), "l3")
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("G,nq,npts,d", [(3, 5, 40, 8), (4, 37, 301, 33),
+                                         (2, 1, 129, 202)])
+def test_pdist_grouped_matches_per_group(ref_ops, G, nq, npts, d, metric):
+    """The grouped plain version (``ops.pdist_grouped`` on the CPU)
+    equals the per-group plain version bit for bit, NaN cells included,
+    and each group equals the reference's ``pdist_pallas`` at the
+    tolerances of test_pdist_lp_matches_reference: linf equal, l1 within
+    d * 2**-24 relative (another summation order)."""
+    q = _normal((G, nq, d), 5)
+    p = _normal((G, npts, d), 6)
+    p[G - 1, npts // 2, d // 2] = np.nan
+    q[0, nq - 1, 0] = np.nan
+    got = ops.pdist_grouped(_t(q), _t(p), metric)
+    assert got.shape == (G, nq, npts) and got.dtype == torch.float32
+    plain = METRICS[metric][1]
+    for g in range(G):
+        assert _same(got[g], plain(_t(q[g]), _t(p[g])))
+        want = np.asarray(ref_ops.pdist(q[g], p[g], metric))
+        mine = got[g].numpy()
+        assert np.array_equal(np.isnan(mine), np.isnan(want))
+        ok = ~np.isnan(want)
+        if metric == "linf":
+            assert np.array_equal(mine[ok], want[ok])
+        else:
+            np.testing.assert_allclose(mine[ok], want[ok],
+                                       rtol=d * 2.0 ** -24)
+    assert torch.isnan(got[G - 1, :, npts // 2]).all()
+    assert torch.isnan(got[0, nq - 1]).all()
+
+
+@pytest.mark.parametrize("metric", ["sql2", "l2", "cosine", "l3"])
+def test_pdist_grouped_rejects_other_metrics(metric):
+    with pytest.raises(ValueError, match="metric"):
+        ops.pdist_grouped(torch.zeros(2, 3, 4), torch.zeros(2, 5, 4), metric)
+
+
+@pytest.mark.parametrize("q_shape,p_shape", [((3, 4), (5, 4)),
+                                             ((2, 3, 4), (3, 5, 4)),
+                                             ((2, 3, 4), (2, 5, 6))])
+def test_pdist_grouped_rejects_mismatched_groups(q_shape, p_shape):
+    with pytest.raises(ValueError, match="pdist_grouped"):
+        ops.pdist_grouped(torch.zeros(q_shape), torch.zeros(p_shape), "l1")
 
 
 def test_gram_clamp_keeps_nan():
@@ -274,6 +322,8 @@ def test_cpu_tensors_launch_nothing():
     ops.pdist(a[0], a[1])
     ops.pdist(a[0], a[1], "l1")
     ops.pdist(a[0], a[1], "linf")
+    ops.pdist_grouped(a[0][None], a[1][None], "l1")
+    ops.pdist_grouped(a[0][None], a[1][None], "linf")
     ops.range_filter(a[0], a[1], a[6])
     ops.pdist_rankeval(*a)
     _staged(*a)
@@ -293,6 +343,56 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda, "CUDA_ROOTS", ())
     with pytest.raises(RuntimeError, match="nvcc"):
         _cuda.build(build_dir=tmp_path / "build")
+
+
+class _FakeCudaDevice:
+    """Stands in for ``torch.cuda.device``: records entry and exit."""
+    log: list = []
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        self.log.append(("enter", self.device))
+
+    def __exit__(self, *exc):
+        self.log.append(("exit", self.device))
+        return False
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_launch_enters_operands_device(monkeypatch, err):
+    """``_cuda.launch`` makes the operands' device current and hands the
+    entry point that device's current stream, inside the device's
+    context; it counts a launch only when the entry point returns 0 and
+    leaves the context either way.  ``torch.cuda.device`` and
+    ``current_stream`` are mocked and the entry point is a fake one in
+    ``_FUNCS``, so no card is needed."""
+    log = []
+    monkeypatch.setattr(_FakeCudaDevice, "log", log)
+    monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
+
+    def current_stream(device=None):
+        log.append(("stream", device))
+        return SimpleNamespace(cuda_stream=1000 + torch.device(device).index)
+
+    def entry(*args):
+        log.append(("call", args))
+        return err
+
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setitem(_cuda._FUNCS, ("pdist_l1", None), entry)
+    monkeypatch.setitem(_cuda.LAUNCHES, "pdist_l1", 0)
+    dev = torch.device("cuda", 1)
+    args = (11, 12, 13, 1, 2, 3, 4)
+    if err:
+        with pytest.raises(RuntimeError, match="pdist_l1"):
+            _cuda.launch("pdist_l1", *args, device=dev)
+    else:
+        _cuda.launch("pdist_l1", *args, device=dev)
+    assert log == [("enter", dev), ("stream", dev), ("call", args + (1001,)),
+                   ("exit", dev)]
+    assert _cuda.LAUNCHES["pdist_l1"] == (0 if err else 1)
 
 
 def test_mixed_devices_rejected():
@@ -405,6 +505,90 @@ def test_streaming_kernels_match_plain_on_card(nq, npts, d):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["pdist"] == 1
     assert _cuda.LAUNCHES["range_filter"] == 2
+
+
+# (G, nq, np, d) for the streaming pdist_l1 / pdist_linf: query counts
+# on both sides of the 64-row chunk (65 and 137 cross it), point counts
+# not multiples of 4 (rows not 16-B aligned, scalar stores) and a
+# ragged last block, the register bodies (d 8, 32) and the body for any
+# other width, up to widths whose old shared-memory tile failed to
+# launch (d >= 202; 784 is MNIST's); G = 1 through ops.pdist, G > 1
+# through ops.pdist_grouped, the builder's (64, 3, n_max) among them
+LP_CASES = ([(1, nq, n, 8) for nq in (1, 37, 64, 65, 137)
+             for n in (1, 127, 1001, 4099)]
+            + [(1, 37, n, d) for d in (4, 32, 33, 128, 202, 256, 784)
+               for n in (127, 1001)]
+            + [(1, 137, 1001, 784), (1, 65, 4099, 202),
+               (3, 3, 1001, 8), (64, 3, 1024, 8), (5, 65, 127, 33),
+               (4, 37, 4099, 256), (2, 137, 257, 784), (7, 3, 512, 202),
+               (3, 40, 2048, 32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,nq,npts,d", LP_CASES)
+def test_lp_kernels_match_plain_on_card(G, nq, npts, d):
+    """pdist_l1 and pdist_linf against their plain versions on the card,
+    bit for bit with NaN cells equal, with a NaN point row and a NaN
+    query row; one counted launch a call whatever G."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1000 * nq + 10 * npts + d + G)
+    q = rng.normal(size=(G, nq, d)).astype(np.float32)
+    p = rng.normal(size=(G, npts, d)).astype(np.float32)
+    p[G - 1, npts // 2, d // 2] = np.nan
+    if nq >= 2:
+        q[0, 1, d - 1] = np.nan
+    q, p = _t(q).to(dev), _t(p).to(dev)
+    _cuda.reset_launches()
+    for metric in ("l1", "linf"):
+        kernel, plain = METRICS[metric]
+        got = (ops.pdist(q[0], p[0], metric)[None] if G == 1
+               else ops.pdist_grouped(q, p, metric))
+        want = plain(q, p)
+        assert got.shape == (G, nq, npts) and _same(got, want)
+        assert torch.isnan(got[G - 1, :, npts // 2]).all()
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[kernel] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 32])
+def test_lp_register_and_generic_bodies_agree_on_card(d):
+    """At d 8 and 32 the same values 4 bytes past a 16-B boundary take
+    the body for any width (Points<0>): bit for bit the register body's
+    and the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    q = _t(_normal((3, 37, d), 11)).to(dev)
+    p = _t(_normal((3, 1001, d), 12)).to(dev)
+
+    def offset(t):          # the same values, 4 bytes off a 16-B boundary
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for metric in ("l1", "linf"):
+        want = METRICS[metric][1](q, p)
+        assert _same(ops.pdist_grouped(q, p, metric), want)
+        assert _same(ops.pdist_grouped(offset(q), offset(p), metric), want)
+
+
+@pytest.mark.gpu
+def test_rankeval_many_groups_on_card():
+    """rankeval at G = 70,000 groups, past the 65,535 a grid's y
+    dimension allows: equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    x, coef, lo, hi, n = (_t(a).to(dev) for a in _rank_inputs(70_000, 300, 9))
+    _cuda.reset_launches()
+    rk, rid = ops.rankeval(x, coef, lo, hi, n, 20)
+    rk_p, rid_p = rank_math_plain(x, coef, lo, hi, n, 20)
+    assert torch.equal(rk, rk_p) and torch.equal(rid, rid_p)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rankeval"] == 1
 
 
 @pytest.mark.gpu
