@@ -21,14 +21,22 @@ Phases, each printing lines that start with its name:
             launch counters are zeroed just before the snapshot build
             and read after the last batch: each kernel must have run;
 4. E        the certified rank-error bound covers the error of the
-            card's pdist_rankeval at every data point;
+            card's pdist_rankeval at every data point, and E certified
+            by the rankeval kernel equals E certified by its plain
+            version group for group;
 5. kernels  each kernel against its plain PyTorch version at the main
-            path's shapes, bit for bit (range_filter: mask and counts),
-            timed with CUDA events beside its plain version, its bound and
-            (pdist only) torch.cdist(q, p)**2; pdist and range_filter
-            also print their issue floor (the fixed f32 operation order's
-            instructions at the SMs' clock) as a note, and pdist a second
-            line at the planner's (64, 192);
+            path's shapes, bit for bit (range_filter: mask and counts;
+            rankeval and pdist_rankeval also with NaN, +-inf and 1e30
+            distances and query coordinates, where a NaN ranks 0 in ring
+            0), timed with CUDA events beside its plain version, its bound
+            and (pdist only) torch.cdist(q, p)**2; pdist, range_filter and
+            rankeval also print their issue floor (the fixed f32 operation
+            order's instructions at the SMs' clock) as a note, and pdist a
+            second line at the planner's (64, 192); rankeval and
+            pdist_rankeval print bare launches (CUDA events), their SASS
+            instruction count (cuobjdump), and pdist_rankeval its device
+            time replayed from a CUDA graph beside the same at (1, 1) (the
+            launch floor) and the host cost of each step of its wrapper;
 6. builder  the device index builder (LIMSIndex(backend="device")) at
             the same n: (a) GaussMix L2, held against main's host index
             (structures, then every range and kNN batch through a
@@ -181,6 +189,49 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
+    """Device ms a call of ``fn`` (bare kernel launches) with no host
+    cost in the window: ``n`` calls captured in one CUDA graph, CUDA
+    events around ``replays`` replays.  For kernels shorter than the
+    host's launch path, which back-to-back launches measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls
+    (time.perf_counter_ns, after one warm-up call), then a synchronise
+    outside the window."""
+    fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return t / calls / 1e3
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit where neither is NaN, NaN where the other is."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a),
+                                               torch.where(nb, 0, b))
 
 
 def sync() -> None:
@@ -405,7 +456,20 @@ def phase_error_bound(ix, snap):
             ratio = err / max(E[k, j], 1.0)
             if ratio >= worst[0]:
                 worst = (ratio, int(err), float(E[k, j]), ci.n, k, j)
+    # E certified again, by the kernel and by rank_math_plain in its
+    # place on the same card: the same bound group for group
+    from repro_torch.core import snapshot as snapshot_mod
+    from repro_torch.kernels.rankeval import rank_math_plain
+    e_kernel = snapshot_mod._certified_rank_table(ix, snap.coef.device)[4]
+    with mock.patch.object(snapshot_mod.ops, "rankeval", rank_math_plain):
+        e_plain = snapshot_mod._certified_rank_table(ix, snap.coef.device)[4]
+    check(np.array_equal(e_kernel, e_plain)
+          and np.array_equal(e_kernel.astype(np.float32).reshape(E.shape), E),
+          "E certified by the rankeval kernel differs from E certified by "
+          "its plain version, or from the snapshot's")
     n_g = snap.model_n.cpu().numpy()
+    print(f"E: certified by the kernel and by its plain version: equal in "
+          f"all {E.size} groups, and equal to the snapshot's", flush=True)
     print(f"E: covers pdist_rankeval's rank error at all {ix.space.n} "
           f"data points; worst observed/E = {worst[0]:.4f} (error "
           f"{worst[1]}, E {worst[2]}, n {worst[3]}, cluster {worst[4]}, "
@@ -463,18 +527,36 @@ def phase_kernels(ix, snap, batches, counts, shapes):
                note=f"main-path launches at this shape: "
                     f"{shapes['pdist'].get((B, G), 0)} of {counts['pdist']}")
 
-    # rankeval: the snapshot's E certification (G, n_col)
+    # rankeval: the snapshot's E certification (G, n_col), and the same
+    # columns with NaN, +-inf and far distances planted
+    N = snap.n_rings
     x = torch.from_numpy(rank_columns(ix)).to(DEVICE)
-    rk, rid = ops.rankeval(x, coef, lo, hi, nn, snap.n_rings)
-    rk_p, rid_p = rank_math_plain(x, coef, lo, hi, nn, snap.n_rings)
-    check(torch.equal(rk, rk_p) and torch.equal(rid, rid_p),
-          "rankeval differs from its plain version")
+    x_odd = plant_odd(x)
+    for xs in (x, x_odd):
+        rk, rid = ops.rankeval(xs, coef, lo, hi, nn, N)
+        rk_p, rid_p = rank_math_plain(xs, coef, lo, hi, nn, N)
+        check(torch.equal(rk, rk_p) and torch.equal(rid, rid_p),
+              "rankeval differs from its plain version")
+    nan = torch.isnan(x_odd)
+    check(bool((rk[nan] == 0).all() and (rid[nan] == 0).all()),
+          "rankeval: a NaN distance does not rank 0 in ring 0")
+    print(f"kernels: rankeval equals its plain version bit for bit at "
+          f"{tuple(x.shape)}, and with {ODD_CELLS} NaN, +-inf and +-1e30 "
+          f"distances planted ({int(nan.sum())} NaN: rank 0, ring 0)",
+          flush=True)
     nc = x.shape[1]
+    outs = torch.empty(2, G, nc, dtype=torch.int32, device=DEVICE)
+    ptrs = [t.data_ptr() for t in (x, coef, lo, hi, nn, outs[0], outs[1])]
     row("rankeval", 0.0,
-        lambda: ops.rankeval(x, coef, lo, hi, nn, snap.n_rings), 50,
-        lambda: rank_math_plain(x, coef, lo, hi, nn, snap.n_rings), 5,
+        lambda: ops.rankeval(x, coef, lo, hi, nn, N), 50,
+        lambda: rank_math_plain(x, coef, lo, hi, nn, N), 5,
         4.0 * (G * nc + G * C + 3 * G) + 8.0 * G * nc,
-        G * nc * rank_ops(C))
+        G * nc * rank_ops(C),
+        bare=lambda: _cuda.launch("rankeval", *ptrs, G, nc, C, N,
+                                  device=x.device),
+        note=issue_floor(G * nc, rank_ops(C)) + "; "
+        + sass_instructions("rankeval", f"rankeval_kernelILi{C}E")
+        + " over the 8 values a thread")
 
     # range_filter: the full ball prefilter (B, P) at the batch's
     # guard-widened radii
@@ -502,28 +584,131 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     # pdist_rankeval: the fused plan stage (B, G) against the staged
     # pdist -> sqrt -> rankeval chain and its plain version, bitwise
     rg = rf * (1.0 + _R_REL) + _R_ABS
-    fused = ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg)
-    dq = torch.sqrt(torch.clamp(ops.pdist(q, piv), min=0.0))
-    xs = torch.cat([(dq - rg[:, None]).T, (dq + rg[:, None]).T], dim=1)
-    rank, _ = ops.rankeval(xs, coef, lo, hi, nn)
-    staged = (dq, rank[:, :B], rank[:, B:])
-    plain = pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg, snap.n_rings)
-    for f, s in zip(fused, staged):
-        check(torch.equal(f, s), "fused and staged plans differ")
+
+    def staged(qs, rgs):
+        dq = torch.sqrt(torch.clamp(ops.pdist(qs, piv), min=0.0))
+        xs = torch.cat([(dq - rgs[:, None]).T, (dq + rgs[:, None]).T], dim=1)
+        rank, _ = ops.rankeval(xs, coef, lo, hi, nn, N)
+        return dq, rank[:, :B], rank[:, B:]
+
+    # and with a NaN coordinate (NaN dq), an infinite one, 1e30
+    # coordinates and an infinite radius
+    q_odd, rg_odd = q.clone(), rg.clone()
+    q_odd[0, 3], q_odd[1], q_odd[2, 5] = float("nan"), 1e30, float("inf")
+    rg_odd[3] = float("inf")
+    errs = []
+    for qs, rgs in ((q, rg), (q_odd, rg_odd)):
+        fused = ops.pdist_rankeval(qs, piv, coef, lo, hi, nn, rgs, N)
+        plain = pdist_rankeval_plain(qs, piv, coef, lo, hi, nn, rgs, N)
+        for f, s, p in zip(fused, staged(qs, rgs), plain):
+            check(same_bits(f, s), "fused and staged plans differ")
+            check(same_bits(f, p), "pdist_rankeval differs from its plain "
+                  "version")
+        errs.append(max(float((f.double() - p.double()).nan_to_num(0.0)
+                              .abs().max()) for f, p in zip(fused, plain)))
+    check(bool(torch.isnan(fused[0][0]).all() and (fused[1][:, 0] == 0).all()
+               and (fused[2][:, 0] == 0).all()),
+          "pdist_rankeval: a NaN dq does not rank 0")
     print("kernels: pdist_rankeval equals the staged pdist -> sqrt -> "
-          "rankeval chain bit for bit", flush=True)
-    err = max(float((f.double() - p.double()).abs().max())
-              for f, p in zip(fused, plain))
-    check(err == 0.0, f"pdist_rankeval differs from its plain version by "
-          f"{err}")
-    row("pdist_rankeval", err,
-        lambda: ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg), 200,
-        lambda: pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg,
-                                     snap.n_rings), 20,
+          "rankeval chain and its plain version bit for bit, also with a "
+          "NaN, an infinite and 1e30 query coordinates and an infinite "
+          "radius (NaN dq: rank 0)", flush=True)
+    outs = torch.empty(3, G, B, dtype=torch.int32, device=DEVICE)
+    one = torch.empty(3, 1, 1, dtype=torch.int32, device=DEVICE)
+
+    def bare_at(b, g, out):
+        ptrs = [t.data_ptr() for t in (q, piv, coef, lo, hi, nn, rg, *out)]
+        return lambda: _cuda.launch("pdist_rankeval", *ptrs, b, g, D, C, N,
+                                    device=q.device)
+
+    bare, floor = bare_at(B, G, outs), bare_at(1, 1, one)
+    at = [time_ms(bare, 200), graph_ms(bare)]
+    fl = [time_ms(floor, 200), graph_ms(floor)]
+    print(f"kernels: pdist_rankeval bare launch at ({B}, {G}) against "
+          f"(1, 1): CUDA events around 200 back-to-back launches "
+          f"launch_ms={at[0]:.5f} launch_floor_ms={fl[0]:.5f} "
+          f"({at[0] / fl[0]:.3f}x); replayed from a CUDA graph of 20 "
+          f"graph_ms={at[1]:.5f} graph_floor_ms={fl[1]:.5f} "
+          f"({at[1] / fl[1]:.3f}x)", flush=True)
+    wrapper_breakdown((q, piv, coef, lo, hi, nn, rg), N)
+    row("pdist_rankeval", errs[0],
+        lambda: ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg, N), 200,
+        lambda: pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg, N), 20,
         4.0 * (B * D + G * D + G * C + 3 * G + B) + 4.0 * B * G
         + 8.0 * G * B,
-        2 * D * (B + G) + B * G * (2 * D + 4 + 3 + 2 * rank_ops(C)))
+        2 * D * (B + G) + B * G * (2 * D + 4 + 3 + 2 * rank_ops(C)),
+        bare=bare, graph=True,
+        note=f"launch_floor_ms={fl[0]:.5f} graph_floor_ms={fl[1]:.5f}; "
+        + sass_instructions("pdist_rankeval",
+                            f"pdist_rankeval_kernelILi{C}E"))
     return out
+
+
+# the NaN, +-inf and far distances planted among the rank columns
+ODD_VALUES = (float("nan"), float("inf"), float("-inf"), 1e30, -1e30)
+ODD_CELLS = 64
+
+
+def plant_odd(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """A copy of ``x`` with ODD_CELLS cells, at seeded places, set to
+    ODD_VALUES in turn."""
+    out = x.clone()
+    g = torch.Generator().manual_seed(seed)
+    cells = torch.randperm(out.numel(), generator=g)[:ODD_CELLS]
+    vals = torch.tensor(ODD_VALUES).repeat(ODD_CELLS // len(ODD_VALUES) + 1)
+    out.view(-1)[cells.to(out.device)] = vals[:ODD_CELLS].to(out.device)
+    return out
+
+
+def wrapper_breakdown(args, n_rings: int) -> None:
+    """Host microseconds of each step of ``ops.pdist_rankeval``'s call
+    at the plan's shape (1,000 calls each), beside the parent tree's way
+    of doing the same step, and the whole wrapper."""
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.pdist import check_operands
+    q, piv, coef = args[:3]
+    B, G = q.shape[0], piv.shape[0]
+    dev = q.device
+    index = torch.cuda.current_device()
+    fn = _cuda._FUNCS["pdist_rankeval", None]
+    outs = torch.empty(3, G, B, dtype=torch.int32, device=dev)
+    cargs = ([t.data_ptr() for t in (*args, *outs)]
+             + [B, G, q.shape[1], coef.shape[1], n_rings])
+    stream = _cuda.current_stream(index)
+
+    def outputs_one():
+        dq, lo_, hi_ = torch.empty(3, G, B, dtype=torch.int32,
+                                   device=dev).unbind(0)
+        return dq.view(torch.float32).view(B, G), lo_, hi_
+
+    def stream_parent():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    steps = {
+        "7 x .to(f32).contiguous() (parent)":
+            lambda: [t.to(torch.float32).contiguous() for t in args],
+        "7 x _f32 (now)": lambda: [ops._f32(t) for t in args],
+        "check_operands(7)": lambda: check_operands(*args),
+        "3 x torch.empty (parent, now)": lambda: (
+            torch.empty(B, G, device=dev),
+            torch.empty(G, B, dtype=torch.int32, device=dev),
+            torch.empty(G, B, dtype=torch.int32, device=dev)),
+        "1 x torch.empty + unbind + views (not taken)": outputs_one,
+        "device switch + current_stream (parent)": stream_parent,
+        "current_device + raw stream (now)": lambda: (
+            torch.cuda.current_device(), _cuda.current_stream(index)),
+        "ctypes entry point (the launch itself)":
+            lambda: fn(*cargs, stream),
+        "_cuda.launch": lambda: _cuda.launch("pdist_rankeval", *cargs,
+                                             device=dev),
+        "whole ops.pdist_rankeval": lambda: ops.pdist_rankeval(
+            *args, n_rings=n_rings),
+    }
+    print("kernels: pdist_rankeval wrapper breakdown (host us a call, "
+          "1,000 calls each, perf_counter_ns): "
+          + "; ".join(f"{k} {host_us(f):.3f}" for k, f in steps.items()),
+          flush=True)
 
 
 def issue_floor(cells: int, instr_per_cell: int) -> str:
@@ -543,14 +728,15 @@ def issue_floor(cells: int, instr_per_cell: int) -> str:
 
 def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
                flops, library=None, flop_per_s=F32_FLOP_PER_S, note="",
-               shape="", bare=None) -> dict:
+               shape="", bare=None, graph=False) -> dict:
     """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
     the kernel's own device time under the profiler: the median over
     the windows of PROFILER_WINDOWS single calls that hold device
     records (torch.profiler drops a one-call window's device records
     at random; the row says how many held them).  ``bare`` (a bare
     ``_cuda.launch`` into a preallocated output) is timed with CUDA
-    events too.  Print the row (with ``note``, and ``shape`` where it is
+    events too, and with ``graph`` also replayed from a CUDA graph
+    (graph_ms).  Print the row (with ``note``, and ``shape`` where it is
     not the row's main-path shape) and return it for the JSON line."""
     from repro_torch.kernels import _cuda
     ms = time_ms(call, iters)
@@ -560,6 +746,8 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
     held = [w for w in windows if w > 0.0]
     kernel_ms = f"{np.median(held):.4f}" if held else "none"
     launch_ms = f" launch_ms={time_ms(bare, iters):.4f}" if bare else ""
+    if graph:
+        launch_ms += f" graph_ms={graph_ms(bare):.5f}"
     b_ms, by = bound(nbytes, flops, flop_per_s)
     print(f"kernels: {name}{' at ' + shape if shape else ''} "
           f"max_abs_err={err} ms={ms:.4f}{launch_ms} "
@@ -1166,6 +1354,41 @@ def phase_lm_serving(seed: int):
     return counts["flash_attention"], (q, k, v)
 
 
+def dump_sass(lib):
+    """(cuobjdump's path or None, its --dump-sass run on ``lib`` or
+    None): the CUDA toolkit's cuobjdump or Triton's copy."""
+    import importlib.util
+    import shutil
+    from repro_torch.kernels import _cuda
+    exes = [shutil.which("cuobjdump"),
+            *(str(Path(r, "bin", "cuobjdump")) for r in _cuda.CUDA_ROOTS)]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        exes.append(str(Path(spec.origin).parent / "backends" / "nvidia"
+                        / "bin" / "cuobjdump"))
+    exe = next((e for e in exes if e and Path(e).is_file()), None)
+    sass = subprocess.run([exe, "--dump-sass", str(lib)],
+                          capture_output=True, text=True,
+                          timeout=300) if exe else None
+    return exe, sass
+
+
+def sass_instructions(kernel: str, template: str) -> str:
+    """A note: the SASS instructions of ``template`` (a mangled-name
+    fragment, say "rankeval_kernelILi9E") in ``kernel``'s library,
+    counted statically: every instruction of the function, the division's
+    slow-path code included."""
+    from repro_torch.kernels import _cuda
+    exe, sass = dump_sass(_cuda.build()[_cuda.SOURCES[kernel]].path)
+    if sass is None or sass.returncode != 0:
+        return f"sass_instructions(\"{template}\")=not available"
+    for fn in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
+        if template in fn.split("\n", 1)[0]:
+            n = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", fn))
+            return f"sass_instructions(\"{template}\")={n}"
+    return f"sass_instructions(\"{template}\")=not found"
+
+
 def flash_bodies_and_sass():
     """Which body the flash library launches for each type and head
     width (its own flash_attention_body), and the HGMMA (wgmma)
@@ -1174,8 +1397,6 @@ def flash_bodies_and_sass():
     bf16 at D 128 is not the tensor-core body, or if readable SASS shows
     no HGMMA in it."""
     import ctypes
-    import importlib.util
-    import shutil
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
     lib = _cuda.build()[_cuda.SOURCES["flash_attention"]].path
@@ -1189,16 +1410,7 @@ def flash_bodies_and_sass():
         for d in fa.HEAD_DIMS), flush=True)
     check(body(1, 128) == 1, "kernels: bf16 D 128 does not take the "
           "tensor-core body")
-    exes = [shutil.which("cuobjdump"),
-            *(str(Path(r, "bin", "cuobjdump")) for r in _cuda.CUDA_ROOTS)]
-    spec = importlib.util.find_spec("triton")
-    if spec and spec.origin:
-        exes.append(str(Path(spec.origin).parent / "backends" / "nvidia"
-                        / "bin" / "cuobjdump"))
-    exe = next((e for e in exes if e and Path(e).is_file()), None)
-    sass = subprocess.run([exe, "--dump-sass", str(lib)],
-                          capture_output=True, text=True,
-                          timeout=300) if exe else None
+    exe, sass = dump_sass(lib)
     if sass is None or sass.returncode != 0:
         print("kernels: flash_attention SASS HGMMA count: not available "
               f"({'no cuobjdump' if exe is None else sass.stderr.strip()})",

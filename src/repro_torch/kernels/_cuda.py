@@ -17,8 +17,9 @@ also spell every step with round-to-nearest intrinsics).
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns the launch's ``cudaGetLastError()``; :func:`launch` makes the
-operands' device current, passes that device's current stream, raises
-on a nonzero code and otherwise counts the launch in :data:`LAUNCHES`.  A
+operands' device current where another one is, passes that device's
+current stream, raises on a nonzero code and otherwise counts the launch
+in :data:`LAUNCHES`.  A
 kernel with one entry point per operand type (``flash_attention_f32``
 and ``flash_attention_bf16``, one template) names them in
 :data:`VARIANTS`; its launches are counted under the kernel's name.
@@ -154,18 +155,34 @@ def _load() -> None:
             _FUNCS[name, variant] = fn
 
 
+def current_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, as an int: the
+    raw ``cudaStream_t`` straight from PyTorch's C++ side where it offers
+    that, without building a ``torch.cuda.Stream`` on every launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, *args, device: torch.device,
            variant: str | None = None) -> None:
     """Launch kernel ``name`` (its entry point ``variant``, for a kernel
-    listed in :data:`VARIANTS`) on ``device``, the operands' device:
-    with it made current, on its current stream.  ``args`` are the C
-    arguments before the stream (device pointers as ints).  Raises
-    ``RuntimeError`` if the launch reports a CUDA error."""
+    listed in :data:`VARIANTS`) on ``device``, the operands' device, on
+    its current stream; the device is made current for the launch only
+    where another one is.  ``args`` are the C arguments before the
+    stream (device pointers as ints).  Raises ``RuntimeError`` if the
+    launch reports a CUDA error."""
     if not _FUNCS:
         _load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _FUNCS[name, variant](*args, stream)
+    fn = _FUNCS[name, variant]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, current_stream(index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")

@@ -32,6 +32,8 @@ def pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings: int):
     if piv.shape != (G, d) or rg.shape != (B,) or lo.shape != (G,) \
             or hi.shape != (G,) or n.shape != (G,):
         raise ValueError("pdist_rankeval operand shapes do not match")
+    # three allocations: one viewed as the three outputs (unbind, then an
+    # f32 view) costs the host as much (chip_smoke's wrapper breakdown)
     dq = torch.empty(B, G, dtype=torch.float32, device=q.device)
     rank_lo = torch.empty(G, B, dtype=torch.int32, device=q.device)
     rank_hi = torch.empty_like(rank_lo)

@@ -40,6 +40,8 @@ FAR = 1e30      # padding-row coordinate: outside every ball, finite
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t                # no dispatch for what is already dense f32
     return t.to(torch.float32).contiguous()
 
 

@@ -39,7 +39,15 @@ def rank_math_plain(x: torch.Tensor, coef: torch.Tensor, lo: torch.Tensor,
     width = torch.ceil(n / float(n_rings))
     rid = torch.clamp(torch.floor(rank / torch.clamp(width, min=1.0)),
                       0.0, float(n_rings - 1))
-    return rank.to(torch.int32), rid.to(torch.int32)
+    return _int32(rank), _int32(rid)
+
+
+def _int32(v: torch.Tensor) -> torch.Tensor:
+    """int32 of the integer-valued f32 ``v``, a NaN as 0: what the
+    kernels' ``cvt.rzi.s32.f32`` and XLA's conversion give (a bare cast
+    gives INT_MIN on x86).  Every clip above keeps a NaN, as the
+    reference's ``jnp.clip`` does, so a NaN distance ranks 0, ring 0."""
+    return torch.where(torch.isnan(v), 0.0, v).to(torch.int32)
 
 
 def rankeval_cuda(x, coef, lo, hi, n, n_rings: int):

@@ -313,6 +313,66 @@ def test_fused_matches_reference_fused(ref_ops):
     assert np.abs(lo - lo_r).max() <= 1 and np.abs(hi - hi_r).max() <= 1
 
 
+# ----------------------------------- NaN, infinite and far distances
+# Distances the planner can meet besides finite ones: NaN (the Gram cell
+# of a NaN or infinite coordinate, which the clamp keeps, see
+# test_gram_clamp_keeps_nan), +-inf and far values.
+ODD = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, np.nan], np.float32)
+
+
+def _odd_rank_inputs(g, b, c):
+    x, coef, lo, hi, n = _rank_inputs(g, b, c, seed=7)
+    cells = np.random.default_rng(8).choice(g * b, size=min(g * b, 24),
+                                            replace=False)
+    x.flat[cells] = np.resize(ODD, len(cells))
+    x[0, :min(b, len(ODD))] = ODD[:b]
+    return x, coef, lo, hi, n
+
+
+def _assert_ranks_like_reference(got, want, nan):
+    """NaN cells rank 0 in ring 0, exactly as the reference's (XLA turns
+    a NaN into int32 0); every other cell within one rank, as in
+    test_rankeval_matches_reference."""
+    assert nan.any()
+    for a, r in zip(got, want):
+        assert (r[nan] == 0).all()
+        assert np.array_equal(a[nan], r[nan])
+        assert np.abs(a.astype(np.int64) - r).max() <= 1
+
+
+@pytest.mark.parametrize("g,b,c", [(8, 128, 9), (13, 200, 2), (3, 7, 1)])
+def test_rankeval_odd_distances_match_reference(ref_ops, g, b, c):
+    """rankeval on NaN, +-inf and 1e30 distances against the reference's
+    Pallas kernel: a NaN ranks 0 in ring 0 (the port used to give
+    INT_MIN here), +-inf and 1e30 clip to the model's ends."""
+    x, coef, lo, hi, n = _odd_rank_inputs(g, b, c)
+    want = [np.asarray(a) for a in
+            ref_ops.rankeval(x, coef, lo, hi, n, n_rings=20)]
+    got = [a.numpy() for a in
+           ops.rankeval(_t(x), _t(coef), _t(lo), _t(hi), _t(n), 20)]
+    _assert_ranks_like_reference(got, want, np.isnan(x))
+
+
+def test_fused_odd_queries_match_reference(ref_ops):
+    """pdist_rankeval against the reference's fused Pallas kernel with a
+    NaN coordinate (NaN dq), an infinite one (inf - inf: NaN dq), 1e30
+    coordinates (dq = inf) and an infinite radius: dq equal where NaN or
+    infinite, a NaN dq ranks 0 at both ends, the rest within one rank."""
+    q, piv, coef, lo, hi, n, rg = _plan_inputs(seed=13)
+    q[0, 3] = np.nan
+    q[1, :] = 1e30
+    q[2, 5] = np.inf
+    rg[3] = np.inf
+    dq_r, lo_r, hi_r = (np.asarray(v) for v in ref_ops.pdist_rankeval(
+        q, piv, coef, lo, hi, n, rg, n_rings=20))
+    dq, rk_lo, rk_hi = (v.numpy() for v in ops.pdist_rankeval(
+        *[_t(a) for a in (q, piv, coef, lo, hi, n, rg)], n_rings=20))
+    np.testing.assert_allclose(dq, dq_r, rtol=1e-5, atol=1e-5)
+    assert np.isnan(dq[[0, 2]]).all() and np.isposinf(dq[1]).all()
+    _assert_ranks_like_reference([rk_lo, rk_hi], [lo_r, hi_r],
+                                 np.isnan(dq_r).T)
+
+
 # ------------------------------------------------------ launch counters
 def test_cpu_tensors_launch_nothing():
     """On CPU tensors every wrapper takes the plain version: no kernel
@@ -360,21 +420,29 @@ class _FakeCudaDevice:
         return False
 
 
+@pytest.mark.parametrize("current", [0, 1])
 @pytest.mark.parametrize("err", [0, 1])
-def test_launch_enters_operands_device(monkeypatch, err):
-    """``_cuda.launch`` makes the operands' device current and hands the
-    entry point that device's current stream, inside the device's
-    context; it counts a launch only when the entry point returns 0 and
-    leaves the context either way.  ``torch.cuda.device`` and
-    ``current_stream`` are mocked and the entry point is a fake one in
-    ``_FUNCS``, so no card is needed."""
+def test_launch_enters_operands_device(monkeypatch, err, current):
+    """``_cuda.launch`` hands the entry point the current stream of the
+    operands' device (cuda:1) with that device current: inside the
+    device's context where another device is current (``current`` 0),
+    and with no device switch where it is current already (1).  It
+    counts a launch only when the entry point returns 0, and leaves the
+    context either way.  ``torch.cuda.device``, ``current_device`` and
+    ``current_stream`` are mocked (PyTorch's raw-stream call removed, so
+    ``_cuda.current_stream`` asks ``torch.cuda.current_stream``) and the
+    entry point is a fake one in ``_FUNCS``, so no card is needed."""
     log = []
     monkeypatch.setattr(_FakeCudaDevice, "log", log)
     monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream",
+                        raising=False)
 
     def current_stream(device=None):
         log.append(("stream", device))
-        return SimpleNamespace(cuda_stream=1000 + torch.device(device).index)
+        return SimpleNamespace(cuda_stream=1000 + torch.device(
+            "cuda", device).index)
 
     def entry(*args):
         log.append(("call", args))
@@ -390,9 +458,24 @@ def test_launch_enters_operands_device(monkeypatch, err):
             _cuda.launch("pdist_l1", *args, device=dev)
     else:
         _cuda.launch("pdist_l1", *args, device=dev)
-    assert log == [("enter", dev), ("stream", dev), ("call", args + (1001,)),
-                   ("exit", dev)]
+    inner = [("stream", 1), ("call", args + (1001,))]
+    assert log == ([("enter", 1), *inner, ("exit", 1)] if current == 0
+                   else inner)
     assert _cuda.LAUNCHES["pdist_l1"] == (0 if err else 1)
+
+
+def test_current_stream_takes_the_raw_handle(monkeypatch):
+    """Where PyTorch offers the raw ``cudaStream_t`` of a device's current
+    stream, ``_cuda.current_stream`` returns it and builds no
+    ``torch.cuda.Stream``."""
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 5000 + index, raising=False)
+
+    def no_stream(*a, **k):
+        raise AssertionError("torch.cuda.current_stream was called")
+
+    monkeypatch.setattr(torch.cuda, "current_stream", no_stream)
+    assert _cuda.current_stream(3) == 5003
 
 
 def test_mixed_devices_rejected():
@@ -591,20 +674,74 @@ def test_rankeval_many_groups_on_card():
     assert _cuda.LAUNCHES["rankeval"] == 1
 
 
+def _offset(t):
+    """The same values in a view 4 bytes past a 16-B boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+# (G, B, C) for rankeval: every B % 4 (rows off the 16-B grid, partial
+# first and last quads, B < 4), one block's 2,048 values and more,
+# coefficient counts with a compiled body (1, 2, 9, 16) and past them (21)
+RANK_CASES = ([(g, b, 9) for g in (1, 7, 192) for b in (1, 2, 3, 4, 5, 6,
+                                                        7, 2047, 2048, 2053)]
+              + [(5, b, c) for c in (1, 2, 16, 21) for b in (4, 1001)]
+              + [(192, 71_998, 9)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,G", [(37, 30), (64, 192), (137, 192)])
-def test_fused_matches_staged_on_card(B, G):
-    """The fused pdist_rankeval against the staged pdist -> sqrt ->
-    rankeval chain on the card at d = 8, bit for bit: the streaming pdist
-    and fused.cu share gram.cuh's operation order; (64, 192) is the
-    planner's shape."""
+@pytest.mark.parametrize("G,B,C", RANK_CASES)
+def test_rankeval_matches_plain_on_card(G, B, C):
+    """rankeval on the card against rank_math_plain, bit for bit, with
+    NaN, +-inf and 1e30 distances among the values, x aligned and in a
+    view 4 bytes off the 16-B grid (the value-by-value path): one
+    counted launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    args = [_t(a).to(dev) for a in _plan_inputs(B=B, G=G, seed=B + G)]
+    x, coef, lo, hi, n = _rank_inputs(G, B, C, seed=G + B + C)
+    cells = np.random.default_rng(C).choice(G * B, size=min(G * B, 64),
+                                            replace=False)
+    x.flat[cells] = np.resize(ODD, len(cells))
+    x, coef, lo, hi, n = (_t(a).to(dev) for a in (x, coef, lo, hi, n))
+    want = rank_math_plain(x, coef, lo, hi, n, 20)
+    for xs in (x, _offset(x)):
+        _cuda.reset_launches()
+        got = ops.rankeval(xs, coef, lo, hi, n, 20)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["rankeval"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,G,C", [(1, 1, 9), (37, 30, 9), (64, 192, 9),
+                                   (137, 192, 9), (137, 301, 9),
+                                   (64, 192, 21), (9, 17, 1)])
+def test_fused_matches_staged_on_card(B, G, C):
+    """The fused pdist_rankeval against the staged pdist -> sqrt ->
+    rankeval chain and against pdist_rankeval_plain on the card at d =
+    8, bit for bit, with a NaN query row (NaN dq) where B > 1: the
+    streaming pdist and fused.cu share gram.cuh's operation order and
+    rank_math.cuh; (64, 192) is the planner's shape.  One counted launch
+    of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    a = _plan_inputs(B=B, G=G, C=C, seed=B + G)
+    if B > 1:
+        a[0][B // 2, 3] = np.nan
+    args = [_t(v).to(dev) for v in a]
+    _cuda.reset_launches()
     fused = ops.pdist_rankeval(*args, n_rings=20)
-    for f, s in zip(fused, _staged(*args)):
-        assert torch.equal(f, s)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["pdist_rankeval"] == 1
+    if B > 1:
+        assert torch.isnan(fused[0][B // 2]).all()
+    plain = pdist_rankeval_plain(*args, 20)
+    for f, s, p in zip(fused, _staged(*args), plain):
+        assert _same(f, s) and _same(f, p)
+    assert _cuda.LAUNCHES["pdist"] == 1 and _cuda.LAUNCHES["rankeval"] == 1
 
 
 # (B, Hq, Hk, Sq, Sk, D, causal): GQA and not, padded and not, causal
