@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's exact query path, index builder and
-dense-LM serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's exact query path, index builder,
+serving lifecycle and dense-LM serving path on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
                           [--seed 0]
@@ -60,7 +60,39 @@ Phases, each printing lines that start with its name:
             picks the device for it.  (c) runs at --linf-n rows (default
             200,000, a cut that keeps the whole script within twice the
             query path's time); --linf-n 1000000 runs it uncut.
-7. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+7. serving  the serving lifecycle (repro_torch.serving) on main's host
+            index as the builder leaves it, counters zeroed before and
+            read after (each query-path kernel must run): (a)
+            ServingEngine(refresh_every=2,000) on the card, 4 rounds of
+            1,000 inserts (data rows + N(0, 0.003), seed 5) and 1,000
+            deletes of stored rows, each round's refresh followed by a
+            range and a kNN batch equal to the host index's answers and
+            64 of its inserted rows found, 64 of its deleted rows not
+            found, at r = 1e-9 (all 2,000 in the snapshot's live ids; a
+            CUT: line says so), REPRO_COMPACT at its default "on";
+            refresh s per generation, inserts/s, deletes/s, engine q/s
+            and memory after each generation; (b) retrain_cluster of
+            the largest cluster: "auto" must take the device, publish a
+            generation and answer as the host does; (c)
+            async_refresh=True: a query thread runs 8 range and 8 kNN
+            batches, each grabbing engine.executor once and held to an
+            f64 brute-force scan of that executor's snapshot's live
+            rows, while the main thread applies 4 x 2,000 mutations;
+            batch p50/p99 with a refresh in flight (the traced
+            engine.snapshot_build spans) and with none, and the kernel
+            table, emptied first, loaded once; (d) Monitor (manual
+            tick) + MonitorDaemon(retrain="auto"): every
+            executor.rank_err_ratio gauge <= 1 after real batches and no
+            rank_drift finding, then the largest cluster's gauge at 0.9
+            gives one retrain_auto, a generation and host answers; (e)
+            q/s with REPRO_OBS on and off (a warm-up batch, then turns
+            on, off, off, on),
+            equal host_syncs, kernels.<name>.launches equal to _cuda's
+            tally, complete profiles, and the profile and trace rings
+            held at their caps.  memory_allocated after the last
+            generation must not exceed the 2nd generation's plus one
+            snapshot;
+8. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
             random weights from --seed: (a) float32 at a cut depth of 4
             layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
             and a decode step of tokens[:, -1] give forward_seq's logits
@@ -83,7 +115,7 @@ Phases, each printing lines that start with its name:
             bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
-8. retrieval  the twin of examples/retrieval_serving.py steps 1-4: an
+9. retrieval  the twin of examples/retrieval_serving.py steps 1-4: an
             encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
             on the card (its attention through the flash kernel), a host
             LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
@@ -138,6 +170,13 @@ LINF_N = 200_000                # (c)'s cut n; --linf-n overrides it
 # (e): L1 and L-infinity builds at a width the old pdist_lp.cu tile could
 # not launch (d >= 202), on GaussMix, at an n that keeps (e) near 30 s
 WIDE_D, WIDE_N = 256, 20_000
+# serving: rounds of SERVE_ROWS inserts + SERVE_ROWS deletes, a refresh
+# every SERVE_REFRESH mutations; (c)'s query thread runs
+# SERVE_ASYNC_BATCHES batches of each kind; (a) sends FOUND_SAMPLE of a
+# round's inserted and of its deleted rows through r = 1e-9 queries
+SERVE_ROUNDS, SERVE_ROWS, SERVE_REFRESH = 4, 1_000, 2_000
+SERVE_ASYNC_BATCHES = 8
+FOUND_SAMPLE = 64
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -838,7 +877,7 @@ def phase_profile(ex, batches):
     final, rounds = ex.backend.knn_candidates(plan)
     st["rounds_incl_distance_matrix"] = T() - t0
     t0 = T()
-    ex._refine_topk(Q, final, K_NN)
+    ex._refine_topk(Q, [np.nonzero(row)[0] for row in final], K_NN)
     st["refine_host"] = T() - t0
     wall, dev, top = device_busy(lambda: ex.knn_query_batch(Q, K_NN))
     print(f"profile: knn rounds={rounds} candidates/query="
@@ -1096,6 +1135,438 @@ def phase_retrain(X, ix, ixd, batches):
           f"picked {ixd.last_retrain_backend}; RETRAIN_AUTO_ROWS="
           f"{RETRAIN_AUTO_ROWS}); batch 0's {B} range and {B} kNN queries "
           f"identical after both", flush=True)
+
+
+# ----------------------------------------------------------------- serving
+def host_answers_equal(engine, Q, rs, tag: str) -> tuple[float, float]:
+    """One range and one kNN batch through ``engine`` against its host
+    index (ids and f64 distances); returns the two batches' wall
+    seconds (the host's answers excluded)."""
+    t0 = time.perf_counter()
+    got_r = engine.range_query_batch(Q, rs)
+    t1 = time.perf_counter()
+    ids, ds = engine.knn_query_batch(Q, K_NN)
+    t2 = time.perf_counter()
+    ix = engine.index
+    for b, (q, r) in enumerate(zip(Q, rs)):
+        check(same_range(got_r[b], ix.range_query(q, r)[:2]),
+              f"serving: {tag}: range query {b} differs from the host index")
+        check(same_knn((ids[b], ds[b]), ix.knn_query(q, K_NN)[:2]),
+              f"serving: {tag}: kNN query {b} differs from the host index")
+    return t1 - t0, t2 - t1
+
+
+def live_arrays(snap):
+    """(f64 rows, gids) of a snapshot's live slots, as host copies."""
+    live = np.nonzero(snap.valid_np)[0]
+    return snap.rows_np[live], snap.gids_np[live]
+
+
+def brute_force_equal(rows, gids, Q, rs, got, kind: str, tag: str) -> None:
+    """``got`` against an f64 brute-force scan of live ``rows``: each
+    row's f64 distance on the card (direct differences, no Gram trick)
+    picks the rows within 1e-9 of each answer's boundary, and
+    ``dist_one_to_many`` gives their exact f64 distances on the host,
+    the distances the engine's refinement computes."""
+    from repro_torch.core.metrics import dist_one_to_many
+    d = torch.cdist(torch.from_numpy(Q).to(DEVICE),
+                    torch.from_numpy(rows).to(DEVICE),
+                    compute_mode="donot_use_mm_for_euclid_dist")
+    if kind == "range":
+        edge = torch.from_numpy(rs).to(DEVICE)
+    else:
+        edge = torch.topk(d, K_NN, dim=1, largest=False).values[:, -1]
+    near = (d <= (edge + 1e-9)[:, None]).cpu().numpy()
+    del d
+    for b in range(len(Q)):
+        idx = np.nonzero(near[b])[0]
+        exact = dist_one_to_many(Q[b], rows[idx], "l2")
+        if kind == "range":
+            hit = exact <= rs[b]
+            ok = same_range(got[b], (gids[idx[hit]], exact[hit]))
+        else:
+            top = np.argsort(exact, kind="stable")[:K_NN]
+            ok = same_knn((got[0][b], got[1][b]),
+                          (gids[idx[top]], exact[top]))
+        check(ok, f"serving: {tag}: {kind} query {b} differs from the f64 "
+              f"brute-force scan of its snapshot's live rows")
+
+
+def mutate(engine, X, rng, deletable):
+    """SERVE_ROWS inserts (data rows + N(0, 0.003)), then SERVE_ROWS
+    deletes of stored rows taken from ``deletable``; returns the
+    inserted (gid, row) pairs, the deleted ids and the seconds of each
+    loop."""
+    new = X[rng.choice(len(X), SERVE_ROWS)] + rng.normal(
+        0.0, 0.003, (SERVE_ROWS, D))
+    t0 = time.perf_counter()
+    inserted = [(engine.insert(row), row) for row in new]
+    t1 = time.perf_counter()
+    gone = [deletable.pop() for _ in range(SERVE_ROWS)]
+    for g in gone:
+        check(engine.delete(X[g]) == 1, f"serving: delete of row {g}")
+    return inserted, gone, t1 - t0, time.perf_counter() - t1
+
+
+def memory_line(tag: str, engine, mem: dict) -> None:
+    """memory_allocated after a generation, kept in ``mem[tag]``."""
+    sync()
+    mem[tag] = torch.cuda.memory_allocated()
+    print(f"serving: {tag}: generation {engine.generation} "
+          f"memory_allocated={mem[tag]} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"snapshot device_bytes={engine.snapshot.device_nbytes()}",
+          flush=True)
+
+
+def found_at_1e9(engine, X, inserted, gone, rng, tag: str) -> None:
+    """A round's inserted rows are found at r = 1e-9 and its deleted
+    rows are not: FOUND_SAMPLE of each through the engine's range
+    batches, all of them in the published snapshot's live ids."""
+    pick = rng.choice(len(inserted), FOUND_SAMPLE, replace=False)
+    rows = np.stack([inserted[i][1] for i in pick])
+    for i, (ids, _) in zip(pick, engine.range_query_batch(rows, 1e-9)):
+        check(inserted[i][0] in set(ids.tolist()),
+              f"serving: {tag}: inserted row {inserted[i][0]} not found")
+    dead = [gone[i] for i in pick]
+    for g, (ids, _) in zip(dead, engine.range_query_batch(X[dead], 1e-9)):
+        check(g not in set(ids.tolist()),
+              f"serving: {tag}: deleted row {g} still found")
+    s = engine.snapshot
+    live = set(s.gids_np[s.valid_np].tolist())
+    check(all(g in live for g, _ in inserted)
+          and not any(g in live for g in gone),
+          f"serving: {tag}: the published snapshot's live ids miss an "
+          f"insert or keep a delete")
+
+
+def serving_sync(X, ix, batches, rng, deletable, mem) -> None:
+    """(a) synchronous refresh rounds and (b) a retrain on the card."""
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.obs import REGISTRY
+    sync()
+    t_part = t0 = time.perf_counter()
+    engine = ServingEngine(ix, refresh_every=SERVE_REFRESH, device=DEVICE)
+    sync()
+    print(f"serving: (a) ServingEngine(refresh_every={SERVE_REFRESH}) "
+          f"generation 0 built in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    memory_line("(a) generation 0", engine, mem)
+    # refresh seconds: the engine.snapshot_build span histogram's sum
+    span = REGISTRY.histogram("span.engine.snapshot_build")
+    t_ins = t_del = t_refresh = t_range = t_knn = 0.0
+    for rnd in range(SERVE_ROUNDS):
+        s0 = span.sum
+        inserted, gone, ti, td = mutate(engine, X, rng, deletable)
+        refresh_s = span.sum - s0
+        check(engine.generation == rnd + 1 and engine.pending_mutations == 0,
+              f"serving: (a) round {rnd}: generation {engine.generation}, "
+              f"pending {engine.pending_mutations}")
+        t_ins += ti
+        t_del += td - refresh_s
+        t_refresh += refresh_s
+        memory_line(f"(a) generation {rnd + 1}", engine, mem)
+        Q, rs = batches[rnd % len(batches)]
+        tr, tk = host_answers_equal(engine, Q, rs, f"(a) round {rnd}")
+        t_range += tr
+        t_knn += tk
+        found_at_1e9(engine, X, inserted, gone, rng, f"(a) round {rnd}")
+        print(f"serving: (a) round {rnd}: +{SERVE_ROWS} -{SERVE_ROWS} -> "
+              f"generation {engine.generation}, refresh_s={refresh_s:.4f}; "
+              f"range and kNN batch equal the host index; rows found and "
+              f"gone at r=1e-9", flush=True)
+    n_mut = SERVE_ROUNDS * SERVE_ROWS
+    nq = SERVE_ROUNDS * B
+    print(f"serving: (a) engine inserts/s {n_mut / t_ins:.1f} deletes/s "
+          f"{n_mut / t_del:.1f} (refreshes excluded); refresh "
+          f"s/generation {t_refresh / SERVE_ROUNDS:.4f}; engine range "
+          f"{nq / t_range:.2f} q/s, kNN {nq / t_knn:.2f} q/s (B={B}, "
+          f"k={K_NN}, wall clock incl. host refinement)", flush=True)
+    if FOUND_SAMPLE < SERVE_ROWS:
+        print(f"serving: CUT: (a)'s r = 1e-9 queries cover {FOUND_SAMPLE} "
+              f"of each round's {SERVE_ROWS} inserted and {SERVE_ROWS} "
+              f"deleted rows (a query's (B, P) mask is 4.6 MB to the "
+              f"host); all are checked in the published snapshot's live "
+              f"ids", flush=True)
+    print(f"serving: (a) in {time.perf_counter() - t_part:.1f} s",
+          flush=True)
+
+    c = int(np.argmax([ci.n for ci in ix.clusters]))
+    rows = ix.clusters[c].n + len(ix.clusters[c].buf_ids)
+    gen = engine.generation
+    sync()
+    t0 = time.perf_counter()
+    engine.retrain_cluster(c)
+    sync()
+    t_retrain = time.perf_counter() - t0
+    check(ix.last_retrain_backend == "device",
+          f"serving: (b) auto picked {ix.last_retrain_backend} for {rows} "
+          f"rows")
+    check(engine.generation == gen + 1,
+          "serving: (b) the retrain published no generation")
+    host_answers_equal(engine, *batches[0], "(b)")
+    memory_line("(b) after the retrain", engine, mem)
+    print(f"serving: (b) retrain_cluster({c}) ({rows} rows) on the device "
+          f"+ refresh in {t_retrain:.4f} s -> generation "
+          f"{engine.generation}; range and kNN batch equal the host index; "
+          f"(b) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serving_async(X, ix, batches, rng, deletable, mem):
+    """(c) async refresh under a query thread.  Returns the engine."""
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.kernels import _cuda
+    from repro_torch.obs import trace as obs_trace
+    t_part = time.perf_counter()
+    engine = ServingEngine(ix, refresh_every=SERVE_REFRESH,
+                           async_refresh=True, device=DEVICE)
+    memory_line("(c) generation 0", engine, mem)
+    obs.configure("trace")          # snapshot_build spans with their times
+    obs.clear_trace()
+    # an empty kernel table: the first launches of (c) load it again,
+    # under the loader's lock, on whichever thread comes first
+    _cuda._FUNCS.clear()
+    builds = []
+    real_build = _cuda.build
+
+    def counted_build(*a, **k):
+        builds.append(threading.current_thread().name)
+        return real_build(*a, **k)
+
+    errors, lat = [], []
+
+    def queries():
+        try:
+            for i in range(2 * SERVE_ASYNC_BATCHES):
+                kind = ("range", "knn")[i % 2]
+                Q, rs = batches[(i // 2) % len(batches)]
+                ex = engine.executor            # once a batch
+                t0 = time.perf_counter()
+                got = (ex.range_query_batch(Q, rs) if kind == "range"
+                       else ex.knn_query_batch(Q, K_NN))
+                t1 = time.perf_counter()
+                rows, gids = live_arrays(ex.snap)
+                del ex
+                lat.append((kind, t0, t1, len(gids)))
+                brute_force_equal(rows, gids, Q, rs, got, kind,
+                                  f"(c) batch {i}")
+        except BaseException as e:              # raised on the main thread
+            errors.append(e)
+
+    with mock.patch.object(_cuda, "build", counted_build):
+        worker = threading.Thread(target=queries, name="serving-queries")
+        worker.start()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_ROUNDS):
+            mutate(engine, X, rng, deletable)
+        t_mut = time.perf_counter() - t0
+        worker.join(timeout=900)
+        check(not worker.is_alive(), "serving: (c) the query thread hangs")
+        engine.wait_refresh()
+    if errors:
+        raise errors[0]
+    check(len(builds) == 1,
+          f"serving: (c) the kernels were loaded {len(builds)} times")
+    # mutations wait on the update lock while a refresh builds, and a
+    # refresh takes every mutation pending when it starts: the rounds'
+    # thresholds may share a generation
+    check(1 <= engine.generation <= SERVE_ROUNDS
+          and engine.pending_mutations < SERVE_REFRESH,
+          f"serving: (c) generation {engine.generation}, pending "
+          f"{engine.pending_mutations} after wait_refresh()")
+    spans = [(obs_trace._EPOCH + e["ts"] / 1e6,
+              obs_trace._EPOCH + (e["ts"] + e["dur"]) / 1e6)
+             for e in obs.chrome_trace()["traceEvents"]
+             if e.get("name") == "engine.snapshot_build"]
+    obs.configure("on")
+    obs.clear_trace()
+    check(len(spans) == engine.generation,
+          f"serving: (c) {len(spans)} snapshot_build spans traced for "
+          f"{engine.generation} generations")
+    memory_line("(c) after wait_refresh()", engine, mem)
+
+    def pct(v):
+        return (f"p50 {np.percentile(v, 50) * 1e3:.1f} p99 "
+                f"{np.percentile(v, 99) * 1e3:.1f} ms (n={len(v)})"
+                if v else "none")
+
+    for kind in ("range", "knn"):
+        busy, idle = [], []
+        for k, t0, t1, _ in lat:
+            if k == kind:
+                inflight = any(t0 < e and t1 > s for s, e in spans)
+                (busy if inflight else idle).append(t1 - t0)
+        print(f"serving: (c) {kind} batch latency with a refresh in flight "
+              f"{pct(busy)}; with none {pct(idle)}", flush=True)
+    print(f"serving: (c) {SERVE_ROUNDS} x {2 * SERVE_ROWS} mutations in "
+          f"{t_mut:.2f} s beside {len(lat)} batches, each equal to an f64 "
+          f"brute-force scan of its snapshot's live rows (live counts "
+          f"{sorted({n for *_, n in lat})}); generations reached after "
+          f"wait_refresh(): {engine.generation} (pending "
+          f"{engine.pending_mutations}); refresh spans (s) "
+          f"{[round(e - s, 4) for s, e in spans]}; the kernel table was "
+          f"loaded once (on the thread {builds}); (c) in "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    return engine
+
+
+def serving_loop(engine, batches, mem) -> None:
+    """(d) the monitor + daemon closed loop, retrain='auto'."""
+    from repro_torch import obs
+    from repro_torch.obs.health import RankDriftDetector
+    from repro_torch.obs.monitor import Monitor
+    from repro_torch.serving import MonitorDaemon
+    t_part = time.perf_counter()
+    obs.REGISTRY.reset()
+    mon = Monitor(interval=3600.0,
+                  detectors=[RankDriftDetector(persistence=1)])
+    daemon = MonitorDaemon(mon, lambda: None, engine, retrain="auto")
+    Q, rs = batches[1 % len(batches)]
+    host_answers_equal(engine, Q, rs, "(d) before the loop")
+    gauges = {m.name: m.value for m in obs.REGISTRY.metrics()
+              if m.name.startswith("executor.rank_err_ratio.c")}
+    check(gauges and all(v <= 1.0 for v in gauges.values()),
+          f"serving: (d) observed rank error above E: {gauges}")
+    fired = mon.tick()
+    check(not [f for f in fired if f.detector == "rank_drift"],
+          f"serving: (d) a rank_drift finding on fresh models: {fired}")
+    c = int(np.argmax([ci.n for ci in engine.index.clusters]))
+    gen = engine.generation
+    obs.REGISTRY.gauge(f"executor.rank_err_ratio.c{c}").set(0.9)
+    fired = mon.tick()
+    engine.wait_refresh()
+    auto = [e for e in daemon.events() if e["action"] == "retrain_auto"]
+    check(len(auto) == 1 and auto[0]["cluster"] == c,
+          f"serving: (d) daemon events {daemon.events()}")
+    check(engine.generation == gen + 1,
+          "serving: (d) the automatic retrain published no generation")
+    host_answers_equal(engine, Q, rs, "(d) after the retrain")
+    memory_line("(d) after the automatic retrain", engine, mem)
+    print(f"serving: (d) {len(gauges)} rank_err_ratio gauges after real "
+          f"batches, max {max(gauges.values()):.6f} (<= 1.0), no rank_drift "
+          f"finding; cluster {c} set to 0.9 -> one {fired[0].severity} "
+          f"finding -> retrain_auto on the "
+          f"{engine.index.last_retrain_backend} -> generation "
+          f"{engine.generation}; batch equals the host index; (d) in "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+
+
+def serving_obs(engine, batches) -> None:
+    """(e) what observability costs, and that it counts what ran."""
+    from repro_torch import obs
+    from repro_torch.kernels import _cuda
+    t_part = time.perf_counter()
+    Q, rs = batches[0]
+    ex = engine.executor
+    ex.range_query_batch(Q, rs)         # warm-up, untimed
+    ex.knn_query_batch(Q, K_NN)
+    qps = {"on": [], "off": []}
+    syncs = {"on": [], "off": []}
+    # host seconds of the profile step itself, a batch: the part of the
+    # instrumentation's cost that the noisy q/s turns cannot resolve
+    emit = {(m, k): [] for m in qps for k in ("range", "knn")}
+    real_emit = ex._emit_profile
+    mode = None
+
+    def timed_emit(plan, *args):
+        t = time.perf_counter()
+        real_emit(plan, *args)
+        emit[mode, plan.kind].append(time.perf_counter() - t)
+
+    timing = mock.patch.object(ex, "_emit_profile", timed_emit)
+    timing.start()
+    for mode in ("on", "off", "off", "on"):
+        obs.configure(mode)
+        launches = dict(_cuda.LAUNCHES)
+        counted = {n: obs.REGISTRY.counter(f"kernels.{n}.launches").value
+                   for n in MAIN_KERNELS}
+        sync()
+        t0 = time.perf_counter()
+        ex.range_query_batch(Q, rs)
+        t1 = time.perf_counter()
+        r_syncs, prof_r = ex._tls.syncs, ex.last_profile
+        ex.knn_query_batch(Q, K_NN)
+        t2 = time.perf_counter()
+        syncs[mode].append((r_syncs, ex.last_knn["host_syncs"]))
+        qps[mode].append((B / (t1 - t0), B / (t2 - t1)))
+        if mode == "on":
+            for n in MAIN_KERNELS:
+                got = obs.REGISTRY.counter(f"kernels.{n}.launches").value \
+                    - counted[n]
+                want = _cuda.LAUNCHES[n] - launches[n]
+                check(got == want, f"serving: (e) kernels.{n}.launches "
+                      f"counted {got}, _cuda {want}")
+            for p in (prof_r, ex.last_profile):
+                check(p is not None and p.missing() == [],
+                      f"serving: (e) incomplete profile {p}")
+    timing.stop()
+    check(syncs["on"] == syncs["off"],
+          f"serving: (e) host_syncs differ with REPRO_OBS on / off: {syncs}")
+    os.environ["REPRO_OBS_PROFILES"] = "2"
+    os.environ["REPRO_OBS_TRACE_CAP"] = "4"
+    obs.clear_profiles()
+    obs.clear_trace()
+    obs.configure("trace")
+    for _ in range(3):
+        ex.knn_query_batch(Q[:8], K_NN)
+    rings = (len(obs.profiles()), obs.trace_len())
+    del os.environ["REPRO_OBS_PROFILES"], os.environ["REPRO_OBS_TRACE_CAP"]
+    obs.clear_profiles()
+    obs.clear_trace()
+    obs.configure("on")
+    check(rings == (2, 4), f"serving: (e) rings {rings}, caps (2, 4)")
+    mean = {m: np.mean(v, axis=0) for m, v in qps.items()}
+    print(f"serving: (e) REPRO_OBS on: range {mean['on'][0]:.2f} q/s, kNN "
+          f"{mean['on'][1]:.2f} q/s; off: range {mean['off'][0]:.2f} q/s, "
+          f"kNN {mean['off'][1]:.2f} q/s (after a warm-up batch of each "
+          f"kind, turns on, off, off, on; batch 0 of each kind a turn; per "
+          f"turn {qps}); _emit_profile a batch on: range "
+          f"{np.mean(emit['on', 'range']) * 1e3:.2f} ms, kNN "
+          f"{np.mean(emit['on', 'knn']) * 1e3:.2f} ms, off: range "
+          f"{np.mean(emit['off', 'range']) * 1e6:.2f} us, kNN "
+          f"{np.mean(emit['off', 'knn']) * 1e6:.2f} us; host_syncs (range, "
+          f"kNN) {syncs['on'][0]} on and off; kernels.<name>.launches equal "
+          f"_cuda's tally; profiles complete; profile and trace rings held "
+          f"at their caps 2 and 4; (e) in {time.perf_counter() - t_part:.1f} "
+          f"s", flush=True)
+
+
+def phase_serving(X, ix, batches) -> None:
+    """The serving lifecycle on ``ix``, parts (a)-(e) (module doc).  The
+    launch counters are zeroed before and read after: every kernel of
+    the query path must have run."""
+    from repro_torch.kernels import _cuda
+    t0 = time.perf_counter()
+    # serve with the default compacted range path (main's loop leaves
+    # the knob at "off")
+    os.environ["REPRO_COMPACT"] = "on"
+    rng = np.random.default_rng(5)
+    deletable = [int(g) for g in np.random.default_rng(6).permutation(len(X))
+                 if g not in ix.tombstones]
+    mem = {}
+    _cuda.reset_launches()
+    serving_sync(X, ix, batches, rng, deletable, mem)
+    engine = serving_async(X, ix, batches, rng, deletable, mem)
+    serving_loop(engine, batches, mem)
+    serving_obs(engine, batches)
+    sync()
+    counts = dict(_cuda.LAUNCHES)
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the serving path")
+    last = mem["(d) after the automatic retrain"]
+    second = mem["(a) generation 2"]
+    limit = second + engine.snapshot.device_nbytes()
+    check(last <= limit, f"serving: memory_allocated {last} after the last "
+          f"generation exceeds {limit} (the 2nd generation's {second} + "
+          f"one snapshot)")
+    print(f"serving: launches {json.dumps(counts)}; memory_allocated after "
+          f"the last generation {last} <= the 2nd generation's {second} + "
+          f"one snapshot = {limit}; all parts in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------- lm
@@ -1662,6 +2133,7 @@ def main() -> int:
     phase_retrain(X, ix, ixd, batches)
     print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    phase_serving(X, ix, batches)
     del X, ix, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .core.snapshot import (DEVICE_FIELDS, HOST_FIELDS, SCALAR_FIELDS,
-                            LIMSSnapshot)
+                            LIMSSnapshot, host_tables)
 from .kernels.dispatch import resolve_device
 
 # every field snapshot_from_reference reads
@@ -37,6 +37,9 @@ def snapshot_from_reference(arrays: dict, device=None) -> LIMSSnapshot:
     kw["gids_np"] = np.asarray(arrays["gids_np"], np.int64)
     kw["rows_np"] = np.asarray(arrays["rows_np"], np.float64)
     kw["valid_np"] = np.asarray(arrays["valid_np"], bool)
+    kw["tables_np"] = host_tables(*(arrays[f] for f in (
+        "rids", "pivots", "coef", "model_lo", "model_hi", "model_n",
+        "rank_err", "in_ring")))
     return LIMSSnapshot(**kw)
 
 

@@ -21,19 +21,33 @@ rounds certify only once the k-th ball provably fits inside the round
 radius minus the guard band, and the final refinement recomputes f64
 distances on the host.
 
-Left for later slices: the paged backend, the sharded executor, the
-compiled device kNN loop, the reduced-precision plane and the profiling
-spans (``last_profile`` stays None).
+Every batch is observed as in the reference (``REPRO_OBS``, default
+on): ``execute_range``/``execute_knn`` wrap the backend and the
+refinement in ``executor.*`` spans and record one ``QueryProfile``
+(``last_profile``), with the batch's observed rank-model error replayed
+in host f32 over up to 32 certified candidates.  Profiling adds no
+device→host copy: it reads the final mask the backend returned and the
+snapshot's host mirrors (``host_syncs`` are equal with ``REPRO_OBS`` on
+and off).
+
+Left for later slices: the paged backend (ROADMAP A7), the sharded
+executor (A9), the compiled device kNN loop and the reduced-precision
+plane.
 """
 from __future__ import annotations
 
 import threading
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from ..kernels import ops
 from ..kernels.dispatch import compact_enabled
+from ..obs import registry as _obs
+from ..obs.profile import QueryProfile, record_profile
+from ..obs.trace import span
 from .metrics import dist_one_to_many
 from .planner import (_BALL_ABS, _R_REL, _SEED_REL, CandidatePlan, Planner,
                       plan_arrays)
@@ -70,7 +84,11 @@ class _ResidentBackend:
     name = "resident"
 
     def __init__(self, ex: "QueryExecutor"):
-        self.ex = ex
+        # weak: the executor owns its backend (see QueryExecutor)
+        self.ex = weakref.proxy(ex)
+
+    def release(self, plan: CandidatePlan) -> None:
+        """No storage, nothing pinned."""
 
     def range_hits(self, plan: CandidatePlan) -> np.ndarray:
         ex = self.ex
@@ -116,6 +134,10 @@ class _ResidentBackend:
             hits[:, slots] = cand[:, slots] & ball
         ex.last_compact = {"slots": int(slots.size), "bucket": int(bucket),
                            "n_slots": int(s.n_slots)}
+        _obs.count("executor.compact_batches")
+        if s.n_slots:
+            _obs.observe("executor.compact_frac",
+                         slots.size / float(s.n_slots))
         return hits
 
     def knn_candidates(self, plan: CandidatePlan):
@@ -166,7 +188,13 @@ class _ResidentBackend:
 
 class QueryExecutor:
     """Single-device plan execution + exact host refinement.  Runs on
-    the snapshot's device."""
+    the snapshot's device.
+
+    The executor owns its planner and backend, and they hold it weakly:
+    with no reference cycle, an executor a serving engine drops (the old
+    standby at a swap) frees its snapshot's device memory as soon as
+    the last batch holding it returns, not at a later cycle
+    collection."""
 
     def __init__(self, snapshot: LIMSSnapshot):
         self.snap = snapshot
@@ -180,10 +208,15 @@ class QueryExecutor:
         # kNN batch
         self.last_knn: dict | None = None
         self.last_driver: str | None = None
-        # the reference's QueryProfile is not ported: stays None
-        self.last_profile = None
+        # QueryProfile of the most recent batch (None until one runs, or
+        # with REPRO_OBS=off; last-writer-wins like last_knn)
+        self.last_profile: QueryProfile | None = None
         # per-thread sync counter, as in the reference
         self._tls = threading.local()
+
+    @property
+    def live(self) -> int:
+        return self.snap.live
 
     def _count_sync(self) -> None:
         """One device->host materialization on the query path."""
@@ -215,6 +248,123 @@ class QueryExecutor:
         """f64 rows for flat slot ids."""
         return self.snap.rows_np[idx]
 
+    # -------------------------------------------------------- observability
+    def _emit_profile(self, plan: CandidatePlan, idxs: list, rounds: int,
+                      stages: dict, t0: float) -> None:
+        """Build and record one batch's :class:`QueryProfile`.
+
+        Everything derives from state already on the host — each query's
+        certified slot ids, which refinement has just taken from the
+        backend's final mask, the thread-local sync counter, the
+        snapshot's host mirrors — so profiling adds no device syncs.
+        Candidates are the certified rows refinement scanned; clusters
+        are how many of the K clusters those rows span (TriPrune's
+        pruning power, per query).  The reference reduces the (B, P)
+        final mask three times for these; the slot lists give the same
+        values without another pass over it (at n = 1M ~0.1 s of host
+        time a batch, PERF.md)."""
+        if not _obs.enabled():
+            return
+        s = self.snap
+        K, n_max, _ = s.rids.shape
+        cand = np.array([i.size for i in idxs])
+        # slot ids come sorted: a cluster holds candidates where its slot
+        # range [k·n_max, (k+1)·n_max) cuts a query's ids
+        edges = np.arange(K + 1) * n_max
+        clusters = np.array([np.count_nonzero(np.diff(np.searchsorted(
+            i, edges))) for i in idxs])
+        union = np.zeros(s.n_slots, bool)
+        for i in idxs:
+            union[i] = True
+        prof = QueryProfile(
+            kind=plan.kind, batch=plan.B, k=plan.k,
+            backend=self.backend.name,
+            driver=self.last_driver if plan.kind == "knn" else None,
+            storage="resident", n_shards=1,
+            rounds=int(rounds),
+            host_syncs=int(getattr(self._tls, "syncs", 0)),
+            pages=0, pages_per_query=0.0,
+            candidates_per_query=float(cand.mean()),
+            clusters_per_query=float(clusters.mean()),
+            n_clusters=int(K), stages=stages,
+            total_s=time.perf_counter() - t0 + plan.plan_s,
+            rank_err_ratio=self._observed_rank_err(np.flatnonzero(union)))
+        self.last_profile = prof
+        record_profile(prof)
+
+    # how many certified candidates the rank-health stat replays per
+    # batch (host f32 math over cache-hot rows — bounded, not per-row)
+    _HEALTH_SAMPLE = 32
+
+    def _health_arrays(self):
+        """Host mirrors of the model/ring fields (``rids``, ``pivots``,
+        ``coef``, ``lo``/``hi``/``n``, ``err``, flat ``in_ring``): the
+        snapshot's own (``LIMSSnapshot.tables_np``), so the per-batch
+        health stat copies nothing back from the device."""
+        return self.snap.tables_np
+
+    def _observed_rank_err(self, union: np.ndarray) -> float | None:
+        """Observed rank-model error over this batch, as a fraction of
+        the certified bound E (the reference's DESIGN.md §12).
+
+        Samples up to ``_HEALTH_SAMPLE`` of the in-ring slots among
+        ``union``, the sorted union of the batch's certified slots (the
+        reference's ``final.any(axis=0)``), with a deterministic stride —
+        no RNG on the query path — recomputes their pivot distances from the f64 rows
+        refinement reads, replays the reference's host-f32 ``rank_math``
+        arithmetic, and compares the predicted ring id against the one
+        the build stored.  A NaN rank (a NaN distance) counts as rank 0,
+        ring 0, as the kernels rank it since their NaN repair; on finite
+        rows the replay is the reference's to the bit.  Ratio 1.0 means
+        predictions are off by as much as the ring-widening budget E
+        assumes; the rank-drift detector watches the per-cluster gauges
+        this emits.  Returns the sample-mean ratio, or None when the
+        batch certified no in-ring rows.  Buffer rows (``in_ring``
+        False) bypass the model and are skipped."""
+        s = self.snap
+        K, n_max, m = s.rids.shape
+        h = self._health_arrays()
+        slots = union[h.in_ring[union]]
+        if slots.size == 0:
+            return None
+        if slots.size > self._HEALTH_SAMPLE:
+            step = slots.size // self._HEALTH_SAMPLE
+            slots = slots[::step][:self._HEALTH_SAMPLE]
+        rows = np.asarray(self._refine_rows(slots), np.float32)  # (S, d)
+        kk = slots // n_max
+        jj = slots % n_max
+        x = np.sqrt(((rows[:, None, :] - h.pivots[kk]) ** 2).sum(-1))
+        # replay rank_math in f32: normalize, Clenshaw high→low, rank →
+        # ring id
+        lo, hi, nn = h.lo[kk], h.hi[kk], h.n[kk]                 # (S, m)
+        t = np.clip((x - lo) / np.maximum(hi - lo, np.float32(1e-30))
+                    * 2.0 - 1.0, -1.0, 1.0).astype(np.float32)
+        coef = h.coef[kk]                                        # (S, m, C)
+        b1 = np.zeros_like(t)
+        b2 = np.zeros_like(t)
+        t2 = 2.0 * t
+        for c in range(coef.shape[-1] - 1, 0, -1):
+            b1, b2 = coef[..., c] + t2 * b1 - b2, b1
+        r = coef[..., 0] + t * b1 - b2
+        rank = np.clip(np.rint(r), 0.0, np.maximum(nn - 1.0, 0.0))
+        rank = np.where(np.isnan(rank), np.float32(0.0), rank)
+        width = np.ceil(nn / np.float32(s.n_rings))
+        pred = np.clip(np.floor(rank / np.maximum(width, 1.0)), 0.0,
+                       np.float32(s.n_rings - 1))
+        act = h.rids[kk, jj]                                     # (S, m)
+        ok = act >= 0
+        if not ok.any():
+            return None
+        ratio = np.where(
+            ok, np.abs(pred - act) * width / np.maximum(h.err[kk], 1.0),
+            0.0)
+        for k in np.unique(kk):
+            _obs.set_gauge(f"executor.rank_err_ratio.c{int(k)}",
+                           float(ratio[kk == k].max()))
+        mean = float(ratio.sum() / ok.sum())
+        _obs.observe("executor.rank_err_ratio", mean)
+        return mean
+
     # ------------------------------------------------------- range queries
     def range_query_batch(self, Q, r):
         """Exact batched L2 range query.
@@ -228,15 +378,39 @@ class QueryExecutor:
         r_arr = np.broadcast_to(np.asarray(r, np.float64), (B,))
         self._tls.syncs = 0
         plan = self.planner.plan_range(Q, r_arr)
+        return self.execute_range(Q, plan)
+
+    def execute_range(self, Q, plan: CandidatePlan):
+        """Execute a prebuilt range plan.  ``Q`` must be the (B, d) f64
+        queries the plan was built for (the plan carries only their f32
+        device copy; exact refinement needs f64).  A plan built by
+        another executor's planner starts a fresh sync count here."""
         s = self.snap
-        hit = self.backend.range_hits(plan)
-        out = []
-        for b in range(Q.shape[0]):
-            idx = np.nonzero(hit[b])[0]
-            ids = s.gids_np[idx]
-            d_true = dist_one_to_many(Q[b], self._refine_rows(idx), "l2")
-            keep = d_true <= plan.radii[b]
-            out.append((ids[keep], d_true[keep]))
+        Q = np.atleast_2d(np.asarray(Q, np.float64))
+        if plan._planner is not self.planner:
+            self._tls.syncs = 0
+        t0 = time.perf_counter()
+        stages = {"plan": plan.plan_s}
+        try:
+            with span("executor.range_execute",
+                      {"B": plan.B, "backend": self.backend.name}):
+                hit = self.backend.range_hits(plan)
+            t1 = time.perf_counter()
+            stages["execute"] = t1 - t0
+            out, idxs = [], []
+            with span("executor.refine", {"B": plan.B}):
+                for b in range(Q.shape[0]):
+                    idx = np.nonzero(hit[b])[0]
+                    idxs.append(idx)
+                    ids = s.gids_np[idx]
+                    d_true = dist_one_to_many(Q[b], self._refine_rows(idx),
+                                              "l2")
+                    keep = d_true <= plan.radii[b]
+                    out.append((ids[keep], d_true[keep]))
+            stages["refine"] = time.perf_counter() - t1
+            self._emit_profile(plan, idxs, 1, stages, t0)
+        finally:
+            self.backend.release(plan)
         return out
 
     def range_query(self, q, r: float):
@@ -258,23 +432,45 @@ class QueryExecutor:
             return (np.empty((B, 0), np.int64), np.empty((B, 0)))
         self._tls.syncs = 0
         plan = self.planner.plan_knn(Q, k_eff, max_rounds)
-        final, rounds = self.backend.knn_candidates(plan)
-        self.last_knn = {"backend": self.backend.name, "k": plan.k,
-                         "rounds": rounds,
-                         "host_syncs": self._tls.syncs,
-                         "driver": self.last_driver}
-        return self._refine_topk(Q, final, plan.k)
+        return self.execute_knn(Q, plan)
 
-    def _refine_topk(self, Q, final: np.ndarray, k_eff: int):
-        """Exact f64 refinement of the certified candidate sets:
-        ``final`` is a superset of the closed k-th ball per query, so
-        the stable distance sort selects the host index's k results."""
+    def execute_knn(self, Q, plan: CandidatePlan):
+        """Execute a prebuilt kNN plan (see :meth:`execute_range`)."""
+        Q = np.atleast_2d(np.asarray(Q, np.float64))
+        if plan._planner is not self.planner:
+            self._tls.syncs = 0
+        t0 = time.perf_counter()
+        stages = {"plan": plan.plan_s}
+        try:
+            with span("executor.knn_execute",
+                      {"B": plan.B, "k": plan.k,
+                       "backend": self.backend.name}):
+                final, rounds = self.backend.knn_candidates(plan)
+            t1 = time.perf_counter()
+            stages["execute"] = t1 - t0
+            self.last_knn = {"backend": self.backend.name, "k": plan.k,
+                             "rounds": rounds,
+                             "host_syncs": self._tls.syncs,
+                             "driver": self.last_driver}
+            with span("executor.refine", {"B": plan.B}):
+                idxs = [np.nonzero(row)[0] for row in final]
+                out = self._refine_topk(Q, idxs, plan.k)
+            stages["refine"] = time.perf_counter() - t1
+            self._emit_profile(plan, idxs, rounds, stages, t0)
+            return out
+        finally:
+            self.backend.release(plan)
+
+    def _refine_topk(self, Q, idxs: list, k_eff: int):
+        """Exact f64 refinement of the certified candidate sets: each
+        query's slot ids ``idxs[b]`` are a superset of its closed k-th
+        ball, so the stable distance sort selects the host index's k
+        results."""
         s = self.snap
         B = Q.shape[0]
         ids_out = np.empty((B, k_eff), np.int64)
         d_out = np.empty((B, k_eff))
-        for b in range(B):
-            idx = np.nonzero(final[b])[0]
+        for b, idx in enumerate(idxs):
             d_true = dist_one_to_many(Q[b], self._refine_rows(idx), "l2")
             sel = np.argsort(d_true, kind="stable")[:k_eff]
             ids_out[b] = s.gids_np[idx[sel]]
@@ -287,4 +483,16 @@ class QueryExecutor:
         return ids[0], dists[0]
 
 
-__all__ = ["QueryExecutor"]
+def make_executor(snapshot: LIMSSnapshot, *,
+                  sharded: bool | None = None) -> QueryExecutor:
+    """Executor factory.  ``sharded=None`` (or False) serves on the
+    snapshot's one device: unlike the reference it never auto-shards on
+    a machine with several cards, since the sharded executor is not
+    ported.  ``sharded=True`` raises ``NotImplementedError``."""
+    if sharded:
+        raise NotImplementedError(
+            "the sharded executor is not ported yet (ROADMAP A9)")
+    return QueryExecutor(snapshot)
+
+
+__all__ = ["QueryExecutor", "make_executor"]

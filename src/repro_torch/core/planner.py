@@ -11,15 +11,24 @@ Guard-band constants live here because they are plan semantics: the
 masks must be a certified superset of the host's exact candidate sets
 (the reference's DESIGN.md §3), and every consumer widens and narrows
 by the same bands.
+
+Plan construction is observed as in the reference: a
+``planner.plan_range`` / ``planner.plan_knn`` span around each build,
+its wall time in ``CandidatePlan.plan_s``, and the
+``planner.plans_built`` and ``planner.round_evals`` counters.
 """
 from __future__ import annotations
 
+import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import registry as _obs
+from ..obs.trace import span
 
 # f32 guard bands: rank math and distances run in f64 on the host; the
 # device path inflates radii so rounding can never exclude a true result
@@ -119,6 +128,8 @@ class CandidatePlan:
     # cached compacted-gather decision: None = not evaluated yet,
     # (slots,) = dense gather indices, (None,) = union too large to pay
     _compact: tuple | None = field(repr=False, default=None)
+    # seconds spent constructing the plan (the profile's "plan" stage)
+    plan_s: float = 0.0
 
     @property
     def qf(self) -> torch.Tensor:
@@ -182,7 +193,8 @@ class Planner:
     """
 
     def __init__(self, executor):
-        self.ex = executor
+        # weak: the executor owns its planner (see QueryExecutor)
+        self.ex = weakref.proxy(executor)
         self.built = 0
 
     def _queries(self, Q64: np.ndarray) -> torch.Tensor:
@@ -192,10 +204,15 @@ class Planner:
     def plan_range(self, Q64: np.ndarray, r64: np.ndarray) -> CandidatePlan:
         """Single-round plan at the queries' own radii."""
         self.built += 1
-        return CandidatePlan(
-            kind="range", B=Q64.shape[0], k=None, max_rounds=1,
-            radii=np.array(r64, np.float64),
-            _planner=self, _qf=self._queries(Q64))
+        t0 = time.perf_counter()
+        with span("planner.plan_range", {"B": int(Q64.shape[0])}):
+            plan = CandidatePlan(
+                kind="range", B=Q64.shape[0], k=None, max_rounds=1,
+                radii=np.array(r64, np.float64),
+                _planner=self, _qf=self._queries(Q64))
+        plan.plan_s = time.perf_counter() - t0
+        _obs.count("planner.plans_built")
+        return plan
 
     def plan_knn(self, Q64: np.ndarray, k_eff: int,
                  max_rounds: int) -> CandidatePlan:
@@ -207,28 +224,36 @@ class Planner:
         collapse the seed below any real point's distance.
         """
         self.built += 1
-        s = self.ex.snap
-        qf = self._queries(Q64)
-        K, n_max, m = s.rids.shape
-        dq = torch.sqrt(torch.clamp(
-            ops.pdist(qf, s.pivots.reshape(K * m, s.d)), min=0.0))
-        dq = dq.cpu().numpy()
-        self.ex._count_sync()
-        live_k = s.valid_np.reshape(K, n_max).any(axis=1)       # (K,)
-        dqm = np.where(np.repeat(live_k, m)[None], dq, np.inf)
-        r0 = dqm.min(axis=1).astype(np.float64) * (1.0 + _SEED_REL) \
-            + _BALL_ABS
-        return CandidatePlan(
-            kind="knn", B=Q64.shape[0], k=int(k_eff),
-            max_rounds=int(max_rounds), radii=r0,
-            _planner=self, _qf=qf)
+        t0 = time.perf_counter()
+        with span("planner.plan_knn",
+                  {"B": int(Q64.shape[0]), "k": int(k_eff)}):
+            s = self.ex.snap
+            qf = self._queries(Q64)
+            K, n_max, m = s.rids.shape
+            dq = torch.sqrt(torch.clamp(
+                ops.pdist(qf, s.pivots.reshape(K * m, s.d)), min=0.0))
+            dq = dq.cpu().numpy()
+            self.ex._count_sync()
+            live_k = s.valid_np.reshape(K, n_max).any(axis=1)   # (K,)
+            dqm = np.where(np.repeat(live_k, m)[None], dq, np.inf)
+            r0 = dqm.min(axis=1).astype(np.float64) * (1.0 + _SEED_REL) \
+                + _BALL_ABS
+            plan = CandidatePlan(
+                kind="knn", B=Q64.shape[0], k=int(k_eff),
+                max_rounds=int(max_rounds), radii=r0,
+                _planner=self, _qf=qf)
+        plan.plan_s = time.perf_counter() - t0
+        _obs.count("planner.plans_built")
+        return plan
 
     def eval_mask(self, qf: torch.Tensor, radii: np.ndarray) -> np.ndarray:
         """(B, P) host candidate mask at explicit per-query radii."""
         rf = torch.from_numpy(np.asarray(radii, np.float32)).to(qf.device)
         cand, _ = self.ex._plan_arrays(qf, rf)
+        cand = cand.cpu().numpy()
         self.ex._count_sync()
-        return cand.cpu().numpy()
+        _obs.count("planner.round_evals")
+        return cand
 
 
 __all__ = ["CandidatePlan", "Planner", "plan_arrays"]

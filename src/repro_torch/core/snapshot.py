@@ -18,7 +18,10 @@ torch tensors on one device:
   rank_err (K, m)        f32   certified rank-error bound E
 
 Host-side refinement data (``gids_np``, ``rows_np`` in f64, ``valid_np``)
-rides along so the final exact refinement never round-trips through f32.
+rides along so the final exact refinement never round-trips through f32,
+and so do host mirrors of the ring ids and rank tables (``tables_np``),
+which the executor's observed-rank-error replay reads without copying
+anything back from the device.
 
 Exactness with learned models on the device: the snapshot certifies a
 per-(cluster, pivot) rank-error bound E and the planner widens the
@@ -31,6 +34,7 @@ t-space, plus slack for rint/f32 (the reference's DESIGN.md §3).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -81,6 +85,9 @@ class LIMSSnapshot:
     gids_np: np.ndarray
     rows_np: np.ndarray
     valid_np: np.ndarray
+    # host mirrors of rids / pivots / the rank tables / in_ring (see
+    # host_tables)
+    tables_np: SimpleNamespace
 
     @property
     def n_slots(self) -> int:
@@ -149,6 +156,9 @@ class LIMSSnapshot:
                 gids[k, n:n + nb] = ci.buf_ids
                 valid[k, n:n + nb] = [g not in dead for g in ci.buf_ids]
         coef, lo, hi, n_model, err = _certified_rank_table(index, dev)
+        coef = coef.reshape(K, m, -1)
+        lo, hi, n_model = (a.reshape(K, m) for a in (lo, hi, n_model))
+        err = err.reshape(K, m).astype(np.float32)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -161,15 +171,31 @@ class LIMSSnapshot:
             ns=put(np.array([ci.n for ci in index.clusters], np.int32)),
             valid=put(valid), in_ring=put(in_ring),
             always=put(valid & ~in_ring),
-            coef=put(coef.reshape(K, m, -1)),
-            model_lo=put(lo.reshape(K, m)),
-            model_hi=put(hi.reshape(K, m)),
-            model_n=put(n_model.reshape(K, m)),
-            rank_err=put(err.reshape(K, m).astype(np.float32)),
+            coef=put(coef), model_lo=put(lo), model_hi=put(hi),
+            model_n=put(n_model), rank_err=put(err),
             gids_np=gids.reshape(-1),
             rows_np=rows64.reshape(K * n_max, d),
             valid_np=valid.reshape(-1),
+            tables_np=host_tables(rids, pivots, coef, lo, hi, n_model, err,
+                                  in_ring),
         )
+
+
+def host_tables(rids, pivots, coef, lo, hi, n, err,
+                in_ring) -> SimpleNamespace:
+    """Host mirrors of the fields the executor's rank-health replay
+    reads (``QueryExecutor._health_arrays``): ``rids`` (K, n_max, m),
+    f32 ``pivots`` (K, m, d), ``coef`` (K, m, C), ``lo``/``hi``/``n``/
+    ``err`` (K, m), and ``in_ring`` flat (K·n_max,).  The reference
+    copies them back from the device once per executor; the port keeps
+    the host arrays the build already holds."""
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    return SimpleNamespace(
+        rids=np.asarray(rids, np.int32), pivots=f32(pivots), coef=f32(coef),
+        lo=f32(lo), hi=f32(hi), n=f32(n), err=f32(err),
+        in_ring=np.asarray(in_ring, bool).reshape(-1))
 
 
 def rank_columns(index: LIMSIndex) -> np.ndarray:
@@ -235,4 +261,4 @@ def _certified_rank_table(index: LIMSIndex, device: torch.device):
 
 
 __all__ = ["LIMSSnapshot", "DEVICE_FIELDS", "HOST_FIELDS", "SCALAR_FIELDS",
-           "rank_columns"]
+           "host_tables", "rank_columns"]

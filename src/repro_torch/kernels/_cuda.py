@@ -19,7 +19,10 @@ Every C entry point takes its pointers and the stream as ``void*`` and
 returns the launch's ``cudaGetLastError()``; :func:`launch` makes the
 operands' device current where another one is, passes that device's
 current stream, raises on a nonzero code and otherwise counts the launch
-in :data:`LAUNCHES`.  A
+in :data:`LAUNCHES`.  The first launch builds and binds every library
+under a lock, so threads that launch their first kernels together (an
+async snapshot refresh beside a query thread) build once and never see
+a half-bound table.  A
 kernel with one entry point per operand type (``flash_attention_f32``
 and ``flash_attention_bf16``, one template) names them in
 :data:`VARIANTS`; its launches are counted under the kernel's name.
@@ -33,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -72,7 +76,9 @@ SOURCES = {"pdist": "pdist.cu", "rankeval": "rankeval.cu",
 # launches per kernel since the last reset_launches(): only launch() adds
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
 
+# filled once, by one update under _LOAD_LOCK: empty or complete
 _FUNCS: dict[tuple[str, str | None], ctypes._CFuncPtr] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 @dataclass
@@ -124,7 +130,7 @@ def build(extra_flags: tuple[str, ...] = (), build_dir: Path = BUILD_DIR,
         if out.exists() and not force:
             procs[src] = (out, None, time.perf_counter())
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(_tmp_suffix())
         cmd = [exe, *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
         procs[src] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -138,21 +144,35 @@ def build(extra_flags: tuple[str, ...] = (), build_dir: Path = BUILD_DIR,
             if proc.returncode != 0:
                 failed.append(f"{src} (exit {proc.returncode}):\n{log}")
                 continue
-            os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
+            os.replace(out.with_suffix(_tmp_suffix()), out)
         built[src] = Built(src, out, time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return built
 
 
+def _tmp_suffix() -> str:
+    """nvcc's output name before the rename: one per process and thread,
+    so two builds never write the same file."""
+    return f".{os.getpid()}.{threading.get_ident()}.tmp"
+
+
 def _load() -> None:
-    libs = {src: ctypes.CDLL(str(b.path)) for src, b in build().items()}
-    for name, (symbol, argtypes) in SIGNATURES.items():
-        for variant in VARIANTS.get(name, (None,)):
-            fn = getattr(libs[SOURCES[name]], symbol.format(variant))
-            fn.argtypes = list(argtypes) + [_P]
-            fn.restype = ctypes.c_int
-            _FUNCS[name, variant] = fn
+    """Build and bind every library once.  The first thread in builds
+    while any other waits on the lock; the table is published by one
+    ``dict.update``, so a reader finds it empty or complete."""
+    with _LOAD_LOCK:
+        if _FUNCS:
+            return
+        libs = {src: ctypes.CDLL(str(b.path)) for src, b in build().items()}
+        funcs = {}
+        for name, (symbol, argtypes) in SIGNATURES.items():
+            for variant in VARIANTS.get(name, (None,)):
+                fn = getattr(libs[SOURCES[name]], symbol.format(variant))
+                fn.argtypes = list(argtypes) + [_P]
+                fn.restype = ctypes.c_int
+                funcs[name, variant] = fn
+        _FUNCS.update(funcs)
 
 
 def current_stream(index: int) -> int:

@@ -23,6 +23,13 @@ are NaN; a far row's are +inf, which no ball holds), and the mask is
 sliced back.  ``flash_attention`` pads Sq and Sk to whole 128-row
 tiles, masks the padded keys with ``kv_len`` and slices the rows back,
 as the reference's wrapper does.
+
+Each wrapper counts its call in the observability registry, as the
+reference's ``_count_launch`` does: ``kernels.<name>.launches`` and a
+per-lane ``kernels.<name>.<lane>``, where the lane is ``cuda`` (the
+hand-written kernel, one launch a call) or ``torch`` (the plain version
+on a CPU tensor).  The count lands after the call returns, so on CUDA
+tensors it equals ``_cuda.LAUNCHES``' tally of the same calls.
 """
 from __future__ import annotations
 
@@ -35,8 +42,19 @@ from . import range_filter as _range_filter
 from . import rankeval as _rankeval
 from .dispatch import fused_plan_enabled
 from .pdist import GROUPED
+from ..obs import registry as _obs
 
 FAR = 1e30      # padding-row coordinate: outside every ball, finite
+
+
+def _count_launch(name: str, probe: torch.Tensor) -> None:
+    """Per-kernel call counter (``kernels.<name>.launches``) plus its
+    lane, ``cuda`` or ``torch`` by the operands' device; no-op and
+    allocation-free with ``REPRO_OBS=off``."""
+    if not _obs.enabled():
+        return
+    _obs.count(f"kernels.{name}.launches")
+    _obs.count(f"kernels.{name}.{'cuda' if probe.is_cuda else 'torch'}")
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -49,7 +67,9 @@ def pdist(q: torch.Tensor, p: torch.Tensor,
           metric: str = "sql2") -> torch.Tensor:
     """(nq, np) f32 pairwise distances. metric: sql2 | l1 | linf; sql2
     returns squared distances (take ``torch.sqrt`` or square radii)."""
-    return _pdist.pdist(_f32(q), _f32(p), metric)
+    out = _pdist.pdist(_f32(q), _f32(p), metric)
+    _count_launch("pdist", q)
+    return out
 
 
 def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
@@ -57,13 +77,17 @@ def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
     """(G, nq, np) f32 distances of q (G, nq, d) to p (G, np, d) within
     each group, ``pdist(q[g], p[g], metric)`` for every g in one launch.
     metric: l1 | linf (ValueError for any other)."""
-    return _pdist.pdist_grouped(_f32(q), _f32(p), metric)
+    out = _pdist.pdist_grouped(_f32(q), _f32(p), metric)
+    _count_launch("pdist_grouped", q)
+    return out
 
 
 def rankeval(x, coef, lo, hi, n, n_rings: int = 20):
     """Batched rank-model eval (G groups x B values) + ring ids."""
-    return _rankeval.rankeval(_f32(x), _f32(coef), _f32(lo), _f32(hi),
-                              _f32(n), n_rings)
+    out = _rankeval.rankeval(_f32(x), _f32(coef), _f32(lo), _f32(hi),
+                             _f32(n), n_rings)
+    _count_launch("rankeval", x)
+    return out
 
 
 def range_filter(q: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
@@ -76,6 +100,7 @@ def range_filter(q: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
         p = torch.cat([p, torch.full((pad, p.shape[1]), FAR,
                                      dtype=torch.float32, device=p.device)])
     mask, cnt = _range_filter.range_filter(q, p, r * r)
+    _count_launch("range_filter", q)
     return mask[:, :npts], cnt
 
 
@@ -84,8 +109,10 @@ def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20):
     widened-radius boundaries dq -/+ rg, one launch; bit-identical to
     the staged ``sqrt(pdist)`` + ``rankeval(cat(dq-rg, dq+rg))`` chain
     of the same device."""
-    return _fused.pdist_rankeval(_f32(q), _f32(piv), _f32(coef), _f32(lo),
-                                 _f32(hi), _f32(n), _f32(rg), n_rings)
+    out = _fused.pdist_rankeval(_f32(q), _f32(piv), _f32(coef), _f32(lo),
+                                _f32(hi), _f32(n), _f32(rg), n_rings)
+    _count_launch("pdist_rankeval", q)
+    return out
 
 
 def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
@@ -107,6 +134,7 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
         v = torch.nn.functional.pad(v, (0, 0, 0, pk))
     out = _flash.flash_attention(q, k, v, causal=causal,
                                  kv_len=sk if pk else None)
+    _count_launch("flash_attention", q)
     return out[:, :, :sq]
 
 

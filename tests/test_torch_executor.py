@@ -174,7 +174,9 @@ def test_range_identical(env, compact, which):
         assert ex.last_compact["bucket"] >= ex.last_compact["slots"]
     else:
         assert ex.last_compact is None
-    assert ex.last_profile is None
+    prof = ex.last_profile              # REPRO_OBS defaults to on
+    assert prof.kind == "range" and prof.batch == len(Q)
+    assert prof.missing() == []
 
 
 @pytest.mark.parametrize("k", [1, 7, N + 500])

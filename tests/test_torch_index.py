@@ -202,6 +202,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.configs.registry\n"
         "import repro_torch.models.params, repro_torch.models.layers\n"
         "import repro_torch.models.transformer, repro_torch.models.zoo\n"
+        "import repro_torch.obs, repro_torch.obs.export\n"
+        "import repro_torch.serving, repro_torch.core.serving\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert bad == ['jax'], bad\n"

@@ -9,6 +9,9 @@ themselves are held against those plain versions by the ``gpu``-marked
 test at the end, which skips where there is no card.  The reference is
 imported inside fixtures, so that test also runs where JAX is absent.
 """
+import ctypes
+import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -476,6 +479,50 @@ def test_current_stream_takes_the_raw_handle(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "current_stream", no_stream)
     assert _cuda.current_stream(3) == 5003
+
+
+def test_first_launch_loads_once_across_threads(monkeypatch, tmp_path):
+    """Threads that launch their first kernels together (an async
+    snapshot refresh beside a query thread) build the libraries once:
+    ``build``, a slow stub here, runs one time, and no thread finds the
+    entry-point table half filled.  ``ctypes.CDLL`` is a stub too, so no
+    nvcc or card is needed."""
+    builds = []
+
+    def slow_build(*args, **kw):
+        builds.append(threading.get_ident())
+        time.sleep(0.2)
+        return {src: _cuda.Built(src, tmp_path / src, 0.0, "")
+                for src in dict.fromkeys(_cuda.SOURCES.values())}
+
+    class FakeLib:
+        def __getattr__(self, symbol):
+            def entry(*args):
+                return 0
+            return entry
+
+    monkeypatch.setattr(_cuda, "build", slow_build)
+    monkeypatch.setattr(_cuda, "ctypes", SimpleNamespace(
+        CDLL=lambda path: FakeLib(), c_int=ctypes.c_int))
+    monkeypatch.setattr(_cuda, "_FUNCS", {})
+    want = {(name, v) for name in _cuda.SIGNATURES
+            for v in _cuda.VARIANTS.get(name, (None,))}
+    start = threading.Barrier(4)
+    seen = []
+
+    def first_launch():
+        start.wait(timeout=10)
+        _cuda._load()
+        seen.append(set(_cuda._FUNCS))
+
+    threads = [threading.Thread(target=first_launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert len(builds) == 1
+    assert seen == [want] * 4
 
 
 def test_mixed_devices_rejected():
