@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's exact query path, index builder,
-serving lifecycle and dense-LM serving path on one CUDA card.
+serving lifecycle, paged storage tier and dense-LM serving path on one
+CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
                           [--seed 0]
@@ -92,7 +93,34 @@ Phases, each printing lines that start with its name:
             held at their caps.  memory_allocated after the last
             generation must not exceed the 2nd generation's plus one
             snapshot;
-8. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+8. paged    the paged storage tier (repro_torch.storage) on main's
+            snapshot and index, counters zeroed before (b)'s paged
+            batches and read after (c) (each query-path kernel must
+            run): (a) main's
+            snapshot, spilled right after main's kernel rows to a
+            temporary directory at 4,096-byte pages, loads cold
+            (store=True, a 4,096-page cache: 16 MB, every batch evicts)
+            and resident; spill s, load s, bytes on disk, and the paged
+            snapshot's device bytes, which must be at most the
+            resident's less its rows; (b) the first of main's batches
+            of each kind (a CUT) through the resident executor and the
+            paged one with REPRO_PREFETCH off and async (REPRO_CACHE_PIN
+            on; under REPRO_REAL_IO=1 the OS page cache is dropped
+            first), each kind from a cold page cache: ids and f64
+            distances equal to the resident path's and the host
+            index's; q/s, pages per query, hit rate, evictions, rows
+            gathered and host_syncs; the off turn split into masks,
+            IO planning, pins, page fetch, gather, cast + copy,
+            kernels and the rest; the
+            pdist and range_filter launches tallied by (nq, np), and
+            each held to its plain version (torch.equal) at the gathered
+            shape launched most; (c) ServingEngine(storage="paged") on
+            main's host index: 1,000 inserts and 1,000 deletes, a
+            refresh (extents reused), a range batch held to the host
+            index, compact() (bytes reclaimed), and a cold start with
+            ServingEngine.from_spill, its kNN batch held to the host
+            index;
+9. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
             random weights from --seed: (a) float32 at a cut depth of 4
             layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
             and a decode step of tokens[:, -1] give forward_seq's logits
@@ -115,7 +143,7 @@ Phases, each printing lines that start with its name:
             bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
-9. retrieval  the twin of examples/retrieval_serving.py steps 1-4: an
+10. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
             encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
             on the card (its attention through the flash kernel), a host
             LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
@@ -133,10 +161,12 @@ sources are missing beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -177,6 +207,12 @@ WIDE_D, WIDE_N = 256, 20_000
 SERVE_ROUNDS, SERVE_ROWS, SERVE_REFRESH = 4, 1_000, 2_000
 SERVE_ASYNC_BATCHES = 8
 FOUND_SAMPLE = 64
+# paged: main's snapshot spilled at PAGE_BYTES pages, served behind a
+# CACHE_PAGES page cache (16 MB, far under the store); (b) runs the first
+# PAGED_BATCHES of main's batches of each kind in each prefetch mode (a
+# CUT of main's 8: a paged batch takes ~15 s at n = 1M, PERF.md); (c)'s
+# engine takes one round of SERVE_ROWS inserts and SERVE_ROWS deletes
+PAGE_BYTES, CACHE_PAGES, PAGED_BATCHES = 4096, 4096, 1
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -366,6 +402,23 @@ def same_knn(got, want) -> bool:
             and np.array_equal(np.sort(got[0]), np.sort(want[0])))
 
 
+def shape_spy():
+    """({"pdist": {}, "range_filter": {}}, an unstarted patch of
+    ``_cuda.launch``) that tallies each launch of the two kernels by its
+    (nq, np), the C arguments after the pointers."""
+    from repro_torch.kernels import _cuda
+    shapes = {"pdist": {}, "range_filter": {}}
+    real_launch = _cuda.launch
+
+    def spy(name, *args, **kw):
+        real_launch(name, *args, **kw)
+        if name in shapes:
+            nq, npts = args[3:5] if name == "pdist" else args[5:7]
+            shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
+
+    return shapes, mock.patch.object(_cuda, "launch", spy)
+
+
 def phase_main(X, ix, batches, snap_cls, executor_cls):
     """The counted main path.  Returns the launch counts and the
     snapshot (reused by the later phases)."""
@@ -383,20 +436,11 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
           f"kNN {nq / (t2 - t1):.2f} q/s (one CPU thread)", flush=True)
 
     # the (nq, np) of each pdist and range_filter launch of the counted run
-    shapes = {"pdist": {}, "range_filter": {}}
-    real_launch = _cuda.launch
-
-    def spy(name, *args, **kw):
-        real_launch(name, *args, **kw)
-        if name in shapes:      # the C arguments after the pointers
-            nq, npts = args[3:5] if name == "pdist" else args[5:7]
-            shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
-
+    shapes, spying = shape_spy()
     sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    spying = mock.patch.object(_cuda, "launch", spy)
     spying.start()
     t0 = time.perf_counter()
     snap = snap_cls.build(ix, device=DEVICE)
@@ -1569,6 +1613,337 @@ def phase_serving(X, ix, batches) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------- paged
+def spill_main(snap) -> dict:
+    """(a)'s spill of main's snapshot into a temporary directory, timed;
+    the directory, its seconds and the resident snapshot's sizes."""
+    t0 = time.perf_counter()
+    path = tempfile.mkdtemp(prefix="chip-smoke-paged-")
+    man = snap.spill(path, page_bytes=PAGE_BYTES)
+    return {"path": path, "spill_s": time.perf_counter() - t0,
+            "pages": man.total_pages, "rows_per_page": man.rows_per_page,
+            "device_bytes": snap.device_nbytes(),
+            "rows_bytes": snap.rows.nbytes}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def paged_batches(ex, sel, host_range, host_knn, want_r, want_k, tag,
+                  split: dict | None = None):
+    """Main's range and kNN batches ``sel`` through the paged executor
+    ``ex``, each kind from a cold page cache: ids and f64 distances
+    equal to the resident executor's (``want_*``) and the host index's.
+    Prints each kind's q/s and counters, and with ``split`` (the
+    accumulators of ``split_timers``) where its time went."""
+    store = ex.snap.store
+    nq = len(sel) * B
+    for kind in ("range", "knn"):
+        store.cache.clear()
+        store.stats.reset()
+        if os.environ.get("REPRO_REAL_IO") == "1":
+            store.drop_os_cache()
+        if split is not None:
+            split.clear()
+        syncs, pages = [], []
+        sync()
+        t0 = time.perf_counter()
+        for i, (Q, rs) in enumerate(sel):
+            if kind == "range":
+                got = ex.range_query_batch(Q, rs)
+                for b in range(B):
+                    check(np.array_equal(got[b][0], want_r[i][b][0])
+                          and np.array_equal(got[b][1], want_r[i][b][1])
+                          and same_range(got[b], host_range[i][b]),
+                          f"paged: {tag}: range query {b} of batch {i} "
+                          f"differs from the resident path or the host")
+                syncs.append(ex.last_profile.host_syncs)
+            else:
+                ids, ds = ex.knn_query_batch(Q, K_NN)
+                check(np.array_equal(ids, want_k[i][0])
+                      and np.array_equal(ds, want_k[i][1]),
+                      f"paged: {tag}: kNN batch {i} differs from the "
+                      f"resident path")
+                for b in range(B):
+                    check(same_knn((ids[b], ds[b]), host_knn[i][b]),
+                          f"paged: {tag}: kNN query {b} of batch {i} "
+                          f"differs from the host index")
+                syncs.append(ex.last_knn["host_syncs"])
+            pages.append(ex.last_io["pages"])
+        t = time.perf_counter() - t0
+        st = store.stats.snapshot()
+        extra = ""
+        if ex.prefetcher is not None and kind == "knn":
+            pf = ex.prefetcher.snapshot()
+            extra = (f" prefetch pages_submitted={pf['pages_submitted']} "
+                     f"fetched={pf['pages_fetched']} "
+                     f"hit_rate={pf['hit_rate']} "
+                     f"overlapped_rounds={pf['overlapped_rounds']}")
+        print(f"paged: (b) {tag} {kind} {nq / t:.2f} q/s "
+              f"(B={B}, {len(sel)} batches, cold cache) "
+              f"pages/query={st['pages_per_query']} "
+              f"batch_pages={pages} hit_rate={st['hit_rate']} "
+              f"requests={st['requests']} misses={st['misses']} "
+              f"evictions={st['evictions']} "
+              f"prefetch_reads={st['prefetch_reads']} "
+              f"rows_gathered={st['rows_gathered']} "
+              f"host_syncs/batch={syncs}{extra}", flush=True)
+        if split is not None:
+            parts = " ".join(f"{k}={v * 1e3:.1f}" for k, v in split.items())
+            print(f"paged: (b) {tag} {kind} split (ms over the batches): "
+                  f"total={t * 1e3:.1f} {parts} "
+                  f"rest={(t - sum(split.values())) * 1e3:.1f}", flush=True)
+
+
+@contextlib.contextmanager
+def split_timers(ex, acc: dict):
+    """Accumulate into ``acc`` the wall seconds the paged executor
+    ``ex`` spends in: the plan's candidate masks (computed on the card,
+    copied to the host), IO planning (``plan_batch``), page pins and
+    their release, page fetch, row gather (the refinement's too), cast +
+    copy to the card, and kernels.  Each timed call is synchronised and
+    only the outermost one counts (a mask's kernel is the mask's); the
+    rest of a batch is certification, the hits scatter, per-query page
+    accounting and f64 refinement."""
+    from repro_torch.core import executor as exmod
+    from repro_torch.core.planner import CandidatePlan
+    from repro_torch.kernels import ops
+    store, be, planner = ex.snap.store, ex.backend, ex.planner
+    depth = [0]
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                sync()
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+                depth[0] -= 1
+        return wrapped
+
+    on = [(store, "fetch", "fetch"), (store, "gather", "gather"),
+          (store, "pin_pages", "pins"), (store, "unpin_pages", "pins"),
+          (be, "_to_device", "h2d"), (planner, "eval_mask", "mask"),
+          (exmod, "plan_batch", "plan_io")]
+    on += [(ops, n, "kernels")
+           for n in ("pdist", "range_filter", "pdist_rankeval")]
+    patches = [mock.patch.object(obj, name, timed(key, getattr(obj, name)))
+               for obj, name, key in on]
+    patches.append(mock.patch.object(
+        CandidatePlan, "mask", property(timed("mask",
+                                              CandidatePlan.mask.fget))))
+    for p in patches:
+        p.start()
+    try:
+        yield acc
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def paged_kernels_vs_plain(paged, shapes, Q, rs) -> None:
+    """Each kernel of the paged path against its plain version,
+    ``torch.equal``, at the gathered shape the tally launched most."""
+    from repro_torch.core.planner import _BALL_ABS, _R_REL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pdist import pdist_plain
+    from repro_torch.kernels.range_filter import range_filter_plain
+    q = torch.from_numpy(Q.astype(np.float32)).to(DEVICE)
+    r = torch.from_numpy(rs.astype(np.float32)).to(DEVICE) \
+        * (1.0 + _R_REL) + _BALL_ABS
+    G = paged.K * paged.m
+    for name in ("range_filter", "pdist"):
+        by = {s: n for s, n in shapes[name].items() if s != (B, G)}
+        check(by, f"paged: no gathered {name} launch in the tally")
+        (nq, npts), n = max(by.items(), key=lambda kv: (kv[1], kv[0][1]))
+        rows = torch.from_numpy(paged.store.gather(
+            np.nonzero(paged.valid_np)[0][:npts]).astype(np.float32)).to(
+                DEVICE)
+        if name == "pdist":
+            ok = torch.equal(ops.pdist(q, rows), pdist_plain(q, rows))
+        else:
+            mask, cnt = ops.range_filter(q, rows, r)
+            mask_p, cnt_p = range_filter_plain(q, rows, r * r)
+            ok = torch.equal(mask, mask_p) and torch.equal(cnt, cnt_p)
+        check(ok, f"paged: {name} differs from its plain version at the "
+              f"gathered shape ({nq}, {npts})")
+        print(f"paged: {name} equals its plain version (torch.equal) at "
+              f"the gathered shape ({nq}, {npts}, d {D}), launched {n} "
+              f"times there", flush=True)
+
+
+def batch_equals_host(engine, ix, Q, rs, kind: str, tag: str) -> float:
+    """One ``kind`` batch through ``engine`` held to ``ix`` (ids and f64
+    distances); its wall seconds."""
+    t0 = time.perf_counter()
+    if kind == "range":
+        got = engine.range_query_batch(Q, rs)
+    else:
+        ids, ds = engine.knn_query_batch(Q, K_NN)
+    t = time.perf_counter() - t0
+    for b, (q, r) in enumerate(zip(Q, rs)):
+        ok = same_range(got[b], ix.range_query(q, r)[:2]) \
+            if kind == "range" else \
+            same_knn((ids[b], ds[b]), ix.knn_query(q, K_NN)[:2])
+        check(ok, f"paged: (c) {tag}: {kind} query {b} differs from the "
+              f"host index")
+    return t
+
+
+def paged_engine(X, ix, Q, rs) -> None:
+    """(c) ServingEngine(storage="paged") on main's host index: one
+    round of updates and a refresh (extents reused), compaction (bytes
+    reclaimed) and a cold start from the spill, each held to the host
+    index's answers."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.storage import Manifest
+    path = tempfile.mkdtemp(prefix="chip-smoke-engine-")
+    try:
+        t0 = time.perf_counter()
+        engine = ServingEngine(ix, refresh_every=0, storage="paged",
+                               storage_path=path, page_bytes=PAGE_BYTES,
+                               cache_pages=CACHE_PAGES, device=DEVICE)
+        t_build = time.perf_counter() - t0
+        check(engine.snapshot.rows.shape[1] == 0,
+              "paged: (c) the engine's snapshot holds rows on the card")
+        man0 = Manifest.load(path)
+        deletable = [int(g) for g in
+                     np.random.default_rng(8).permutation(len(X))
+                     if g not in ix.tombstones]
+        _, _, t_ins, t_del = mutate(engine, X, np.random.default_rng(9),
+                                    deletable)
+        t0 = time.perf_counter()
+        engine.refresh()
+        t_refresh = time.perf_counter() - t0
+        man1 = Manifest.load(path)
+        reused = sum(a == b for a, b in zip(man0.extents, man1.extents)) \
+            if man1.n_max == man0.n_max else 0
+        t_r = batch_equals_host(engine, ix, Q, rs, "range", "refreshed")
+        print(f"paged: (c) ServingEngine(storage='paged') built+spilled "
+              f"in {t_build:.3f} s; {SERVE_ROWS} inserts {t_ins:.2f} s, "
+              f"{SERVE_ROWS} deletes {t_del:.2f} s; refresh (spill of "
+              f"generation {man1.generation}) {t_refresh:.3f} s; extents "
+              f"reused {reused} of {man1.K} (n_max {man0.n_max} -> "
+              f"{man1.n_max}); pages {man0.total_pages} -> "
+              f"{man1.total_pages}; a range batch equals the host index "
+              f"({t_r:.3f} s)", flush=True)
+        before = engine.store.nbytes_file()
+        t0 = time.perf_counter()
+        man_c = engine.compact()
+        t_compact = time.perf_counter() - t0
+        after = engine.store.nbytes_file()
+        check(after <= before and man_c.total_pages ==
+              man_c.K * man_c.layout().pages_per_cluster,
+              "paged: (c) compaction left garbage pages")
+        print(f"paged: (c) compact() in {t_compact:.3f} s reclaimed "
+              f"{before - after} bytes ({before} -> {after})", flush=True)
+        del engine
+        t0 = time.perf_counter()
+        cold = ServingEngine.from_spill(path, cache_pages=CACHE_PAGES,
+                                        device=DEVICE)
+        t_start = time.perf_counter() - t0
+        t_k = batch_equals_host(cold, ix, Q, rs, "knn", "cold start")
+        print(f"paged: (c) ServingEngine.from_spill started in "
+              f"{t_start:.3f} s; its first kNN batch equals the host index "
+              f"({t_k:.3f} s, page misses {cold.store.stats.misses})",
+              flush=True)
+        del cold
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_paged(X, ix, batches, host_range, host_knn, spilled) -> None:
+    """The paged storage tier on main's snapshot and index, parts (a)-(c)
+    (module doc).  The launch counters are zeroed after the resident
+    comparison's batches and read after (c): each kernel of the paged
+    path must have run."""
+    from repro_torch.core import QueryExecutor
+    from repro_torch.core.snapshot import LIMSSnapshot
+    from repro_torch.kernels import _cuda
+    t_phase = time.perf_counter()
+    os.environ["REPRO_COMPACT"] = "on"
+    os.environ["REPRO_CACHE_PIN"] = "on"
+    path = spilled["path"]
+    t0 = time.perf_counter()
+    paged = LIMSSnapshot.load(path, store=True, cache_pages=CACHE_PAGES,
+                              device=DEVICE)
+    sync()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resident = LIMSSnapshot.load(path, device=DEVICE)
+    sync()
+    t_res = time.perf_counter() - t0
+    limit = resident.device_nbytes() - resident.rows.nbytes
+    check(resident.device_nbytes() == spilled["device_bytes"],
+          "paged: the resident load differs in size from main's")
+    check(paged.device_nbytes() <= limit,
+          f"paged: the store-backed snapshot holds {paged.device_nbytes()} "
+          f"B on the card, more than the resident "
+          f"{resident.device_nbytes()} B less its rows")
+    print(f"paged: (a) spill of main's snapshot {spilled['spill_s']:.3f} s "
+          f"({spilled['pages']} pages of {PAGE_BYTES} B, "
+          f"{spilled['rows_per_page']} rows a page); cold load "
+          f"(store=True, cache {CACHE_PAGES} pages) {t_load:.3f} s; "
+          f"resident load {t_res:.3f} s; on disk {dir_bytes(path)} B "
+          f"(pages file {paged.store.nbytes_file()} B); device_bytes paged "
+          f"{paged.device_nbytes()} vs resident {resident.device_nbytes()} "
+          f"(rows {resident.rows.nbytes})", flush=True)
+
+    sel = batches[:PAGED_BATCHES]
+    print(f"paged: CUT: (b) runs {len(sel)} of main's {len(batches)} "
+          f"batches of each kind in each prefetch mode", flush=True)
+    res_ex = QueryExecutor(resident)
+    nq = len(sel) * B
+    t0 = time.perf_counter()
+    want_r = [res_ex.range_query_batch(Q, rs) for Q, rs in sel]
+    t1 = time.perf_counter()
+    want_k = [res_ex.knn_query_batch(Q, K_NN) for Q, _ in sel]
+    t2 = time.perf_counter()
+    print(f"paged: (b) resident (loaded from the spill) range "
+          f"{nq / (t1 - t0):.2f} q/s, kNN {nq / (t2 - t1):.2f} q/s",
+          flush=True)
+    del res_ex, resident
+
+    shapes, spying = shape_spy()
+    sync()
+    _cuda.reset_launches()
+    spying.start()
+    try:
+        ex = QueryExecutor(paged, prefetch="off")
+        with split_timers(ex, {}) as acc:
+            paged_batches(ex, sel, host_range, host_knn, want_r, want_k,
+                          "REPRO_PREFETCH=off", split=acc)
+        paged_batches(QueryExecutor(paged, prefetch="async"), sel,
+                      host_range, host_knn, want_r, want_k,
+                      "REPRO_PREFETCH=async")
+        paged_engine(X, ix, *sel[0])
+        sync()
+    finally:
+        spying.stop()
+    counts = dict(_cuda.LAUNCHES)
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the paged path")
+    print(f"paged: launches {json.dumps(counts)}", flush=True)
+    for name, by in shapes.items():
+        check(sum(by.values()) == counts[name],
+              f"paged: {name}: the shape tally misses launches")
+        print(f"paged: {name} launches by (nq, np): "
+              + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
+              flush=True)
+    paged_kernels_vs_plain(paged, shapes, *sel[0])
+    shutil.rmtree(path, ignore_errors=True)
+    print(f"paged: all parts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # ---------------------------------------------------------------------- lm
 def lm_model(cfg, seed: int):
     """The port's own random parameters for ``cfg`` on the card."""
@@ -1829,7 +2204,6 @@ def dump_sass(lib):
     """(cuobjdump's path or None, its --dump-sass run on ``lib`` or
     None): the CUDA toolkit's cuobjdump or Triton's copy."""
     import importlib.util
-    import shutil
     from repro_torch.kernels import _cuda
     exes = [shutil.which("cuobjdump"),
             *(str(Path(r, "bin", "cuobjdump")) for r in _cuda.CUDA_ROOTS)]
@@ -2118,6 +2492,7 @@ def main() -> int:
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
+    spilled = spill_main(snap)
     del snap
 
     t0 = time.perf_counter()
@@ -2134,6 +2509,7 @@ def main() -> int:
     print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_serving(X, ix, batches)
+    phase_paged(X, ix, batches, host_range, host_knn, spilled)
     del X, ix, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
 

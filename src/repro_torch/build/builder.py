@@ -202,21 +202,32 @@ def build_snapshot(space: MetricSpace, n_clusters: int | None = None, *,
                    spill_path: str | None = None,
                    page_bytes: int | None = None,
                    store: bool = False, device=None, **kw):
-    """Device-build an index and emit its resident serving
-    ``LIMSSnapshot`` on the same device.
+    """Device-build an index and emit its serving ``LIMSSnapshot`` on the
+    same device.
 
     Returns ``(snapshot, index)``: the snapshot serves through
     ``QueryExecutor``; the index remains the §5.3 update target, exactly
-    as with a host build.  The paged layout (``spill_path``,
-    ``page_bytes``, ``store``) is not ported yet and raises.
+    as with a host build.
+
+    ``spill_path`` additionally emits the paged disk layout as part of
+    the build (the reference's DESIGN.md §7): rows land in
+    learned-position page extents the moment they exist, so a freshly
+    built corpus is cold-start servable without a second pass.
+    ``store=True`` returns the store-backed snapshot view instead of the
+    resident one.
     """
-    if spill_path is not None or page_bytes is not None or store:
-        raise NotImplementedError(
-            "build_snapshot: the paged tier (spill_path, page_bytes, store) "
-            "is a later slice of the port; only the resident snapshot exists")
     from ..core.snapshot import LIMSSnapshot
     index = build_index(space, n_clusters=n_clusters, device=device, **kw)
-    return LIMSSnapshot.build(index, device=device), index
+    snap = LIMSSnapshot.build(index, device=device)
+    if spill_path is not None:
+        from ..storage import DEFAULT_PAGE_BYTES, PagedStore
+        snap.spill(spill_path,
+                   page_bytes=page_bytes or DEFAULT_PAGE_BYTES)
+        if store:
+            snap = snap.with_store(PagedStore(spill_path))
+    elif store:
+        raise ValueError("store=True requires spill_path")
+    return snap, index
 
 
 # ------------------------------------------------------------------ retrain

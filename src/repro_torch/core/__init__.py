@@ -1,5 +1,6 @@
-"""LIMS core (port of ``repro.core``): the host index and the resident
-device query path — ``LIMSSnapshot`` -> ``Planner`` -> ``QueryExecutor``
+"""LIMS core (port of ``repro.core``): the host index and the device
+query path — ``LIMSSnapshot`` (resident, or store-backed through
+``repro_torch.storage``) -> ``Planner`` -> ``QueryExecutor``
 (``make_executor``) -> ``ServingEngine`` (double-buffered refresh, from
 ``repro_torch.serving``), with ``BatchedLIMS`` as the one-shot shim."""
 from .batched import BatchedLIMS
@@ -13,7 +14,7 @@ from .paging import PageStore
 from .pivots import fft_pivots
 from .rankmodel import (PolyRankModel, SearchStats, binary_search,
                         exponential_search)
-from .snapshot import LIMSSnapshot
+from .snapshot import LIMSSnapshot, maybe_paged
 
 
 def __getattr__(name: str):
@@ -28,7 +29,8 @@ def __getattr__(name: str):
 
 __all__ = [
     "BatchedLIMS", "Clustering", "kcenter", "kmeans", "LIMSIndex",
-    "QueryStats", "LIMSSnapshot", "QueryExecutor", "make_executor",
+    "QueryStats", "LIMSSnapshot", "maybe_paged", "QueryExecutor",
+    "make_executor",
     "ServingEngine",
     "KSelectResult", "select_k", "PivotMapping", "build_mapping",
     "lims_value", "ring_of_rank", "MetricSpace", "cdist",

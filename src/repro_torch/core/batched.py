@@ -8,15 +8,19 @@ from __future__ import annotations
 
 from .executor import QueryExecutor
 from .index import LIMSIndex
-from .snapshot import LIMSSnapshot
+from .snapshot import LIMSSnapshot, maybe_paged
 
 
 class BatchedLIMS(QueryExecutor):
     """Device snapshot of a LIMSIndex (vector metrics, L2) on ``device``
-    (default ``cuda``; raises if there is no card)."""
+    (default ``cuda``; raises if there is no card).
+
+    Under ``REPRO_STORAGE=paged`` the snapshot spills to a self-cleaning
+    paged store and serves store-backed (bit-identical results, page IO
+    in place of resident rows)."""
 
     def __init__(self, index: LIMSIndex, device=None):
-        super().__init__(LIMSSnapshot.build(index, device))
+        super().__init__(maybe_paged(LIMSSnapshot.build(index, device)))
 
 
 __all__ = ["BatchedLIMS"]

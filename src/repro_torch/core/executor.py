@@ -1,9 +1,9 @@
-"""Plan *execution* over a resident snapshot, and exact host refinement.
+"""Plan *execution* over a snapshot, and exact host refinement.
 
-Port of ``repro/core/executor.py``, resident backend only.  The planner
+Port of ``repro/core/executor.py``, single device.  The planner
 (``planner.py``) builds one :class:`CandidatePlan` per query batch and
-``_ResidentBackend`` executes it with the kernels over the snapshot's
-device rows:
+one of two backends executes it.  ``_ResidentBackend`` runs the kernels
+over the snapshot's device rows:
 
   * range: the fused L2-ball prefilter (``range_filter``) applied to the
     plan's device mask — by default (``REPRO_COMPACT=on``) over the
@@ -14,6 +14,16 @@ device rows:
     one round at a time (the reference's ``_knn_host_rounds``): a
     ``pdist`` distance matrix over every slot, the plan math per round,
     and ``torch.topk`` for the k-th distance.
+
+``_PagedBackend`` serves a store-backed snapshot (``snap.store`` set;
+the storage tier, the reference's DESIGN.md §7–§8): the plan's masks
+become deduplicated, run-coalesced page IO through the snapshot's
+``StoreView``; ``range_filter`` (range) and ``pdist`` (each kNN round's
+newly gathered rows) run on the gathered rows, cast to f32 on the host
+and copied to the device through a pinned staging buffer; the round's
+schedule mask is the planner's ``eval_mask`` (``pdist_rankeval`` on
+CUDA).  With ``REPRO_PREFETCH=async`` round t+1's pages are fetched on
+a background thread while round t's kernels run.
 
 Exactness contract: results are bit-identical to the host ``LIMSIndex``
 — the plan's masks are a certified superset of the candidates, kNN
@@ -30,9 +40,8 @@ device→host copy: it reads the final mask the backend returned and the
 snapshot's host mirrors (``host_syncs`` are equal with ``REPRO_OBS`` on
 and off).
 
-Left for later slices: the paged backend (ROADMAP A7), the sharded
-executor (A9), the compiled device kNN loop and the reduced-precision
-plane.
+Left for later slices: the sharded executor (ROADMAP A9), the compiled
+device kNN loop and the reduced-precision plane.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ from ..kernels.dispatch import compact_enabled
 from ..obs import registry as _obs
 from ..obs.profile import QueryProfile, record_profile
 from ..obs.trace import span
+from ..storage import (PagePrefetcher, cache_pin_mode, plan_batch,
+                       prefetch_mode)
 from .metrics import dist_one_to_many
 from .planner import (_BALL_ABS, _R_REL, _SEED_REL, CandidatePlan, Planner,
                       plan_arrays)
@@ -76,6 +87,13 @@ def _knn_round_masks(d2, cand, rf, eps):
     cnt = torch.sum(candb, dim=1)
     dm = torch.where(candb, d2, torch.full_like(d2, float("inf")))
     return candb, cnt, dm
+
+
+def _resident_only(snap: LIMSSnapshot) -> None:
+    if snap.store is not None:
+        raise RuntimeError(
+            "store-backed executor never scans every slot; the kNN "
+            "driver routes through the paged backend")
 
 
 class _ResidentBackend:
@@ -186,9 +204,241 @@ class _ResidentBackend:
         return final, rounds
 
 
+class _PagedBackend:
+    """Storage-tier execution: the plan's masks drive page IO.
+
+    Round t's certified mask becomes a deduplicated, run-coalesced
+    ``IOPlan``; rows are gathered through the snapshot's
+    generation-bound ``StoreView`` and refined with the same kernels.
+    With a prefetcher attached (``REPRO_PREFETCH=async``), round t+1's
+    IOPlan — known from the schedule before round t's refinement starts
+    — is fetched on a background thread while the kernels run, so the
+    next round's fetch finds its pages already resident.
+
+    Gathered rows reach the kernels unpadded.  The reference pads them
+    to a power-of-two bucket of far rows (``_pad_bucket``) only to bound
+    XLA recompiles; the CUDA kernels take any point count, and per-pair
+    math does not depend on which other rows share a launch, so masks
+    and distances are the same without the up-to-2x extra bytes.
+    """
+
+    name = "paged"
+
+    def __init__(self, ex: "QueryExecutor", prefetch: str | None = None):
+        # weak: the executor owns its backend (see QueryExecutor), so a
+        # generation a swap drops frees its StoreView and mmaps too
+        self.ex = weakref.proxy(ex)
+        mode = prefetch_mode() if prefetch is None else str(prefetch).lower()
+        self.prefetcher = PagePrefetcher(ex.snap.store) \
+            if mode == "async" else None
+        # the pinned staging buffer, one a thread: executors serve
+        # lock-free concurrent query threads (see _to_device)
+        self._tls = threading.local()
+
+    # --------------------------------------------------------- staging
+    def _to_device(self, rows64: np.ndarray) -> torch.Tensor:
+        """Gathered f64 rows as f32 on the snapshot's device.
+
+        The cast runs on the host, as in the reference: it halves the
+        bytes sent over PCIe and gives the same f32 bits as a cast on
+        the device.  On a CUDA device the rows go through one reused
+        pinned staging buffer (one a query thread, grown to the largest
+        gather) with a ``non_blocking`` copy on the current stream.
+        Design: a single buffer, refilled only after the previous copy's
+        kernel result has been read back — every paged round ends in
+        that readback (``.cpu()``), which waits for the stream, so the
+        copy has landed before the next refill.  A copy moved onto a
+        side stream would need two buffers and events between them."""
+        dev = self.ex.snap.device
+        if dev.type != "cuda":
+            return torch.from_numpy(rows64.astype(np.float32))
+        n, d = rows64.shape
+        buf = getattr(self._tls, "staging", None)
+        if buf is None or buf.numel() < n * d:
+            buf = torch.empty(n * d, dtype=torch.float32, pin_memory=True)
+            self._tls.staging = buf
+        host = buf[:n * d].view(n, d)
+        np.copyto(host.numpy(), rows64, casting="same_kind")
+        return host.to(dev, non_blocking=True)
+
+    # ----------------------------------------------------- schedule pins
+    def _pin(self, plan: CandidatePlan, pages: np.ndarray) -> None:
+        """Pin one round's planned pages for the plan's lifetime
+        (``REPRO_CACHE_PIN=off`` reverts to blind LRU).  The ledger
+        lives on the plan so ``release`` can drain it even when the
+        executor errors mid-batch."""
+        if len(pages) and cache_pin_mode():
+            self.ex.snap.store.pin_pages(pages)
+            plan._pins.append(pages)
+
+    def release(self, plan: CandidatePlan) -> None:
+        """Drop every page hold this plan's execution took (idempotent:
+        the ledger drains)."""
+        store = self.ex.snap.store
+        pins, plan._pins = plan._pins, []
+        for pages in pins:
+            store.unpin_pages(pages)
+
+    # ------------------------------------------------------------- range
+    def range_hits(self, plan: CandidatePlan) -> np.ndarray:
+        """Same candidate mask as the resident path, ball prefilter on
+        gathered pages.  Per-pair kernel math is independent of which
+        other rows share a launch and the gathered f32 rows are the same
+        downcast the resident snapshot holds, so the mask is identical
+        to the in-memory path."""
+        ex = self.ex
+        store = ex.snap.store
+        cand = plan.mask
+        io = plan_batch(cand, store.layout)
+        # schedule-aware eviction: the batch's planned pages stay pinned
+        # until execute_*'s finally releases the plan — a squeezed cache
+        # can't evict them between fetch, gather and exact refinement
+        self._pin(plan, io.pages)
+        store.fetch(io)
+        hits = np.zeros_like(cand)
+        if len(io.slots):
+            rows64 = store.gather(io.slots)
+            rf = torch.from_numpy(plan.radii.astype(np.float32)).to(
+                plan.qf.device)
+            ball, _ = ops.range_filter(plan.qf, self._to_device(rows64),
+                                       rf * (1.0 + _R_REL) + _BALL_ABS)
+            ball = ball.cpu().numpy().astype(bool)
+            ex._count_sync()
+            hits[:, io.slots] = cand[:, io.slots] & ball
+        store.record_queries(io.pages_per_query, io.cand_per_query)
+        ex.last_io = io.summary()
+        ex.last_io["pinned_pages"] = sum(len(p) for p in plan._pins)
+        return hits
+
+    # --------------------------------------------------------------- kNN
+    def knn_candidates(self, plan: CandidatePlan):
+        """Growing-radius rounds whose IO is the candidate pages.
+
+        Each round evaluates the plan's schedule mask for the whole
+        batch, fetches only pages not yet resident (the scheduler
+        dedupes; earlier rounds' pages are cache hits — Alg. 2's
+        never-re-read-a-page contract), computes f32 distances on the
+        newly gathered rows with the same ``pdist`` kernel, and
+        certifies per query with the resident rounds' guard-band test.
+        The certified set is a superset of the closed k-th ball, so
+        refinement returns results bit-identical to the in-memory
+        executor."""
+        ex = self.ex
+        ex.last_driver = "paged"
+        s = ex.snap
+        store = s.store
+        pf = self.prefetcher
+        qf = plan.qf
+        B, k_eff = plan.B, plan.k
+        r = plan.radii.copy()
+        done = np.zeros(B, bool)
+        final = np.zeros((B, s.n_slots), bool)
+        pos = np.full(s.n_slots, -1, np.int64)   # slot → gathered column
+        d2g = np.empty((B, 0), np.float32)       # sq dists, gathered slots
+        pages_seen = [set() for _ in range(B)]   # per-query IO metric
+        seen = np.zeros((B, s.n_slots), bool)    # per-query fetched cands
+        cand_next = plan.mask                    # round-0 schedule mask
+        ticket = None
+        rounds = 0
+        for t in range(plan.max_rounds):
+            rounds = t + 1
+            cand = cand_next.copy()
+            cand_next = None
+            cand[done] = False        # frozen queries stop driving IO
+            # per_query=False: the pages_seen sets below are this
+            # driver's cross-round page accounting
+            io = plan_batch(cand, store.layout, per_query=False)
+            if pf is not None:
+                pf.note_demand(io.pages, ticket)
+                ticket = None
+            # pin before the fetch: earlier rounds' pages a later round
+            # re-demands (growing radii are supersets) stay resident
+            # until execute_knn's finally releases the plan
+            self._pin(plan, io.pages)
+            store.fetch(io)
+            # pages(∪ rounds) = ∪ pages(new slots per round): only map
+            # slots not already charged to the query
+            newly = cand & ~seen
+            seen |= cand
+            for b in np.nonzero(newly.any(axis=1))[0]:
+                pages_seen[b].update(store.layout.slot_pages(
+                    np.nonzero(newly[b])[0]).tolist())
+            new = io.slots[pos[io.slots] < 0]
+            if len(new):
+                rows64 = store.gather(new)
+                pos[new] = d2g.shape[1] + np.arange(len(new))
+            # the schedule fixes round t+1's radius before round t's
+            # refinement runs — evaluate its mask now and hand the page
+            # IO of the genuinely new slots (``exclude``: everything
+            # this or an earlier round gathered) to the background
+            # prefetcher, overlapping the kernel work below
+            if pf is not None and t + 1 < plan.max_rounds:
+                spec_r = np.where(done, r, r * 2.0)
+                cand_next = ex.planner.eval_mask(qf, spec_r)
+                spec = cand_next.copy()
+                spec[done] = False
+                pio = plan_batch(spec, store.layout, per_query=False,
+                                 exclude=pos >= 0)
+                self._pin(plan, pio.pages)   # speculative pages too
+                ticket = pf.submit(pio.pages)
+            if len(new):
+                d2_new = ops.pdist(qf, self._to_device(rows64))
+                d2_new = d2_new.cpu().numpy()
+                ex._count_sync()
+                d2g = np.concatenate([d2g, d2_new], axis=1)
+            r32 = np.asarray(r, np.float32)
+            thr = (r32 * np.float32(1.0 + _R_REL) +
+                   np.float32(_BALL_ABS)) ** 2    # f32 guard-band ball
+            cert = r32 * np.float32(1.0 - _R_REL) - np.float32(_BALL_ABS)
+            for b in np.nonzero(~done)[0]:
+                sl = np.nonzero(cand[b])[0]
+                if len(sl) < k_eff:
+                    continue
+                db = d2g[b, pos[sl]]
+                inball = db <= thr[b]
+                if int(inball.sum()) < k_eff:
+                    continue
+                kth = np.sqrt(np.float32(max(
+                    np.partition(db[inball], k_eff - 1)[k_eff - 1], 0.0)))
+                # same certification as the resident rounds: the k-th
+                # ball fits strictly inside the round radius minus the
+                # f32 guard band
+                if kth <= cert[b]:
+                    final[b, sl[inball]] = True
+                    done[b] = True
+            if done.all():
+                break
+            r = np.where(done, r, r * 2.0)
+            if cand_next is None and t + 1 < plan.max_rounds:
+                cand_next = ex.planner.eval_mask(qf, r)
+        else:
+            final[~done] = s.valid_np[None]       # exact fallback: scan
+            seen[~done] = s.valid_np[None]
+        ppq = [len(p) for p in pages_seen]
+        # candidates = rows fetched for the query across every round
+        # (the union of its candidate sets), matching the range path's
+        # accounting — NOT the smaller certified final set
+        cpq = seen.sum(axis=1)
+        store.record_queries(ppq, cpq)
+        ex.last_io = {"pages": len(set().union(*pages_seen)),
+                      "pages_per_query": ppq,
+                      "candidates_per_query": [int(c) for c in cpq],
+                      "pinned_pages": sum(len(p) for p in plan._pins)}
+        if pf is not None:
+            ex.last_io["prefetch"] = pf.snapshot()
+        return final, rounds
+
+
 class QueryExecutor:
     """Single-device plan execution + exact host refinement.  Runs on
     the snapshot's device.
+
+    A snapshot carrying a paged store (``snap.store``) selects the paged
+    backend: candidate masks are computed from the resident metadata
+    exactly as in memory, then executed as page-granular IO — results
+    bit-identical to the resident path.  ``prefetch`` ("off" | "async";
+    None defers to ``REPRO_PREFETCH``) sets the paged backend's
+    prefetch.
 
     The executor owns its planner and backend, and they hold it weakly:
     with no reference cycle, an executor a serving engine drops (the old
@@ -196,10 +446,13 @@ class QueryExecutor:
     the last batch holding it returns, not at a later cycle
     collection."""
 
-    def __init__(self, snapshot: LIMSSnapshot):
+    def __init__(self, snapshot: LIMSSnapshot, prefetch: str | None = None):
         self.snap = snapshot
         self.planner = Planner(self)
-        self.backend = _ResidentBackend(self)
+        self.backend = _PagedBackend(self, prefetch) \
+            if snapshot.store is not None else _ResidentBackend(self)
+        # IO summary of the most recent store-mode batch (None otherwise)
+        self.last_io: dict | None = None
         # {slots, bucket, n_slots} of the most recent range batch that
         # took the compacted-gather path (None when the full array
         # streamed)
@@ -218,6 +471,12 @@ class QueryExecutor:
     def live(self) -> int:
         return self.snap.live
 
+    @property
+    def prefetcher(self):
+        """The backend's async page prefetcher (None unless paged and
+        ``REPRO_PREFETCH=async``)."""
+        return getattr(self.backend, "prefetcher", None)
+
     def _count_sync(self) -> None:
         """One device->host materialization on the query path."""
         self._tls.syncs = getattr(self._tls, "syncs", 0) + 1
@@ -230,6 +489,7 @@ class QueryExecutor:
     def _ball_filter(self, qf, rf) -> torch.Tensor:
         """(B, P) bool — fused L2-ball prefilter over the filter plane."""
         s = self.snap
+        _resident_only(s)
         frows, eps = s.filter_rows()
         ball, _ = ops.range_filter(qf, frows.reshape(s.n_slots, s.d),
                                    rf * (1.0 + _R_REL) + _BALL_ABS + eps)
@@ -239,13 +499,17 @@ class QueryExecutor:
         """(B, P) f32 squared distances to every slot on the filter
         plane (inf where invalid), plus the plane's margin eps."""
         s = self.snap
+        _resident_only(s)
         frows, eps = s.filter_rows()
         d2 = ops.pdist(qf, frows.reshape(s.n_slots, s.d))
         inf = torch.full_like(d2, float("inf"))
         return torch.where(s.valid.reshape(-1)[None], d2, inf), eps
 
     def _refine_rows(self, idx: np.ndarray) -> np.ndarray:
-        """f64 rows for flat slot ids."""
+        """f64 rows for flat slot ids: the resident matrix or a page
+        gather (cache-hot — the prefilter just fetched these pages)."""
+        if self.snap.store is not None:
+            return self.snap.store.gather(idx)
         return self.snap.rows_np[idx]
 
     # -------------------------------------------------------- observability
@@ -276,14 +540,19 @@ class QueryExecutor:
         union = np.zeros(s.n_slots, bool)
         for i in idxs:
             union[i] = True
+        if self.backend.name == "paged" and self.last_io is not None:
+            pages = int(self.last_io["pages"])
+            ppq = float(np.mean(self.last_io["pages_per_query"]))
+        else:
+            pages, ppq = 0, 0.0
         prof = QueryProfile(
             kind=plan.kind, batch=plan.B, k=plan.k,
             backend=self.backend.name,
             driver=self.last_driver if plan.kind == "knn" else None,
-            storage="resident", n_shards=1,
-            rounds=int(rounds),
+            storage="paged" if s.store is not None else "resident",
+            n_shards=1, rounds=int(rounds),
             host_syncs=int(getattr(self._tls, "syncs", 0)),
-            pages=0, pages_per_query=0.0,
+            pages=pages, pages_per_query=ppq,
             candidates_per_query=float(cand.mean()),
             clusters_per_query=float(clusters.mean()),
             n_clusters=int(K), stages=stages,
@@ -483,16 +752,18 @@ class QueryExecutor:
         return ids[0], dists[0]
 
 
-def make_executor(snapshot: LIMSSnapshot, *,
-                  sharded: bool | None = None) -> QueryExecutor:
+def make_executor(snapshot: LIMSSnapshot, *, sharded: bool | None = None,
+                  prefetch: str | None = None) -> QueryExecutor:
     """Executor factory.  ``sharded=None`` (or False) serves on the
     snapshot's one device: unlike the reference it never auto-shards on
     a machine with several cards, since the sharded executor is not
-    ported.  ``sharded=True`` raises ``NotImplementedError``."""
+    ported.  ``sharded=True`` raises ``NotImplementedError``.
+    ``prefetch`` passes to the paged backend of a store-backed
+    snapshot."""
     if sharded:
         raise NotImplementedError(
             "the sharded executor is not ported yet (ROADMAP A9)")
-    return QueryExecutor(snapshot)
+    return QueryExecutor(snapshot, prefetch=prefetch)
 
 
 __all__ = ["QueryExecutor", "make_executor"]

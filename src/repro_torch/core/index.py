@@ -17,7 +17,8 @@ ranks, never decide membership.
 Port of ``repro/core/index.py``.  ``backend="device"`` builds through
 the batched device pipeline in ``repro_torch.build`` on ``device``
 (default ``cuda``; raises without a card) and materializes the same host
-structures from it; snapshot spill is not ported yet.
+structures from it.  :meth:`LIMSIndex.spill` writes the serving snapshot
+to a paged store directory in the reference's format.
 """
 from __future__ import annotations
 
@@ -600,3 +601,17 @@ class LIMSIndex:
     def reset_page_counters(self) -> None:
         for ci in self.clusters:
             ci.store.reset_counters()
+
+    def spill(self, path: str, page_bytes: int | None = None, device=None):
+        """Spill this index's serving snapshot to a paged store directory
+        (the reference's DESIGN.md §7): rows laid out in learned-position
+        page extents plus the snapshot metadata, ready for store-backed
+        execution or cold-start serving (``ServingEngine.from_spill``).
+        Defaults to the index's own page size so the on-disk geometry
+        matches the host ``PageStore`` accounting.  The snapshot is
+        built (its bound E certified) on ``device`` (default ``cuda``).
+        Returns the store manifest."""
+        from .snapshot import LIMSSnapshot
+        pb = self.page_bytes if page_bytes is None else page_bytes
+        return LIMSSnapshot.build(self, device=device).spill(
+            path, page_bytes=pb)

@@ -106,19 +106,21 @@ def plan_arrays(qf, rf, snap, n_rings: int, fused: bool | None = None):
 
 @dataclass(eq=False)
 class CandidatePlan:
-    """One query batch's certified plan, built once and consumed by the
-    resident backend.
+    """One query batch's certified plan, built once and consumed by
+    whichever execution backend runs the batch (resident or paged).
 
     ``radii`` are the round-0 radii (a range query's own radii; a kNN
-    batch's pivot-distance seeds, which double each round).  The mask and
-    routing are evaluated lazily on the device and cached, and so is
-    their host copy.
+    batch's pivot-distance seeds) and ``growth`` the deterministic
+    per-round multiplier (1 for range — there is only round 0; 2 for
+    kNN).  The mask and routing are evaluated lazily on the device and
+    cached, and so is their host copy.
     """
 
     kind: str                    # "range" | "knn"
     B: int                       # batch size
     k: int | None                # kNN k (clamped to live); None for range
     max_rounds: int              # schedule length
+    growth: float                # radius multiplier per round
     radii: np.ndarray            # (B,) f64 round-0 radii
     _planner: "Planner" = field(repr=False, default=None)
     _qf: torch.Tensor = field(repr=False, default=None)
@@ -128,6 +130,10 @@ class CandidatePlan:
     # cached compacted-gather decision: None = not evaluated yet,
     # (slots,) = dense gather indices, (None,) = union too large to pay
     _compact: tuple | None = field(repr=False, default=None)
+    # page arrays the paged backend pinned for this plan's execution;
+    # drained by the executor's release (finally), so an error mid-batch
+    # cannot leak a batch's pins
+    _pins: list = field(repr=False, default_factory=list)
     # seconds spent constructing the plan (the profile's "plan" stage)
     plan_s: float = 0.0
 
@@ -135,6 +141,11 @@ class CandidatePlan:
     def qf(self) -> torch.Tensor:
         """(B, d) f32 device queries (shared by every plan consumer)."""
         return self._qf
+
+    def radius_at(self, t: int) -> np.ndarray:
+        """(B,) f64 schedule radii for round ``t`` — known for every
+        round the moment the plan exists (what prefetch relies on)."""
+        return self.radii * (self.growth ** t)
 
     def _device(self) -> tuple:
         if self._dev is None:
@@ -208,7 +219,7 @@ class Planner:
         with span("planner.plan_range", {"B": int(Q64.shape[0])}):
             plan = CandidatePlan(
                 kind="range", B=Q64.shape[0], k=None, max_rounds=1,
-                radii=np.array(r64, np.float64),
+                growth=1.0, radii=np.array(r64, np.float64),
                 _planner=self, _qf=self._queries(Q64))
         plan.plan_s = time.perf_counter() - t0
         _obs.count("planner.plans_built")
@@ -240,14 +251,15 @@ class Planner:
                 + _BALL_ABS
             plan = CandidatePlan(
                 kind="knn", B=Q64.shape[0], k=int(k_eff),
-                max_rounds=int(max_rounds), radii=r0,
+                max_rounds=int(max_rounds), growth=2.0, radii=r0,
                 _planner=self, _qf=qf)
         plan.plan_s = time.perf_counter() - t0
         _obs.count("planner.plans_built")
         return plan
 
     def eval_mask(self, qf: torch.Tensor, radii: np.ndarray) -> np.ndarray:
-        """(B, P) host candidate mask at explicit per-query radii."""
+        """(B, P) host candidate mask at explicit per-query radii — the
+        paged backend's per-round schedule evaluation."""
         rf = torch.from_numpy(np.asarray(radii, np.float32)).to(qf.device)
         cand, _ = self.ex._plan_arrays(qf, rf)
         cand = cand.cpu().numpy()

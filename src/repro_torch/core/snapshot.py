@@ -1,9 +1,8 @@
 """The immutable device snapshot of a host ``LIMSIndex``.
 
-Port of ``repro/core/snapshot.py``, resident only (paged spill/load and
-the reduced-precision filter plane are later slices).  Everything a
-query needs is laid out per cluster, padded to a common ``n_max``, as
-torch tensors on one device:
+Port of ``repro/core/snapshot.py`` (the reduced-precision filter plane
+is a later slice).  Everything a query needs is laid out per cluster,
+padded to a common ``n_max``, as torch tensors on one device:
 
   rows    (K, n_max, d)  f32   ring-ordered store rows, then §5.3 insert-
                                buffer rows, then invalid padding slots
@@ -23,6 +22,14 @@ and so do host mirrors of the ring ids and rank tables (``tables_np``),
 which the executor's observed-rank-error replay reads without copying
 anything back from the device.
 
+Paged storage tier (the reference's DESIGN.md §7): :meth:`spill` writes
+the rows into a paged store directory in the reference's format and
+:meth:`load` reads one back, resident or store-backed.  A store-backed
+snapshot (``store`` set) keeps every query table on the device but no
+row payload: ``rows`` is (K, 0, d) and ``rows_np`` (0, d), and the
+executor gathers candidate rows page by page through ``store``, a view
+frozen on the snapshot's own store generation.
+
 Exactness with learned models on the device: the snapshot certifies a
 per-(cluster, pivot) rank-error bound E and the planner widens the
 predicted ring box by it.  E is measured by running the port's own
@@ -33,7 +40,10 @@ t-space, plus slack for rint/f32 (the reference's DESIGN.md §3).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import shutil
+import tempfile
+import weakref
+from dataclasses import dataclass, replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -41,6 +51,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.dispatch import resolve_device
+from ..storage import (DEFAULT_CACHE_PAGES, DEFAULT_PAGE_BYTES, PagedStore,
+                       StoreView, load_meta, spill_rows, storage_mode)
 from .index import LIMSIndex
 
 _E_SLACK = 2.0      # ranks: rint (±0.5 twice) + f32 eval slop
@@ -53,6 +65,8 @@ DEVICE_FIELDS = (
 )
 HOST_FIELDS = ("gids_np", "rows_np", "valid_np")
 SCALAR_FIELDS = ("K", "m", "n_rings", "n_max", "live")
+# everything spilled to the store's metadata file (rows go to pages.bin)
+_SPILL_FIELDS = tuple(f for f in DEVICE_FIELDS if f != "rows")
 
 
 @dataclass(frozen=True)
@@ -88,6 +102,12 @@ class LIMSSnapshot:
     # host mirrors of rids / pivots / the rank tables / in_ring (see
     # host_tables)
     tables_np: SimpleNamespace
+    # paged storage tier: when set, row payloads live on disk — ``rows``
+    # and ``rows_np`` are empty and the executor fetches candidate pages
+    # through this view of the shared reader, bound to THIS snapshot's
+    # generation layout, so a later writeback can never remap an
+    # in-flight batch's slots
+    store: StoreView | None = None
 
     @property
     def n_slots(self) -> int:
@@ -180,6 +200,114 @@ class LIMSSnapshot:
                                   in_ring),
         )
 
+    # ------------------------------------------------------ paged storage
+    def spill(self, path: str, page_bytes: int = DEFAULT_PAGE_BYTES):
+        """Spill to a paged store directory: rows land in cluster-major
+        page extents (mapped-value order), every other array in the
+        generation's metadata file, published by one atomic manifest
+        swap — the reference's format, byte for byte.  Incremental over
+        an existing store: clusters with unchanged row bytes keep their
+        extents.  Returns the new manifest; ``self`` is untouched."""
+        K, n_max, d = self.K, self.n_max, self.d
+        if self.rows_np.shape != (K * n_max, d):
+            raise ValueError("spill needs a resident snapshot "
+                             "(store-backed rows are on disk)")
+        meta = {f: getattr(self, f).cpu().numpy() for f in _SPILL_FIELDS}
+        meta.update(
+            gids_np=self.gids_np, valid_np=self.valid_np,
+            scalars=np.asarray(
+                [self.K, self.m, self.n_rings, self.n_max, self.live],
+                np.int64))
+        return spill_rows(path, self.rows_np.reshape(K, n_max, d),
+                          page_bytes=page_bytes, meta_arrays=meta)
+
+    def with_store(self, store: "PagedStore | StoreView") -> "LIMSSnapshot":
+        """Store-backed view of this snapshot: row payloads dropped (the
+        executor fetches them from ``store`` page-wise), every query
+        table kept on the device.  A raw ``PagedStore`` is bound through
+        a ``StoreView`` freezing its *current* generation's layout — call
+        this right after :meth:`spill` so snapshot and layout match.
+        Pure — returns a new snapshot."""
+        if isinstance(store, PagedStore):
+            store = store.view()
+        return replace(
+            self, rows=torch.zeros((self.K, 0, self.d), dtype=torch.float32,
+                                   device=self.device),
+            rows_np=np.zeros((0, self.d), np.float64), store=store)
+
+    @classmethod
+    def load(cls, path: str, store: "bool | PagedStore | None" = None,
+             cache_pages: int | None = DEFAULT_CACHE_PAGES,
+             device=None) -> "LIMSSnapshot":
+        """Load a spilled snapshot (the port's or the reference's) onto
+        ``device`` (default ``cuda``; raises if there is no card).
+
+        ``store=None/False``: resident — rows read back from the page
+        file; bit-identical round trip with :meth:`spill`.
+        ``store=True``: cold start — metadata loads, rows stay on disk
+        behind a fresh ``PagedStore`` with ``cache_pages`` capacity.
+        ``store=<PagedStore>``: serve through an existing reader (keeps
+        its warm page cache; refreshed to the latest manifest).
+        """
+        dev = resolve_device(device)
+        meta, man = load_meta(path)
+        K, m, n_rings, n_max, live = (int(v) for v in meta["scalars"])
+        d = man.d
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        kw = {f: put(meta[f]) for f in _SPILL_FIELDS}
+        if isinstance(store, StoreView):
+            store = store.base
+        # the view's (layout, pages file) pair comes from the SAME
+        # manifest read as the metadata above — a writeback (or
+        # compaction) landing between the two reads would otherwise pair
+        # generation-G arrays with G+1 extents
+        if isinstance(store, PagedStore):
+            ps = store.refresh().view(man.layout(), man.pages_file)
+        elif store:
+            ps = PagedStore(path, cache_pages=cache_pages).view(
+                man.layout(), man.pages_file)
+        else:
+            ps = None
+        if ps is not None:
+            rows = torch.zeros((K, 0, d), dtype=torch.float32, device=dev)
+            rows_np = np.zeros((0, d), np.float64)
+        else:
+            reader = PagedStore(path, cache_pages=0)
+            rows64 = np.stack([reader.read_cluster(k) for k in range(K)])
+            rows = put(rows64.astype(np.float32))
+            rows_np = rows64.reshape(K * n_max, d)
+        return cls(K=K, m=m, n_rings=n_rings, n_max=n_max, live=live,
+                   rows=rows, rows_np=rows_np,
+                   gids_np=np.asarray(meta["gids_np"], np.int64),
+                   valid_np=np.asarray(meta["valid_np"], bool),
+                   tables_np=host_tables(*(meta[f] for f in (
+                       "rids", "pivots", "coef", "model_lo", "model_hi",
+                       "model_n", "rank_err", "in_ring"))),
+                   store=ps, **kw)
+
+
+def maybe_paged(snap: LIMSSnapshot, path: str | None = None,
+                page_bytes: int = DEFAULT_PAGE_BYTES,
+                cache_pages: int | None = DEFAULT_CACHE_PAGES
+                ) -> LIMSSnapshot:
+    """Apply the process-wide ``REPRO_STORAGE`` policy to a fresh
+    snapshot: under ``paged``, spill it (to ``path``, or a self-cleaning
+    temp directory) and return the store-backed view; otherwise return
+    ``snap`` unchanged."""
+    if storage_mode() != "paged" or snap.store is not None:
+        return snap
+    cleanup = path is None
+    if path is None:
+        path = tempfile.mkdtemp(prefix="lims-paged-")
+    snap.spill(path, page_bytes=page_bytes)
+    store = PagedStore(path, cache_pages=cache_pages)
+    if cleanup:
+        weakref.finalize(store, shutil.rmtree, path, ignore_errors=True)
+    return snap.with_store(store)
+
 
 def host_tables(rids, pivots, coef, lo, hi, n, err,
                 in_ring) -> SimpleNamespace:
@@ -261,4 +389,4 @@ def _certified_rank_table(index: LIMSIndex, device: torch.device):
 
 
 __all__ = ["LIMSSnapshot", "DEVICE_FIELDS", "HOST_FIELDS", "SCALAR_FIELDS",
-           "host_tables", "rank_columns"]
+           "host_tables", "maybe_paged", "rank_columns"]

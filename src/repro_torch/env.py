@@ -1,11 +1,11 @@
 """Registry of the ``REPRO_*`` environment knobs the port reads.
 
 Port of ``repro/env.py``, cut to the knobs the port reads: the
-resident query path's, the observability layer's (``obs/``), the
-monitor's and the serving engine's.  Consumers call :func:`get`
-instead of ``os.environ.get`` so that a typo like ``REPRO_COMPACT=of``
-fails loudly with the list of accepted values rather than silently
-selecting a default.
+resident query path's, the paged storage tier's (``storage/``), the
+observability layer's (``obs/``), the monitor's and the serving
+engine's.  Consumers call :func:`get` instead of ``os.environ.get`` so
+that a typo like ``REPRO_COMPACT=of`` fails loudly with the list of
+accepted values rather than silently selecting a default.
 
 Conventions (as in the reference):
 
@@ -36,8 +36,16 @@ _KNOBS = (
          "full padded slot array through the kernels (off)."),
     Knob("REPRO_STORAGE",
          ("", "paged"), "",
-         "Snapshot storage tier: resident (default) or paged (not ported: "
-         "the serving engine raises NotImplementedError, ROADMAP A7)."),
+         "Snapshot storage tier: resident (default) or paged."),
+    Knob("REPRO_PREFETCH",
+         ("", "off", "async"), "",
+         "Paged-store prefetch: sync IO (default/off) or async overlap."),
+    Knob("REPRO_CACHE_PIN",
+         ("", "on", "off", "0", "1", "no", "yes"), "on",
+         "Schedule-aware page-cache pinning (off/0/no disables)."),
+    Knob("REPRO_REAL_IO",
+         ("", "0", "1"), "",
+         "Drop the OS page cache before cold paged passes."),
     Knob("REPRO_OBS",
          ("", "off", "on", "trace"), "on",
          "Observability (repro_torch.obs): off (zero-cost disabled path), "

@@ -1,6 +1,6 @@
 """Snapshot lifecycle: updates, double-buffered refresh, retrains.
 
-Port of ``repro/serving/engine.py``, resident storage on one device.
+Port of ``repro/serving/engine.py``, on one device.
 ``ServingEngine`` owns
 
   * the host ``LIMSIndex`` (source of truth for §5.3 updates),
@@ -27,24 +27,38 @@ snapshot (the reference's DESIGN.md §5).
 During a refresh three snapshots are resident: active, standby and the
 new one.  The swap drops the old standby; the executor holds no
 reference cycle, so its device memory is freed as soon as no batch
-holds it.
+holds it (and a paged generation's ``StoreView`` and mmaps with it).
 
-Not ported yet, and raising ``NotImplementedError``: the paged tier
-(``storage="paged"`` or ``REPRO_STORAGE=paged``, ``from_spill``,
-``compact``; ROADMAP A7), sharding (``sharded=True``, ``mesh``; A9) and
-the request frontend (``frontend()``; A10).
+Storage (the reference's DESIGN.md §7): with ``storage="paged"`` (or
+``REPRO_STORAGE=paged``) every snapshot generation spills to
+``storage_path`` and serves store-backed — row payloads on disk behind
+an LRU page cache, query IO planned page-wise, no row tensor on the
+device.  A refresh writes only the clusters whose rows changed as *new*
+page extents and publishes with one atomic manifest swap; the
+long-lived ``PagedStore`` keeps its warm cache across generations
+because page ids are append-only.  :meth:`ServingEngine.from_spill` is
+the cold-start path and :meth:`ServingEngine.compact` reclaims the
+garbage extents writebacks leave behind.
+
+Not ported yet, and raising ``NotImplementedError``: sharding
+(``sharded=True``, ``mesh``; ROADMAP A9) and the request frontend
+(``frontend()``; A10).
 """
 from __future__ import annotations
 
+import shutil
+import tempfile
 import threading
+import weakref
 from collections import deque
 
-from .. import env
 from ..core.executor import QueryExecutor, make_executor
 from ..core.index import LIMSIndex
 from ..core.snapshot import LIMSSnapshot
 from ..obs import registry as _obs
 from ..obs.trace import instant, span
+from ..storage import (DEFAULT_CACHE_PAGES, DEFAULT_PAGE_BYTES, PagedStore,
+                       storage_mode)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -57,23 +71,40 @@ class ServingEngine:
     ``device`` is where every snapshot generation is built and served
     (default ``cuda``; raises without a card; ``"cpu"`` runs the plain
     versions), and where a retrain the index routes to the device
-    runs."""
+    runs.  ``storage="paged"`` serves every generation from a paged
+    store at ``storage_path`` (default a self-cleaning temporary
+    directory) with ``page_bytes`` pages behind a ``cache_pages`` page
+    cache; ``prefetch`` ("off" | "async"; None defers to
+    ``REPRO_PREFETCH``) sets the paged executors' prefetch."""
 
     def __init__(self, index: LIMSIndex | None, *, refresh_every: int = 64,
                  sharded: bool | None = None, mesh=None,
                  async_refresh: bool = False,
                  build_backend: str | None = None,
-                 storage: str | None = None, device=None):
+                 storage: str | None = None,
+                 storage_path: str | None = None,
+                 page_bytes: int = DEFAULT_PAGE_BYTES,
+                 cache_pages: int | None = DEFAULT_CACHE_PAGES,
+                 prefetch: str | None = None, device=None,
+                 _initial: QueryExecutor | None = None):
         if storage is None:
-            storage = env.get("REPRO_STORAGE") or None
-        if storage == "paged":
-            raise _not_ported("the paged storage tier", "A7")
-        if storage is not None:
+            storage = storage_mode() or None
+        if storage not in (None, "paged"):
             raise ValueError(f"unknown storage mode {storage!r}")
         if sharded or mesh is not None:
             raise _not_ported("sharded serving", "A9")
         self._index = index
         self._device = device
+        self._prefetch = prefetch
+        self._storage = storage
+        self._page_bytes = int(page_bytes)
+        self._cache_pages = cache_pages
+        self._store: PagedStore | None = None
+        self._storage_path = storage_path
+        if storage == "paged" and storage_path is None:
+            self._storage_path = tempfile.mkdtemp(prefix="lims-store-")
+            weakref.finalize(self, shutil.rmtree, self._storage_path,
+                             ignore_errors=True)
         self._refresh_every = int(refresh_every)
         # online retrains default to "auto": the index routes each
         # retrain host-vs-device on the cluster's member row count
@@ -94,18 +125,46 @@ class ServingEngine:
         # retrain recommendations surfaced by the monitor daemon
         # (bounded: a serving window, not a log)
         self._retrain_recs: deque = deque(maxlen=64)
-        self._active: QueryExecutor = self._build_executor()
+        if _initial is not None:
+            self._active: QueryExecutor = _initial
+            view = _initial.snap.store
+            # the engine holds the shared reader; snapshots hold
+            # per-generation views of it
+            self._store = view.base if view is not None else None
+        else:
+            self._active = self._build_executor()
         self._standby: QueryExecutor | None = None
 
     # ----------------------------------------------------------- cold start
     @classmethod
-    def from_spill(cls, path: str, **kw) -> "ServingEngine":
-        """Cold start from a spilled snapshot: needs the paged tier."""
-        raise _not_ported("cold start from a spilled snapshot", "A7")
+    def from_spill(cls, path: str, *, index: LIMSIndex | None = None,
+                   sharded: bool | None = None, mesh=None,
+                   cache_pages: int | None = DEFAULT_CACHE_PAGES,
+                   prefetch: str | None = None, device=None,
+                   **kw) -> "ServingEngine":
+        """Cold-start a serving replica from a spilled snapshot directory
+        (the port's or the reference's).
+
+        Serving begins immediately — only the manifest and metadata load
+        up front; row pages fault in on demand through the page cache.
+        Without ``index`` the engine is read-only: updates and refreshes
+        raise until a host index is supplied via :meth:`attach_index`.
+        With ``index``, refreshes write back to ``path``.
+        """
+        if sharded or mesh is not None:
+            raise _not_ported("sharded serving", "A9")
+        snap = LIMSSnapshot.load(path, store=True, cache_pages=cache_pages,
+                                 device=device)
+        ex = make_executor(snap, prefetch=prefetch)
+        # refresh writebacks must keep the on-disk page geometry
+        kw.setdefault("page_bytes", snap.store.manifest.page_bytes)
+        return cls(index, storage="paged", storage_path=path,
+                   cache_pages=cache_pages, prefetch=prefetch,
+                   device=device, _initial=ex, **kw)
 
     def attach_index(self, index: LIMSIndex) -> None:
-        """Give the engine its mutable host index (the next refresh
-        snapshots it)."""
+        """Give the engine its mutable host index (a cold-started engine
+        becomes writable; the next refresh snapshots it)."""
         with self._update_lock:
             self._index = index
 
@@ -119,11 +178,31 @@ class ServingEngine:
     # ------------------------------------------------------------ plumbing
     def _build_executor(self) -> QueryExecutor:
         snap = LIMSSnapshot.build(self._require_index(), self._device)
-        return make_executor(snap)
+        if self._storage == "paged":
+            snap.spill(self._storage_path, page_bytes=self._page_bytes)
+            if self._store is None:
+                self._store = PagedStore(self._storage_path,
+                                         cache_pages=self._cache_pages)
+            else:
+                # adopt the freshly published generation: rewritten
+                # clusters reference appended extents, cached pages of
+                # untouched clusters stay warm (append-only page ids).
+                # with_store then freezes the new layout into this
+                # snapshot's view — executors still serving the previous
+                # generation keep gathering through THEIR view, so the
+                # swap can never remap an in-flight batch's slots.
+                self._store.refresh()
+            snap = snap.with_store(self._store)
+        return make_executor(snap, prefetch=self._prefetch)
 
     @property
     def index(self) -> LIMSIndex | None:
         return self._index
+
+    @property
+    def store(self) -> PagedStore | None:
+        """The paged-store reader (None when serving resident)."""
+        return self._store
 
     @property
     def executor(self) -> QueryExecutor:
@@ -208,9 +287,17 @@ class ServingEngine:
             self._retrain_recs.clear()
 
     def compact(self):
-        """Reclaim the paged store's garbage extents: needs the paged
-        tier."""
-        raise _not_ported("paged-store compaction", "A7")
+        """Reclaim the paged store's garbage extents: rewrite live
+        extents into a fresh pages file and swap manifests atomically
+        (``PagedStore.compact``).  Serialized with updates and refreshes
+        through the update lock — queries never block, and executors
+        serving the pre-compaction generation keep their file pinned
+        through their ``StoreView``.  No-op (returns None) when serving
+        resident."""
+        if self._store is None:
+            return None
+        with self._update_lock:
+            return self._store.compact()
 
     def _maybe_refresh(self, pending: int) -> None:
         if self._refresh_every and pending >= self._refresh_every:

@@ -348,10 +348,54 @@ def test_device_snapshot_serves_like_host():
     assert _eq(ka, kb) and _eq(da, db)
 
 
-def test_build_snapshot_paged_tier_not_ported():
-    X = gauss_mix(300, 4, seed=9)
-    with pytest.raises(NotImplementedError, match="paged tier"):
-        build_snapshot(MetricSpace(X, "l2"), 3, spill_path="x", device=CPU)
+def test_build_snapshot_paged_matches_reference(ref, tmp_path):
+    """``build_snapshot(spill_path=, store=True)`` spills during the
+    build and returns the store-backed snapshot, as the reference's does:
+    the same page file byte for byte, the same manifest, the same layout
+    metadata, model domains within the tolerance of
+    ``test_device_models_match_reference`` (the device fits, and with
+    them the coefficients and the bound E, differ in f32), and the same
+    answers as the reference's store-backed snapshot and the host."""
+    from repro.core.executor import QueryExecutor as RefExecutor
+    from repro_torch.storage import Manifest, load_meta
+    X = gauss_mix(N, D, seed=4)
+    kw = dict(m=M, n_rings=RINGS)
+    path, ref_path = str(tmp_path / "port"), str(tmp_path / "ref")
+    snap, dev = build_snapshot(MetricSpace(X, "l2"), K, spill_path=path,
+                               page_bytes=1024, store=True, device=CPU, **kw)
+    ref_snap, _ = ref.build.build_snapshot(
+        ref.core.MetricSpace(X, "l2"), K, spill_path=ref_path,
+        page_bytes=1024, store=True, **kw)
+    assert snap.store is not None and tuple(snap.rows.shape) == (K, 0, D)
+    with open(f"{path}/pages.bin", "rb") as f, \
+            open(f"{ref_path}/pages.bin", "rb") as g:
+        assert f.read() == g.read()
+    assert vars(Manifest.load(path)) == vars(Manifest.load(ref_path))
+    meta, _ = load_meta(path)
+    ref_meta, _ = load_meta(ref_path)
+    assert sorted(meta) == sorted(ref_meta)
+    for k in meta:
+        assert meta[k].dtype == ref_meta[k].dtype, k
+        if k in ("model_lo", "model_hi"):
+            np.testing.assert_allclose(meta[k], ref_meta[k], rtol=1e-6)
+        elif k not in ("coef", "rank_err"):
+            assert _eq(meta[k], ref_meta[k]), k
+    ex, rex = QueryExecutor(snap), RefExecutor(ref_snap)
+    Q = _queries(X, 6, seed=7)
+    rs = _radii(X, Q, "l2")
+    for (ai, ad), (bi, bd), q, r in zip(ex.range_query_batch(Q, rs),
+                                        rex.range_query_batch(Q, rs), Q, rs):
+        assert _eq(ai, bi) and _eq(ad, bd)
+        hi, hd, _ = dev.range_query(q, r)
+        assert set(ai.tolist()) == set(hi.tolist())
+    ka, da = ex.knn_query_batch(Q, 6)
+    kb, db = rex.knn_query_batch(Q, 6)
+    assert _eq(ka, kb) and _eq(da, db)
+    resident, _ = build_snapshot(MetricSpace(X, "l2"), K, spill_path=path,
+                                 page_bytes=1024, device=CPU, **kw)
+    assert resident.store is None and resident.rows.shape[1] > 0
+    with pytest.raises(ValueError, match="spill_path"):
+        build_snapshot(MetricSpace(X, "l2"), K, store=True, device=CPU, **kw)
 
 
 # ---------------------------------------------------------------- retrain

@@ -14,6 +14,7 @@ each ``ops`` wrapper (a spy counts them); and ``host_syncs`` are equal
 with ``REPRO_OBS`` on and off.
 """
 import json
+import math
 import threading
 import time
 
@@ -145,8 +146,11 @@ def test_mode_gating_and_configure(monkeypatch):
 
 def _quiesce() -> None:
     """Wait for the port's transient threads (engine refreshes, monitor
-    samplers) from earlier tests to exit: a frame they allocate in the
-    obs modules would be charged to the window below."""
+    samplers) from earlier tests to exit, and for the page prefetcher's
+    queue to drain: a frame they allocate in the obs modules would be
+    charged to the window below."""
+    from repro_torch.storage import drain_queue
+    drain_queue(timeout=30.0)
     deadline = time.monotonic() + 30.0
     while time.monotonic() < deadline:
         if not any(t.name in ("lims-snapshot-refresh", "lims-monitor")
@@ -357,20 +361,45 @@ def test_profile_equals_reference(env, kind):
     assert got.missing() == want.missing() == []
 
 
+RANK_GAUGES = "executor.rank_err_ratio.c"
+
+
+def _rank_gauges(registry) -> dict:
+    """The per-cluster rank-error gauges that hold a value (not NaN)."""
+    return {m.name: m.value for m in registry.metrics()
+            if m.name.startswith(RANK_GAUGES) and not math.isnan(m.value)}
+
+
 def test_rank_err_gauges_equal_reference(env):
     """The per-cluster gauges the rank-drift detector reads carry the
-    reference's values after the same batch."""
+    reference's values after the same batch: the same set of gauges is
+    set on both sides, to equal values.
+
+    The gauges are process-wide, so a batch of another test that ran in
+    the same process (another index, other queries) leaves gauges of its
+    own clusters behind.  Every existing gauge of both registries is set
+    to a NaN sentinel first; the gauges compared are those this batch
+    set.  The sentinels the batch leaves are put back afterwards."""
     obs.configure("on")
     ref_obs.configure("on")
-    env["port"].knn_query_batch(env["Q"], 6)
-    env["ref"].knn_query_batch(env["Q"], 6)
-    ours = {m.name: m.value for m in obs.REGISTRY.metrics()
-            if m.name.startswith("executor.rank_err_ratio.c")}
-    theirs = {m.name: m.value for m in ref_obs.REGISTRY.metrics()
-              if m.name.startswith("executor.rank_err_ratio.c")}
-    assert ours and set(ours) <= set(theirs)
-    for name, v in ours.items():
-        assert v == pytest.approx(theirs[name], rel=1e-6, abs=1e-12)
+    saved = [(m, m.value) for registry in (obs.REGISTRY, ref_obs.REGISTRY)
+             for m in registry.metrics() if m.name.startswith(RANK_GAUGES)]
+    try:
+        for m, _ in saved:
+            m.set(float("nan"))
+        assert not _rank_gauges(obs.REGISTRY)
+        assert not _rank_gauges(ref_obs.REGISTRY)
+        env["port"].knn_query_batch(env["Q"], 6)
+        env["ref"].knn_query_batch(env["Q"], 6)
+        ours = _rank_gauges(obs.REGISTRY)
+        theirs = _rank_gauges(ref_obs.REGISTRY)
+        assert ours and set(ours) == set(theirs)
+        for name, v in ours.items():
+            assert v == pytest.approx(theirs[name], rel=1e-6, abs=1e-12)
+    finally:
+        for m, v in saved:
+            if math.isnan(m.value):
+                m.set(v)
 
 
 def test_kernel_counters_equal_wrapper_calls(env, monkeypatch):

@@ -12,7 +12,11 @@ identical (ids and f64 distances, ``atol=0``) and ``generation`` /
 ``pending_mutations`` equal after every step; an async refresh under a
 concurrent query thread (bounded joins); the memory contract of the
 swap (a dropped generation is freed by reference counting alone); and
-the ``NotImplementedError`` of each part that waits for its slice.
+the ``NotImplementedError`` of each part that waits for its slice
+(sharding, the frontend).  The
+paged engine (``storage="paged"``) replays the same sequence against
+the reference's paged engine, with equal manifests after every
+refresh, and serves an async refresh beside a query thread.
 """
 import gc
 import threading
@@ -25,11 +29,13 @@ import torch
 from repro.core import LIMSIndex as RefIndex
 from repro.core import MetricSpace as RefSpace
 from repro.serving import ServingEngine as RefEngine
-from repro_torch.core import LIMSIndex, MetricSpace, make_executor
+from repro_torch.core import (LIMSIndex, LIMSSnapshot, MetricSpace,
+                              QueryExecutor, make_executor)
 from repro_torch.core.batched import BatchedLIMS
 from repro_torch.core.metrics import dist_one_to_many
 from repro_torch.core.serving import ServingEngine
 from repro_torch.data.datasets import gauss_mix
+from repro_torch.storage import Manifest
 
 D = 6
 CPU = "cpu"
@@ -174,11 +180,29 @@ def test_replayed_sequence_equals_reference():
     """The same seeded sequence on the reference engine and the port's:
     every batch after each refresh identical (ids and f64 distances,
     atol=0), generation and pending_mutations equal after every step."""
+    _replay()
+
+
+def test_replayed_paged_sequence_equals_reference(tmp_path):
+    """The replay with ``storage="paged"`` on both engines, each spilling
+    to its own directory: the same results after every refresh and the
+    same manifest (generation, extents, page count, cluster hashes)."""
+    _replay(tmp_path)
+
+
+def _replay(tmp_path=None):
     X = gauss_mix(N_REPLAY, D, seed=17)
     kw = dict(n_clusters=5, m=3, n_rings=10)
-    ref = RefEngine(RefIndex(RefSpace(X, "l2"), **kw), refresh_every=7)
+    paged = {}
+    if tmp_path is not None:
+        paths = [str(tmp_path / "ref"), str(tmp_path / "port")]
+        paged = [dict(storage="paged", storage_path=p) for p in paths]
+    ref = RefEngine(RefIndex(RefSpace(X, "l2"), **kw), refresh_every=7,
+                    **(paged[0] if paged else {}))
     port = ServingEngine(LIMSIndex(MetricSpace(X, "l2"), **kw),
-                         refresh_every=7, device=CPU)
+                         refresh_every=7, device=CPU,
+                         **(paged[1] if paged else {}))
+    assert (port.store is None) == (not paged)
     rng = np.random.default_rng(23)
     Q = X[rng.choice(N_REPLAY, 6)] + rng.normal(0, 0.004, (6, D))
     rs = _radii(X, Q)
@@ -210,6 +234,12 @@ def test_replayed_sequence_equals_reference():
             assert np.array_equal(pi, ri)
             np.testing.assert_allclose(pd, rd, rtol=0, atol=0)
             compared += 1
+            if paged:
+                a, b = (vars(Manifest.load(p)) for p in paths)
+                for f in ("generation", "extents", "total_pages",
+                          "cluster_sha1", "n_max"):
+                    assert a[f] == b[f], f
+                assert port.executor.snap.store is not None
     assert gen >= 5 and compared == gen + 1
 
 
@@ -219,8 +249,21 @@ def test_async_refresh_under_concurrent_queries():
     async refresh on: each batch grabs ``engine.executor`` once and must
     equal an f64 brute-force scan over that executor's snapshot's live
     rows; every requested refresh lands.  Joins are bounded."""
+    _async_refresh_beside_queries()
+
+
+def test_paged_async_refresh_under_concurrent_queries():
+    """The same with ``storage="paged"``: background writebacks publish
+    generations into the store while the query thread gathers pages
+    through its own generation's view (the brute force reads the live
+    rows through that view too)."""
+    _async_refresh_beside_queries(storage="paged")
+
+
+def _async_refresh_beside_queries(storage=None):
     X, ix = _index(900, 31, K=4)
-    se = ServingEngine(ix, refresh_every=4, async_refresh=True, device=CPU)
+    se = ServingEngine(ix, refresh_every=4, async_refresh=True, device=CPU,
+                       storage=storage)
     rng = np.random.default_rng(3)
     Q = X[rng.choice(900, 4)] + rng.normal(0, 0.004, (4, D))
     stop = threading.Event()
@@ -232,7 +275,9 @@ def test_async_refresh_under_concurrent_queries():
                 ex = se.executor
                 s = ex.snap
                 live = np.nonzero(s.valid_np)[0]
-                rows, gids = s.rows_np[live], s.gids_np[live]
+                rows = s.rows_np[live] if s.store is None \
+                    else s.store.gather(live)
+                gids = s.gids_np[live]
                 for b, (ids, ds) in enumerate(ex.range_query_batch(Q, 0.1)):
                     dist = dist_one_to_many(Q[b], rows, "l2")
                     hit = dist <= 0.1
@@ -310,26 +355,37 @@ def test_dropped_generation_is_freed_without_the_cycle_collector():
 # ------------------------------------------------------------- not ported
 def test_later_slices_raise(monkeypatch):
     X, ix = _index(600, 43, K=3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServingEngine(ix, storage="paged", device=CPU)
-    monkeypatch.setenv("REPRO_STORAGE", "paged")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServingEngine(ix, device=CPU)
     monkeypatch.setenv("REPRO_STORAGE", "")
     with pytest.raises(NotImplementedError, match="A9"):
         ServingEngine(ix, sharded=True, device=CPU)
     with pytest.raises(NotImplementedError, match="A9"):
         ServingEngine(ix, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServingEngine.from_spill("/nonexistent")
+    with pytest.raises(NotImplementedError, match="A9"):
+        ServingEngine.from_spill("/nonexistent", sharded=True)
     se = ServingEngine(ix, device=CPU)
-    with pytest.raises(NotImplementedError, match="A7"):
-        se.compact()
     with pytest.raises(NotImplementedError, match="A10"):
         se.frontend()
     with pytest.raises(NotImplementedError, match="A9"):
         make_executor(se.snapshot, sharded=True)
     assert make_executor(se.snapshot).snap is se.snapshot
+
+
+def test_repro_storage_paged_selects_the_paged_engine(monkeypatch):
+    """``REPRO_STORAGE=paged`` is the engine's default storage: every
+    generation serves store-backed from a self-cleaning spill, with no
+    row tensor on the device, and a bad mode is refused."""
+    X, ix = _index(600, 43, K=3)
+    monkeypatch.setenv("REPRO_STORAGE", "paged")
+    se = ServingEngine(ix, refresh_every=0, device=CPU)
+    assert se.store is not None and se.snapshot.store.base is se.store
+    assert se.snapshot.rows.shape[1] == 0
+    q = X[5] + 0.001
+    want = QueryExecutor(LIMSSnapshot.build(ix, device=CPU)).knn_query(q, 4)
+    got = se.knn_query(q, 4)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                              want[1])
+    with pytest.raises(ValueError, match="storage mode"):
+        ServingEngine(ix, storage="disk", device=CPU)
 
 
 def test_engine_defaults_to_the_card():
