@@ -9,7 +9,8 @@ CUDA card.
 Phases, each printing lines that start with its name:
 
 1. device   the card's name, count and power limit (nvidia-smi);
-2. build    nvcc builds the seven kernels from the six sources in
+2. build    nvcc builds the eleven kernel entry points from the six
+            sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
             then again with -Xptxas -v for their register,
             shared-memory and spill use;
@@ -38,7 +39,24 @@ Phases, each printing lines that start with its name:
             instruction count (cuobjdump), and pdist_rankeval its device
             time replayed from a CUDA graph beside the same at (1, 1) (the
             launch floor) and the host cost of each step of its wrapper;
-6. builder  the device index builder (LIMSIndex(backend="device")) at
+6. lp       the reduced-precision filter plane (REPRO_ROWS_DTYPE) on
+            main's host index, batches and host answers, for bf16 and
+            then f16: the snapshot built on the card under the knob
+            (lp_eps, the plane's bytes; the plane equal to the host's
+            rounding of the rows and lp_eps to lp_quant_eps recomputed
+            on the host), main's 8 range batches with REPRO_COMPACT on
+            and off and 8 kNN batches, every id and f64 distance equal
+            to the host index's; q/s and ball-filter candidates per
+            query beside main's f32 ones from the same run; the launch
+            counters zeroed before the build and read after the
+            batches: every pdist and range_filter launch over the plane
+            took the bf16 / f16 entry (f32 pdist only at the planner's
+            (64, G) pivot shape, no f32 range_filter at all); the two
+            kernels' bf16 / f16 rows at (64, P, d 8), equal to their
+            plain versions bit for bit (range_filter: mask and counts),
+            with bounds at 2-byte points; then f32 once more (turns
+            f32, bf16, f16, f32), so the host's drift shows;
+7. builder  the device index builder (LIMSIndex(backend="device")) at
             the same n: (a) GaussMix L2, held against main's host index
             (structures, then every range and kNN batch through a
             snapshot of it); (b) Skewed L1 and (c) Skewed L-infinity,
@@ -61,7 +79,7 @@ Phases, each printing lines that start with its name:
             picks the device for it.  (c) runs at --linf-n rows (default
             200,000, a cut that keeps the whole script within twice the
             query path's time); --linf-n 1000000 runs it uncut.
-7. serving  the serving lifecycle (repro_torch.serving) on main's host
+8. serving  the serving lifecycle (repro_torch.serving) on main's host
             index as the builder leaves it, counters zeroed before and
             read after (each query-path kernel must run): (a)
             ServingEngine(refresh_every=2,000) on the card, 4 rounds of
@@ -93,7 +111,7 @@ Phases, each printing lines that start with its name:
             held at their caps.  memory_allocated after the last
             generation must not exceed the 2nd generation's plus one
             snapshot;
-8. paged    the paged storage tier (repro_torch.storage) on main's
+9. paged    the paged storage tier (repro_torch.storage) on main's
             snapshot and index, counters zeroed before (b)'s paged
             batches and read after (c) (each query-path kernel must
             run): (a) main's
@@ -120,7 +138,7 @@ Phases, each printing lines that start with its name:
             index, compact() (bytes reclaimed), and a cold start with
             ServingEngine.from_spill, its kNN batch held to the host
             index;
-9. lm       the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+10. lm      the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
             random weights from --seed: (a) float32 at a cut depth of 4
             layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
             and a decode step of tokens[:, -1] give forward_seq's logits
@@ -143,7 +161,7 @@ Phases, each printing lines that start with its name:
             bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
-10. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
+11. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
             encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
             on the card (its attention through the flash kernel), a host
             LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
@@ -210,16 +228,21 @@ FOUND_SAMPLE = 64
 # paged: main's snapshot spilled at PAGE_BYTES pages, served behind a
 # CACHE_PAGES page cache (16 MB, far under the store); (b) runs the first
 # PAGED_BATCHES of main's batches of each kind in each prefetch mode (a
-# CUT of main's 8: a paged batch takes ~15 s at n = 1M, PERF.md); (c)'s
-# engine takes one round of SERVE_ROWS inserts and SERVE_ROWS deletes
+# CUT of main's 8: a cold paged batch takes 2-4 s at n = 1M, and 8 of
+# each in both modes would double the phase, PERF.md); (c)'s engine
+# takes one round of SERVE_ROWS inserts and SERVE_ROWS deletes
 PAGE_BYTES, CACHE_PAGES, PAGED_BATCHES = 4096, 4096, 1
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
 REPLACES = {
     "pdist": "src/repro/kernels/pdist.py:55",
+    "pdist_bf16": "src/repro/kernels/pdist.py:55",
+    "pdist_f16": "src/repro/kernels/pdist.py:55",
     "rankeval": "src/repro/kernels/rankeval.py:69",
     "range_filter": "src/repro/kernels/range_filter.py:35",
+    "range_filter_bf16": "src/repro/kernels/range_filter.py:35",
+    "range_filter_f16": "src/repro/kernels/range_filter.py:35",
     "pdist_rankeval": "src/repro/kernels/fused.py:58",
     "pdist_l1": "src/repro/kernels/pdist.py:36",
     "pdist_linf": "src/repro/kernels/pdist.py:43",
@@ -402,18 +425,19 @@ def same_knn(got, want) -> bool:
             and np.array_equal(np.sort(got[0]), np.sort(want[0])))
 
 
-def shape_spy():
-    """({"pdist": {}, "range_filter": {}}, an unstarted patch of
-    ``_cuda.launch``) that tallies each launch of the two kernels by its
-    (nq, np), the C arguments after the pointers."""
+def shape_spy(names=("pdist", "range_filter")):
+    """({name: {}} for ``names``, an unstarted patch of ``_cuda.launch``)
+    that tallies each launch of those pdist / range_filter entry points
+    by its (nq, np), the C arguments after the pointers."""
     from repro_torch.kernels import _cuda
-    shapes = {"pdist": {}, "range_filter": {}}
+    shapes = {name: {} for name in names}
     real_launch = _cuda.launch
 
     def spy(name, *args, **kw):
         real_launch(name, *args, **kw)
         if name in shapes:
-            nq, npts = args[3:5] if name == "pdist" else args[5:7]
+            nq, npts = args[5:7] if name.startswith("range_filter") \
+                else args[3:5]
             shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
 
     return shapes, mock.patch.object(_cuda, "launch", spy)
@@ -445,40 +469,24 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     t0 = time.perf_counter()
     snap = snap_cls.build(ix, device=DEVICE)
     sync()
+    check(snap.rows_lp is None, "main: the snapshot holds a filter plane "
+          "with REPRO_ROWS_DTYPE unset")
     ex = executor_cls(snap)
     print(f"main: snapshot K={snap.K} n_max={snap.n_max} P={snap.n_slots} "
           f"G={snap.K * snap.m} C={snap.coef.shape[-1]} "
           f"device_bytes={snap.device_nbytes()} "
           f"build_s={time.perf_counter() - t0:.3f}", flush=True)
+    rates = {}
     for compact in ("on", "off"):
         os.environ["REPRO_COMPACT"] = compact
-        t0 = time.perf_counter()
-        for (Q, rs), want in zip(batches, host_range):
-            got = ex.range_query_batch(Q, rs)
-            for b in range(B):
-                check(same_range(got[b], want[b]),
-                      f"range result differs from the host index "
-                      f"(compact={compact}, query {b})")
-        t_range = time.perf_counter() - t0
-        frac = ex.last_compact
-        t0 = time.perf_counter()
-        rounds, syncs = [], []
-        for (Q, _), want in zip(batches, host_knn):
-            ids, ds = ex.knn_query_batch(Q, K_NN)
-            rounds.append(ex.last_knn["rounds"])
-            syncs.append(ex.last_knn["host_syncs"])
-            for b in range(B):
-                check(np.array_equal(ds[b], want[b][1])
-                      and np.array_equal(np.sort(ids[b]),
-                                         np.sort(want[b][0])),
-                      f"kNN result differs from the host index "
-                      f"(compact={compact}, query {b})")
-        t_knn = time.perf_counter() - t0
-        print(f"main: REPRO_COMPACT={compact} range {nq / t_range:.2f} q/s "
-              f"kNN {nq / t_knn:.2f} q/s (B={B}, k={K_NN}, wall clock incl. "
-              f"host refinement); kNN rounds/batch={rounds} "
-              f"host_syncs/batch={syncs}; last compact gather={frac}",
-              flush=True)
+        r = rates[compact] = query_batches(ex, batches, host_range,
+                                           host_knn, f"compact={compact}")
+        print(f"main: REPRO_COMPACT={compact} range {r['range']:.2f} q/s "
+              f"kNN {r['knn']:.2f} q/s (B={B}, k={K_NN}, wall clock incl. "
+              f"host refinement); candidates/query range "
+              f"{r['range_cand']:.2f} kNN {r['knn_cand']:.2f}; kNN "
+              f"rounds/batch={r['rounds']} host_syncs/batch={r['syncs']}; "
+              f"last compact gather={r['compact']}", flush=True)
     sync()
     spying.stop()
     counts = dict(_cuda.LAUNCHES)
@@ -511,7 +519,44 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     print(f"main: batch 0 equals the f64 brute-force scan "
           f"(range hits/query={np.mean([len(g[0]) for g in got_r]):.1f})",
           flush=True)
-    return counts, shapes, snap, host_range, host_knn
+    return counts, shapes, snap, host_range, host_knn, rates
+
+
+def query_batches(ex, batches, host_range, host_knn, tag: str) -> dict:
+    """Every range batch, then every kNN batch, through ``ex``, each
+    result equal to the host index's: q/s of each kind (wall clock,
+    host refinement included), the mean certified candidates per query
+    (the rows refinement scans), the kNN rounds and host syncs, and the
+    last compact gather."""
+    nq = len(batches) * B
+    out = {"rounds": [], "syncs": []}
+    cand = []
+    t0 = time.perf_counter()
+    for (Q, rs), want in zip(batches, host_range):
+        got = ex.range_query_batch(Q, rs)
+        cand.append(ex.last_profile.candidates_per_query)
+        for b in range(B):
+            check(same_range(got[b], want[b]),
+                  f"range result differs from the host index ({tag}, "
+                  f"query {b})")
+    out["range"] = nq / (time.perf_counter() - t0)
+    out["range_cand"] = float(np.mean(cand))
+    out["compact"] = ex.last_compact
+    cand = []
+    t0 = time.perf_counter()
+    for (Q, _), want in zip(batches, host_knn):
+        ids, ds = ex.knn_query_batch(Q, K_NN)
+        out["rounds"].append(ex.last_knn["rounds"])
+        out["syncs"].append(ex.last_knn["host_syncs"])
+        cand.append(ex.last_profile.candidates_per_query)
+        for b in range(B):
+            check(np.array_equal(ds[b], want[b][1])
+                  and np.array_equal(np.sort(ids[b]), np.sort(want[b][0])),
+                  f"kNN result differs from the host index ({tag}, "
+                  f"query {b})")
+    out["knn"] = nq / (time.perf_counter() - t0)
+    out["knn_cand"] = float(np.mean(cand))
+    return out
 
 
 def phase_error_bound(ix, snap):
@@ -724,6 +769,131 @@ def phase_kernels(ix, snap, batches, counts, shapes):
         note=f"launch_floor_ms={fl[0]:.5f} graph_floor_ms={fl[1]:.5f}; "
         + sass_instructions("pdist_rankeval",
                             f"pdist_rankeval_kernelILi{C}E"))
+    return out
+
+
+def phase_lp(ix, batches, host_range, host_knn, rates) -> list:
+    """The reduced-precision filter plane, bf16 then f16 (module doc,
+    part 6).  Returns the four kernel rows."""
+    from repro_torch.core import QueryExecutor
+    from repro_torch.core.planner import _BALL_ABS, _R_REL
+    from repro_torch.core.snapshot import LP_DTYPES, LIMSSnapshot, \
+        lp_quant_eps
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.pdist import pdist_plain
+    from repro_torch.kernels.range_filter import range_filter_plain
+    t_phase = time.perf_counter()
+    G = ix.K * ix.m
+    out = []
+    for dt in ("bf16", "f16"):
+        os.environ["REPRO_ROWS_DTYPE"] = dt
+        names = (f"pdist_{dt}", f"range_filter_{dt}")
+        shapes, spying = shape_spy(("pdist", "range_filter") + names)
+        sync()
+        _cuda.reset_launches()
+        spying.start()
+        try:
+            t0 = time.perf_counter()
+            snap = LIMSSnapshot.build(ix, device=DEVICE)
+            sync()
+            t_build = time.perf_counter() - t0
+            P = snap.n_slots
+            plane = snap.rows_lp.reshape(P, D)
+            rows32 = torch.from_numpy(snap.rows_np.astype(np.float32))
+            host_lp = rows32.to(LP_DTYPES[dt])
+            eps_host = lp_quant_eps(rows32, host_lp)
+            check(plane.dtype == LP_DTYPES[dt]
+                  and torch.equal(plane.cpu(), host_lp)
+                  and snap.lp_eps == eps_host,
+                  f"lp: {dt}: the plane or lp_eps differs from the host's "
+                  f"rounding of the rows ({snap.lp_eps} vs {eps_host})")
+            print(f"lp: {dt} snapshot built in {t_build:.3f} s; lp_eps="
+                  f"{snap.lp_eps!r} (= lp_quant_eps recomputed on the "
+                  f"host); plane {plane.nbytes} B beside the f32 rows' "
+                  f"{snap.rows.nbytes} B; device_bytes "
+                  f"{snap.device_nbytes()}", flush=True)
+            ex = QueryExecutor(snap)
+            for compact in ("on", "off"):
+                os.environ["REPRO_COMPACT"] = compact
+                r = query_batches(ex, batches, host_range, host_knn,
+                                  f"{dt}, compact={compact}")
+                f = rates[compact]
+                print(f"lp: {dt} REPRO_COMPACT={compact} range "
+                      f"{r['range']:.2f} q/s (f32 {f['range']:.2f}) kNN "
+                      f"{r['knn']:.2f} q/s (f32 {f['knn']:.2f}); "
+                      f"candidates/query range {r['range_cand']:.2f} (f32 "
+                      f"{f['range_cand']:.2f}) kNN {r['knn_cand']:.2f} (f32 "
+                      f"{f['knn_cand']:.2f}); kNN rounds/batch="
+                      f"{r['rounds']}; last compact gather={r['compact']}",
+                      flush=True)
+            sync()
+        finally:
+            spying.stop()
+        counts = dict(_cuda.LAUNCHES)
+        print(f"lp: {dt} launches {json.dumps(counts)}", flush=True)
+        for name, by in shapes.items():
+            check(sum(by.values()) == counts[name],
+                  f"lp: {name}: the shape tally misses launches")
+            if by:
+                print(f"lp: {dt} {name} launches by (nq, np): "
+                      + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
+                      flush=True)
+        check(all(counts[n] > 0 for n in names),
+              f"lp: {dt}: a 2-byte entry point was not launched")
+        check(counts["range_filter"] == 0
+              and all(npts == G for _, npts in shapes["pdist"]),
+              f"lp: {dt}: an f32 pdist or range_filter ran over the plane")
+
+        # the two kernels at (B, P, d 8) against their plain versions
+        Q, rs = batches[0]
+        q = torch.from_numpy(Q.astype(np.float32)).to(DEVICE)
+        r = torch.from_numpy(rs.astype(np.float32)).to(DEVICE) \
+            * (1.0 + _R_REL) + _BALL_ABS + snap.lp_eps
+        got = ops.pdist(q, plane)
+        check(torch.equal(got, pdist_plain(q, plane)),
+              f"lp: pdist_{dt} differs from its plain version")
+        mask, cnt = ops.range_filter(q, plane, r)
+        mask_p, cnt_p = range_filter_plain(q, plane, r * r)
+        check(torch.equal(mask, mask_p) and torch.equal(cnt, cnt_p),
+              f"lp: range_filter_{dt} mask or counts differ from its plain "
+              f"version")
+        print(f"kernels: pdist_{dt} and range_filter_{dt} equal their plain "
+              f"versions bit for bit at ({B}, {P}, d {D}) (range_filter "
+              f"mask and counts, hits={int(mask.sum())})", flush=True)
+        del got, mask, cnt, mask_p, cnt_p
+        out.append(kernel_row(
+            f"pdist_{dt}", counts[f"pdist_{dt}"], 0.0,
+            lambda: ops.pdist(q, plane), 20, lambda: pdist_plain(q, plane),
+            3, 4.0 * B * D + 2.0 * P * D + 4.0 * B * P,
+            B * P * (2 * D + 4) + 2 * D * (B + P),
+            note=f"library: none (no PyTorch call computes a 2-byte-point "
+                 f"f32 Gram distance); lp-phase launches at this shape: "
+                 f"{shapes[f'pdist_{dt}'].get((B, P), 0)}"))
+        out.append(kernel_row(
+            f"range_filter_{dt}", counts[f"range_filter_{dt}"], 0.0,
+            lambda: ops.range_filter(q, plane, r), 20,
+            lambda: range_filter_plain(q, plane, r * r), 3,
+            4.0 * (B * D + B) + 2.0 * P * D + B * P
+            + 4.0 * B * (-(-P // 128)),
+            B * P * (2 * D + 5) + 2 * D * (B + P),
+            note="library: none; lp-phase launches at this shape: "
+                 f"{shapes[f'range_filter_{dt}'].get((B, P), 0)}"))
+        del ex, snap, plane
+    # f32 once more, after the 2-byte turns: main's q/s and these bracket
+    # them, so the host's drift over the phase shows beside the gain
+    os.environ["REPRO_ROWS_DTYPE"] = "off"
+    ex = QueryExecutor(LIMSSnapshot.build(ix, device=DEVICE))
+    for compact in ("on", "off"):
+        os.environ["REPRO_COMPACT"] = compact
+        r = query_batches(ex, batches, host_range, host_knn,
+                          f"f32 again, compact={compact}")
+        f = rates[compact]
+        print(f"lp: f32 again REPRO_COMPACT={compact} range "
+              f"{r['range']:.2f} q/s (main {f['range']:.2f}) kNN "
+              f"{r['knn']:.2f} q/s (main {f['knn']:.2f})", flush=True)
+    os.environ["REPRO_COMPACT"] = "on"
+    print(f"lp: all parts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return out
 
 
@@ -2470,6 +2640,7 @@ def main() -> int:
     from repro_torch.core.snapshot import LIMSSnapshot
     from repro_torch.data.datasets import gauss_mix
 
+    os.environ["REPRO_ROWS_DTYPE"] = "off"     # the lp: phase sets it
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
@@ -2486,10 +2657,11 @@ def main() -> int:
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
 
-    counts, shapes, snap, host_range, host_knn = phase_main(
+    counts, shapes, snap, host_range, host_knn, rates = phase_main(
         X, ix, batches, LIMSSnapshot, QueryExecutor)
     phase_error_bound(ix, snap)
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
+    kernels += phase_lp(ix, batches, host_range, host_knn, rates)
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.snapshot import (DEVICE_FIELDS, HOST_FIELDS, SCALAR_FIELDS,
-                            LIMSSnapshot, host_tables)
+from .core.snapshot import (DEVICE_FIELDS, HOST_FIELDS, LP_DTYPES,
+                            SCALAR_FIELDS, LIMSSnapshot, host_tables)
 from .kernels.dispatch import resolve_device
 
 # every field snapshot_from_reference reads
@@ -26,7 +26,11 @@ def snapshot_from_reference(arrays: dict, device=None) -> LIMSSnapshot:
     """``arrays`` maps every name in :data:`FIELDS` to a numpy array (or
     a Python int for the scalars), e.g.
     ``{f: np.asarray(getattr(ref_snap, f)) for f in FIELDS}``.  Device
-    fields keep their dtypes and land on ``device`` (default ``cuda``)."""
+    fields keep their dtypes and land on ``device`` (default ``cuda``).
+
+    The reduced-precision filter plane comes over when ``arrays`` holds
+    ``rows_lp``: its bits as uint16 (numpy has no bf16), with
+    ``rows_lp_dtype`` ("bf16" or "f16") and the margin ``lp_eps``."""
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"reference snapshot fields missing: {missing}")
@@ -40,6 +44,14 @@ def snapshot_from_reference(arrays: dict, device=None) -> LIMSSnapshot:
     kw["tables_np"] = host_tables(*(arrays[f] for f in (
         "rids", "pivots", "coef", "model_lo", "model_hi", "model_n",
         "rank_err", "in_ring")))
+    if arrays.get("rows_lp") is not None:
+        bits = np.array(arrays["rows_lp"])         # a writable copy
+        if bits.dtype != np.uint16:
+            raise TypeError(f"rows_lp must be the plane's uint16 bits, "
+                            f"got {bits.dtype}")
+        kw["rows_lp"] = torch.from_numpy(bits.view(np.int16)).view(
+            LP_DTYPES[arrays["rows_lp_dtype"]]).to(dev)
+        kw["lp_eps"] = float(arrays["lp_eps"])
     return LIMSSnapshot(**kw)
 
 

@@ -64,11 +64,6 @@ from .planner import (_BALL_ABS, _R_REL, _SEED_REL, CandidatePlan, Planner,
                       plan_arrays)
 from .snapshot import LIMSSnapshot
 
-# padding rows for bucketed kernel launches: far outside any ball, large
-# but finite (their squared norm is +inf, never NaN)
-_FAR = ops.FAR
-
-
 def _bucket_size(n: int, min_rows: int = 128) -> int:
     """Next power-of-two row bucket (≥ ``min_rows``) for ``n`` rows."""
     return max(min_rows, 1 << max(n - 1, 1).bit_length())
@@ -128,9 +123,10 @@ class _ResidentBackend:
 
         Bit-identical to the full-array path: the gathered rows are the
         very rows the full filter would stream, per-pair kernel math is
-        independent of which rows share a launch, bucket padding sits
-        at 1e30 outside every ball, and slots outside the union are
-        non-candidates for the whole batch in both paths."""
+        independent of which rows share a launch, the bucket's padding
+        rows are sliced off the mask, and slots outside the union are
+        non-candidates for the whole batch in both paths.  The gather
+        stays in the filter plane's type."""
         ex = self.ex
         s = ex.snap
         cand = plan.mask
@@ -142,9 +138,8 @@ class _ResidentBackend:
                 torch.from_numpy(slots).to(s.device)]
             bucket = _bucket_size(int(slots.size))
             if bucket > slots.size:
-                sub = torch.cat([sub, torch.full(
-                    (bucket - slots.size, s.d), _FAR, dtype=sub.dtype,
-                    device=sub.device)])
+                sub = torch.cat([sub, ops.far_rows(bucket - slots.size,
+                                                   sub)])
             ball, _ = ops.range_filter(
                 plan.qf, sub, rf * (1.0 + _R_REL) + _BALL_ABS + eps)
             ball = ball[:, :slots.size].cpu().numpy().astype(bool)

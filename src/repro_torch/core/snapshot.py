@@ -1,8 +1,8 @@
 """The immutable device snapshot of a host ``LIMSIndex``.
 
-Port of ``repro/core/snapshot.py`` (the reduced-precision filter plane
-is a later slice).  Everything a query needs is laid out per cluster,
-padded to a common ``n_max``, as torch tensors on one device:
+Port of ``repro/core/snapshot.py``.  Everything a query needs is laid
+out per cluster, padded to a common ``n_max``, as torch tensors on one
+device:
 
   rows    (K, n_max, d)  f32   ring-ordered store rows, then §5.3 insert-
                                buffer rows, then invalid padding slots
@@ -21,6 +21,18 @@ rides along so the final exact refinement never round-trips through f32,
 and so do host mirrors of the ring ids and rank tables (``tables_np``),
 which the executor's observed-rank-error replay reads without copying
 anything back from the device.
+
+Reduced-precision filter plane (the reference's DESIGN.md §13): with
+``REPRO_ROWS_DTYPE=bf16|f16`` the snapshot also keeps ``rows_lp``, a
+bf16/f16 copy of ``rows`` that only first-pass distance filtering reads
+(``pdist`` and ``range_filter`` take its 2-byte points natively), and
+its certified margin ``lp_eps`` = max over rows of ‖x_f32 − x_lp‖,
+computed exactly in f64.  By the triangle inequality every distance on
+the plane is within ``lp_eps`` of the true one, so a filter radius
+widened by it admits every true result, and the exact f64 refinement
+keeps results bit-identical.  Off (the default), ``rows_lp`` is None,
+``lp_eps`` 0.0, and every threshold is the f32 plane's.  The paged tier
+drops the plane (its rows are on disk).
 
 Paged storage tier (the reference's DESIGN.md §7): :meth:`spill` writes
 the rows into a paged store directory in the reference's format and
@@ -50,7 +62,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.dispatch import resolve_device
+from ..kernels.dispatch import resolve_device, rows_dtype
 from ..storage import (DEFAULT_CACHE_PAGES, DEFAULT_PAGE_BYTES, PagedStore,
                        StoreView, load_meta, spill_rows, storage_mode)
 from .index import LIMSIndex
@@ -67,6 +79,8 @@ HOST_FIELDS = ("gids_np", "rows_np", "valid_np")
 SCALAR_FIELDS = ("K", "m", "n_rings", "n_max", "live")
 # everything spilled to the store's metadata file (rows go to pages.bin)
 _SPILL_FIELDS = tuple(f for f in DEVICE_FIELDS if f != "rows")
+# the reduced-precision plane's point types (REPRO_ROWS_DTYPE)
+LP_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
 
 
 @dataclass(frozen=True)
@@ -108,6 +122,10 @@ class LIMSSnapshot:
     # generation layout, so a later writeback can never remap an
     # in-flight batch's slots
     store: StoreView | None = None
+    # reduced-precision filter plane: a bf16/f16 copy of ``rows`` and
+    # its certified quantization margin; None / 0.0 when off
+    rows_lp: torch.Tensor | None = None
+    lp_eps: float = 0.0
 
     @property
     def n_slots(self) -> int:
@@ -123,13 +141,17 @@ class LIMSSnapshot:
         return self.rows.device
 
     def device_nbytes(self) -> int:
-        return int(sum(getattr(self, f).nbytes for f in DEVICE_FIELDS))
+        """Bytes of every device tensor, the filter plane's included."""
+        lp = 0 if self.rows_lp is None else self.rows_lp.nbytes
+        return int(sum(getattr(self, f).nbytes for f in DEVICE_FIELDS)) + lp
 
     def filter_rows(self) -> tuple[torch.Tensor, float]:
         """(row plane, certified margin) for first-pass distance
-        filtering.  The reduced-precision plane is not ported, so this
-        is always the f32 plane with margin 0.0 (callers add the margin
-        unconditionally, as in the reference)."""
+        filtering: the reduced-precision plane with its margin when
+        there is one, else the f32 plane with margin 0.0 (callers add
+        the margin unconditionally; + 0.0 changes no f32 value)."""
+        if self.rows_lp is not None:
+            return self.rows_lp, self.lp_eps
         return self.rows, 0.0
 
     @classmethod
@@ -183,10 +205,12 @@ class LIMSSnapshot:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        rows_dev = put(rows)
+        rows_lp, lp_eps = _lp_plane(rows_dev)
         return cls(
             K=K, m=m, n_rings=index.n_rings, n_max=n_max,
-            live=int(valid.sum()),
-            rows=put(rows), rids=put(rids), pivots=put(pivots),
+            live=int(valid.sum()), rows_lp=rows_lp, lp_eps=lp_eps,
+            rows=rows_dev, rids=put(rids), pivots=put(pivots),
             dmin=put(dmin), dmax=put(dmax), width=put(width),
             ns=put(np.array([ci.n for ci in index.clusters], np.int32)),
             valid=put(valid), in_ring=put(in_ring),
@@ -233,7 +257,8 @@ class LIMSSnapshot:
         return replace(
             self, rows=torch.zeros((self.K, 0, self.d), dtype=torch.float32,
                                    device=self.device),
-            rows_np=np.zeros((0, self.d), np.float64), store=store)
+            rows_np=np.zeros((0, self.d), np.float64), store=store,
+            rows_lp=None, lp_eps=0.0)
 
     @classmethod
     def load(cls, path: str, store: "bool | PagedStore | None" = None,
@@ -274,13 +299,16 @@ class LIMSSnapshot:
         if ps is not None:
             rows = torch.zeros((K, 0, d), dtype=torch.float32, device=dev)
             rows_np = np.zeros((0, d), np.float64)
+            rows_lp, lp_eps = None, 0.0
         else:
             reader = PagedStore(path, cache_pages=0)
             rows64 = np.stack([reader.read_cluster(k) for k in range(K)])
             rows = put(rows64.astype(np.float32))
             rows_np = rows64.reshape(K * n_max, d)
+            rows_lp, lp_eps = _lp_plane(rows)
         return cls(K=K, m=m, n_rings=n_rings, n_max=n_max, live=live,
                    rows=rows, rows_np=rows_np,
+                   rows_lp=rows_lp, lp_eps=lp_eps,
                    gids_np=np.asarray(meta["gids_np"], np.int64),
                    valid_np=np.asarray(meta["valid_np"], bool),
                    tables_np=host_tables(*(meta[f] for f in (
@@ -324,6 +352,44 @@ def host_tables(rids, pivots, coef, lo, hi, n, err,
         rids=np.asarray(rids, np.int32), pivots=f32(pivots), coef=f32(coef),
         lo=f32(lo), hi=f32(hi), n=f32(n), err=f32(err),
         in_ring=np.asarray(in_ring, bool).reshape(-1))
+
+
+def lp_quant_eps(rows: torch.Tensor, lp: torch.Tensor,
+                 metric: str = "l2") -> float:
+    """Certified quantization margin of a reduced-precision row plane:
+    ``max_x ‖x − x̃‖`` over rows, computed exactly in f64 on the host
+    (the tensors may lie on any device).  By the triangle inequality
+    ``|d(q, x̃) − d(q, x)| ≤ ‖x − x̃‖`` for every query under a
+    norm-induced metric, so a filter radius widened by this margin
+    keeps every true result.  An f16 value past 65,504 rounds to inf
+    and makes the margin inf, as in the reference."""
+    def f64(t):
+        return t.detach().to("cpu", torch.float64).numpy()
+
+    delta = np.abs(f64(rows) - f64(lp))
+    if delta.size == 0:
+        return 0.0
+    delta = delta.reshape(-1, delta.shape[-1])
+    if metric in ("l2", "sql2"):
+        per = np.sqrt(np.sum(delta * delta, axis=-1))
+    elif metric == "l1":
+        per = np.sum(delta, axis=-1)
+    elif metric == "linf":
+        per = np.max(delta, axis=-1)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return float(per.max())
+
+
+def _lp_plane(rows: torch.Tensor) -> tuple[torch.Tensor | None, float]:
+    """(rows_lp, lp_eps) under the ``REPRO_ROWS_DTYPE`` policy, made on
+    ``rows``' device (round to nearest even, as the reference's
+    ``astype``); None / 0.0 when the plane is off (the default)."""
+    dt = rows_dtype()
+    if dt is None or rows.numel() == 0:
+        return None, 0.0
+    lp = rows.to(LP_DTYPES[dt])
+    return lp, lp_quant_eps(rows, lp, "l2")
 
 
 def rank_columns(index: LIMSIndex) -> np.ndarray:
@@ -389,4 +455,5 @@ def _certified_rank_table(index: LIMSIndex, device: torch.device):
 
 
 __all__ = ["LIMSSnapshot", "DEVICE_FIELDS", "HOST_FIELDS", "SCALAR_FIELDS",
-           "host_tables", "maybe_paged", "rank_columns"]
+           "LP_DTYPES", "host_tables", "lp_quant_eps", "maybe_paged",
+           "rank_columns"]

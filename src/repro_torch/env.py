@@ -1,7 +1,7 @@
 """Registry of the ``REPRO_*`` environment knobs the port reads.
 
 Port of ``repro/env.py``, cut to the knobs the port reads: the
-resident query path's, the paged storage tier's (``storage/``), the
+resident query path's (with the reduced-precision filter plane's), the paged storage tier's (``storage/``), the
 observability layer's (``obs/``), the monitor's and the serving
 engine's.  Consumers call :func:`get` instead of ``os.environ.get`` so
 that a typo like ``REPRO_COMPACT=of`` fails loudly with the list of
@@ -34,6 +34,14 @@ _KNOBS = (
          "the certified candidate rows once into a dense power-of-two "
          "bucket and filter only those (on, default), or stream the "
          "full padded slot array through the kernels (off)."),
+    Knob("REPRO_ROWS_DTYPE",
+         ("", "off", "f32", "bf16", "f16"), "off",
+         "Reduced-precision filter plane: keep an extra bf16/f16 copy "
+         "of the snapshot row plane for first-pass distance filtering, "
+         "with a certified rounding-error margin widening the filter "
+         "radius so no true result can be cut (exact f32/f64 refinement "
+         "keeps final results bitwise identical). off/f32 (default) "
+         "disables the extra plane."),
     Knob("REPRO_STORAGE",
          ("", "paged"), "",
          "Snapshot storage tier: resident (default) or paged."),

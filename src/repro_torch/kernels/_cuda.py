@@ -58,8 +58,12 @@ _I = ctypes.c_int
 # kernel name -> (C symbol, argument types without the trailing stream)
 SIGNATURES: dict[str, tuple[str, tuple]] = {
     "pdist": ("pdist_sql2", (_P, _P, _P, _I, _I, _I)),
+    "pdist_bf16": ("pdist_sql2_bf16", (_P, _P, _P, _I, _I, _I)),
+    "pdist_f16": ("pdist_sql2_f16", (_P, _P, _P, _I, _I, _I)),
     "rankeval": ("rankeval", (_P,) * 7 + (_I,) * 4),
     "range_filter": ("range_filter", (_P,) * 5 + (_I,) * 3),
+    "range_filter_bf16": ("range_filter_bf16", (_P,) * 5 + (_I,) * 3),
+    "range_filter_f16": ("range_filter_f16", (_P,) * 5 + (_I,) * 3),
     "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
     "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I, _I)),
     "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I, _I)),
@@ -67,9 +71,14 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
 }
 # kernel name -> the variants of its C symbol (one per operand type)
 VARIANTS = {"flash_attention": ("f32", "bf16")}
-# kernel name -> its source under csrc/ (one source may hold several)
-SOURCES = {"pdist": "pdist.cu", "rankeval": "rankeval.cu",
-           "range_filter": "range_filter.cu", "pdist_rankeval": "fused.cu",
+# kernel name -> its source under csrc/ (one source may hold several:
+# pdist.cu and range_filter.cu an entry point for each point type, counted
+# apart so a launch on a bf16 / f16 point plane shows as such)
+SOURCES = {"pdist": "pdist.cu", "pdist_bf16": "pdist.cu",
+           "pdist_f16": "pdist.cu", "rankeval": "rankeval.cu",
+           "range_filter": "range_filter.cu",
+           "range_filter_bf16": "range_filter.cu",
+           "range_filter_f16": "range_filter.cu", "pdist_rankeval": "fused.cu",
            "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu",
            "flash_attention": "flash_attention.cu"}
 

@@ -20,6 +20,16 @@
 //
 // The arithmetic is gram.cuh's, bit for bit (the plain version and the
 // fused pdist_rankeval repeat it).
+//
+// Points may also be bf16 or f16 (the snapshot's reduced-precision filter
+// plane; queries stay f32): pdist_sql2_bf16 and pdist_sql2_f16 are the same
+// template on the stored type, which stream.cuh's Coords widens to f32
+// exactly as it loads a row (a d = 8 row is one 16-B load), so each output
+// equals the plain version's on the upcast points.  The 2-byte plane halves
+// the point bytes, which saves little here: at the kNN shape 1,253 MB move
+// in place of 1,327 MB, most of them the output write.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "stream.cuh"
@@ -31,8 +41,8 @@ using namespace stream;
 // Query rows [0, nc) of the chunk in shared memory against the thread's
 // points; o is the thread's first output of the chunk's first row.  WHOLE:
 // the thread's four outputs of a row are in range and 16-B aligned.
-template <bool WHOLE, int D>
-__device__ __forceinline__ void pdist_rows(const Points<D>& pts,
+template <bool WHOLE, int D, class T>
+__device__ __forceinline__ void pdist_rows(const Points<D, true, T>& pts,
                                            const float* q_s,
                                            const float* qn_s, int dd, int nc,
                                            float* o, long long np,
@@ -57,9 +67,9 @@ __device__ __forceinline__ void pdist_rows(const Points<D>& pts,
     }
 }
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(THREADS)
-pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
+pdist_sql2_kernel(const float* __restrict__ q, const T* __restrict__ p,
                   float* __restrict__ out, int nq, int np, int d, int qcap,
                   bool vec) {
     extern __shared__ float4 smem[];
@@ -67,7 +77,7 @@ pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
     float* q_s = reinterpret_cast<float*>(smem);     // (qcap, dd)
     float* qn_s = q_s + qcap * dd;                   // (qcap,)
     const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
-    Points<D> pts;
+    Points<D, true, T> pts;
     pts.load(p, pt, np, dd);
     const long long live = np - pt;         // points of the thread in range
     const bool whole = vec && live >= PPT;
@@ -87,33 +97,51 @@ pdist_sql2_kernel(const float* __restrict__ q, const float* __restrict__ p,
     }
 }
 
-template <int D>
-int launch(const float* q, const float* p, float* out, int nq, int np, int d,
+template <class T, int D>
+int launch(const float* q, const T* p, float* out, int nq, int np, int d,
            cudaStream_t stream) {
     const int qcap = query_cap(d, 1);
     if (qcap < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)qcap * (d + 1) * sizeof(float);
-    const cudaError_t e = allow_smem(pdist_sql2_kernel<D>, smem);
+    const cudaError_t e = allow_smem(pdist_sql2_kernel<T, D>, smem);
     if (e != cudaSuccess) return (int)e;
     const bool vec = np % 4 == 0 && aligned(out, 16);
     const unsigned grid = (unsigned)((np + BP - 1) / BP);
-    pdist_sql2_kernel<D><<<grid, THREADS, smem, stream>>>(q, p, out, nq, np,
-                                                          d, qcap, vec);
+    pdist_sql2_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+        q, p, out, nq, np, d, qcap, vec);
     return (int)cudaGetLastError();
+}
+
+template <class T>
+int pdist_sql2_of(const void* q, const void* p, void* out, int nq, int np,
+                  int d, void* stream) {
+    if (nq <= 0 || np <= 0) return 0;
+    const float* qf = (const float*)q;
+    const T* pt = (const T*)p;
+    float* of = (float*)out;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (body_width(d, q, p)) {
+        case 8: return launch<T, 8>(qf, pt, of, nq, np, d, s);
+        case 32: return launch<T, 32>(qf, pt, of, nq, np, d, s);
+        default: return launch<T, 0>(qf, pt, of, nq, np, d, s);
+    }
 }
 
 }  // namespace
 
-// q (nq, d), p (np, d) f32 row-major; out (nq, np) f32.  Returns the CUDA
-// error code of the launch (0 on success).
+// q (nq, d) f32 and p (np, d) row-major, p in f32 / bf16 / f16; out (nq,
+// np) f32.  Each returns the CUDA error code of the launch (0 on success).
 extern "C" int pdist_sql2(const void* q, const void* p, void* out, int nq,
                           int np, int d, void* stream) {
-    if (nq <= 0 || np <= 0) return 0;
-    const float *qf = (const float*)q, *pf = (const float*)p;
-    const cudaStream_t s = (cudaStream_t)stream;
-    switch (body_width(d, q, p)) {
-        case 8: return launch<8>(qf, pf, (float*)out, nq, np, d, s);
-        case 32: return launch<32>(qf, pf, (float*)out, nq, np, d, s);
-        default: return launch<0>(qf, pf, (float*)out, nq, np, d, s);
-    }
+    return pdist_sql2_of<float>(q, p, out, nq, np, d, stream);
+}
+
+extern "C" int pdist_sql2_bf16(const void* q, const void* p, void* out,
+                               int nq, int np, int d, void* stream) {
+    return pdist_sql2_of<__nv_bfloat16>(q, p, out, nq, np, d, stream);
+}
+
+extern "C" int pdist_sql2_f16(const void* q, const void* p, void* out,
+                              int nq, int np, int d, void* stream) {
+    return pdist_sql2_of<__half>(q, p, out, nq, np, d, stream);
 }

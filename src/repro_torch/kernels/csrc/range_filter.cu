@@ -34,6 +34,15 @@
 // +inf, so a padded cell is +inf and never a hit.  A NaN distance passes no
 // test, so a NaN cell is never a hit either; points past np get a NaN norm
 // and so never count.
+//
+// Points may also be bf16 or f16 (the snapshot's reduced-precision filter
+// plane; queries and r2 stay f32): range_filter_bf16 and range_filter_f16
+// are the same template on the stored type, which stream.cuh's Coords
+// widens to f32 exactly as it loads a row, so mask and counts equal the
+// plain version's on the upcast points.  In f16 the callers' pad row is
+// +inf itself; its cells are +inf or NaN, which no finite ball holds.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "stream.cuh"
@@ -59,9 +68,9 @@ __device__ __forceinline__ float r2_test(float r2) {
 // it.  WHOLE: the thread's four bytes of a row are in range and 4-B aligned.
 // Each row's count is one warp reduction of the lanes' hits; lane l keeps
 // row i0 + l's, and every 32 rows the lanes store theirs together.
-template <bool WHOLE, int D>
+template <bool WHOLE, int D, class T>
 __device__ __forceinline__ void filter_rows(
-        const Points<D>& pts, const float* q_s, const float2* qr_s,
+        const Points<D, true, T>& pts, const float* q_s, const float2* qr_s,
         int dd, int nc, unsigned char* m, int* c, long long np,
         long long ntiles, long long live, int lane) {
     for (int i0 = 0; i0 < nc; i0 += 32) {
@@ -95,9 +104,9 @@ __device__ __forceinline__ void filter_rows(
 
 // The register body at d = 8 is held to 6 blocks an SM (at most 80
 // registers): more warps to hide the latency of its dependent f32 chains.
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(THREADS, D == 8 ? 6 : 1)
-range_filter_kernel(const float* __restrict__ q, const float* __restrict__ p,
+range_filter_kernel(const float* __restrict__ q, const T* __restrict__ p,
                     const float* __restrict__ r2,
                     unsigned char* __restrict__ mask, int* __restrict__ cnt,
                     int nq, int np, int d, int qcap, bool vec) {
@@ -109,7 +118,7 @@ range_filter_kernel(const float* __restrict__ q, const float* __restrict__ p,
     const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
     const long long tile = pt / TILE;
     const long long ntiles = ((long long)np + TILE - 1) / TILE;
-    Points<D> pts;
+    Points<D, true, T> pts;
     pts.load(p, pt, np, dd);
     const long long live = np - pt;         // points of the thread in range
     const bool whole = vec && live >= PPT;
@@ -135,37 +144,57 @@ range_filter_kernel(const float* __restrict__ q, const float* __restrict__ p,
     }
 }
 
-template <int D>
-int launch(const float* q, const float* p, const float* r2,
+template <class T, int D>
+int launch(const float* q, const T* p, const float* r2,
            unsigned char* mask, int* cnt, int nq, int np, int d,
            cudaStream_t stream) {
     const int qcap = query_cap(d, 2);
     if (qcap < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)qcap * (d + 2) * sizeof(float);
-    const cudaError_t e = allow_smem(range_filter_kernel<D>, smem);
+    const cudaError_t e = allow_smem(range_filter_kernel<T, D>, smem);
     if (e != cudaSuccess) return (int)e;
     const bool vec = np % PPT == 0 && aligned(mask, PPT);
     const unsigned grid = (unsigned)((np + BP - 1) / BP);
-    range_filter_kernel<D><<<grid, THREADS, smem, stream>>>(
+    range_filter_kernel<T, D><<<grid, THREADS, smem, stream>>>(
         q, p, r2, mask, cnt, nq, np, d, qcap, vec);
     return (int)cudaGetLastError();
 }
 
+template <class T>
+int range_filter_of(const void* q, const void* p, const void* r2, void* mask,
+                    void* cnt, int nq, int np, int d, void* stream) {
+    if (nq <= 0 || np <= 0) return 0;
+    const float *qf = (const float*)q, *rf = (const float*)r2;
+    const T* pt = (const T*)p;
+    unsigned char* mf = (unsigned char*)mask;
+    int* cf = (int*)cnt;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (body_width(d, q, p)) {
+        case 8: return launch<T, 8>(qf, pt, rf, mf, cf, nq, np, d, s);
+        case 32: return launch<T, 32>(qf, pt, rf, mf, cf, nq, np, d, s);
+        default: return launch<T, 0>(qf, pt, rf, mf, cf, nq, np, d, s);
+    }
+}
+
 }  // namespace
 
-// q (nq, d), p (np, d), r2 (nq,) f32; mask (nq, np) uint8;
-// cnt (nq, ceil(np / 128)) int32.
+// q (nq, d) f32, p (np, d) in f32 / bf16 / f16, r2 (nq,) f32; mask (nq, np)
+// uint8; cnt (nq, ceil(np / 128)) int32.
 extern "C" int range_filter(const void* q, const void* p, const void* r2,
                             void* mask, void* cnt, int nq, int np, int d,
                             void* stream) {
-    if (nq <= 0 || np <= 0) return 0;
-    const float *qf = (const float*)q, *pf = (const float*)p,
-                *rf = (const float*)r2;
-    unsigned char* mf = (unsigned char*)mask;
-    const cudaStream_t s = (cudaStream_t)stream;
-    switch (body_width(d, q, p)) {
-        case 8: return launch<8>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
-        case 32: return launch<32>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
-        default: return launch<0>(qf, pf, rf, mf, (int*)cnt, nq, np, d, s);
-    }
+    return range_filter_of<float>(q, p, r2, mask, cnt, nq, np, d, stream);
+}
+
+extern "C" int range_filter_bf16(const void* q, const void* p,
+                                 const void* r2, void* mask, void* cnt,
+                                 int nq, int np, int d, void* stream) {
+    return range_filter_of<__nv_bfloat16>(q, p, r2, mask, cnt, nq, np, d,
+                                          stream);
+}
+
+extern "C" int range_filter_f16(const void* q, const void* p, const void* r2,
+                                void* mask, void* cnt, int nq, int np, int d,
+                                void* stream) {
+    return range_filter_of<__half>(q, p, r2, mask, cnt, nq, np, d, stream);
 }

@@ -27,6 +27,16 @@
 // point's squared norm for the Gram bodies; the L1 / L-infinity bodies
 // (pdist_lp.cu) pass NORM = false and leave the norms unset.
 //
+// T is the stored point type: float (the default), __nv_bfloat16 or
+// __half (the snapshot's reduced-precision filter plane, read by the sql2
+// bodies of pdist.cu and range_filter.cu).  Coords<T> reads it: 16 bytes
+// at a time where a register body's row allows it (a bf16 or f16 row of
+// d = 8 is one 16-B load), one coordinate at a time otherwise, and
+// widens each coordinate to f32 exactly (a bf16 is the high half of its
+// f32; __half2float).  Everything after the load is the float body's f32
+// arithmetic, unchanged, so a 2-byte plane's distances equal the plain
+// version's, which upcasts the points and then runs the same operations.
+//
 // lp<Op>() is those bodies' loop: Op::step folds a = |q[k] - x[k]| into
 // the running value from k = 0 upwards, each difference rounded to
 // nearest (__fsub_rn).  The value starts at the first term, not at +0,
@@ -34,11 +44,67 @@
 // and `a > +0 || a != a ? a : +0` is a.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "gram.cuh"
 
 namespace stream {
+
+// How a stored coordinate of type T is read and widened to f32.
+// one(p): the coordinate at p.  load16(r, k, x): the k-th 16 bytes of the
+// 16-B aligned row r, PER16 coordinates, into x.
+template <class T>
+struct Coords {                         // the 2-byte types: bf16, f16
+    static_assert(sizeof(T) == 2, "a 2-byte point type");
+    static constexpr int PER16 = 8;
+    __device__ __forceinline__ static float widen(unsigned short bits);
+
+    __device__ __forceinline__ static float one(const T* p) {
+        return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+    }
+
+    __device__ __forceinline__ static void load16(const T* r, int k,
+                                                  float* x) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(r) + k);
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            x[2 * i] = widen((unsigned short)(w[i] & 0xffffu));
+            x[2 * i + 1] = widen((unsigned short)(w[i] >> 16));
+        }
+    }
+};
+
+template <>
+__device__ __forceinline__ float Coords<__nv_bfloat16>::widen(
+        unsigned short bits) {
+    return __uint_as_float((unsigned)bits << 16);
+}
+
+template <>
+__device__ __forceinline__ float Coords<__half>::widen(unsigned short bits) {
+    return __half2float(__ushort_as_half(bits));
+}
+
+template <>
+struct Coords<float> {
+    static constexpr int PER16 = 4;
+
+    __device__ __forceinline__ static float one(const float* p) {
+        return __ldg(p);
+    }
+
+    __device__ __forceinline__ static void load16(const float* r, int k,
+                                                  float* x) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(r) + k);
+        x[0] = v.x;
+        x[1] = v.y;
+        x[2] = v.z;
+        x[3] = v.w;
+    }
+};
 
 constexpr int THREADS = 128;            // threads per block
 constexpr int PPT = 4;                  // consecutive points per thread
@@ -52,27 +118,27 @@ static_assert(QCAP <= THREADS, "one thread loads each query row");
 // no ball holds; its outputs are never stored.
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
 
-template <int D, bool NORM = true>
+template <int D, bool NORM = true, class T = float>
 struct Points {
     static_assert(D > 0 && D % 4 == 0, "register body needs D % 4 == 0");
+    using C = Coords<T>;
     float x[PPT][D];
     float n[PPT];
 
-    __device__ __forceinline__ void load(const float* __restrict__ p,
+    __device__ __forceinline__ void load(const T* __restrict__ p,
                                          long long pt, long long np, int) {
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
             const bool live = pt + j < np;
             if (live) {
-                const float4* r =
-                    reinterpret_cast<const float4*>(p + (pt + j) * D);
+                const T* r = p + (pt + j) * D;
+                if constexpr (D % C::PER16 == 0) {
 #pragma unroll
-                for (int k4 = 0; k4 < D / 4; ++k4) {
-                    const float4 v = __ldg(r + k4);
-                    x[j][4 * k4] = v.x;
-                    x[j][4 * k4 + 1] = v.y;
-                    x[j][4 * k4 + 2] = v.z;
-                    x[j][4 * k4 + 3] = v.w;
+                    for (int k = 0; k < D / C::PER16; ++k)
+                        C::load16(r, k, x[j] + k * C::PER16);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < D; ++k) x[j][k] = C::one(r + k);
                 }
             } else {
 #pragma unroll
@@ -129,27 +195,38 @@ struct Points {
     }
 };
 
-template <bool NORM>
-struct Points<0, NORM> {
-    const float* x;         // the first point's row (clamped in bounds)
+template <bool NORM, class T>
+struct Points<0, NORM, T> {
+    using C = Coords<T>;
+    const T* x;             // the first point's row (clamped in bounds)
     int last;               // the last of the thread's points in range
     int d;
     float n[PPT];
 
-    __device__ __forceinline__ void load(const float* __restrict__ p,
+    __device__ __forceinline__ void load(const T* __restrict__ p,
                                          long long pt, long long np, int dd) {
         d = dd;
         last = (int)(np - pt > PPT ? PPT - 1 : np - pt - 1);
         x = p + (last >= 0 ? pt : np - 1) * d;
         if constexpr (NORM) {
 #pragma unroll
-            for (int j = 0; j < PPT; ++j)
-                n[j] = j <= last ? sq_norm(row(j), 1, d) : nan_f();
+            for (int j = 0; j < PPT; ++j) {
+                // gram.cuh's sq_norm, on the widened coordinates
+                n[j] = nan_f();
+                if (j > last) continue;
+                const T* r = row(j);
+                float s = 0.f;
+                for (int k = 0; k < d; ++k) {
+                    const float v = C::one(r + k);
+                    s = __fadd_rn(s, __fmul_rn(v, v));
+                }
+                n[j] = s;
+            }
         }
     }
 
     // Point j's row, or the last live one's in place of a point past np.
-    __device__ __forceinline__ const float* row(int j) const {
+    __device__ __forceinline__ const T* row(int j) const {
         return x + (long long)max(min(j, last), 0) * d;
     }
 
@@ -157,10 +234,10 @@ struct Points<0, NORM> {
                                          float (&g)[PPT]) const {
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
-            const float* xj = row(j);
+            const T* xj = row(j);
             g[j] = 0.f;
             for (int k = 0; k < d; ++k)
-                g[j] = __fadd_rn(g[j], __fmul_rn(q[k], __ldg(xj + k)));
+                g[j] = __fadd_rn(g[j], __fmul_rn(q[k], C::one(xj + k)));
         }
     }
 
@@ -169,10 +246,10 @@ struct Points<0, NORM> {
                                        float (&v)[PPT]) const {
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
-            const float* xj = row(j);
-            float a = fabsf(__fsub_rn(q[0], __ldg(xj)));
+            const T* xj = row(j);
+            float a = fabsf(__fsub_rn(q[0], C::one(xj)));
             for (int k = 1; k < d; ++k)
-                a = Op::step(a, fabsf(__fsub_rn(q[k], __ldg(xj + k))));
+                a = Op::step(a, fabsf(__fsub_rn(q[k], C::one(xj + k))));
             v[j] = a;
         }
     }
@@ -219,7 +296,9 @@ inline bool aligned(const void* ptr, unsigned bytes) {
 
 // The body width d takes: a register body for the widths the repo launches
 // (8: the query path and the builder; 32: the retrieval example's
-// embeddings), given 16-B aligned q and p; 0 (Points<0>) for any other.
+// embeddings), given 16-B aligned q and p (then every row of p is: a row is
+// 16 or 64 B in a 2-byte type, 32 or 128 B in f32); 0 (Points<0>) for any
+// other.
 inline int body_width(int d, const void* q, const void* p) {
     if ((d == 8 || d == 32) && aligned(q, 16) && aligned(p, 16)) return d;
     return 0;

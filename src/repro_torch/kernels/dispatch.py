@@ -40,4 +40,13 @@ def compact_enabled() -> bool:
     return env.get("REPRO_COMPACT") == "on"
 
 
-__all__ = ["resolve_device", "fused_plan_enabled", "compact_enabled"]
+def rows_dtype() -> str | None:
+    """The reduced-precision filter plane's point type for snapshot
+    rows (``REPRO_ROWS_DTYPE``): ``"bf16"`` or ``"f16"``, or None when
+    the plane is off (the default: f32 everywhere)."""
+    v = env.get("REPRO_ROWS_DTYPE")
+    return None if v in ("off", "f32") else v
+
+
+__all__ = ["resolve_device", "fused_plan_enabled", "compact_enabled",
+           "rows_dtype"]

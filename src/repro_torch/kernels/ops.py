@@ -16,11 +16,16 @@ Port of ``repro/kernels/ops.py``, with the reference's return contracts:
 
 The wrappers cast to contiguous f32 and hand off to the kernel modules,
 where the tensor's device picks the CUDA kernel or its plain version.
+One exception: a bf16 or f16 point operand of ``pdist`` (sql2) and
+``range_filter`` (the snapshot's reduced-precision filter plane) passes
+through uncast, to the entry points that read 2-byte points; an f32
+copy of the plane would undo what the plane saves.
 The CUDA kernels mask their ragged edges themselves, so only
 ``range_filter`` pads: its points grow to whole count tiles with the
-finite far row ``FAR`` (the reference pads with +inf, whose Gram cells
-are NaN; a far row's are +inf, which no ball holds), and the mask is
-sliced back.  ``flash_attention`` pads Sq and Sk to whole 128-row
+far row ``FAR`` in the points' type (the reference pads with +inf,
+whose Gram cells are NaN; an f32 or bf16 far row's are +inf, which no
+finite ball holds; in f16, FAR is +inf itself), and the mask is sliced
+back.  ``flash_attention`` pads Sq and Sk to whole 128-row
 tiles, masks the padded keys with ``kv_len`` and slices the rows back,
 as the reference's wrapper does.
 
@@ -57,17 +62,34 @@ def _count_launch(name: str, probe: torch.Tensor) -> None:
     _obs.count(f"kernels.{name}.{'cuda' if probe.is_cuda else 'torch'}")
 
 
+def far_rows(n: int, like: torch.Tensor) -> torch.Tensor:
+    """(n, d) padding rows at ``FAR`` in ``like``'s type and device
+    (rounded from f32: +inf in f16, whose largest value is 65,504)."""
+    return torch.full((n, like.shape[1]), FAR, dtype=torch.float32,
+                      device=like.device).to(like.dtype)
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.float32 and t.is_contiguous():
         return t                # no dispatch for what is already dense f32
     return t.to(torch.float32).contiguous()
 
 
+def _points(p: torch.Tensor, metric: str = "sql2") -> torch.Tensor:
+    """A point operand as the kernels take it: bf16 / f16 points stay
+    in their type for the sql2 bodies, which read 2-byte points;
+    anything else becomes dense f32."""
+    if metric == "sql2" and p.dtype in (torch.bfloat16, torch.float16):
+        return p.contiguous()
+    return _f32(p)
+
+
 def pdist(q: torch.Tensor, p: torch.Tensor,
           metric: str = "sql2") -> torch.Tensor:
     """(nq, np) f32 pairwise distances. metric: sql2 | l1 | linf; sql2
-    returns squared distances (take ``torch.sqrt`` or square radii)."""
-    out = _pdist.pdist(_f32(q), _f32(p), metric)
+    returns squared distances (take ``torch.sqrt`` or square radii) and
+    reads bf16 / f16 points as they are."""
+    out = _pdist.pdist(_f32(q), _points(p, metric), metric)
     _count_launch("pdist", q)
     return out
 
@@ -92,13 +114,13 @@ def rankeval(x, coef, lo, hi, n, n_rings: int = 20):
 
 def range_filter(q: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
     """Fused L2-ball membership for batched range queries with radii
-    ``r`` (nq,): (mask (nq, np) uint8, counts (nq, ceil(np/128)) int32)."""
-    q, p, r = _f32(q), _f32(p), _f32(r)
+    ``r`` (nq,): (mask (nq, np) uint8, counts (nq, ceil(np/128)) int32).
+    Points may be f32, bf16 or f16."""
+    q, p, r = _f32(q), _points(p), _f32(r)
     npts = p.shape[0]
     pad = (-npts) % _range_filter.TILE
     if pad:
-        p = torch.cat([p, torch.full((pad, p.shape[1]), FAR,
-                                     dtype=torch.float32, device=p.device)])
+        p = torch.cat([p, far_rows(pad, p)])
     mask, cnt = _range_filter.range_filter(q, p, r * r)
     _count_launch("range_filter", q)
     return mask[:, :npts], cnt
@@ -140,4 +162,4 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
 
 __all__ = ["pdist", "pdist_grouped", "rankeval", "range_filter",
            "pdist_rankeval", "flash_attention", "fused_plan_enabled", "FAR",
-           "GROUPED"]
+           "GROUPED", "far_rows"]

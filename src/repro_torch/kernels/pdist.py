@@ -17,6 +17,13 @@ operation order:
 :func:`pdist_grouped` (l1, linf) takes G groups at once, q (G, nq, d)
 against p (G, np, d), in one launch of the same kernels: the device
 builder's per-cluster pivot columns.
+
+The sql2 kernel also reads bf16 or f16 points natively (the snapshot's
+reduced-precision filter plane): entry points ``pdist_sql2_bf16`` and
+``pdist_sql2_f16`` of the same template convert each coordinate exactly
+to f32 as they load it, so the arithmetic and the result equal the
+plain version's, which upcasts first.  Queries stay f32; l1 and linf
+take f32 points only.
 """
 from __future__ import annotations
 
@@ -88,17 +95,28 @@ METRICS = {"sql2": ("pdist", pdist_plain),
 GROUPED = ("l1", "linf")
 
 
-def check_operands(*ts: torch.Tensor) -> torch.device:
-    """The common device of ``ts``; raises on mixed devices, non-f32 or
-    non-contiguous CUDA operands (the kernels take dense f32 only)."""
+# point type -> suffix of the kernel name whose entry point reads it
+# (the sql2 pdist and range_filter bodies; every other operand is f32)
+POINT_TYPES = {torch.float32: "", torch.bfloat16: "_bf16",
+               torch.float16: "_f16"}
+
+
+def check_operands(*ts: torch.Tensor,
+                   points: torch.Tensor | None = None) -> torch.device:
+    """The common device of ``ts`` and ``points``; raises on mixed
+    devices and on CUDA operands that are not contiguous float32, where
+    ``points`` may also be bfloat16 or float16 (a body that reads
+    2-byte points)."""
     dev = ts[0].device
-    for t in ts:
+    for t in ts + (() if points is None else (points,)):
         if t.device != dev:
             raise ValueError(f"operands on {t.device} and {dev}")
-        if dev.type == "cuda" and (t.dtype != torch.float32
+        types = POINT_TYPES if t is points else (torch.float32,)
+        if dev.type == "cuda" and (t.dtype not in types
                                    or not t.is_contiguous()):
-            raise ValueError("CUDA kernels take contiguous float32 "
-                             f"operands, got {t.dtype}")
+            raise ValueError(
+                "CUDA kernels take contiguous operands of "
+                f"{', '.join(map(str, types))}, got {t.dtype}")
     return dev
 
 
@@ -106,7 +124,7 @@ def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
                kernel: str = "pdist") -> torch.Tensor:
     """One launch: (nq, np) from q (nq, d) and p (np, d); the l1 / linf
     kernels also take groups, q (G, nq, d) and p (G, np, d) -> (G, nq,
-    np)."""
+    np).  The sql2 kernel's entry point is the one for p's type."""
     *gq, nq, d = q.shape
     *gp, npts, d2 = p.shape
     if d != d2:
@@ -116,6 +134,8 @@ def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
                          f"{tuple(p.shape)} do not match")
     out = torch.empty(*gq, nq, npts, dtype=torch.float32, device=q.device)
     groups = () if kernel == "pdist" else (gq[0] if gq else 1,)
+    if kernel == "pdist":
+        kernel += POINT_TYPES[p.dtype]
     _cuda.launch(kernel, q.data_ptr(), p.data_ptr(), out.data_ptr(),
                  *groups, nq, npts, d, device=q.device)
     return out
@@ -124,11 +144,13 @@ def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
 def pdist(q: torch.Tensor, p: torch.Tensor,
           metric: str = "sql2") -> torch.Tensor:
     """(nq, np) f32 distances between rows of q and p: squared L2
-    (``sql2``), L1 or L-infinity."""
+    (``sql2``; p may be bf16 or f16), L1 or L-infinity."""
     if metric not in METRICS:
         raise ValueError(f"pdist: unknown metric {metric!r}")
     kernel, plain = METRICS[metric]
-    if check_operands(q, p).type == "cuda":
+    dev = check_operands(q, points=p) if metric == "sql2" \
+        else check_operands(q, p)
+    if dev.type == "cuda":
         return pdist_cuda(q, p, kernel)
     return plain(q, p)
 

@@ -5,13 +5,17 @@ a CUDA tensor :func:`range_filter` launches ``csrc/range_filter.cu``; on
 a CPU tensor it runs :func:`range_filter_plain`, whose distances are
 ``pdist.gram_sq_plain`` (the kernel's operation order).  Returns a uint8
 mask (nq, np) and int32 hit counts per (query, ``TILE``-point tile).
+Points may be f32, bf16 or f16 (entry points ``range_filter``,
+``range_filter_bf16`` and ``range_filter_f16`` of one template, which
+convert each coordinate exactly to f32 as they load it); queries and
+radii are f32.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .pdist import check_operands, gram_sq_plain
+from .pdist import POINT_TYPES, check_operands, gram_sq_plain
 
 TILE = 128      # points per count tile (the kernel's block width)
 
@@ -37,15 +41,15 @@ def range_filter_cuda(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
     mask = torch.empty(nq, npts, dtype=torch.uint8, device=q.device)
     cnt = torch.empty(nq, -(-npts // TILE), dtype=torch.int32,
                       device=q.device)
-    _cuda.launch("range_filter", q.data_ptr(), p.data_ptr(), r2.data_ptr(),
-                 mask.data_ptr(), cnt.data_ptr(), nq, npts, d,
-                 device=q.device)
+    _cuda.launch("range_filter" + POINT_TYPES[p.dtype], q.data_ptr(),
+                 p.data_ptr(), r2.data_ptr(), mask.data_ptr(),
+                 cnt.data_ptr(), nq, npts, d, device=q.device)
     return mask, cnt
 
 
 def range_filter(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
     """(mask (nq, np) uint8, counts (nq, ceil(np / TILE)) int32) for the
     L2 balls d2(q_i, p_j) <= r2_i."""
-    if check_operands(q, p, r2).type == "cuda":
+    if check_operands(q, r2, points=p).type == "cuda":
         return range_filter_cuda(q, p, r2)
     return range_filter_plain(q, p, r2)

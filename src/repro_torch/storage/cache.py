@@ -26,6 +26,12 @@ recency position its accesses earned and becomes evictable again.
 ``REPRO_CACHE_PIN=off`` disables plan pinning process-wide (the
 blind-LRU baseline).
 
+The victims are the reference's, in its order: the coldest unpinned
+page, found by the same front-to-back walk.  The port also keeps a count
+of resident unpinned pages, so an insert past capacity while every
+resident page is pinned ends at once instead of walking them all (the
+reference's walk is O(pinned) per insert there, O(pinned²) per batch).
+
 ``CacheStats`` carries two families of counters:
 
   * cache-level IO: requests / hits / misses (= actual page reads) /
@@ -114,6 +120,7 @@ class LRUPageCache:
     _pages: OrderedDict = field(default_factory=OrderedDict)
     access: dict = field(default_factory=dict)
     _pins: dict = field(default_factory=dict)   # pid → pin count
+    _unpinned: int = 0          # resident pages that are not pinned
 
     def __len__(self) -> int:
         return len(self._pages)
@@ -137,6 +144,8 @@ class LRUPageCache:
         when every resident page is pinned the cache overflows capacity
         rather than break a planned fetch (bounded by one batch's
         pinned working set)."""
+        if pid not in self._pages and pid not in self._pins:
+            self._unpinned += 1
         self._pages[pid] = block
         self._pages.move_to_end(pid)
         return self._shrink()
@@ -147,12 +156,11 @@ class LRUPageCache:
         working set) until its pins release."""
         evicted = 0
         if self.capacity_pages is not None:
-            while len(self._pages) > self.capacity_pages:
-                victim = next(
-                    (k for k in self._pages if k not in self._pins), None)
-                if victim is None:          # all pinned → allow overflow
-                    break
+            while (len(self._pages) > self.capacity_pages
+                   and self._unpinned):     # all pinned → allow overflow
+                victim = next(k for k in self._pages if k not in self._pins)
                 del self._pages[victim]
+                self._unpinned -= 1
                 evicted += 1
         return evicted
 
@@ -161,7 +169,10 @@ class LRUPageCache:
         Pinning a non-resident page is allowed: the hold applies the
         moment the page is inserted."""
         for pid in pids:
-            self._pins[pid] = self._pins.get(pid, 0) + 1
+            c = self._pins.get(pid, 0)
+            if not c and pid in self._pages:
+                self._unpinned -= 1
+            self._pins[pid] = c + 1
 
     def unpin(self, pids) -> int:
         """Release one hold per page; at zero the page rejoins plain LRU
@@ -172,8 +183,9 @@ class LRUPageCache:
             c = self._pins.get(pid, 0) - 1
             if c > 0:
                 self._pins[pid] = c
-            else:
-                self._pins.pop(pid, None)
+            elif self._pins.pop(pid, None) is not None \
+                    and pid in self._pages:
+                self._unpinned += 1
         return self._shrink()
 
     @property
@@ -187,6 +199,7 @@ class LRUPageCache:
         the pages they guarded)."""
         self._pages.clear()
         self._pins.clear()
+        self._unpinned = 0
 
     def hottest(self, n: int = 10) -> list:
         """(page id, access count) for the n most-accessed pages."""

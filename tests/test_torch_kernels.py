@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _hypothesis_compat import given, settings, st
+
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels.fused import pdist_rankeval_plain
 from repro_torch.kernels.pdist import (METRICS, gram_sq_plain,
@@ -103,6 +105,49 @@ def test_pdist_lp_matches_reference(ref_ops, ref_ref, nq, npts, d, bf16,
             assert np.array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=d * 2.0 ** -24)
+
+
+@pytest.fixture
+def ref_jnp():
+    return pytest.importorskip("jax.numpy")
+
+
+@pytest.mark.parametrize("metric", ["sql2", "l1", "linf"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("nq,npts,d", [(64, 128, 8), (137, 301, 33),
+                                       (1, 257, 128), (128, 128, 4)])
+def test_pdist_operand_types_match_reference(ref_ops, ref_jnp, metric,
+                                             dtype, nq, npts, d):
+    """``ops.pdist`` on operands of the type itself (bf16 tensors in the
+    port, jnp bf16 arrays in the reference), at the shapes and
+    tolerances of ``tests/test_kernels.py::test_pdist_matches_ref``:
+    1e-4 in f32, 5e-2 in bf16 (relative, and times d absolute)."""
+    q, p = _normal((nq, d), 1), _normal((npts, d), 2)
+    types = {"f32": (torch.float32, ref_jnp.float32),
+             "bf16": (torch.bfloat16, ref_jnp.bfloat16)}[dtype]
+    got = ops.pdist(_t(q).to(types[0]), _t(p).to(types[0]), metric)
+    want = ref_ops.pdist(ref_jnp.asarray(q, types[1]),
+                         ref_jnp.asarray(p, types[1]), metric)
+    tol = 1e-4 if dtype == "f32" else 5e-2
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol * d)
+
+
+@settings(max_examples=25, deadline=None)
+@given(nq=st.integers(1, 200), npts=st.integers(1, 300),
+       d=st.integers(1, 64),
+       metric=st.sampled_from(["sql2", "l1", "linf"]))
+def test_pdist_property_matches_reference(nq, npts, d, metric):
+    """``tests/test_kernels.py::test_pdist_property`` for the port: f32
+    at any shape within 1e-4 relative / 1e-3 absolute of the
+    reference's oracle, and never negative."""
+    ref_ref = pytest.importorskip("repro.kernels.ref")
+    q, p = _normal((nq, d), nq), _normal((npts, d), npts + 1)
+    got = ops.pdist(_t(q), _t(p), metric).numpy()
+    want = np.asarray(ref_ref.pdist_ref(q, p, metric))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    assert (got >= -1e-6).all()
 
 
 @pytest.mark.parametrize("metric", ["l1", "linf"])
@@ -388,12 +433,17 @@ def test_cpu_tensors_launch_nothing():
     ops.pdist_grouped(a[0][None], a[1][None], "l1")
     ops.pdist_grouped(a[0][None], a[1][None], "linf")
     ops.range_filter(a[0], a[1], a[6])
+    for lp in (torch.bfloat16, torch.float16):
+        ops.pdist(a[0], a[1].to(lp))
+        ops.range_filter(a[0], a[1].to(lp), a[6])
     ops.pdist_rankeval(*a)
     _staged(*a)
     q = torch.from_numpy(_normal((1, 4, 100, 16), 1))
     ops.flash_attention(q, q[:, :2], q[:, :2])
     assert _cuda.LAUNCHES == before
-    assert set(_cuda.LAUNCHES) == {"pdist", "rankeval", "range_filter",
+    assert set(_cuda.LAUNCHES) == {"pdist", "pdist_bf16", "pdist_f16",
+                                   "rankeval", "range_filter",
+                                   "range_filter_bf16", "range_filter_f16",
                                    "pdist_rankeval", "pdist_l1",
                                    "pdist_linf", "flash_attention"}
 
@@ -571,7 +621,9 @@ def test_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES == {"pdist": 2, "rankeval": 2, "range_filter": 1,
                               "pdist_rankeval": 1, "pdist_l1": 1,
-                              "pdist_linf": 1, "flash_attention": 0}
+                              "pdist_linf": 1, "flash_attention": 0,
+                              "pdist_bf16": 0, "pdist_f16": 0,
+                              "range_filter_bf16": 0, "range_filter_f16": 0}
 
 
 def _same(got, want):

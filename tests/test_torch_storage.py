@@ -310,14 +310,16 @@ def _storage_counters(registry) -> dict:
             if m.name.startswith("storage.") and m.kind == "counter"}
 
 
-@pytest.mark.parametrize("cache_pages", [3, 4096])
+@pytest.mark.parametrize("cache_pages", [1, 3, 4096])
 @pytest.mark.parametrize("kind", ["range", "knn"])
 def test_io_counters_equal_reference(setup, kind, cache_pages):
     """On one store (the reference's spill) at one cache capacity, the
     port's ``last_io``, ``CacheStats``, ``storage.*`` counters and the
     profile's paged fields and ``host_syncs`` equal the reference's over
     the same batches — also with the cache squeezed below a batch's
-    pinned working set."""
+    pinned working set, where the pins overflow the cache (at 1 and 3
+    pages: both caches grow past capacity to the same peak, every
+    resident page pinned)."""
     X = setup["X"]
     obs.configure("on")
     ref_obs.configure("on")
@@ -326,6 +328,17 @@ def test_io_counters_equal_reference(setup, kind, cache_pages):
     ref = RefExecutor(RefSnapshot.load(setup["ref_path"], store=True,
                                        cache_pages=cache_pages),
                       prefetch="off")
+    peaks = []
+    for cache in (ex.snap.store.cache, ref.snap.store.cache):
+        peak = [0]
+
+        def put(pid, block, cache=cache, peak=peak, real=cache.put):
+            out = real(pid, block)
+            peak[0] = max(peak[0], len(cache))
+            return out
+
+        cache.put = put
+        peaks.append(peak)
     before = (_storage_counters(obs.REGISTRY),
               _storage_counters(ref_obs.REGISTRY))
     for seed in (5, 6):
@@ -353,6 +366,8 @@ def test_io_counters_equal_reference(setup, kind, cache_pages):
     for k, v in ours.items():
         assert v == theirs.get(k, 0), k
     assert ours["storage.page_reads"] > 0
+    assert peaks[0] == peaks[1]
+    assert (peaks[0][0] > cache_pages) == (cache_pages < 4096)
 
 
 # ----------------------------------------------------- serving + writeback
@@ -753,6 +768,55 @@ def test_pinned_pages_survive_cache_squeeze():
     assert trace == [0, 0, 1, True, True, 1, True, True, 3, 4, 0, 4, 2,
                      2, 0]
     assert trace == _cache_trace(RefLRU)
+
+
+@pytest.mark.parametrize("capacity", [1, 4, 16, None])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_random_ops_equal_reference_cache(seed, capacity):
+    """A seeded random sequence of put / touch / pin / unpin / clear on
+    the port's cache and the reference's: equal return values, ``len``,
+    ``pinned``, recency order and residency after every step, with pins
+    that overflow the capacity (the port's count of unpinned pages must
+    end the victim search exactly where the reference's walk does)."""
+    rng = np.random.default_rng(seed)
+    ours, theirs = LRUPageCache(capacity), RefLRU(capacity)
+    blk = np.zeros((1, 1))
+    for step in range(3000):
+        op = rng.choice(["put", "put", "touch", "pin", "unpin", "unpin",
+                         "clear"], p=[.3, .1, .2, .2, .1, .09, .01])
+        if op in ("put", "touch"):
+            pid = int(rng.integers(40))
+            out = [getattr(c, op)(pid, blk) if op == "put"
+                   else c.touch(pid) for c in (ours, theirs)]
+        elif op in ("pin", "unpin"):
+            pids = rng.integers(40, size=int(rng.integers(1, 12))).tolist()
+            out = [getattr(c, op)(pids) for c in (ours, theirs)]
+        else:
+            out = [c.clear() for c in (ours, theirs)]
+        assert out[0] == out[1], (step, op)
+        assert len(ours) == len(theirs) and ours.pinned == theirs.pinned
+        assert list(ours._pages) == list(theirs._pages), step
+        assert ours._unpinned == sum(k not in ours._pins
+                                     for k in ours._pages)
+
+
+def test_all_pinned_overflow_insert_is_constant_time():
+    """20,000 pinned inserts over a 16-page cache: each insert past
+    capacity finds every resident page pinned.  The reference's walk
+    makes that quadratic (tens of seconds here); the port's count of
+    unpinned pages ends the search at once.  Releasing the pins shrinks
+    the cache back to its 16 hottest pages."""
+    import time
+    c = LRUPageCache(capacity_pages=16)
+    blk = np.zeros((1, 1))
+    t0 = time.perf_counter()
+    for pid in range(20_000):
+        c.pin([pid])
+        assert c.put(pid, blk) == 0
+    assert len(c) == c.pinned == 20_000
+    assert c.unpin(range(20_000)) == 20_000 - 16
+    assert time.perf_counter() - t0 < 5.0
+    assert list(c._pages) == list(range(20_000 - 16, 20_000))
 
 
 def test_unpin_restores_lru_order():
