@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's exact query path, index builder,
-serving lifecycle, paged storage tier and dense-LM serving path on one
-CUDA card.
+serving lifecycle, paged storage tier, cluster-sharded executor and
+dense-LM serving path on one CUDA card (or more, for the sharded
+phase's mesh).
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
-                          [--seed 0]
+                          [--seed 0] [--sharded-only]
 
 Phases, each printing lines that start with its name:
 
@@ -138,7 +139,40 @@ Phases, each printing lines that start with its name:
             index, compact() (bytes reclaimed), and a cold start with
             ServingEngine.from_spill, its kNN batch held to the host
             index;
-10. lm      the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+10. sharded the cluster-sharded executor (repro_torch.sharding,
+            ShardedExecutor) on main's snapshot, loaded resident from
+            paged:'s spill, over a mesh of 4 shards: min(4, count)
+            distinct cards in turn where the machine has more than one,
+            else cuda:0 named 4 times (the line says which).  Building
+            the executor must grow memory_allocated on the snapshot's
+            card by under 1 MB (on that card its shards are views);
+            every kernel of the sharded path equals its plain version
+            bit for bit at shard 0's local shapes: pdist and
+            range_filter at (64, P/4), pdist_rankeval and the pivot
+            pdist at (64, G/4); (a) turns sharded,
+            single-device, single-device, sharded (REPRO_COMPACT=off:
+            the sharded path does not compact) over main's 8 range and 8
+            kNN batches (turns 3 and 4 a CUT of 2), every id and f64
+            distance equal to main's host answers, q/s of each turn; the
+            counters zeroed before turns 1 and 2 and read after: each of
+            pdist, range_filter and pdist_rankeval launched 4 x as often
+            in the sharded turn, kNN rounds and host_syncs equal batch
+            for batch, the launches tallied by (nq, np); (b) 3 shards
+            (K padded 64 -> 66), (c) REPRO_ROWS_DTYPE=bf16 with
+            REPRO_COMPACT=on at 4 shards (no 2-byte entry point may
+            launch: the sharded filter streams f32 rows), each over 2 of
+            main's batches of each kind (a CUT), equal to the host; (d)
+            a store-backed ShardedExecutor over the spill, 1 batch of
+            each kind from a cold cache, results, last_io, last_knn and
+            cache stats equal to the paged single-device executor's; (e)
+            ServingEngine(mesh=...) on main's host index: 1,000 inserts
+            and 1,000 deletes, a refresh (its standby sharded on the same
+            mesh), a range and a kNN batch equal to the host index.
+            --sharded-only runs phases 1, 2 and 10 alone (main's index,
+            batches, host answers and spill built first, unprinted and
+            unchecked), for a run of the mesh on four cards
+            (chiprun --chips 4); its last line is the same;
+11. lm      the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
             random weights from --seed: (a) float32 at a cut depth of 4
             layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
             and a decode step of tokens[:, -1] give forward_seq's logits
@@ -161,7 +195,7 @@ Phases, each printing lines that start with its name:
             bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
-11. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
+12. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
             encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
             on the card (its attention through the flash kernel), a host
             LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
@@ -232,6 +266,11 @@ FOUND_SAMPLE = 64
 # each in both modes would double the phase, PERF.md); (c)'s engine
 # takes one round of SERVE_ROWS inserts and SERVE_ROWS deletes
 PAGE_BYTES, CACHE_PAGES, PAGED_BATCHES = 4096, 4096, 1
+# sharded: SHARDS shards (K = 64 splits evenly), then SHARDS_PADDED (K
+# padded to 66); (b) and (c) run SHARDED_CUT of main's batches of each
+# kind, and the q/s turns 3 and 4 SHARDED_TURN_CUT (CUTs that keep the
+# phase near a minute)
+SHARDS, SHARDS_PADDED, SHARDED_CUT, SHARDED_TURN_CUT = 4, 3, 2, 2
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -1352,7 +1391,8 @@ def phase_retrain(X, ix, ixd, batches):
 
 
 # ----------------------------------------------------------------- serving
-def host_answers_equal(engine, Q, rs, tag: str) -> tuple[float, float]:
+def host_answers_equal(engine, Q, rs, tag: str,
+                       phase: str = "serving") -> tuple[float, float]:
     """One range and one kNN batch through ``engine`` against its host
     index (ids and f64 distances); returns the two batches' wall
     seconds (the host's answers excluded)."""
@@ -1364,9 +1404,9 @@ def host_answers_equal(engine, Q, rs, tag: str) -> tuple[float, float]:
     ix = engine.index
     for b, (q, r) in enumerate(zip(Q, rs)):
         check(same_range(got_r[b], ix.range_query(q, r)[:2]),
-              f"serving: {tag}: range query {b} differs from the host index")
+              f"{phase}: {tag}: range query {b} differs from the host index")
         check(same_knn((ids[b], ds[b]), ix.knn_query(q, K_NN)[:2]),
-              f"serving: {tag}: kNN query {b} differs from the host index")
+              f"{phase}: {tag}: kNN query {b} differs from the host index")
     return t1 - t0, t2 - t1
 
 
@@ -1779,8 +1819,15 @@ def phase_serving(X, ix, batches) -> None:
           f"one snapshot)")
     print(f"serving: launches {json.dumps(counts)}; memory_allocated after "
           f"the last generation {last} <= the 2nd generation's {second} + "
-          f"one snapshot = {limit}; all parts in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"one snapshot = {limit}; served by {executor_name(engine)}; all "
+          f"parts in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def executor_name(engine) -> str:
+    """The engine's executor type and shard count: with no mesh the
+    engine auto-shards where more than one card is visible."""
+    ex = engine.executor
+    return f"{type(ex).__name__} (n_shards {ex.n_shards})"
 
 
 # ------------------------------------------------------------------- paged
@@ -1868,19 +1915,10 @@ def paged_batches(ex, sel, host_range, host_knn, want_r, want_k, tag,
 
 
 @contextlib.contextmanager
-def split_timers(ex, acc: dict):
-    """Accumulate into ``acc`` the wall seconds the paged executor
-    ``ex`` spends in: the plan's candidate masks (computed on the card,
-    copied to the host), IO planning (``plan_batch``), page pins and
-    their release, page fetch, row gather (the refinement's too), cast +
-    copy to the card, and kernels.  Each timed call is synchronised and
-    only the outermost one counts (a mask's kernel is the mask's); the
-    rest of a batch is certification, the hits scatter, per-query page
-    accounting and f64 refinement."""
-    from repro_torch.core import executor as exmod
-    from repro_torch.core.planner import CandidatePlan
-    from repro_torch.kernels import ops
-    store, be, planner = ex.snap.store, ex.backend, ex.planner
+def timing_patches(on, acc: dict, props=()):
+    """Patch each ``(obj, name, key)`` of ``on`` (and each ``(cls, name,
+    key)`` property of ``props``) to add its synchronised wall seconds
+    to ``acc[key]``; only the outermost timed call counts."""
     depth = [0]
 
     def timed(key, fn):
@@ -1898,17 +1936,10 @@ def split_timers(ex, acc: dict):
                 depth[0] -= 1
         return wrapped
 
-    on = [(store, "fetch", "fetch"), (store, "gather", "gather"),
-          (store, "pin_pages", "pins"), (store, "unpin_pages", "pins"),
-          (be, "_to_device", "h2d"), (planner, "eval_mask", "mask"),
-          (exmod, "plan_batch", "plan_io")]
-    on += [(ops, n, "kernels")
-           for n in ("pdist", "range_filter", "pdist_rankeval")]
     patches = [mock.patch.object(obj, name, timed(key, getattr(obj, name)))
                for obj, name, key in on]
-    patches.append(mock.patch.object(
-        CandidatePlan, "mask", property(timed("mask",
-                                              CandidatePlan.mask.fget))))
+    patches += [mock.patch.object(cls, name, property(timed(
+        key, getattr(cls, name).fget))) for cls, name, key in props]
     for p in patches:
         p.start()
     try:
@@ -1916,6 +1947,28 @@ def split_timers(ex, acc: dict):
     finally:
         for p in patches:
             p.stop()
+
+
+def split_timers(ex, acc: dict):
+    """Accumulate into ``acc`` the wall seconds the paged executor
+    ``ex`` spends in: the plan's candidate masks (computed on the card,
+    copied to the host), IO planning (``plan_batch``), page pins and
+    their release, page fetch, row gather (the refinement's too), cast +
+    copy to the card, and kernels.  Each timed call is synchronised and
+    only the outermost one counts (a mask's kernel is the mask's); the
+    rest of a batch is certification, the hits scatter, per-query page
+    accounting and f64 refinement."""
+    from repro_torch.core import executor as exmod
+    from repro_torch.core.planner import CandidatePlan
+    from repro_torch.kernels import ops
+    store, be, planner = ex.snap.store, ex.backend, ex.planner
+    on = [(store, "fetch", "fetch"), (store, "gather", "gather"),
+          (store, "pin_pages", "pins"), (store, "unpin_pages", "pins"),
+          (be, "_to_device", "h2d"), (planner, "eval_mask", "mask"),
+          (exmod, "plan_batch", "plan_io")]
+    on += [(ops, n, "kernels")
+           for n in ("pdist", "range_filter", "pdist_rankeval")]
+    return timing_patches(on, acc, props=[(CandidatePlan, "mask", "mask")])
 
 
 def paged_kernels_vs_plain(paged, shapes, Q, rs) -> None:
@@ -1997,7 +2050,8 @@ def paged_engine(X, ix, Q, rs) -> None:
             if man1.n_max == man0.n_max else 0
         t_r = batch_equals_host(engine, ix, Q, rs, "range", "refreshed")
         print(f"paged: (c) ServingEngine(storage='paged') built+spilled "
-              f"in {t_build:.3f} s; {SERVE_ROWS} inserts {t_ins:.2f} s, "
+              f"in {t_build:.3f} s, served by {executor_name(engine)}; "
+              f"{SERVE_ROWS} inserts {t_ins:.2f} s, "
               f"{SERVE_ROWS} deletes {t_del:.2f} s; refresh (spill of "
               f"generation {man1.generation}) {t_refresh:.3f} s; extents "
               f"reused {reused} of {man1.K} (n_max {man0.n_max} -> "
@@ -2109,8 +2163,328 @@ def phase_paged(X, ix, batches, host_range, host_knn, spilled) -> None:
               + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
               flush=True)
     paged_kernels_vs_plain(paged, shapes, *sel[0])
-    shutil.rmtree(path, ignore_errors=True)
     print(f"paged: all parts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# ----------------------------------------------------------------- sharded
+def shard_mesh(S: int, count: int):
+    """A 1-D mesh of S shards: over min(SHARDS, count) distinct cards in
+    turn where the machine has more than one, else cuda:0 named S
+    times (S shards on one card)."""
+    from repro_torch.sharding import Mesh
+    cards = min(SHARDS, count) if count > 1 else 1
+    return Mesh(tuple(torch.device("cuda", i % cards) for i in range(S)))
+
+
+def mesh_name(mesh) -> str:
+    cards = sorted({str(d) for d in mesh.devices})
+    return (f"S={mesh.size} on {len(cards)} distinct card(s) "
+            f"({', '.join(str(d) for d in mesh.devices)})")
+
+
+def shard_kernels_vs_plain(sx, Q, rs) -> None:
+    """Every kernel the sharded path launches, at shard 0's local shapes,
+    against its plain version: range_filter (mask and counts) and the
+    kNN seed's pdist at (64, P/S), the fused plan's pdist_rankeval and
+    the planner's pivot-distance pdist at (64, G/S); bit for bit."""
+    from repro_torch.core.planner import _BALL_ABS, _R_ABS, _R_REL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import pdist_rankeval_plain
+    from repro_torch.kernels.pdist import pdist_plain
+    from repro_torch.kernels.range_filter import range_filter_plain
+    sh = sx._parts[0]
+    d, N = sx.snap.d, sx.snap.n_rings
+    rows = sh.rows.reshape(-1, d)
+    piv = sh.pivots.reshape(-1, d)
+    G = piv.shape[0]
+    q = torch.from_numpy(Q.astype(np.float32)).to(sh.device)
+    rf = torch.from_numpy(rs.astype(np.float32)).to(sh.device)
+    r = rf * (1.0 + _R_REL) + _BALL_ABS
+    d2, d2_p = ops.pdist(q, rows), pdist_plain(q, rows)
+    mask, cnt = ops.range_filter(q, rows, r)
+    mask_p, cnt_p = range_filter_plain(q, rows, r * r)
+    check(torch.equal(d2, d2_p), "sharded: pdist differs from its plain "
+          "version at the shard-local row shape")
+    check(torch.equal(mask, mask_p) and torch.equal(cnt, cnt_p),
+          "sharded: range_filter differs from its plain version at the "
+          "shard-local shape")
+    dp, dp_p = ops.pdist(q, piv), pdist_plain(q, piv)
+    check(same_bits(dp, dp_p), "sharded: pdist differs from its plain "
+          "version at the shard-local pivot shape")
+    args = (q, piv, sh.coef.reshape(G, -1), sh.model_lo.reshape(-1),
+            sh.model_hi.reshape(-1), sh.model_n.reshape(-1),
+            rf * (1.0 + _R_REL) + _R_ABS, N)
+    fused, plain = ops.pdist_rankeval(*args), pdist_rankeval_plain(*args)
+    for f, p in zip(fused, plain):
+        check(same_bits(f, p), "sharded: pdist_rankeval differs from its "
+              "plain version at the shard-local shape")
+    err = float((d2 - d2_p).abs().max())
+    err_p = float((dp - dp_p).abs().max())
+    err_f = max(float((f.double() - p.double()).abs().max())
+                for f, p in zip(fused, plain))
+    print(f"sharded: kernels against their plain versions bit for bit on "
+          f"{sh.device}: pdist (max_abs_err={err}) and range_filter (mask, "
+          f"counts) at the shard-local row shape ({B}, {rows.shape[0]}, d "
+          f"{D}); pdist (max_abs_err={err_p}) and pdist_rankeval (dq, "
+          f"rank_lo, rank_hi; max_abs_err={err_f}) at the shard-local "
+          f"pivot shape ({B}, G={G})", flush=True)
+
+
+def sharded_turns(sx, one, batches, host_range, host_knn) -> None:
+    """(a): the S-shard executor and the single-device one in turns
+    sharded, single, single, sharded (REPRO_COMPACT=off: the sharded
+    path does not compact), each result equal to main's host answers.
+    Turns 1 and 2 run all of main's batches with the launch counters
+    zeroed before and read after each: turn 1 is the phase's counted
+    run, and each kernel's launches there must be S times turn 2's, with
+    equal kNN rounds and host_syncs batch for batch.  Turns 3 and 4 run
+    the first SHARDED_TURN_CUT batches of each kind."""
+    from repro_torch.kernels import _cuda
+    S = sx.n_shards
+    os.environ["REPRO_COMPACT"] = "off"
+    turns = [("sharded", sx), ("single", one), ("single", one),
+             ("sharded", sx)]
+    print(f"sharded: CUT: turns 3 and 4 run {SHARDED_TURN_CUT} of main's "
+          f"{len(batches)} batches of each kind", flush=True)
+    seen = []
+    for i, (tag, ex) in enumerate(turns):
+        n = len(batches) if i < 2 else SHARDED_TURN_CUT
+        shapes, spying = shape_spy()
+        sync()
+        _cuda.reset_launches()
+        spying.start()
+        try:
+            r = query_batches(ex, batches[:n], host_range[:n],
+                              host_knn[:n], f"sharded: turn {i + 1} {tag}")
+            sync()
+        finally:
+            spying.stop()
+        counts = dict(_cuda.LAUNCHES)
+        seen.append((r, counts, shapes))
+        print(f"sharded: (a) turn {i + 1} {tag} ({n} + {n} batches) range "
+              f"{r['range']:.2f} q/s kNN {r['knn']:.2f} q/s (B={B}, "
+              f"k={K_NN}, REPRO_COMPACT=off, wall clock incl. host "
+              f"refinement); kNN rounds/batch={r['rounds']} "
+              f"host_syncs/batch={r['syncs']}; launches "
+              f"{json.dumps(counts)}", flush=True)
+    (r_sh, c_sh, shapes), (r_one, c_one, _) = seen[0], seen[1]
+    for name in ("pdist", "range_filter", "pdist_rankeval"):
+        check(c_sh.get(name, 0) > 0,
+              f"sharded: kernel {name} was not launched on the sharded path")
+        check(c_sh.get(name, 0) == S * c_one.get(name, 0),
+              f"sharded: {name} launched {c_sh.get(name, 0)} times, not "
+              f"{S} x the single-device {c_one.get(name, 0)}")
+    check(r_sh["rounds"] == r_one["rounds"]
+          and r_sh["syncs"] == r_one["syncs"],
+          "sharded: kNN rounds or host_syncs differ from the single-device "
+          "executor's")
+    for name, by in shapes.items():
+        check(sum(by.values()) == c_sh[name],
+              f"sharded: {name}: the shape tally misses launches")
+        print(f"sharded: (a) turn 1 {name} launches by (nq, np): "
+              + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
+              flush=True)
+
+    def ratio(a, b, kind):
+        return seen[a][0][kind] / seen[b][0][kind]
+
+    print(f"sharded: (a) launches per kernel = {S} x the single-device "
+          f"run's; equal rounds and host_syncs; q/s sharded / single: "
+          f"turns 1/2 range {ratio(0, 1, 'range'):.4f} kNN "
+          f"{ratio(0, 1, 'knn'):.4f}, turns 4/3 range "
+          f"{ratio(3, 2, 'range'):.4f} kNN {ratio(3, 2, 'knn'):.4f}",
+          flush=True)
+
+
+def sharded_store(path, mesh, batches, host_range, host_knn) -> None:
+    """(d): a store-backed ShardedExecutor over the spill against the
+    paged single-device executor (each on a store of its own, caches
+    cleared before each kind): results, last_io, last_knn and the cache
+    stats equal."""
+    from repro_torch.core import QueryExecutor, ShardedExecutor
+    from repro_torch.core.snapshot import LIMSSnapshot
+
+    def load():
+        return LIMSSnapshot.load(path, store=True, cache_pages=CACHE_PAGES,
+                                 device=DEVICE)
+
+    sp = ShardedExecutor(load(), mesh=mesh, prefetch="off")
+    pp = QueryExecutor(load(), prefetch="off")
+    (Q, rs), want_r, want_k = batches[0], host_range[0], host_knn[0]
+    for kind in ("range", "knn"):
+        secs = []
+        for ex in (sp, pp):
+            ex.snap.store.cache.clear()
+            ex.snap.store.stats.reset()
+            sync()
+            t0 = time.perf_counter()
+            if kind == "range":
+                got = ex.range_query_batch(Q, rs)
+                ok = all(same_range(got[b], want_r[b]) for b in range(B))
+            else:
+                ids, ds = ex.knn_query_batch(Q, K_NN)
+                ok = all(same_knn((ids[b], ds[b]), want_k[b])
+                         for b in range(B))
+            secs.append(time.perf_counter() - t0)
+            check(ok, f"sharded: (d) {kind}: a store-backed result differs "
+                  f"from main's host answers")
+        check(sp.last_io == pp.last_io
+              and sp.snap.store.stats.snapshot()
+              == pp.snap.store.stats.snapshot(),
+              f"sharded: (d) {kind}: IO counters differ from the paged "
+              f"single-device executor's")
+        if kind == "knn":
+            check(sp.last_knn == pp.last_knn,
+                  "sharded: (d) last_knn differs from the paged executor's")
+        st = sp.snap.store.stats.snapshot()
+        print(f"sharded: (d) store-backed S={sp.n_shards} {kind}: 1 batch "
+              f"equal to the host and to the paged single-device "
+              f"executor, IO counters equal (pages={sp.last_io['pages']} "
+              f"misses={st['misses']} evictions={st['evictions']}); "
+              f"{secs[0]:.3f} s vs {secs[1]:.3f} s", flush=True)
+
+
+def sharded_split(execs, Q, rs) -> None:
+    """Where one range and one kNN batch's time goes, for each executor
+    of ``execs`` ({tag: executor}): the plan math (``plan_arrays``, once
+    a shard, its kernel included), ``range_filter``, ``pdist`` (the kNN
+    seed and the planner's pivot distances), each kNN round's masks,
+    the merges on the lead (concatenations, counts, the k-th top-k),
+    the f64 refinement (the profile's stage) and the rest (host copies,
+    the hits and certification on the host).  Each timed call is
+    synchronised."""
+    from repro_torch.core import executor as exmod
+    from repro_torch.kernels import ops
+    on = [(exmod, "plan_arrays", "plan"), (ops, "range_filter", "filter"),
+          (ops, "pdist", "pdist"),
+          (exmod, "_knn_round_masks", "round_masks"),
+          (exmod, "_on_lead", "merge"), (exmod, "_merged_count", "merge"),
+          (exmod, "_merged_kth", "merge")]
+    for tag, ex in execs.items():
+        for kind in ("range", "knn"):
+            with timing_patches(on, {}) as acc:
+                sync()
+                t0 = time.perf_counter()
+                if kind == "range":
+                    ex.range_query_batch(Q, rs)
+                else:
+                    ex.knn_query_batch(Q, K_NN)
+                t = time.perf_counter() - t0
+            acc["refine"] = ex.last_profile.stages["refine"]
+            parts = " ".join(f"{k}={v * 1e3:.1f}" for k, v in acc.items())
+            print(f"sharded: split {tag} {kind} (ms, one batch, each part "
+                  f"synchronised): total={t * 1e3:.1f} {parts} "
+                  f"rest={(t - sum(acc.values())) * 1e3:.1f}", flush=True)
+
+
+def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
+                  count: int) -> None:
+    """The cluster-sharded executor (module doc, parts (a)-(e))."""
+    from repro_torch.core import QueryExecutor, ShardedExecutor
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.core.snapshot import LIMSSnapshot
+    from repro_torch.kernels import _cuda
+    t_phase = time.perf_counter()
+    path = spilled["path"]
+    mesh = shard_mesh(SHARDS, count)
+    print(f"sharded: mesh {mesh_name(mesh)}", flush=True)
+    t0 = time.perf_counter()
+    res = LIMSSnapshot.load(path, device=DEVICE)
+    sync()
+    t_load = time.perf_counter() - t0
+    lead = res.device
+    sync()
+    before = torch.cuda.memory_allocated(lead)
+    t0 = time.perf_counter()
+    sx = ShardedExecutor(res, mesh=mesh)
+    sync()
+    t_build = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated(lead) - before
+    check(sx.snap is res, "sharded: K = 64 over 4 shards was padded")
+    check(grown < 1 << 20, f"sharded: building the executor took {grown} "
+          f"B on the snapshot's card (its shards should be views)")
+    views = sum(sh.rows.untyped_storage().data_ptr()
+                == res.rows.untyped_storage().data_ptr() for sh in sx._parts)
+    print(f"sharded: main's snapshot loaded resident from the spill in "
+          f"{t_load:.3f} s (K={res.K}, P={res.n_slots}); ShardedExecutor "
+          f"built in {t_build:.4f} s, memory_allocated on {lead} grew by "
+          f"{grown} B; {views} of {sx.n_shards} shards are views of the "
+          f"snapshot's tensors", flush=True)
+    shard_kernels_vs_plain(sx, *batches[0])
+    one = QueryExecutor(res)
+    sharded_turns(sx, one, batches, host_range, host_knn)
+    sharded_split({f"S={sx.n_shards}": sx, "single": one}, *batches[0])
+    del sx, one
+
+    sel = batches[:SHARDED_CUT]
+    print(f"sharded: CUT: (b) and (c) run {len(sel)} of main's "
+          f"{len(batches)} batches of each kind", flush=True)
+    mesh3 = shard_mesh(SHARDS_PADDED, count)
+    sx3 = ShardedExecutor(res, mesh=mesh3)
+    check(sx3.snap.K == -(-res.K // SHARDS_PADDED) * SHARDS_PADDED
+          and sx3.snap.K > res.K, "sharded: (b) K was not padded")
+    r = query_batches(sx3, sel, host_range, host_knn, "sharded: (b)")
+    print(f"sharded: (b) {mesh_name(mesh3)}: K {res.K} padded to "
+          f"{sx3.snap.K}; {len(sel)} + {len(sel)} batches equal to the host "
+          f"(range {r['range']:.2f} q/s, kNN {r['knn']:.2f} q/s)",
+          flush=True)
+    del sx3, res
+
+    os.environ["REPRO_ROWS_DTYPE"] = "bf16"
+    try:
+        lp = LIMSSnapshot.load(path, device=DEVICE)
+    finally:
+        os.environ["REPRO_ROWS_DTYPE"] = "off"
+    check(lp.rows_lp is not None, "sharded: (c) no bf16 plane was built")
+    os.environ["REPRO_COMPACT"] = "on"
+    sync()
+    _cuda.reset_launches()
+    r = query_batches(ShardedExecutor(lp, mesh=mesh), sel, host_range,
+                      host_knn, "sharded: (c)")
+    sync()
+    counts = dict(_cuda.LAUNCHES)
+    two_byte = {k: v for k, v in counts.items()
+                if k.endswith(("_bf16", "_f16")) and v}
+    check(not two_byte, f"sharded: (c) a 2-byte entry point launched: "
+          f"{two_byte}")
+    print(f"sharded: (c) REPRO_ROWS_DTYPE=bf16 (lp_eps {lp.lp_eps}), "
+          f"REPRO_COMPACT=on, S={mesh.size}: {len(sel)} + {len(sel)} "
+          f"batches equal to the f32 results; launches {json.dumps(counts)}"
+          f" (no 2-byte entry point)", flush=True)
+    del lp
+
+    sharded_store(path, mesh, batches, host_range, host_knn)
+
+    engine = ServingEngine(ix, refresh_every=0, mesh=mesh, device=DEVICE)
+    deletable = [int(g) for g in
+                 np.random.default_rng(10).permutation(len(X))
+                 if g not in ix.tombstones]
+    _, _, t_ins, t_del = mutate(engine, X, np.random.default_rng(11),
+                                deletable)
+    sync()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    engine.refresh()
+    t_refresh = time.perf_counter() - t0
+    ex = engine.executor
+    check(isinstance(ex, ShardedExecutor) and ex.mesh is mesh,
+          "sharded: (e) the refreshed engine is not sharded on its mesh")
+    t_r, t_k = host_answers_equal(engine, *batches[0], "(e)",
+                                  phase="sharded")
+    sync()
+    counts = dict(_cuda.LAUNCHES)
+    for name in MAIN_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"sharded: (e) kernel {name} was not launched")
+    print(f"sharded: (e) ServingEngine(mesh={mesh.size} shards): "
+          f"{SERVE_ROWS} inserts {t_ins:.2f} s, {SERVE_ROWS} deletes "
+          f"{t_del:.2f} s, refresh {t_refresh:.3f} s (generation "
+          f"{engine.generation}); a range ({t_r:.3f} s) and a kNN "
+          f"({t_k:.3f} s) batch equal to the host index; launches "
+          f"{json.dumps(counts)}", flush=True)
+    del engine, ex
+    print(f"sharded: all parts in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 
@@ -2626,6 +3000,8 @@ def main() -> int:
                          f"(default {LINF_N:,}; the other parts run at --n)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LM phases' weights and tokens")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run only the device and sharded phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2656,6 +3032,22 @@ def main() -> int:
           f"cluster rows max={max(sizes)} mean={np.mean(sizes):.1f}",
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
+    if args.sharded_only:
+        host_range = [[ix.range_query(q, r)[:2] for q, r in zip(Q, rs)]
+                      for Q, rs in batches]
+        host_knn = [[ix.knn_query(q, K_NN)[:2] for q in Q]
+                    for Q, _ in batches]
+        spilled = spill_main(LIMSSnapshot.build(ix, device=DEVICE))
+        try:
+            phase_sharded(X, ix, batches, host_range, host_knn, spilled,
+                          count)
+        finally:
+            shutil.rmtree(spilled["path"], ignore_errors=True)
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}))
+        return 0
 
     counts, shapes, snap, host_range, host_knn, rates = phase_main(
         X, ix, batches, LIMSSnapshot, QueryExecutor)
@@ -2666,22 +3058,26 @@ def main() -> int:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)
     del snap
-
-    t0 = time.perf_counter()
-    ixd = phase_builder_l2(X, ix, t_host, batches, host_range, host_knn)
-    kernels.append(phase_builder_lp("l1", args.n))
-    if args.linf_n != args.n:
-        print(f"builder: CUT: the L-infinity part (c) runs at "
-              f"n={args.linf_n}, not {args.n}", flush=True)
-    kernels.append(phase_builder_lp("linf", args.linf_n))
-    for metric in ("l1", "linf"):
-        phase_builder_lp(metric, WIDE_N, data="gaussmix", d=WIDE_D,
-                         rows=False)
-    phase_retrain(X, ix, ixd, batches)
-    print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    phase_serving(X, ix, batches)
-    phase_paged(X, ix, batches, host_range, host_knn, spilled)
+    try:
+        t0 = time.perf_counter()
+        ixd = phase_builder_l2(X, ix, t_host, batches, host_range, host_knn)
+        kernels.append(phase_builder_lp("l1", args.n))
+        if args.linf_n != args.n:
+            print(f"builder: CUT: the L-infinity part (c) runs at "
+                  f"n={args.linf_n}, not {args.n}", flush=True)
+        kernels.append(phase_builder_lp("linf", args.linf_n))
+        for metric in ("l1", "linf"):
+            phase_builder_lp(metric, WIDE_N, data="gaussmix", d=WIDE_D,
+                             rows=False)
+        phase_retrain(X, ix, ixd, batches)
+        print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        phase_serving(X, ix, batches)
+        phase_paged(X, ix, batches, host_range, host_knn, spilled)
+        phase_sharded(X, ix, batches, host_range, host_knn, spilled, count)
+    finally:
+        # the spill (~0.3 GB at the default size) lives in TMPDIR
+        shutil.rmtree(spilled["path"], ignore_errors=True)
     del X, ix, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
 

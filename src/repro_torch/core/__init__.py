@@ -1,11 +1,11 @@
 """LIMS core (port of ``repro.core``): the host index and the device
 query path — ``LIMSSnapshot`` (resident, or store-backed through
-``repro_torch.storage``) -> ``Planner`` -> ``QueryExecutor``
-(``make_executor``) -> ``ServingEngine`` (double-buffered refresh, from
+``repro_torch.storage``) -> ``Planner`` -> ``QueryExecutor`` or the
+cluster-sharded ``ShardedExecutor`` (``make_executor``) -> ``ServingEngine`` (double-buffered refresh, from
 ``repro_torch.serving``), with ``BatchedLIMS`` as the one-shot shim."""
 from .batched import BatchedLIMS
 from .clustering import Clustering, kcenter, kmeans
-from .executor import QueryExecutor, make_executor
+from .executor import QueryExecutor, ShardedExecutor, make_executor
 from .index import LIMSIndex, QueryStats
 from .kselect import KSelectResult, select_k
 from .mapping import PivotMapping, build_mapping, lims_value, ring_of_rank
@@ -30,7 +30,7 @@ def __getattr__(name: str):
 __all__ = [
     "BatchedLIMS", "Clustering", "kcenter", "kmeans", "LIMSIndex",
     "QueryStats", "LIMSSnapshot", "maybe_paged", "QueryExecutor",
-    "make_executor",
+    "ShardedExecutor", "make_executor",
     "ServingEngine",
     "KSelectResult", "select_k", "PivotMapping", "build_mapping",
     "lims_value", "ring_of_rank", "MetricSpace", "cdist",

@@ -1,9 +1,9 @@
 """Plan *execution* over a snapshot, and exact host refinement.
 
-Port of ``repro/core/executor.py``, single device.  The planner
-(``planner.py``) builds one :class:`CandidatePlan` per query batch and
-one of two backends executes it.  ``_ResidentBackend`` runs the kernels
-over the snapshot's device rows:
+Port of ``repro/core/executor.py``.  The planner (``planner.py``) builds
+one :class:`CandidatePlan` per query batch and one of two backends
+executes it.  ``_ResidentBackend`` runs the kernels over the snapshot's
+device rows:
 
   * range: the fused L2-ball prefilter (``range_filter``) applied to the
     plan's device mask — by default (``REPRO_COMPACT=on``) over the
@@ -25,6 +25,16 @@ schedule mask is the planner's ``eval_mask`` (``pdist_rankeval`` on
 CUDA).  With ``REPRO_PREFETCH=async`` round t+1's pages are fetched on
 a background thread while round t's kernels run.
 
+``QueryExecutor`` runs on the snapshot's one device.
+``ShardedExecutor`` splits the snapshot's clusters over a 1-D mesh
+(``repro_torch.sharding``; the reference's DESIGN.md §4): every shard
+runs the same plan math and kernels over its own clusters, and the
+per-shard outputs meet on the snapshot's device, concatenated in shard
+order, with the kNN rounds' two reductions (candidate counts, k-th
+distance) merged there.  Cluster-granular sharding keeps exactness for
+free: pivot tables, rank models and the certified bound E are strictly
+per-cluster state.
+
 Exactness contract: results are bit-identical to the host ``LIMSIndex``
 — the plan's masks are a certified superset of the candidates, kNN
 rounds certify only once the k-th ball provably fits inside the round
@@ -40,14 +50,14 @@ device→host copy: it reads the final mask the backend returned and the
 snapshot's host mirrors (``host_syncs`` are equal with ``REPRO_OBS`` on
 and off).
 
-Left for later slices: the sharded executor (ROADMAP A9), the compiled
-device kNN loop and the reduced-precision plane.
+Left for a later slice: the compiled device kNN loop (ROADMAP A5).
 """
 from __future__ import annotations
 
 import threading
 import time
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -57,12 +67,13 @@ from ..kernels.dispatch import compact_enabled
 from ..obs import registry as _obs
 from ..obs.profile import QueryProfile, record_profile
 from ..obs.trace import span
+from ..sharding import Mesh, serving_mesh
 from ..storage import (PagePrefetcher, cache_pin_mode, plan_batch,
                        prefetch_mode)
 from .metrics import dist_one_to_many
 from .planner import (_BALL_ABS, _R_REL, _SEED_REL, CandidatePlan, Planner,
                       plan_arrays)
-from .snapshot import LIMSSnapshot
+from .snapshot import DEVICE_FIELDS, LIMSSnapshot
 
 def _bucket_size(n: int, min_rows: int = 128) -> int:
     """Next power-of-two row bucket (≥ ``min_rows``) for ``n`` rows."""
@@ -72,6 +83,35 @@ def _bucket_size(n: int, min_rows: int = 128) -> int:
 def _kth_smallest(dm: torch.Tensor, k: int) -> torch.Tensor:
     """(B,) k-th smallest value per row (``lax.top_k`` in the reference)."""
     return torch.topk(dm, k, dim=1, largest=False, sorted=True).values[:, -1]
+
+
+def _on_lead(blocks: list, lead: torch.device) -> torch.Tensor:
+    """Per-part (B, n_part) blocks as one (B, Σ n_part) tensor on the
+    lead device, in part order (one part: the block itself)."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return torch.cat([b.to(lead) for b in blocks], dim=1)
+
+
+def _merged_count(cnts: list, lead: torch.device) -> torch.Tensor:
+    """(B,) candidate count over every part (the reference's ``psum``)."""
+    if len(cnts) == 1:
+        return cnts[0]
+    return torch.stack([c.to(lead) for c in cnts]).sum(dim=0)
+
+
+def _merged_kth(dms: list, k: int, lead: torch.device) -> torch.Tensor:
+    """(B,) k-th smallest value over every part's (B, n_part) block:
+    each part's ``min(k, n_part)`` smallest (the reference's shard-local
+    ``top_k``, inf where a slot is out), gathered on the lead device
+    (its tiled ``all_gather``) and selected again.  The global k
+    smallest lie among the parts' k smallest, so the value is the
+    single-block k-th bit for bit."""
+    if len(dms) == 1:
+        return _kth_smallest(dms[0], k)
+    tops = [torch.topk(dm, min(k, dm.shape[1]), dim=1, largest=False,
+                       sorted=False).values for dm in dms]
+    return _kth_smallest(_on_lead(tops, lead), k)
 
 
 def _knn_round_masks(d2, cand, rf, eps):
@@ -107,7 +147,7 @@ class _ResidentBackend:
         ex = self.ex
         rf = torch.from_numpy(plan.radii.astype(np.float32)).to(
             plan.qf.device)
-        if compact_enabled():
+        if compact_enabled() and ex._compacts:
             slots = plan.compact_slots()
             if slots is not None:
                 return self._range_hits_compact(plan, rf, slots)
@@ -159,14 +199,21 @@ class _ResidentBackend:
         covers the k-th distance estimate, the guard-band certification
         per query, and the exact full scan for anything the schedule
         never certifies.  The certified set is a superset of the closed
-        k-th ball, so refinement returns the host index's results."""
+        k-th ball, so refinement returns the host index's results.
+
+        The wide work runs per part of the executor (the whole snapshot,
+        or each cluster shard on its device); the candidate count and
+        the k-th distance merge on the lead device, and the round's
+        ``ok`` flags reach the host once a round."""
         ex = self.ex
         s = ex.snap
         qf = plan.qf
+        lead = qf.device
         k_eff = plan.k
-        d2, eps = ex._filter_dists(qf)
-        kth0 = torch.sqrt(torch.clamp(_kth_smallest(d2, k_eff), min=0.0))
-        r0 = torch.from_numpy(plan.radii.astype(np.float32)).to(qf.device)
+        d2s, eps = ex._seed_dists(qf)
+        kth0 = torch.sqrt(torch.clamp(_merged_kth(d2s, k_eff, lead),
+                                      min=0.0))
+        r0 = torch.from_numpy(plan.radii.astype(np.float32)).to(lead)
         seed = kth0 * (1.0 + _SEED_REL) + _BALL_ABS
         t0 = torch.ceil(torch.log2(torch.clamp(seed, min=1e-30) / r0))
         r = (r0 * torch.exp2(torch.clamp(t0, min=0.0))).cpu().numpy()
@@ -177,18 +224,22 @@ class _ResidentBackend:
         rounds = 0
         for t in range(plan.max_rounds):
             rounds = t + 1
-            rf = torch.from_numpy(r).to(qf.device)
-            cand = ex._plan_arrays(qf, rf)[0]
-            candb, cnt, dm = _knn_round_masks(d2, cand, rf, eps)
-            kth = torch.sqrt(torch.clamp(_kth_smallest(dm, k_eff), min=0.0))
+            rf = torch.from_numpy(r).to(lead)
+            parts = [_knn_round_masks(d2, cand, rf.to(d2.device), eps)
+                     for d2, cand in zip(d2s, ex._round_masks(qf, rf))]
+            cnt = _merged_count([p[1] for p in parts], lead)
+            kth = torch.sqrt(torch.clamp(
+                _merged_kth([p[2] for p in parts], k_eff, lead), min=0.0))
             ok = ((cnt >= k_eff) &
                   (kth <= rf * (1.0 - _R_REL) - _BALL_ABS - eps))
             ok = ok.cpu().numpy()
             ex._count_sync()
             newly = ok & ~done
             if newly.any():
-                sel = torch.from_numpy(newly).to(qf.device)
-                final[newly] = candb[sel].cpu().numpy()
+                sel = torch.from_numpy(newly)
+                final[newly] = _on_lead(
+                    [p[0][sel.to(p[0].device)] for p in parts],
+                    lead).cpu().numpy()
                 done |= newly
             if done.all():
                 break
@@ -443,6 +494,10 @@ class QueryExecutor:
 
     def __init__(self, snapshot: LIMSSnapshot, prefetch: str | None = None):
         self.snap = snapshot
+        # the parts the device stages run over, in flat slot order, each
+        # holding the DEVICE_FIELDS on its own device: here the whole
+        # snapshot (ShardedExecutor: its cluster shards)
+        self._parts: tuple = (snapshot,)
         self.planner = Planner(self)
         self.backend = _PagedBackend(self, prefetch) \
             if snapshot.store is not None else _ResidentBackend(self)
@@ -467,6 +522,27 @@ class QueryExecutor:
         return self.snap.live
 
     @property
+    def n_shards(self) -> int:
+        return len(self._parts)
+
+    @property
+    def _compacts(self) -> bool:
+        """Whether range batches may take the compacted gather: one
+        part only (the reference compacts on one device only)."""
+        return len(self._parts) == 1
+
+    def _filter_plane(self) -> tuple[list, float]:
+        """Each part's filter rows and the margin eps: the snapshot's
+        plane (bf16/f16 with its margin, when built) for one part; each
+        shard's f32 rows with eps 0 for cluster shards, as the
+        reference's ``shard_map`` pipeline, which never ships the plane."""
+        _resident_only(self.snap)
+        if len(self._parts) == 1:
+            frows, eps = self.snap.filter_rows()
+            return [frows], eps
+        return [p.rows for p in self._parts], 0.0
+
+    @property
     def prefetcher(self):
         """The backend's async page prefetcher (None unless paged and
         ``REPRO_PREFETCH=async``)."""
@@ -477,28 +553,63 @@ class QueryExecutor:
         self._tls.syncs = getattr(self._tls, "syncs", 0) + 1
 
     # ------------------------------------------------------ device stages
+    # Each stage runs once a part, on the part's device; per-part outputs
+    # come back to the lead (the snapshot's device) in part order.
+    def _replicas(self, qf) -> tuple:
+        """The batch's queries on each part's device, copied once a
+        batch: a kNN batch's rounds pass the plan's same ``qf``."""
+        cached = getattr(self._tls, "replicas", None)
+        if cached is None or cached[0] is not qf:
+            cached = (qf, tuple(qf.to(p.device) for p in self._parts))
+            self._tls.replicas = cached
+        return cached[1]
+
+    def _plan_parts(self, qf, rf) -> list:
+        """Each part's ((B, P_part) candidate mask, (B, K_part) routing)
+        on the part's device — the plan math."""
+        n_rings = self.snap.n_rings
+        return [plan_arrays(q, rf.to(q.device), p, n_rings)
+                for p, q in zip(self._parts, self._replicas(qf))]
+
     def _plan_arrays(self, qf: torch.Tensor, rf: torch.Tensor):
-        """((B, P) candidate mask, (B, K) routing) — the plan math."""
-        return plan_arrays(qf, rf, self.snap, self.snap.n_rings)
+        """((B, P) candidate mask, (B, K) routing) on the lead device."""
+        parts = self._plan_parts(qf, rf)
+        return (_on_lead([p[0] for p in parts], qf.device),
+                _on_lead([p[1] for p in parts], qf.device))
+
+    def _round_masks(self, qf, rf) -> list:
+        """One kNN round's candidate mask, one (B, P_part) block a part,
+        on the part's device."""
+        return [p[0] for p in self._plan_parts(qf, rf)]
+
+    def _pivot_dists(self, qf) -> torch.Tensor:
+        """(B, K·m) f32 query→pivot distances, the kNN plan's seed."""
+        d = self.snap.d
+        dq = [ops.pdist(q, p.pivots.reshape(-1, d))
+              for p, q in zip(self._parts, self._replicas(qf))]
+        return torch.sqrt(torch.clamp(_on_lead(dq, qf.device), min=0.0))
 
     def _ball_filter(self, qf, rf) -> torch.Tensor:
         """(B, P) bool — fused L2-ball prefilter over the filter plane."""
-        s = self.snap
-        _resident_only(s)
-        frows, eps = s.filter_rows()
-        ball, _ = ops.range_filter(qf, frows.reshape(s.n_slots, s.d),
-                                   rf * (1.0 + _R_REL) + _BALL_ABS + eps)
-        return ball.to(torch.bool)
+        frows, eps = self._filter_plane()
+        d = self.snap.d
+        rb = rf * (1.0 + _R_REL) + _BALL_ABS + eps
+        masks = [ops.range_filter(q, fr.reshape(-1, d), rb.to(q.device))[0]
+                 for fr, q in zip(frows, self._replicas(qf))]
+        return _on_lead(masks, qf.device).to(torch.bool)
 
-    def _filter_dists(self, qf) -> tuple[torch.Tensor, float]:
-        """(B, P) f32 squared distances to every slot on the filter
-        plane (inf where invalid), plus the plane's margin eps."""
-        s = self.snap
-        _resident_only(s)
-        frows, eps = s.filter_rows()
-        d2 = ops.pdist(qf, frows.reshape(s.n_slots, s.d))
-        inf = torch.full_like(d2, float("inf"))
-        return torch.where(s.valid.reshape(-1)[None], d2, inf), eps
+    def _seed_dists(self, qf) -> tuple[list, float]:
+        """The kNN rounds' distances: f32 squared distances to every slot
+        on the filter plane (inf where invalid), one (B, P_part) block a
+        part, plus the plane's margin eps."""
+        frows, eps = self._filter_plane()
+        d = self.snap.d
+        out = []
+        for p, fr, q in zip(self._parts, frows, self._replicas(qf)):
+            d2 = ops.pdist(q, fr.reshape(-1, d))
+            inf = torch.full_like(d2, float("inf"))
+            out.append(torch.where(p.valid.reshape(-1)[None], d2, inf))
+        return out, eps
 
     def _refine_rows(self, idx: np.ndarray) -> np.ndarray:
         """f64 rows for flat slot ids: the resident matrix or a page
@@ -545,7 +656,7 @@ class QueryExecutor:
             backend=self.backend.name,
             driver=self.last_driver if plan.kind == "knn" else None,
             storage="paged" if s.store is not None else "resident",
-            n_shards=1, rounds=int(rounds),
+            n_shards=self.n_shards, rounds=int(rounds),
             host_syncs=int(getattr(self._tls, "syncs", 0)),
             pages=pages, pages_per_query=ppq,
             candidates_per_query=float(cand.mean()),
@@ -747,18 +858,77 @@ class QueryExecutor:
         return ids[0], dists[0]
 
 
+class ShardedExecutor(QueryExecutor):
+    """Cluster-sharded executor over a 1-D device mesh (the reference's
+    ``shard_map`` executor, in one process).
+
+    The snapshot's K clusters are padded with inert clusters to a
+    multiple of the mesh's extent S and split on the cluster axis: shard
+    i holds clusters [i·K/S, (i+1)·K/S) of every device tensor, placed
+    once on ``mesh.devices[i]`` — on the snapshot's own device a view of
+    the snapshot's tensor, not a copy.  The snapshot's device is the
+    lead: queries are copied to each shard's device once a batch, every
+    shard runs the unchanged ``plan_arrays`` body and kernels over its
+    own clusters, and the per-shard outputs come back to the lead
+    concatenated in shard order, which is the padded snapshot's flat
+    slot order that refinement indexes.
+
+    * range: the plan's mask and routing, then ``range_filter`` per
+      shard over the shard's f32 rows with eps 0, even where the
+      snapshot carries a bf16/f16 filter plane (as the reference, whose
+      ``shard_map`` pipeline never ships the plane); no compacted
+      gather.
+    * kNN: the host-driven rounds of ``_ResidentBackend``, their two
+      reductions merged on the lead: the candidate count is the sum of
+      the shards' counts, the k-th distance the k-th smallest of the
+      shards' ``min(k, P/S)`` smallest (the reference's ``psum`` and
+      tiled ``all_gather`` of shard-local ``top_k``); ``ok`` reaches the
+      host once a round.  The reference runs the sharded schedule as
+      its compiled loop; the rounds certify the same superset of the
+      k-th ball, so refinement returns identical results
+      (``last_driver`` reads "rounds").
+    * a store-backed snapshot: only the plan math runs sharded; the
+      paged backend does the rest on the lead, as in the reference.
+
+    The shards are the executor's parts (``QueryExecutor._parts``), so
+    every device stage is the single-device one run once a shard.
+    ``n_shards <= 1`` (a one-device mesh) is the plain executor.  With
+    no ``mesh``, every visible card (``serving_mesh``).  No fallback: a
+    shard whose kernel fails to build or launch fails the batch.
+    """
+
+    def __init__(self, snapshot: LIMSSnapshot, mesh: Mesh | None = None,
+                 prefetch: str | None = None):
+        if mesh is None:
+            mesh = serving_mesh()
+        self.mesh = mesh
+        S = mesh.size
+        if S > 1:
+            snapshot = snapshot.pad_clusters(-(-snapshot.K // S) * S)
+        super().__init__(snapshot, prefetch=prefetch)
+        if S > 1:
+            kl = snapshot.K // S
+            self._parts = tuple(
+                SimpleNamespace(device=dev, **{
+                    f: getattr(snapshot, f).narrow(0, i * kl, kl).to(dev)
+                    for f in DEVICE_FIELDS})
+                for i, dev in enumerate(mesh.devices))
+
+
 def make_executor(snapshot: LIMSSnapshot, *, sharded: bool | None = None,
+                  mesh: Mesh | None = None,
                   prefetch: str | None = None) -> QueryExecutor:
-    """Executor factory.  ``sharded=None`` (or False) serves on the
-    snapshot's one device: unlike the reference it never auto-shards on
-    a machine with several cards, since the sharded executor is not
-    ported.  ``sharded=True`` raises ``NotImplementedError``.
-    ``prefetch`` passes to the paged backend of a store-backed
-    snapshot."""
+    """Executor factory.  ``sharded=None`` shards when a ``mesh`` is
+    given, or when the snapshot lies on a card and more than one card
+    is visible (the reference's auto-shard); otherwise the plain
+    single-device executor.  ``prefetch`` passes to the paged backend
+    of a store-backed snapshot."""
+    if sharded is None:
+        sharded = mesh is not None or (
+            snapshot.device.type == "cuda" and torch.cuda.device_count() > 1)
     if sharded:
-        raise NotImplementedError(
-            "the sharded executor is not ported yet (ROADMAP A9)")
+        return ShardedExecutor(snapshot, mesh=mesh, prefetch=prefetch)
     return QueryExecutor(snapshot, prefetch=prefetch)
 
 
-__all__ = ["QueryExecutor", "make_executor"]
+__all__ = ["QueryExecutor", "ShardedExecutor", "make_executor"]

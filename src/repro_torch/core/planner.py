@@ -231,8 +231,11 @@ class Planner:
 
         Pivots are data rows, so the seed ball is non-empty and doubling
         reaches the k-th ball in O(log) rounds.  Clusters with no live
-        slots hold stale pivot rows — they are masked so they cannot
-        collapse the seed below any real point's distance.
+        slots (deleted out, or the inert padding a sharded snapshot
+        carries) hold stale or zero pivot rows — they are masked so they
+        cannot collapse the seed below any real point's distance.  The
+        query→pivot distances come from the executor (one ``pdist``
+        launch, or one a shard).
         """
         self.built += 1
         t0 = time.perf_counter()
@@ -241,9 +244,7 @@ class Planner:
             s = self.ex.snap
             qf = self._queries(Q64)
             K, n_max, m = s.rids.shape
-            dq = torch.sqrt(torch.clamp(
-                ops.pdist(qf, s.pivots.reshape(K * m, s.d)), min=0.0))
-            dq = dq.cpu().numpy()
+            dq = self.ex._pivot_dists(qf).cpu().numpy()
             self.ex._count_sync()
             live_k = s.valid_np.reshape(K, n_max).any(axis=1)   # (K,)
             dqm = np.where(np.repeat(live_k, m)[None], dq, np.inf)

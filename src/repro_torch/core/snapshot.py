@@ -224,6 +224,61 @@ class LIMSSnapshot:
                                   in_ring),
         )
 
+    def pad_clusters(self, K_new: int) -> "LIMSSnapshot":
+        """Pad with inert clusters so K divides a shard count.
+
+        Padding clusters have ``ns = 0`` (TriPrune never wakes them),
+        all-False ``valid``/``in_ring``/``always``, ring ids and global
+        ids -1, and width 1 / ``model_hi`` 1 so their masked-out rank
+        arithmetic stays finite; they contribute no candidate.  The
+        filter plane gets zero rows (zero rounds exactly, so ``lp_eps``
+        holds) and the host mirrors ``tables_np`` pad to match, so the
+        flat slot axis stays aligned with the device masks.  A
+        store-backed snapshot keeps its empty ``rows_np``: its padded
+        slots are never valid, so no page is ever fetched for them.
+        Pure — returns a new snapshot, ``self`` is untouched."""
+        if K_new == self.K:
+            return self
+        if K_new < self.K:
+            raise ValueError(f"pad_clusters: K_new {K_new} < K {self.K}")
+        pk = K_new - self.K
+        nm = self.n_max
+
+        def pad(a, fill):
+            tail = torch.full((pk,) + tuple(a.shape[1:]), fill,
+                              dtype=a.dtype, device=a.device)
+            return torch.cat([a, tail])
+
+        def pad_np(a, fill, rows=pk):
+            tail = np.full((rows,) + a.shape[1:], fill, a.dtype)
+            return np.concatenate([a, tail])
+
+        t = self.tables_np
+        tables = SimpleNamespace(
+            rids=pad_np(t.rids, -1), pivots=pad_np(t.pivots, 0.0),
+            coef=pad_np(t.coef, 0.0), lo=pad_np(t.lo, 0.0),
+            hi=pad_np(t.hi, 1.0), n=pad_np(t.n, 0.0),
+            err=pad_np(t.err, 0.0),
+            in_ring=pad_np(t.in_ring, False, pk * nm))
+        rows_np = self.rows_np if self.store is not None \
+            else pad_np(self.rows_np, 0.0, pk * nm)
+        return replace(
+            self, K=K_new,
+            rows=pad(self.rows, 0.0), rids=pad(self.rids, -1),
+            pivots=pad(self.pivots, 0.0),
+            dmin=pad(self.dmin, 0.0), dmax=pad(self.dmax, 0.0),
+            width=pad(self.width, 1), ns=pad(self.ns, 0),
+            valid=pad(self.valid, False), in_ring=pad(self.in_ring, False),
+            always=pad(self.always, False),
+            coef=pad(self.coef, 0.0), model_lo=pad(self.model_lo, 0.0),
+            model_hi=pad(self.model_hi, 1.0),
+            model_n=pad(self.model_n, 0.0),
+            rank_err=pad(self.rank_err, 0.0),
+            rows_lp=None if self.rows_lp is None else pad(self.rows_lp, 0.0),
+            gids_np=pad_np(self.gids_np, -1, pk * nm), rows_np=rows_np,
+            valid_np=pad_np(self.valid_np, False, pk * nm),
+            tables_np=tables)
+
     # ------------------------------------------------------ paged storage
     def spill(self, path: str, page_bytes: int = DEFAULT_PAGE_BYTES):
         """Spill to a paged store directory: rows land in cluster-major

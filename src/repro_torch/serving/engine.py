@@ -1,7 +1,6 @@
 """Snapshot lifecycle: updates, double-buffered refresh, retrains.
 
-Port of ``repro/serving/engine.py``, on one device.
-``ServingEngine`` owns
+Port of ``repro/serving/engine.py``.  ``ServingEngine`` owns
 
   * the host ``LIMSIndex`` (source of truth for §5.3 updates),
   * a double-buffered pair of snapshot executors: the *active* executor
@@ -40,9 +39,14 @@ because page ids are append-only.  :meth:`ServingEngine.from_spill` is
 the cold-start path and :meth:`ServingEngine.compact` reclaims the
 garbage extents writebacks leave behind.
 
-Not ported yet, and raising ``NotImplementedError``: sharding
-(``sharded=True``, ``mesh``; ROADMAP A9) and the request frontend
-(``frontend()``; A10).
+Sharding (the reference's DESIGN.md §4): ``sharded``/``mesh`` pass to
+``make_executor`` for every generation, so with a mesh (or, with
+``sharded=None``, several visible cards) each snapshot serves through a
+``ShardedExecutor`` on that mesh, and a refresh builds the standby's on
+the same mesh.
+
+Not ported yet, and raising ``NotImplementedError``: the request
+frontend (``frontend()``; ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -61,10 +65,6 @@ from ..storage import (DEFAULT_CACHE_PAGES, DEFAULT_PAGE_BYTES, PagedStore,
                        storage_mode)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class ServingEngine:
     """Double-buffered snapshot serving over a mutable ``LIMSIndex``.
 
@@ -75,7 +75,9 @@ class ServingEngine:
     store at ``storage_path`` (default a self-cleaning temporary
     directory) with ``page_bytes`` pages behind a ``cache_pages`` page
     cache; ``prefetch`` ("off" | "async"; None defers to
-    ``REPRO_PREFETCH``) sets the paged executors' prefetch."""
+    ``REPRO_PREFETCH``) sets the paged executors' prefetch.
+    ``sharded`` and ``mesh`` choose the executor as ``make_executor``
+    does."""
 
     def __init__(self, index: LIMSIndex | None, *, refresh_every: int = 64,
                  sharded: bool | None = None, mesh=None,
@@ -91,9 +93,9 @@ class ServingEngine:
             storage = storage_mode() or None
         if storage not in (None, "paged"):
             raise ValueError(f"unknown storage mode {storage!r}")
-        if sharded or mesh is not None:
-            raise _not_ported("sharded serving", "A9")
         self._index = index
+        self._sharded = sharded
+        self._mesh = mesh
         self._device = device
         self._prefetch = prefetch
         self._storage = storage
@@ -151,16 +153,15 @@ class ServingEngine:
         raise until a host index is supplied via :meth:`attach_index`.
         With ``index``, refreshes write back to ``path``.
         """
-        if sharded or mesh is not None:
-            raise _not_ported("sharded serving", "A9")
         snap = LIMSSnapshot.load(path, store=True, cache_pages=cache_pages,
                                  device=device)
-        ex = make_executor(snap, prefetch=prefetch)
+        ex = make_executor(snap, sharded=sharded, mesh=mesh,
+                           prefetch=prefetch)
         # refresh writebacks must keep the on-disk page geometry
         kw.setdefault("page_bytes", snap.store.manifest.page_bytes)
         return cls(index, storage="paged", storage_path=path,
-                   cache_pages=cache_pages, prefetch=prefetch,
-                   device=device, _initial=ex, **kw)
+                   sharded=sharded, mesh=mesh, cache_pages=cache_pages,
+                   prefetch=prefetch, device=device, _initial=ex, **kw)
 
     def attach_index(self, index: LIMSIndex) -> None:
         """Give the engine its mutable host index (a cold-started engine
@@ -193,7 +194,8 @@ class ServingEngine:
                 # swap can never remap an in-flight batch's slots.
                 self._store.refresh()
             snap = snap.with_store(self._store)
-        return make_executor(snap, prefetch=self._prefetch)
+        return make_executor(snap, sharded=self._sharded, mesh=self._mesh,
+                             prefetch=self._prefetch)
 
     @property
     def index(self) -> LIMSIndex | None:
@@ -379,7 +381,8 @@ class ServingEngine:
     def frontend(self, **kw):
         """The request frontend (dynamic batching, replica routing):
         not ported yet."""
-        raise _not_ported("the request frontend", "A10")
+        raise NotImplementedError(
+            "the request frontend is not ported yet (ROADMAP A10)")
 
 
 __all__ = ["ServingEngine"]

@@ -11,9 +11,10 @@ ServingEngine`` and on the port's, with every batch after each refresh
 identical (ids and f64 distances, ``atol=0``) and ``generation`` /
 ``pending_mutations`` equal after every step; an async refresh under a
 concurrent query thread (bounded joins); the memory contract of the
-swap (a dropped generation is freed by reference counting alone); and
-the ``NotImplementedError`` of each part that waits for its slice
-(sharding, the frontend).  The
+swap (a dropped generation is freed by reference counting alone);
+sharded serving on a CPU mesh (updates, refresh, ``from_spill``) held
+to the host index; and the ``NotImplementedError`` of the frontend,
+which waits for its slice.  The
 paged engine (``storage="paged"``) replays the same sequence against
 the reference's paged engine, with equal manifests after every
 refresh, and serves an async refresh beside a query thread.
@@ -30,11 +31,12 @@ from repro.core import LIMSIndex as RefIndex
 from repro.core import MetricSpace as RefSpace
 from repro.serving import ServingEngine as RefEngine
 from repro_torch.core import (LIMSIndex, LIMSSnapshot, MetricSpace,
-                              QueryExecutor, make_executor)
+                              QueryExecutor, ShardedExecutor, make_executor)
 from repro_torch.core.batched import BatchedLIMS
 from repro_torch.core.metrics import dist_one_to_many
 from repro_torch.core.serving import ServingEngine
 from repro_torch.data.datasets import gauss_mix
+from repro_torch.sharding import Mesh
 from repro_torch.storage import Manifest
 
 D = 6
@@ -352,22 +354,75 @@ def test_dropped_generation_is_freed_without_the_cycle_collector():
         gc.enable()
 
 
-# ------------------------------------------------------------- not ported
-def test_later_slices_raise(monkeypatch):
+# ------------------------------------------------------------- sharding
+def test_sharded_update_then_snapshot_consistency():
+    """The sharded twin of the update test: the engine on a 3-shard CPU
+    mesh (K = 5 padded to 6) serves every generation through a
+    ``ShardedExecutor`` on that mesh, with answers equal to the host's
+    after inserts, deletes, a retrain and a refresh."""
+    rng = np.random.default_rng(0)
+    X, ix = _index(1400, 5, K=5, rings=10)
+    mesh = Mesh((torch.device(CPU),) * 3)
+    se = ServingEngine(ix, refresh_every=0, mesh=mesh, device=CPU)
+    first = se.executor
+    new_rows = X[rng.choice(1400, 20)] + rng.normal(0, 0.02, (20, D))
+    gids = [se.insert(r) for r in new_rows]
+    assert se.delete(X[3]) == 1                 # stored row → tombstone
+    assert se.delete(new_rows[0]) == 1          # buffered row → tombstone
+    se.retrain_cluster(0)                       # fold cluster 0's buffer in
+    se.refresh()
+    assert se.executor is not first and se._standby is first
+    for ex in (first, se.executor):
+        assert isinstance(ex, ShardedExecutor) and ex.mesh is mesh
+        assert ex.n_shards == 3 and ex.snap.K == 6
+    Q = np.concatenate([new_rows[:4], X[rng.choice(1400, 4)]]) \
+        + rng.normal(0, 0.003, (8, D))
+    rs = _radii(X, Q)
+    for (ids, ds), q, r in zip(se.range_query_batch(Q, rs), Q, rs):
+        h_ids, h_ds, _ = ix.range_query(q, r)
+        assert set(map(int, ids)) == set(map(int, h_ids))
+        np.testing.assert_allclose(np.sort(ds), np.sort(h_ds), atol=0)
+    ids, ds = se.knn_query_batch(Q, 5)
+    for b, q in enumerate(Q):
+        h_ids, h_ds, _ = ix.knn_query(q, 5)
+        np.testing.assert_allclose(np.sort(ds[b]), np.sort(h_ds), atol=0)
+        assert set(map(int, ids[b])) == set(map(int, h_ids))
+    assert gids[1] in _ids(se.range_query(new_rows[1], 1e-9))
+    assert gids[0] not in _ids(se.range_query(new_rows[0], 1e-9))
+
+
+def test_later_slices_raise(monkeypatch, tmp_path):
+    """Sharded serving (A9) serves: ``ServingEngine(sharded=True,
+    mesh=...)`` and ``from_spill(..., mesh=...)`` answer as the host
+    does, and ``make_executor(..., sharded=True)`` gives a
+    ``ShardedExecutor``.  The request frontend (A10) still raises."""
     X, ix = _index(600, 43, K=3)
     monkeypatch.setenv("REPRO_STORAGE", "")
-    with pytest.raises(NotImplementedError, match="A9"):
-        ServingEngine(ix, sharded=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ServingEngine(ix, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ServingEngine.from_spill("/nonexistent", sharded=True)
-    se = ServingEngine(ix, device=CPU)
+    mesh = Mesh((torch.device(CPU),) * 2)
+    se = ServingEngine(ix, sharded=True, mesh=mesh, device=CPU)
+    assert isinstance(se.executor, ShardedExecutor)
+    assert se.executor.n_shards == 2 and se.snapshot.K == 4
+    Q = X[:6] + 0.01
+    rs = _radii(X, Q)
+    for (ids, ds), q, r in zip(se.range_query_batch(Q, rs), Q, rs):
+        h_ids, h_ds, _ = ix.range_query(q, r)
+        assert set(map(int, ids)) == set(map(int, h_ids))
+        np.testing.assert_allclose(np.sort(ds), np.sort(h_ds), atol=0)
     with pytest.raises(NotImplementedError, match="A10"):
         se.frontend()
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_executor(se.snapshot, sharded=True)
+    ex = make_executor(se.snapshot, sharded=True, mesh=mesh)
+    assert isinstance(ex, ShardedExecutor)
     assert make_executor(se.snapshot).snap is se.snapshot
+    path = str(tmp_path / "spill")
+    LIMSSnapshot.build(ix, device=CPU).spill(path)
+    cold = ServingEngine.from_spill(path, mesh=mesh, device=CPU)
+    assert isinstance(cold.executor, ShardedExecutor)
+    assert cold.snapshot.store is not None
+    ids, ds = cold.knn_query_batch(Q, 4)
+    for b, q in enumerate(Q):
+        h_ids, h_ds, _ = ix.knn_query(q, 4)
+        np.testing.assert_allclose(ds[b], np.sort(h_ds), atol=0)
+        assert set(map(int, ids[b])) == set(map(int, h_ids))
 
 
 def test_repro_storage_paged_selects_the_paged_engine(monkeypatch):
