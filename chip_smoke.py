@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's exact query path, index builder,
-serving lifecycle, paged storage tier, cluster-sharded executor and
-dense-LM serving path on one CUDA card (or more, for the sharded
-phase's mesh).
+serving lifecycle, paged storage tier, cluster-sharded executor,
+replica-set serving frontend and dense-LM serving path on one CUDA card
+(or more, for the sharded phase's mesh and the frontend's replicas).
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
-                          [--seed 0] [--sharded-only]
+                          [--seed 0] [--sharded-only | --frontend-only]
 
 Phases, each printing lines that start with its name:
 
@@ -172,7 +172,52 @@ Phases, each printing lines that start with its name:
             batches, host answers and spill built first, unprinted and
             unchecked), for a run of the mesh on four cards
             (chiprun --chips 4); its last line is the same;
-11. lm      the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
+11. frontend replica-set serving (repro_torch.serving: ServingFrontend,
+            PlanRouter, ReplicaSet) through ServingEngine.frontend(
+            n_replicas=4, max_batch=64, slo_ms=5) on a copy of main's
+            host index taken before the builder changes it: (a) a
+            4-replica set over its snapshot with the default devices
+            (cuda:0 four times on one card, one replica a card on
+            several) adds 0 B on the snapshot's card, every replica
+            tensor sharing the snapshot's storage, and prints the bytes
+            copied to other cards; (b) 64 submitter threads, thread j
+            sending row j of each of main's range batches, then of its
+            kNN batches (k = 10), every answer equal to main's host
+            answers (ids and f64 distances); batches, mean batch size,
+            coalesced batches, queue wait and latency p50/p99 and q/s
+            from metrics(), and one plan a batch on the routing
+            executor; (c) 32 range and 32 kNN submitters at once (a CUT
+            of 2 batches), no batch mixing kinds; (d) the launch
+            counters zeroed before (b) and read after: pdist_rankeval =
+            batches + range sub-batches + kNN sub-batch rounds,
+            range_filter = range sub-batches, pdist = kNN batches + kNN
+            sub-batches; every (nq, np) the router launched, and pdist,
+            range_filter and pdist_rankeval bit for bit against their
+            plain versions at their three most frequent ragged shapes;
+            router.replica_spread; (e) paused at max_queue=64: the 65th
+            submit raises FrontendOverload at once, shed = 1, and the 64
+            drain exactly after resume(); (i) q/s through the frontend
+            against the engine's direct batches, turns frontend, direct,
+            direct, frontend (a CUT of 2 batches of each kind), the
+            ratios printed and no gain claimed; (f) 1,000 inserts, 1,000
+            deletes and a refresh: the next batch rebuilds the replica
+            set once and answers as the host index does after the
+            updates; then every cluster owned by replica 0 and a
+            Monitor (adopted by the frontend, its daemon routed to the
+            frontend's router) ticked by hand after each kNN batch until
+            the heat-skew detector fires and the daemon rebalances,
+            heat_skew before and after, answers equal throughout; (g) a
+            frontend over ServingEngine.from_spill (4 replicas on one
+            page cache): one range and one kNN batch from a cold cache
+            equal to main's answers, the cache's stats, last_io summed
+            over replicas and what the per-thread pinned staging
+            buffers cost; (h) repro_torch.obs.report.main(--demo
+            --health --device cuda, JSON, Prometheus and Chrome trace):
+            the files parse and the health report holds a finding, the
+            obs mode restored after.  --frontend-only runs phases 1, 2
+            and 11 alone (as --sharded-only does), so that a machine
+            with four cards runs one replica on each;
+12. lm      the dense LM at Llama-3-8B widths (configs/llama3_8b.py),
             random weights from --seed: (a) float32 at a cut depth of 4
             layers, batch 2, 64-token prompts: prefill of tokens[:, :-1]
             and a decode step of tokens[:, -1] give forward_seq's logits
@@ -195,7 +240,7 @@ Phases, each printing lines that start with its name:
             bf16 passes at the tensor cores' rate), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
-12. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
+13. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
             encoder LM (4 layers, d 256, f32) embeds 5,000 32-token docs
             on the card (its attention through the flash kernel), a host
             LIMSIndex(K=100, m=3, N=20) indexes them, and BatchedLIMS on
@@ -214,6 +259,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -222,8 +268,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -271,6 +319,15 @@ PAGE_BYTES, CACHE_PAGES, PAGED_BATCHES = 4096, 4096, 1
 # kind, and the q/s turns 3 and 4 SHARDED_TURN_CUT (CUTs that keep the
 # phase near a minute)
 SHARDS, SHARDS_PADDED, SHARDED_CUT, SHARDED_TURN_CUT = 4, 3, 2, 2
+# frontend: FRONTEND_REPLICAS replicas behind ServingEngine.frontend(
+# max_batch=B, slo_ms=FRONTEND_SLO_MS); (b) sends rows of
+# FRONTEND_BATCHES of main's batches of each kind, (c) and the q/s turns
+# of (i) FRONTEND_MIXED_CUT and FRONTEND_TURN_CUT (CUTs that keep the
+# phase near a minute); (f) ticks the monitor at most FRONTEND_MAX_TICKS
+# times; a submitter not answered within FRONTEND_JOIN_S fails the phase
+FRONTEND_REPLICAS, FRONTEND_SLO_MS, FRONTEND_BATCHES = 4, 5.0, 8
+FRONTEND_MIXED_CUT, FRONTEND_TURN_CUT, FRONTEND_MAX_TICKS = 2, 2, 8
+FRONTEND_JOIN_S = 300.0
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -466,18 +523,26 @@ def same_knn(got, want) -> bool:
 
 def shape_spy(names=("pdist", "range_filter")):
     """({name: {}} for ``names``, an unstarted patch of ``_cuda.launch``)
-    that tallies each launch of those pdist / range_filter entry points
-    by its (nq, np), the C arguments after the pointers."""
+    that tallies each launch of those pdist / range_filter /
+    pdist_rankeval entry points by its (nq, np), the C arguments after
+    the pointers (pdist_rankeval: (B, G)); under a lock, as the router
+    launches from one thread per replica."""
     from repro_torch.kernels import _cuda
     shapes = {name: {} for name in names}
     real_launch = _cuda.launch
+    lock = threading.Lock()
 
     def spy(name, *args, **kw):
         real_launch(name, *args, **kw)
         if name in shapes:
-            nq, npts = args[5:7] if name.startswith("range_filter") \
-                else args[3:5]
-            shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
+            if name == "pdist_rankeval":
+                nq, npts = args[10:12]
+            elif name.startswith("range_filter"):
+                nq, npts = args[5:7]
+            else:
+                nq, npts = args[3:5]
+            with lock:
+                shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
 
     return shapes, mock.patch.object(_cuda, "launch", spy)
 
@@ -2488,6 +2553,641 @@ def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
           flush=True)
 
 
+# ---------------------------------------------------------------- frontend
+def fe_submit(fe, reqs: list, tag: str) -> float:
+    """One submitter thread per entry of ``reqs`` (a list of (kind, q,
+    arg, want) requests, sent in order, each answer held to ``want``
+    before the next is sent); returns the wall seconds until every
+    thread has its answers.  Threads are daemons and joined with a
+    bound, so a stuck batch fails the phase instead of hanging it."""
+    errors = []
+
+    def run(j, mine):
+        try:
+            for kind, q, arg, want in mine:
+                if kind == "range":
+                    ok = same_range(fe.range_query(q, arg), want)
+                else:
+                    ok = same_knn(fe.knn_query(q, arg), want)
+                if not ok:
+                    errors.append(f"{tag}: submitter {j}'s {kind} answer "
+                                  f"differs from the host index")
+        except Exception as e:              # reported on the main thread
+            errors.append(f"{tag}: submitter {j}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(j, mine), daemon=True,
+                                name=f"submit-{j}")
+               for j, mine in enumerate(reqs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    deadline = t0 + FRONTEND_JOIN_S
+    for t in threads:
+        t.join(max(deadline - time.perf_counter(), 0.0))
+    t = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads),
+          f"frontend: {tag}: submitters still waiting after "
+          f"{FRONTEND_JOIN_S} s")
+    check(not errors, f"frontend: {errors[0] if errors else ''}")
+    return t
+
+
+def row_requests(kind: str, batches, wants, cols=range(B)) -> list:
+    """Requests by submitter: submitter j sends row j of each batch in
+    turn (range at the batch's radius, kNN at k = K_NN)."""
+    return [[(kind, Q[j], rs[j] if kind == "range" else K_NN, want[j])
+             for (Q, rs), want in zip(batches, wants)] for j in cols]
+
+
+@contextlib.contextmanager
+def dispatch_log():
+    """What the frontend and the router did inside the block: each
+    batch's request keys (``ServingFrontend._execute``) and each
+    sub-batch's kind, size and kNN rounds (``QueryExecutor.
+    execute_range``/``execute_knn``), by wrapping those methods; list
+    appends are atomic, so replica threads record without a lock."""
+    from repro_torch.core.executor import QueryExecutor
+    from repro_torch.serving.frontend import ServingFrontend
+    log = SimpleNamespace(batches=[], subs=[])
+    real_exec = ServingFrontend._execute
+    real_range = QueryExecutor.execute_range
+    real_knn = QueryExecutor.execute_knn
+
+    def execute(fe, batch):
+        log.batches.append({(r.kind, r.arg if r.kind == "knn" else None)
+                            for r in batch})
+        return real_exec(fe, batch)
+
+    def execute_range(ex, Q, plan):
+        out = real_range(ex, Q, plan)
+        log.subs.append(("range", plan.B, 1))
+        return out
+
+    def execute_knn(ex, Q, plan):
+        out = real_knn(ex, Q, plan)
+        log.subs.append(("knn", plan.B, ex.last_knn["rounds"]))
+        return out
+
+    with mock.patch.object(ServingFrontend, "_execute", execute), \
+            mock.patch.object(QueryExecutor, "execute_range",
+                              execute_range), \
+            mock.patch.object(QueryExecutor, "execute_knn", execute_knn):
+        yield log
+
+
+def frontend_line(tag: str, m: dict, n: int, secs: float) -> None:
+    print(f"frontend: {tag}: {n} queries in {secs:.3f} s = "
+          f"{n / secs:.2f} q/s; batches={m['batches']} "
+          f"batch_size_mean={m['batch_size_mean']} "
+          f"coalesced_batches={m['coalesced_batches']} queue_wait_ms "
+          f"p50={m['queue_wait_ms_p50']} p99={m['queue_wait_ms_p99']} "
+          f"latency_ms p50={m['latency_ms_p50']} "
+          f"p99={m['latency_ms_p99']} shed={m['shed']}", flush=True)
+
+
+FRONTEND_SPANS = ("frontend.execute", "planner.plan_range",
+                  "planner.plan_knn", "router.assign", "router.dispatch",
+                  "router.subbatch", "executor.range_execute",
+                  "executor.knn_execute", "executor.refine")
+
+
+def frontend_split(secs: float) -> None:
+    """Where (b)'s time went, from the span histograms (the registry is
+    reset before (b)): count, p50 and total ms of each span.  Sub-batch
+    spans run on the router's threads at once, so their totals add up
+    past the wall clock."""
+    from repro_torch.obs import REGISTRY
+    parts = []
+    for name in FRONTEND_SPANS:
+        h = REGISTRY.histogram("span." + name)
+        parts.append(f"{name} n={h.count} p50={h.percentile(50) * 1e3:.1f} "
+                     f"total={h.sum * 1e3:.1f}")
+    print(f"frontend: (b) split (ms; wall {secs * 1e3:.1f}): "
+          + "; ".join(parts), flush=True)
+
+
+def frontend_placement(snap) -> None:
+    """(a): a 4-replica set over ``snap`` with the default devices: on
+    the snapshot's card the replicas hold its very tensors (0 B added);
+    replicas on other cards hold copies, whose bytes are printed."""
+    from repro_torch.core.snapshot import DEVICE_FIELDS
+    from repro_torch.serving import ReplicaSet
+    lead = snap.device
+    sync()
+    before = {i: torch.cuda.memory_allocated(i)
+              for i in range(torch.cuda.device_count())}
+    t0 = time.perf_counter()
+    rs = ReplicaSet(snap, n_replicas=FRONTEND_REPLICAS)
+    sync()
+    t = time.perf_counter() - t0
+    grown = {i: torch.cuda.memory_allocated(i) - b
+             for i, b in before.items()}
+    local = [m for m in rs.members if m.device == lead]
+    shared = all(getattr(m.ex.snap, f).untyped_storage().data_ptr()
+                 == getattr(snap, f).untyped_storage().data_ptr()
+                 for m in local for f in DEVICE_FIELDS)
+    check(shared, "frontend: (a) a replica on the snapshot's card copied "
+          "a tensor")
+    check(grown[lead.index or 0] == 0, f"frontend: (a) the replicas added "
+          f"{grown[lead.index or 0]} B on the snapshot's card")
+    copied = sum(m.ex.snap.device_nbytes() for m in rs.members
+                 if m not in local)
+    print(f"frontend: (a) ReplicaSet(n_replicas={FRONTEND_REPLICAS}) over "
+          f"the {snap.device_nbytes()} B snapshot in {t:.4f} s on "
+          f"{', '.join(str(m.device) for m in rs.members)}: "
+          f"{len(local)} replica(s) on {lead} share every tensor's storage "
+          f"(memory_allocated grew {grown[lead.index or 0]} B there); "
+          f"{copied} B copied to other cards (memory_allocated growth by "
+          f"card {grown})", flush=True)
+
+
+def frontend_kernels_vs_plain(snap, shapes, Q, rs) -> None:
+    """(d): pdist, range_filter and pdist_rankeval against their plain
+    versions at the three most frequent ragged (nq < B) shapes the
+    router launched, on main's queries and snapshot: rows [0, np) of
+    the slot array, or the pivots where np is G; bit for bit."""
+    from repro_torch.core.planner import _BALL_ABS, _R_ABS, _R_REL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import pdist_rankeval_plain
+    from repro_torch.kernels.pdist import pdist_plain
+    from repro_torch.kernels.range_filter import range_filter_plain
+    d, N = snap.d, snap.n_rings
+    G = snap.K * snap.m
+    rows = snap.rows.reshape(-1, d)
+    piv = snap.pivots.reshape(G, d)
+    qf = torch.from_numpy(Q.astype(np.float32)).to(snap.device)
+    rf = torch.from_numpy(rs.astype(np.float32)).to(snap.device)
+    held = []
+    for name in ("pdist", "range_filter", "pdist_rankeval"):
+        ragged = sorted(((n, s) for s, n in shapes[name].items()
+                         if s[0] < B), reverse=True)[:3]
+        check(ragged, f"frontend: (d) {name} launched no ragged shape")
+        for _, (nq, npts) in ragged:
+            q, r = qf[:nq], rf[:nq]
+            if name == "pdist":
+                p = piv if npts == G else rows[:npts]
+                got, want = ops.pdist(q, p), pdist_plain(q, p)
+                ok, err = same_bits(got, want), float(
+                    (got - want).abs().max())
+            elif name == "range_filter":
+                rb = r * (1.0 + _R_REL) + _BALL_ABS
+                got = ops.range_filter(q, rows[:npts], rb)
+                want = range_filter_plain(q, rows[:npts], rb * rb)
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = float((got[1] - want[1]).abs().max())
+            else:
+                check(npts == G, f"frontend: (d) pdist_rankeval at "
+                      f"({nq}, {npts}), not G = {G}")
+                args = (q, piv, snap.coef.reshape(G, -1),
+                        snap.model_lo.reshape(-1), snap.model_hi.reshape(-1),
+                        snap.model_n.reshape(-1),
+                        r * (1.0 + _R_REL) + _R_ABS, N)
+                got, want = ops.pdist_rankeval(*args), \
+                    pdist_rankeval_plain(*args)
+                ok = all(same_bits(a, b) for a, b in zip(got, want))
+                err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+            check(ok, f"frontend: (d) {name} differs from its plain "
+                  f"version at the router's shape ({nq}, {npts})")
+            held.append(f"{name} ({nq}, {npts}) max_abs_err={err}")
+    sync()
+    print(f"frontend: (d) bit for bit against the plain versions at the "
+          f"router's three most frequent ragged shapes: "
+          + "; ".join(held), flush=True)
+
+
+def frontend_paged(path, batches, host_range, host_knn) -> None:
+    """(g): a frontend over ServingEngine.from_spill with 4 replicas
+    sharing one page cache: one range and one kNN batch from a cold
+    cache, equal to main's answers; the cache's stats, last_io summed
+    over the replicas, and what the per-thread pinned staging buffer
+    costs when each sub-batch runs on a fresh router thread."""
+    from repro_torch.core.executor import _PagedBackend
+    from repro_torch.serving import ServingEngine
+    allocs, calls = [], []
+    real = _PagedBackend._to_device
+
+    def to_device(backend, rows64):
+        # the allocation _to_device makes on a thread whose buffer is
+        # missing or too small, made (and timed) here first, so that the
+        # real call finds it and the two costs are apart
+        buf = getattr(backend._tls, "staging", None)
+        t0 = time.perf_counter()
+        if backend.ex.snap.device.type == "cuda" and (
+                buf is None or buf.numel() < rows64.size):
+            backend._tls.staging = torch.empty(
+                rows64.size, dtype=torch.float32, pin_memory=True)
+            allocs.append((rows64.size, time.perf_counter() - t0))
+        t1 = time.perf_counter()
+        out = real(backend, rows64)
+        calls.append(time.perf_counter() - t1)
+        return out
+
+    pe = ServingEngine.from_spill(path, cache_pages=CACHE_PAGES,
+                                  device=DEVICE)
+    pe.store.cache.clear()
+    pe.store.stats.reset()
+    secs = {}
+    with mock.patch.object(_PagedBackend, "_to_device", to_device), \
+            pe.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                        slo_ms=FRONTEND_SLO_MS) as fe:
+        for kind, want in (("range", host_range), ("knn", host_knn)):
+            secs[kind] = fe_submit(fe, row_requests(kind, batches[:1],
+                                                    want[:1]),
+                                   f"(g) paged {kind}")
+        m = fe.metrics()
+        reps = fe._router_obj.replicas.members
+    check(all(r.ex.snap.store is reps[0].ex.snap.store for r in reps)
+          and reps[0].ex.snap.store.base is pe.store,
+          "frontend: (g) the replicas do not share one page cache")
+    check(pe.store.cache.pinned == 0, "frontend: (g) pages stay pinned")
+    io = {}
+    for r in reps:
+        for key, v in (r.ex.last_io or {}).items():
+            if isinstance(v, (int, float)):
+                io[key] = io.get(key, 0) + v
+    st = pe.store.stats.snapshot()
+    sizes = [n for n, _ in allocs]
+    print(f"frontend: (g) paged frontend (from_spill, cache {CACHE_PAGES} "
+          f"pages, {len(reps)} replicas on one page cache): 1 range "
+          f"({secs['range']:.3f} s) and 1 kNN ({secs['knn']:.3f} s) batch "
+          f"of {B} submitters equal to main's answers; batches="
+          f"{m['batches']}; cache stats {json.dumps(st)}; last_io summed "
+          f"over replicas {json.dumps(io)}; staging: {len(calls)} copies "
+          f"({sum(calls):.4f} s: cast, pinned fill, copy), {len(allocs)} "
+          f"pinned buffer allocation(s) on router threads with none yet "
+          f"({sum(sizes) * 4} B, {sum(t for _, t in allocs):.4f} s)",
+          flush=True)
+    del pe
+
+
+def frontend_turns(se, batches, host_range, host_knn) -> None:
+    """(i): q/s through the frontend (B submitters, one row of each
+    batch each) against the engine's direct batches, in turns
+    frontend, direct, direct, frontend over FRONTEND_TURN_CUT batches
+    of each kind, every answer held to main's."""
+    n = FRONTEND_TURN_CUT
+    sel, wr, wk = batches[:n], host_range[:n], host_knn[:n]
+    nq = n * B
+    rates = []
+    for turn in ("frontend", "direct", "direct", "frontend"):
+        r = {}
+        if turn == "frontend":
+            with se.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                             slo_ms=FRONTEND_SLO_MS) as fe:
+                for kind, want in (("range", wr), ("knn", wk)):
+                    r[kind] = nq / fe_submit(
+                        fe, row_requests(kind, sel, want),
+                        f"(i) {kind}")
+        else:
+            r["range"] = nq / query_batches_timed(se, sel, wr, "range")
+            r["knn"] = nq / query_batches_timed(se, sel, wk, "knn")
+        rates.append(r)
+        print(f"frontend: (i) turn {len(rates)} {turn}: range "
+              f"{r['range']:.2f} q/s, kNN {r['knn']:.2f} q/s ({n} batches "
+              f"of {B} each)", flush=True)
+
+    def ratio(a, b, kind):
+        return rates[a][kind] / rates[b][kind]
+
+    print(f"frontend: (i) q/s frontend / direct: turns 1/2 range "
+          f"{ratio(0, 1, 'range'):.4f} kNN {ratio(0, 1, 'knn'):.4f}, "
+          f"turns 4/3 range {ratio(3, 2, 'range'):.4f} kNN "
+          f"{ratio(3, 2, 'knn'):.4f} (no gain claimed)", flush=True)
+    # the same range batches with the compacted gather off, direct then
+    # through the frontend: a direct batch's compaction works on the
+    # whole batch's union of candidates, a sub-batch's on its own
+    os.environ["REPRO_COMPACT"] = "off"
+    try:
+        off = {"direct": nq / query_batches_timed(se, sel, wr, "range")}
+        with se.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                         slo_ms=FRONTEND_SLO_MS) as fe:
+            off["frontend"] = nq / fe_submit(
+                fe, row_requests("range", sel, wr), "(i) range, compact off")
+    finally:
+        os.environ["REPRO_COMPACT"] = "on"
+    print(f"frontend: (i) REPRO_COMPACT=off, range: direct "
+          f"{off['direct']:.2f} q/s, frontend {off['frontend']:.2f} q/s "
+          f"(ratio {off['frontend'] / off['direct']:.4f}); against the "
+          f"compact-on turns above", flush=True)
+
+
+def query_batches_timed(se, batches, wants, kind: str) -> float:
+    """Wall seconds of the engine's direct batches of ``kind``, each
+    answer held to ``wants``."""
+    t0 = time.perf_counter()
+    for (Q, rs), want in zip(batches, wants):
+        if kind == "range":
+            got = se.range_query_batch(Q, rs)
+            ok = all(same_range(got[b], want[b]) for b in range(B))
+        else:
+            ids, ds = se.knn_query_batch(Q, K_NN)
+            ok = all(same_knn((ids[b], ds[b]), want[b]) for b in range(B))
+        check(ok, f"frontend: (i) a direct {kind} answer differs from the "
+              f"host index")
+    return time.perf_counter() - t0
+
+
+def frontend_loop(se, fe, mon, X, batches, deletable) -> None:
+    """(f): 1,000 inserts and 1,000 deletes and a refresh; the next batch
+    rebuilds the replica set and answers as the host index does after
+    the updates.  Then drift: every cluster owned by replica 0, the
+    Monitor ticked by hand after each kNN batch until the heat-skew
+    detector fires and the frontend's daemon rebalances; results equal
+    before and after."""
+    from repro_torch.obs import REGISTRY
+    ix = se.index
+    _, _, t_ins, t_del = mutate(se, X, np.random.default_rng(12), deletable)
+    t0 = time.perf_counter()
+    se.refresh()
+    t_ref = time.perf_counter() - t0
+    Q, rs = batches[0]
+    t0 = time.perf_counter()
+    want_r = [ix.range_query(q, r)[:2] for q, r in zip(Q, rs)]
+    want_k = [ix.knn_query(q, K_NN)[:2] for q in Q]
+    t_host = time.perf_counter() - t0
+    rebuilds = REGISTRY.counter("frontend.replica_rebuilds").value
+    old = fe._router_obj
+    fe_submit(fe, row_requests("range", [(Q, rs)], [want_r]),
+              "(f) after the refresh")
+    check(fe._router_obj is not old and fe._gen == se.generation
+          and REGISTRY.counter("frontend.replica_rebuilds").value
+          == rebuilds + 1,
+          "frontend: (f) the refresh did not rebuild the replica set once")
+    fe_submit(fe, row_requests("knn", [(Q, rs)], [want_k]),
+              "(f) after the refresh")
+    print(f"frontend: (f) {SERVE_ROWS} inserts {t_ins:.2f} s, {SERVE_ROWS} "
+          f"deletes {t_del:.2f} s, refresh {t_ref:.3f} s -> generation "
+          f"{se.generation}; the next batch rebuilt the replica set "
+          f"(frontend.replica_rebuilds {rebuilds} -> "
+          f"{REGISTRY.counter('frontend.replica_rebuilds').value}); a "
+          f"range and a kNN batch equal to the host index after the "
+          f"updates (host answers {t_host:.2f} s)", flush=True)
+
+    router = fe._router_obj
+    skew0 = router.heat_skew()
+    router.replicas.set_ownership(np.zeros(router.replicas.K, np.int64))
+    skew_drift = router.heat_skew()
+    ticks = 0
+    while ticks < FRONTEND_MAX_TICKS and not [
+            e for e in fe.daemon.events() if e["action"] == "rebalance"]:
+        fe_submit(fe, row_requests("knn", [(Q, rs)], [want_k]),
+                  f"(f) drift tick {ticks + 1}")
+        mon.tick()
+        ticks += 1
+    found = [f for f in mon.snapshot()["findings"]
+             if f["detector"] == "heat_skew"]
+    rebal = [e for e in fe.daemon.events() if e["action"] == "rebalance"]
+    check(found and rebal, f"frontend: (f) no heat-skew finding and "
+          f"rebalance within {FRONTEND_MAX_TICKS} ticks")
+    skew1 = router.heat_skew()
+    fe_submit(fe, row_requests("knn", [(Q, rs)], [want_k]),
+              "(f) after the rebalance")
+    fe_submit(fe, row_requests("range", [(Q, rs)], [want_r]),
+              "(f) after the rebalance")
+    check(skew1 < skew_drift, "frontend: (f) the rebalance did not lower "
+          "the heat skew")
+    print(f"frontend: (f) heat_skew {skew0:.4f} before the drift, "
+          f"{skew_drift:.4f} with every cluster on replica 0; finding "
+          f"'{found[0]['summary']}' at tick {found[0]['tick']}, daemon "
+          f"rebalance at tick {rebal[0]['tick']} (owners by replica "
+          f"{np.bincount(router.replicas.owner, minlength=FRONTEND_REPLICAS).tolist()}"
+          f"); heat_skew after {skew1:.4f}; kNN batches before, during "
+          f"and after, and a range batch after, equal to the host index",
+          flush=True)
+
+
+def frontend_report() -> None:
+    """(h): ``repro_torch.obs.report.main`` with --demo --health and all
+    three exports on the card; the files parse and the health report
+    holds a finding.  The obs mode is restored after."""
+    import io as _io
+    from repro_torch import obs
+    from repro_torch.obs import report
+    mode = obs.obs_mode()
+    out = _io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"obs.{k}") for k in
+                 ("json", "prom", "trace")}
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = report.main(["--demo", "--health", "--device", DEVICE]
+                                 + [a for k, p in paths.items()
+                                    for a in (f"--{k}", p)])
+        finally:
+            obs.configure(mode)
+        t = time.perf_counter() - t0
+        with open(paths["json"]) as f:
+            doc = json.load(f)
+        with open(paths["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        with open(paths["prom"]) as f:
+            prom = f.read()
+    text = out.getvalue()
+    n_found = int(re.search(r"findings=(\d+)", text).group(1))
+    check(rc == 0 and doc["profiles"] and events and "lims_" in prom,
+          "frontend: (h) the report's files are empty or do not parse")
+    check(n_found >= 1, "frontend: (h) the health report has no finding")
+    finding = next(line.strip() for line in text.splitlines()
+                   if line.strip().startswith("["))
+    print(f"frontend: (h) python -m repro_torch.obs.report --demo --health "
+          f"--device {DEVICE} in {t:.2f} s: JSON ({len(doc['profiles'])} "
+          f"profiles, {len(doc['metrics'])} metrics), Prometheus "
+          f"({len(prom.splitlines())} lines) and Chrome trace "
+          f"({len(events)} events) parse; {n_found} finding(s), first: "
+          f"{finding}; obs mode restored to {obs.obs_mode()}", flush=True)
+
+
+def frontend_admission(se, batches, host_knn) -> None:
+    """(e): a frontend paused with max_queue = B, filled by B submitters
+    of batch 0's kNN rows: the next submit is shed at once with
+    FrontendOverload, and after resume() the B queued requests drain,
+    each equal to the host index."""
+    from repro_torch.serving import FrontendOverload
+    with se.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                     slo_ms=FRONTEND_SLO_MS, max_queue=B) as adm:
+        adm.pause()
+        Q, _ = batches[0]
+        errors = []
+
+        def submit(j):
+            try:
+                if not same_knn(adm.knn_query(Q[j], K_NN), host_knn[0][j]):
+                    errors.append(j)
+            except Exception as e:
+                errors.append(repr(e))
+        threads = [threading.Thread(target=submit, args=(j,), daemon=True)
+                   for j in range(B)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + FRONTEND_JOIN_S
+        while True:
+            with adm._cv:
+                pending = len(adm._pending)
+            if pending == B or time.perf_counter() > deadline:
+                break
+            time.sleep(0.001)
+        check(pending == B, f"frontend: (e) only {pending} of {B} queued")
+        t0 = time.perf_counter()
+        try:
+            adm.knn_query(Q[0], K_NN)
+            shed = False
+        except FrontendOverload:
+            shed = True
+        t_shed = time.perf_counter() - t0
+        check(shed and adm.metrics()["shed"] == 1,
+              "frontend: (e) the submit past a full queue was not shed")
+        t0 = time.perf_counter()
+        adm.resume()
+        for t in threads:
+            t.join(max(deadline - time.perf_counter(), 0.0))
+        t_drain = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads) and not errors,
+              f"frontend: (e) the queued requests did not drain exactly "
+              f"({errors[:1]})")
+        m = adm.metrics()
+    print(f"frontend: (e) paused with max_queue={B}: the {B + 1}th submit "
+          f"raised FrontendOverload in {t_shed * 1e3:.3f} ms (shed="
+          f"{m['shed']}, shed_rate={m['shed_rate']}); after resume the "
+          f"{B} queued requests drained in {t_drain:.3f} s "
+          f"({m['batches']} batch(es)), each equal to the host index",
+          flush=True)
+
+
+def frontend_counted(fe, sel, host_range, host_knn) -> dict:
+    """(b) and (d)'s counts: B submitters, submitter j sending row j of
+    each batch of ``sel``, range then kNN, through ``fe``; the launch
+    counters and the registry zeroed before, the launches checked
+    against the batches and sub-batches the frontend and the router
+    made.  Returns the launches by (nq, np)."""
+    from repro_torch import obs
+    from repro_torch.kernels import _cuda
+    shapes, spying = shape_spy(("pdist", "range_filter", "pdist_rankeval"))
+    nq = 2 * len(sel) * B
+    sync()
+    obs.REGISTRY.reset()            # (b)'s spans alone in the split
+    _cuda.reset_launches()
+    spying.start()
+    try:
+        with dispatch_log() as log:
+            secs = fe_submit(fe, [a + b for a, b in zip(
+                row_requests("range", sel, host_range),
+                row_requests("knn", sel, host_knn))], "(b)")
+        sync()
+    finally:
+        spying.stop()
+    counts = dict(_cuda.LAUNCHES)
+    m = fe.metrics()
+    built = fe._router_obj.routing_ex.planner.built
+    frontend_line("(b) 64 submitters, each row j of main's range then kNN "
+                  "batches", m, nq, secs)
+    frontend_split(secs)
+    n_b = m["batches"]
+    check(built == n_b == len(log.batches),
+          f"frontend: (b) {built} plans for {n_b} batches")
+    check(all(len(keys) == 1 for keys in log.batches),
+          "frontend: (b) a batch mixed request keys")
+    subs_r = [s for s in log.subs if s[0] == "range"]
+    subs_k = [s for s in log.subs if s[0] == "knn"]
+    n_knn_b = sum(1 for keys in log.batches if next(iter(keys))[0] == "knn")
+    rounds = sum(s[2] for s in subs_k)
+    want = {"pdist_rankeval": n_b + len(subs_r) + rounds,
+            "range_filter": len(subs_r), "pdist": n_knn_b + len(subs_k)}
+    for name, n in want.items():
+        check(counts[name] == n, f"frontend: (d) {name} launched "
+              f"{counts[name]} times, not {n}")
+        check(sum(shapes[name].values()) == counts[name],
+              f"frontend: (d) {name}: the shape tally misses launches")
+    spread = obs.REGISTRY.histogram("router.replica_spread")
+    print(f"frontend: (b) every answer equal to main's host answers; "
+          f"{built} plans for {n_b} batches (one a batch); "
+          f"{len(log.subs)} sub-batches (range sizes "
+          f"{sorted(s[1] for s in subs_r)}, kNN sizes "
+          f"{sorted(s[1] for s in subs_k)}, kNN rounds "
+          f"{sorted(set(s[2] for s in subs_k))})", flush=True)
+    print(f"frontend: (d) launches {json.dumps(counts)}: pdist_rankeval = "
+          f"{n_b} batches + {len(subs_r)} range sub-batches + {rounds} kNN "
+          f"sub-batch rounds; range_filter = {len(subs_r)} range "
+          f"sub-batches; pdist = {n_knn_b} kNN batches + {len(subs_k)} kNN "
+          f"sub-batches; router.replica_spread p50={spread.percentile(50)} "
+          f"mean={spread.mean:.3f} max={spread.max} (n={spread.count})",
+          flush=True)
+    for name, by in shapes.items():
+        print(f"frontend: (d) {name} launches by (nq, np): "
+              + ", ".join(f"{n} x {s}" for s, n in sorted(by.items())),
+              flush=True)
+    return shapes
+
+
+def frontend_mixed(fe, batches, host_range, host_knn) -> None:
+    """(c): B/2 range and B/2 kNN submitters at once over the first
+    FRONTEND_MIXED_CUT batches; no batch mixes kinds."""
+    half = B // 2
+    n = min(FRONTEND_MIXED_CUT, len(batches))
+    print(f"frontend: CUT: (c) runs {n} of main's {len(batches)} batches "
+          f"of each kind", flush=True)
+    with dispatch_log() as log:
+        secs = fe_submit(fe, row_requests(
+            "range", batches[:n], host_range, range(half))
+            + row_requests("knn", batches[:n], host_knn, range(half, B)),
+            "(c) mixed")
+    check(all(len(keys) == 1 for keys in log.batches),
+          "frontend: (c) a batch mixed range and kNN requests")
+    kinds = [next(iter(keys))[0] for keys in log.batches]
+    print(f"frontend: (c) {half} range and {B - half} kNN submitters at "
+          f"once: {len(kinds)} batches ({kinds.count('range')} range, "
+          f"{kinds.count('knn')} kNN, none mixed), every answer equal to "
+          f"the host index, {2 * n * half / secs:.2f} q/s", flush=True)
+
+
+def phase_frontend(X, ix, batches, host_range, host_knn, spilled) -> None:
+    """Replica-set serving through the request frontend, parts (a)-(i)
+    (module doc).  ``ix`` is main's host index, unchanged."""
+    from repro_torch import obs
+    from repro_torch.obs.monitor import Monitor
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    os.environ["REPRO_COMPACT"] = "on"
+    mode = obs.obs_mode()
+    obs.configure("on")
+    se = ServingEngine(ix, refresh_every=0, device=DEVICE)
+    check(se.snapshot.device_nbytes() == spilled["device_bytes"],
+          "frontend: the engine's snapshot differs in size from main's")
+    print(f"frontend: ServingEngine on main's host index, served by "
+          f"{executor_name(se)}", flush=True)
+    frontend_placement(se.snapshot)
+
+    sel = batches[:FRONTEND_BATCHES]
+    if len(sel) < len(batches):
+        print(f"frontend: CUT: (b) runs {len(sel)} of main's {len(batches)} "
+              f"batches of each kind", flush=True)
+    with se.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                     slo_ms=FRONTEND_SLO_MS) as fe:
+        shapes = frontend_counted(fe, sel, host_range, host_knn)
+        frontend_kernels_vs_plain(se.snapshot, shapes, *batches[0])
+        frontend_mixed(fe, batches, host_range, host_knn)
+    frontend_admission(se, batches, host_knn)
+    frontend_turns(se, batches, host_range, host_knn)
+
+    deletable = [int(g) for g in np.random.default_rng(13).permutation(
+        len(X)) if g not in ix.tombstones]
+    mon = Monitor(interval=3600.0)      # ticked by hand in (f)
+    with se.frontend(n_replicas=FRONTEND_REPLICAS, max_batch=B,
+                     slo_ms=FRONTEND_SLO_MS, monitor=mon) as fe:
+        fe_submit(fe, row_requests("knn", batches[:1], host_knn[:1]),
+                  "(f) before the updates")
+        frontend_loop(se, fe, mon, X, batches, deletable)
+    check(not mon.running, "frontend: (f) close() left the monitor running")
+    del se, fe
+
+    frontend_paged(spilled["path"], batches, host_range, host_knn)
+    frontend_report()
+    obs.configure(mode)
+    print(f"frontend: all parts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # ---------------------------------------------------------------------- lm
 def lm_model(cfg, seed: int):
     """The port's own random parameters for ``cfg`` on the card."""
@@ -3002,6 +3702,8 @@ def main() -> int:
                     help="seed of the LM phases' weights and tokens")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the device and sharded phases")
+    ap.add_argument("--frontend-only", action="store_true",
+                    help="run only the device and frontend phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3032,15 +3734,19 @@ def main() -> int:
           f"cluster rows max={max(sizes)} mean={np.mean(sizes):.1f}",
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
-    if args.sharded_only:
+    if args.sharded_only or args.frontend_only:
         host_range = [[ix.range_query(q, r)[:2] for q, r in zip(Q, rs)]
                       for Q, rs in batches]
         host_knn = [[ix.knn_query(q, K_NN)[:2] for q in Q]
                     for Q, _ in batches]
         spilled = spill_main(LIMSSnapshot.build(ix, device=DEVICE))
         try:
-            phase_sharded(X, ix, batches, host_range, host_knn, spilled,
-                          count)
+            if args.sharded_only:
+                phase_sharded(X, ix, batches, host_range, host_knn,
+                              spilled, count)
+            if args.frontend_only:
+                phase_frontend(X, ix, batches, host_range, host_knn,
+                               spilled)
         finally:
             shutil.rmtree(spilled["path"], ignore_errors=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3051,6 +3757,9 @@ def main() -> int:
 
     counts, shapes, snap, host_range, host_knn, rates = phase_main(
         X, ix, batches, LIMSSnapshot, QueryExecutor)
+    # main's host index as main served it, for the frontend phase (the
+    # builder's retrain and the serving phases change ``ix``)
+    ix_main = copy.deepcopy(ix)
     phase_error_bound(ix, snap)
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
     kernels += phase_lp(ix, batches, host_range, host_knn, rates)
@@ -3075,10 +3784,11 @@ def main() -> int:
         phase_serving(X, ix, batches)
         phase_paged(X, ix, batches, host_range, host_knn, spilled)
         phase_sharded(X, ix, batches, host_range, host_knn, spilled, count)
+        phase_frontend(X, ix_main, batches, host_range, host_knn, spilled)
     finally:
         # the spill (~0.3 GB at the default size) lives in TMPDIR
         shutil.rmtree(spilled["path"], ignore_errors=True)
-    del X, ix, ixd, batches, host_range, host_knn
+    del X, ix, ix_main, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -194,6 +194,36 @@ class CandidatePlan:
             self._compact = (None,) if slots.size > limit else (slots,)
         return self._compact[0]
 
+    def subset(self, idx: np.ndarray, planner: "Planner | None" = None,
+               device=None) -> "CandidatePlan":
+        """The plan restricted to queries ``idx`` — what the router
+        dispatches to a replica.  A subset is a view, not a rebuild: it
+        does not bump the planner's ``built`` counter, so one plan per
+        batch still holds.
+
+        Plan rows are functions of their own query alone, so slicing the
+        batch axis keeps certification exact.  Host copies already
+        materialized are sliced; device arrays (``_dev``) and the
+        compacted-gather decision are not carried — the receiving
+        executor re-evaluates them on its own device, with ``device``
+        placing the sliced queries there first — and page pins start
+        from an empty ledger of the subset's own.  ``planner`` rebinds
+        the subset to the replica executor that will run it."""
+        idx = np.asarray(idx, np.int64)
+        qf = self._qf[torch.from_numpy(idx).to(self._qf.device)]
+        if device is not None:
+            qf = qf.to(device)
+        return CandidatePlan(
+            kind=self.kind, B=len(idx), k=self.k,
+            max_rounds=self.max_rounds, growth=self.growth,
+            radii=self.radii[idx],
+            _planner=planner if planner is not None else self._planner,
+            _qf=qf,
+            _mask_np=None if self._mask_np is None else self._mask_np[idx],
+            _routing_np=None if self._routing_np is None
+            else self._routing_np[idx],
+            plan_s=self.plan_s)
+
 
 class Planner:
     """Builds :class:`CandidatePlan`s for one executor.

@@ -154,6 +154,22 @@ class LIMSSnapshot:
             return self.rows_lp, self.lp_eps
         return self.rows, 0.0
 
+    def to(self, device) -> "LIMSSnapshot":
+        """This snapshot placed on ``device``: the device tensors
+        (``DEVICE_FIELDS`` and the filter plane) moved there, every host
+        field, ``tables_np`` and ``store`` shared by reference — the
+        replica set's placement (the reference's ``jax.device_put`` of
+        the snapshot pytree).  On the snapshot's own device each tensor
+        is the same tensor, so no memory is added.  A store-backed
+        snapshot's copies share its one ``StoreView``: one page cache,
+        one set of counters, one pin ledger.  Pure — ``self`` is
+        untouched."""
+        dev = torch.device(device)
+        kw = {f: getattr(self, f).to(dev) for f in DEVICE_FIELDS}
+        if self.rows_lp is not None:
+            kw["rows_lp"] = self.rows_lp.to(dev)
+        return replace(self, **kw)
+
     @classmethod
     def build(cls, index: LIMSIndex, device=None) -> "LIMSSnapshot":
         """Lay ``index`` out on ``device`` (default ``cuda``; raises if

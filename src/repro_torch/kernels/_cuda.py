@@ -82,8 +82,11 @@ SOURCES = {"pdist": "pdist.cu", "pdist_bf16": "pdist.cu",
            "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu",
            "flash_attention": "flash_attention.cu"}
 
-# launches per kernel since the last reset_launches(): only launch() adds
+# launches per kernel since the last reset_launches(): only launch() adds,
+# under _LAUNCH_LOCK (the router launches from one thread per replica,
+# and ``+= 1`` on a dict entry is a read-modify-write)
 LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
+_LAUNCH_LOCK = threading.Lock()
 
 # filled once, by one update under _LOAD_LOCK: empty or complete
 _FUNCS: dict[tuple[str, str | None], ctypes._CFuncPtr] = {}
@@ -99,8 +102,9 @@ class Built:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def nvcc() -> str:
@@ -215,4 +219,5 @@ def launch(name: str, *args, device: torch.device,
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1

@@ -1,8 +1,9 @@
 """Unified observability for the serving stack.
 
 Port of ``repro/obs/__init__.py`` (the reference's DESIGN.md §11), with
-the same exports; ``demo`` and ``report`` wait for the frontend and the
-replica set (ROADMAP A10).
+the same exports; ``demo`` (the report's synthetic workload and the
+closed-loop drift demo) and ``report`` (``python -m
+repro_torch.obs.report``) are its submodules.
 
 One process-wide metrics registry (counters / gauges / bounded-reservoir
 histograms), a span tracer over the query path, per-batch

@@ -1,12 +1,9 @@
 """The closed loop: health findings → serving actions.
 
 Port of ``repro/serving/daemon.py`` (the reference's DESIGN.md §12),
-copied.  The router it rebalances (``PlanRouter``) and the replica set
-behind it are not ported yet (ROADMAP A10): until they are, every
-caller passes ``router_fn=lambda: None``, as the reference's callers do
-before their first routed batch, so the heat-skew branch never runs and
-the rank-drift branch (retrain recommendations and automatic retrains
-on the ``ServingEngine``) is the loop.
+copied.  ``router_fn`` returns the live ``PlanRouter`` — the request
+frontend passes ``lambda: self._router_obj``, which is None until its
+first batch builds the router.
 
 :class:`MonitorDaemon` is the subscriber that turns the monitor's
 :class:`~repro_torch.obs.health.HealthFinding`s into operations on the

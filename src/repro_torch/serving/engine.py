@@ -45,8 +45,11 @@ Sharding (the reference's DESIGN.md §4): ``sharded``/``mesh`` pass to
 ``ShardedExecutor`` on that mesh, and a refresh builds the standby's on
 the same mesh.
 
-Not ported yet, and raising ``NotImplementedError``: the request
-frontend (``frontend()``; ROADMAP A10).
+:meth:`ServingEngine.frontend` puts the request frontend in front of
+the engine: dynamic batching and admission control, then one plan per
+batch routed over a replica set of the active snapshot, rebuilt when a
+refresh publishes a new generation (``frontend.py``, ``router.py``,
+``replicas.py``).
 """
 from __future__ import annotations
 
@@ -378,11 +381,13 @@ class ServingEngine:
             t.join()
 
     # ------------------------------------------------------------ frontend
-    def frontend(self, **kw):
-        """The request frontend (dynamic batching, replica routing):
-        not ported yet."""
-        raise NotImplementedError(
-            "the request frontend is not ported yet (ROADMAP A10)")
+    def frontend(self, **kw) -> "ServingFrontend":
+        """A request frontend over this engine: dynamic batching +
+        admission control in front, plan-driven replica routing behind.
+        Keyword arguments pass through to
+        :class:`~repro_torch.serving.frontend.ServingFrontend`."""
+        from .frontend import ServingFrontend
+        return ServingFrontend(self, **kw)
 
 
 __all__ = ["ServingEngine"]

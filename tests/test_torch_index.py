@@ -204,6 +204,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.transformer, repro_torch.models.zoo\n"
         "import repro_torch.obs, repro_torch.obs.export\n"
         "import repro_torch.serving, repro_torch.core.serving\n"
+        "import repro_torch.serving.frontend, repro_torch.serving.router\n"
+        "import repro_torch.serving.replicas\n"
+        "import repro_torch.obs.demo, repro_torch.obs.report\n"
         "import repro_torch.storage, repro_torch.storage.prefetch\n"
         "import repro_torch.sharding, repro_torch.sharding.logical\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -6,11 +6,14 @@ Twins of ``tests/test_monitor.py``: series and detector tests
 (hysteresis, rank drift, pruning regression, SLO burn), the manual-tick
 monitor, start/stop and the atexit join, no thread leak across engine
 rebuilds, the zero-thread zero-allocation off path, the Prometheus
-bucket and series lines, ``test_daemon_retrain_modes`` and
-``test_executor_emits_observed_rank_error``.  The replica stack the
-reference's daemon tests route through is not ported (ROADMAP A10):
-here ``router_fn`` is ``lambda: None``, as the reference's callers pass
-before their first routed batch, so heat-skew findings find no router.
+bucket and series lines, ``test_daemon_retrain_modes``,
+``test_executor_emits_observed_rank_error``, and the closed loop through
+the port's replica stack: the daemon's rebalance cooldown and audit
+ring over a ``PlanRouter``, paged drift -> heat-skew finding ->
+rebalance with results bit-identical throughout, and the frontend's SLO
+accounting with an adopted ``Monitor``.  A daemon whose ``router_fn``
+returns None (before a frontend's first routed batch) takes no
+heat-skew action.
 """
 import threading
 
@@ -32,7 +35,7 @@ from repro_torch.obs.monitor import (Monitor, active_monitors,
                                      shutdown_monitors)
 from repro_torch.obs.registry import DEFAULT_BUCKET_BOUNDS, MetricsRegistry
 from repro_torch.obs.timeseries import Series, SeriesStore, sparkline
-from repro_torch.serving import MonitorDaemon
+from repro_torch.serving import MonitorDaemon, PlanRouter, ReplicaSet
 
 N, D = 700, 6
 
@@ -389,8 +392,8 @@ def test_daemon_retrain_modes(setup):
 
 
 def test_daemon_heat_skew_without_a_router():
-    """Until the replica stack is ported, heat-skew findings find no
-    router: the probe publishes nothing and the daemon takes no action."""
+    """Before a frontend's first routed batch there is no router: the
+    probe publishes nothing and the daemon takes no heat-skew action."""
     obs.configure("on")
     reg = MetricsRegistry()
     mon = Monitor(registry=reg, interval=3600.0,
@@ -402,6 +405,137 @@ def test_daemon_heat_skew_without_a_router():
     assert [f.detector for f in fired] == ["heat_skew"]
     assert daemon.events() == []
     assert daemon.snapshot()["last_action"] == {}
+
+
+def _router_stack(snap, n_replicas=4, cooldown=2, **daemon_kw):
+    """Replica set with ownership pinned to replica 0 (the injected
+    drift), a router, and a manually-ticked monitor + daemon.  Uses the
+    process registry (obs must be "on") because the router publishes
+    its heat-skew gauge there."""
+    replicas = ReplicaSet(snap, n_replicas=n_replicas)
+    router = PlanRouter(replicas)
+    mon = Monitor(interval=3600.0,
+                  detectors=[HeatSkewDetector(trigger=1.5, clear=1.15,
+                                              persistence=2),
+                             RankDriftDetector(persistence=1)])
+    daemon = MonitorDaemon(mon, lambda: router,
+                           cooldown_ticks=cooldown, **daemon_kw)
+    replicas.set_ownership(np.zeros(snap.K, np.int64))
+    return replicas, router, mon, daemon
+
+
+def test_daemon_rebalance_cooldown_and_audit(setup):
+    X, ix, snap, Q = setup
+    obs.configure("on")
+    replicas, router, mon, daemon = _router_stack(snap, cooldown=10)
+    router.knn_query_batch(Q, 4)
+    for _ in range(6):
+        mon.tick()
+    evs = daemon.events()
+    rebal = [e for e in evs if e["action"] == "rebalance"]
+    skips = [e for e in evs if e["action"] == "cooldown_skip"]
+    assert len(rebal) == 1                          # cooldown holds
+    assert rebal[0]["skew"] == pytest.approx(4.0)   # all heat on replica 0
+    assert rebal[0]["detector"] == "heat_skew"
+    assert sorted(set(rebal[0]["owner"])) == list(range(4))
+    assert all(s["last_action_tick"] == rebal[0]["tick"] for s in skips)
+    snap_d = daemon.snapshot()
+    assert snap_d["cooldown_ticks"] == 10
+    assert snap_d["last_action"]["heat_skew"] == rebal[0]["tick"]
+
+
+def test_closed_loop_paged_drift_to_rebalance_bit_identical(setup,
+                                                            tmp_path):
+    """Paged serving with skewed heat -> heat-drift finding -> daemon
+    rebalance within cooldown -> replica load spread tightens
+    (router.replica_spread series) -> results bit-identical throughout."""
+    X, ix, snap, Q = setup
+    obs.configure("on")
+    obs.REGISTRY.reset()            # deterministic reservoirs for p50s
+    path = str(tmp_path / "store")
+    snap.spill(path)
+    paged = LIMSSnapshot.load(path, store=True, cache_pages=8, device="cpu")
+    replicas = ReplicaSet(paged, n_replicas=4)
+    router = PlanRouter(replicas)
+    mon = Monitor(interval=3600.0,
+                  detectors=[HeatSkewDetector(trigger=1.5, clear=1.15,
+                                              persistence=2)])
+    daemon = MonitorDaemon(mon, lambda: router, cooldown_ticks=2)
+    ids_ref, ds_ref = QueryExecutor(snap).knn_query_batch(Q, 5)
+
+    def spread(owner):
+        counts = np.bincount(owner, minlength=4)
+        return counts.max() / max(counts.mean(), 1e-12)
+
+    # baseline traffic, balanced ownership: no finding should fire
+    router.knn_query_batch(Q, 5)
+    mon.tick()
+    assert daemon.events() == []
+
+    # inject placement drift: replica 0 "owns" every cluster while the
+    # page-cache heat stays spread across clusters
+    replicas.set_ownership(np.zeros(paged.K, np.int64))
+    assert spread(replicas.owner) == pytest.approx(4.0)
+    found = []
+    for _ in range(4):
+        ids, ds = router.knn_query_batch(Q, 5)
+        assert np.array_equal(ids, ids_ref)         # exactness under drift
+        assert np.array_equal(ds, ds_ref)
+        found.extend(mon.tick())
+
+    drift = [f for f in found if f.detector == "heat_skew" and not f.cleared]
+    assert drift, "skewed heat must produce a heat-drift HealthFinding"
+    assert drift[0].value == pytest.approx(4.0)     # all heat on replica 0
+    rebal = [e for e in daemon.events() if e["action"] == "rebalance"]
+    assert rebal, "daemon must rebalance on the finding"
+    assert rebal[0]["tick"] == drift[0].tick        # acted the same tick
+    assert spread(replicas.owner) < 4.0
+    assert len(set(replicas.owner.tolist())) >= 2
+    for _ in range(6):
+        ids, ds = router.knn_query_batch(Q, 5)
+        assert np.array_equal(ids, ids_ref)         # still bit-identical
+        assert np.array_equal(ds, ds_ref)
+        mon.tick()
+    s = mon.store.get("router.replica_spread.p50")
+    assert s.last() is not None
+    # the series dipped while batches collapsed onto replica 0, then
+    # recovered once the daemon's rebalance took effect
+    assert min(s.values()) < s.last()
+    assert s.last() > 1.0
+    assert mon.store.get("router.heat_skew").last() < 1.5
+    assert paged.store.cache.pinned == 0
+
+
+def test_frontend_slo_accounting_and_monitor_integration(setup):
+    """The frontend records per-request completion latency against the
+    SLO target; metrics() exposes attainment; an explicit Monitor is
+    adopted (its daemon routed to the frontend's router) and stopped by
+    close(); a hopeless target turns every completion into a miss."""
+    X, ix, snap, Q = setup
+    obs.configure("on")
+    se = ServingEngine(ix, refresh_every=0, device="cpu")
+    mon = Monitor(interval=3600.0)
+    with se.frontend(max_batch=4, slo_ms=100.0, slo_target_ms=60_000.0,
+                     monitor=mon) as fe:
+        assert fe.monitor is mon and fe.daemon is not None
+        for j in range(6):
+            fe.knn_query(Q[j], 3)
+        m = fe.metrics()
+        assert m["slo_ok"] == 6 and m["slo_miss"] == 0
+        assert m["slo_attained"] == 1.0
+        assert m["slo_target_ms"] == 60_000.0
+        assert m["latency_ms_p50"] > 0.0
+        mon.tick()
+        assert fe.daemon._router_fn() is fe._router_obj is not None
+    assert not mon.running                          # close() stopped it
+    assert mon.store.get("frontend.request_latency_s.p50") is not None
+    assert mon.store.get("router.heat_skew") is not None
+
+    with se.frontend(max_batch=4, slo_ms=100.0,
+                     slo_target_ms=1e-9) as fe2:
+        fe2.knn_query(Q[0], 3)
+        m2 = fe2.metrics()
+        assert m2["slo_miss"] == 1 and m2["slo_attained"] == 0.0
 
 
 def test_executor_emits_observed_rank_error(setup):

@@ -3,8 +3,9 @@ points of its query path, on the CPU.
 
 Twins of ``tests/test_obs.py``'s registry, histogram, mode-gating,
 off-mode zero-allocation, trace-ring, profile and Prometheus / Chrome /
-JSON export tests (the paged, sharded and frontend cases wait for their
-slices).  Then the emit points against the reference: on the seeded
+JSON export tests, the report CLI's demo smoke (``--device cpu``) and
+the frontend's bounded metric memory.  Then the emit points against the
+reference: on the seeded
 index of ``tests/test_torch_executor.py`` (N = 2500, D = 6, K = 10), the
 port's ``QueryProfile`` for a range and a kNN batch gives the
 reference's kind, batch, k, rounds, host syncs, candidates and clusters
@@ -472,3 +473,51 @@ def test_planner_counters(env):
     ex.planner.eval_mask(plan.qf, 2 * env["rs"])
     assert obs.REGISTRY.counter("planner.plans_built").value == built + 1
     assert obs.REGISTRY.counter("planner.round_evals").value == evals + 1
+
+
+# --------------------------------------------- the report and the frontend
+def test_report_demo_smoke(tmp_path, capsys):
+    """The packaged reporter end to end on the CPU: the demo workload
+    (range, kNN and frontend traffic, a complete profile asserted
+    inside), the closed-loop drift demo, all three exports, and a health
+    report with at least one finding."""
+    from repro_torch.obs import report
+    out_json = str(tmp_path / "obs.json")
+    out_prom = str(tmp_path / "obs.prom")
+    out_trace = str(tmp_path / "obs.trace.json")
+    rc = report.main(["--demo", "--health", "--device", "cpu",
+                      "--json", out_json, "--prom", out_prom,
+                      "--trace", out_trace])
+    assert rc == 0
+    with open(out_json) as f:
+        doc = json.load(f)
+    assert doc["profiles"]
+    with open(out_prom) as f:
+        assert "lims_" in f.read()
+    with open(out_trace) as f:
+        assert json.load(f)["traceEvents"]
+    text = capsys.readouterr().out
+    assert "== LIMS index health ==" in text
+    assert "heat_skew:" in text and "rebalance" in text
+
+
+def test_frontend_soak_memory_bounded(env):
+    """10k batches' worth of metric accounting holds O(reservoir) state,
+    in the frontend's own histograms and in the registry's mirrors."""
+    from repro_torch.serving import ServingFrontend
+    obs.configure("on")
+    fe = ServingFrontend(env["port"], max_batch=8, slo_ms=1.0)
+    try:
+        fe.knn_query(env["Q"][0], 3)            # one real served request
+        for _ in range(9_999):
+            fe._obs_record(1, [1e-4])
+        m = fe.metrics()
+        assert m["batches"] == 10_000
+        cap = fe._wait_hist.cap
+        assert len(fe._wait_hist) <= cap
+        assert len(fe._size_hist) <= cap
+        assert m["queue_wait_ms_p50"] >= 0
+        assert len(obs.REGISTRY.histogram("frontend.queue_wait_s")) <= \
+            obs.REGISTRY.histogram("frontend.queue_wait_s").cap
+    finally:
+        fe.close()

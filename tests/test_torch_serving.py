@@ -13,8 +13,7 @@ identical (ids and f64 distances, ``atol=0``) and ``generation`` /
 concurrent query thread (bounded joins); the memory contract of the
 swap (a dropped generation is freed by reference counting alone);
 sharded serving on a CPU mesh (updates, refresh, ``from_spill``) held
-to the host index; and the ``NotImplementedError`` of the frontend,
-which waits for its slice.  The
+to the host index, with a request frontend in front of it.  The
 paged engine (``storage="paged"``) replays the same sequence against
 the reference's paged engine, with equal manifests after every
 refresh, and serves an async refresh beside a query thread.
@@ -395,7 +394,9 @@ def test_later_slices_raise(monkeypatch, tmp_path):
     """Sharded serving (A9) serves: ``ServingEngine(sharded=True,
     mesh=...)`` and ``from_spill(..., mesh=...)`` answer as the host
     does, and ``make_executor(..., sharded=True)`` gives a
-    ``ShardedExecutor``.  The request frontend (A10) still raises."""
+    ``ShardedExecutor``.  The request frontend (A10) serves too: over
+    the sharded engine it routes to plain replicas of the padded
+    snapshot and answers as the host index does."""
     X, ix = _index(600, 43, K=3)
     monkeypatch.setenv("REPRO_STORAGE", "")
     mesh = Mesh((torch.device(CPU),) * 2)
@@ -408,8 +409,19 @@ def test_later_slices_raise(monkeypatch, tmp_path):
         h_ids, h_ds, _ = ix.range_query(q, r)
         assert set(map(int, ids)) == set(map(int, h_ids))
         np.testing.assert_allclose(np.sort(ds), np.sort(h_ds), atol=0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        se.frontend()
+    with se.frontend(n_replicas=2, max_batch=8, slo_ms=5.0) as fe:
+        for q, r in zip(Q[:3], rs[:3]):
+            ids, ds = fe.range_query(q, r)
+            h_ids, h_ds, _ = ix.range_query(q, r)
+            assert set(map(int, ids)) == set(map(int, h_ids))
+            np.testing.assert_allclose(np.sort(ds), np.sort(h_ds), atol=0)
+        ids, ds = fe.knn_query(Q[4], 4)
+        h_ids, h_ds, _ = ix.knn_query(Q[4], 4)
+        np.testing.assert_allclose(ds, np.sort(h_ds), atol=0)
+        assert set(map(int, ids)) == set(map(int, h_ids))
+        reps = fe._router_obj.replicas
+        assert reps.snapshot is se.snapshot and reps.K == 4
+        assert all(type(m.ex) is QueryExecutor for m in reps.members)
     ex = make_executor(se.snapshot, sharded=True, mesh=mesh)
     assert isinstance(ex, ShardedExecutor)
     assert make_executor(se.snapshot).snap is se.snapshot
