@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's exact query path, index builder,
-serving lifecycle, paged storage tier, cluster-sharded executor,
-replica-set serving frontend and dense-LM serving path on one CUDA card
-(or more, for the sharded phase's mesh and the frontend's replicas).
+"""Drive the PyTorch/CUDA port's exact query path, device-resident kNN
+loop, index builder, serving lifecycle, paged storage tier,
+cluster-sharded executor, replica-set serving frontend and dense-LM
+serving path on one CUDA card (or more, for the sharded phase's mesh
+and the frontend's replicas).
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only]
@@ -10,15 +11,17 @@ replica-set serving frontend and dense-LM serving path on one CUDA card
 Phases, each printing lines that start with its name:
 
 1. device   the card's name, count and power limit (nvidia-smi);
-2. build    nvcc builds the eleven kernel entry points from the six
-            sources in
+2. build    nvcc builds the twelve kernel entry points (and the kNN
+            loop's graph functions) from the seven sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
             then again with -Xptxas -v for their register,
             shared-memory and spill use;
 3. main     GaussMix (n rows, d = 8, seed 0) -> host LIMSIndex(K=64, m=3,
             N=20, degree 8) -> LIMSSnapshot.build on the card ->
             range (0.01% selectivity) and kNN (k = 10) batches of 64
-            queries, with REPRO_COMPACT on and off.  Every result must
+            queries, with REPRO_COMPACT on and off, the kNN batches by
+            the device-resident loop (REPRO_KNN_DRIVER's auto on a card;
+            every kNN line prints its driver).  Every result must
             equal the host index's, ids and f64 distances; one batch of
             each kind is checked against an f64 brute-force scan.  The
             launch counters are zeroed just before the snapshot build
@@ -57,6 +60,31 @@ Phases, each printing lines that start with its name:
             plain versions bit for bit (range_filter: mask and counts),
             with bounds at 2-byte points; then f32 once more (turns
             f32, bf16, f16, f32), so the host's drift shows;
+6b. knn_loop the device-resident kNN loop (REPRO_KNN_DRIVER=loop: one
+            CUDA graph a batch, a WHILE conditional node over one
+            captured round, built by csrc/graph_loop.cu) on main's
+            snapshot: (a) main's 8 kNN batches through a fresh
+            QueryExecutor a turn, turns loop, rounds, loop, rounds, each
+            from an empty cache: answers equal to the host index's; q/s,
+            rounds and host_syncs a batch, graph captures and their ms,
+            launches (loop: pdist_rankeval = the rounds, knn_loop_cond =
+            the rounds, pdist = 2 a batch; rounds: pdist_rankeval = the
+            rounds), memory_allocated / memory_reserved after each
+            batch; peak reserved under the loop at most rounds' + 4 GB,
+            the loop's second turn within 64 MB of its first, reserved
+            back to its start once the executor is dropped; (b) 16
+            queries with the snapshot's filter margin widened to 8 (the
+            largest k-th distance + BALL_ABS), a looser certified bound
+            that forces >= 3 rounds, beside a 1-round batch: equal
+            device-to-host copies (torch.profiler); (c) batch sizes 64
+            down to 1 on one executor: 7 graph keys, 4 kept, reserved
+            no higher after the first four; pdist_rankeval (64, G) and
+            pdist (64, P) bit for bit against their plain versions on
+            the loop's buffers; (d) ShardedExecutor on cuda:0 named 4
+            times, turns loop, rounds over 2 batches (a CUT), the same
+            checks with launches 4 x; then knn_loop_cond's kernel row
+            (the condition alone in a WHILE graph against its plain
+            version, all open / all done, max_rounds 1, 3, 64);
 7. builder  the device index builder (LIMSIndex(backend="device")) at
             the same n: (a) GaussMix L2, held against main's host index
             (structures, then every range and kNN batch through a
@@ -156,8 +184,11 @@ Phases, each printing lines that start with its name:
             distance equal to main's host answers, q/s of each turn; the
             counters zeroed before turns 1 and 2 and read after: each of
             pdist, range_filter and pdist_rankeval launched 4 x as often
-            in the sharded turn, kNN rounds and host_syncs equal batch
-            for batch, the launches tallied by (nq, np); (b) 3 shards
+            in the sharded turn, kNN rounds equal batch for batch and
+            host_syncs where both turns ran one driver (auto: the loop
+            on one card, the host-driven rounds on a mesh over several,
+            where REPRO_KNN_DRIVER=loop must raise), the launches
+            tallied by (nq, np); (b) 3 shards
             (K padded 64 -> 66), (c) REPRO_ROWS_DTYPE=bf16 with
             REPRO_COMPACT=on at 4 shards (no 2-byte entry point may
             launch: the sharded filter streams f32 rows), each over 2 of
@@ -261,6 +292,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -328,6 +360,14 @@ SHARDS, SHARDS_PADDED, SHARDED_CUT, SHARDED_TURN_CUT = 4, 3, 2, 2
 FRONTEND_REPLICAS, FRONTEND_SLO_MS, FRONTEND_BATCHES = 4, 5.0, 8
 FRONTEND_MIXED_CUT, FRONTEND_TURN_CUT, FRONTEND_MAX_TICKS = 2, 2, 8
 FRONTEND_JOIN_S = 300.0
+# knn_loop: the loop's memory bound over the host-driven rounds (peak
+# reserved), (b)'s forced batch size, (c)'s batch sizes (7 graph keys
+# against the 4 an executor keeps), and (d)'s cut of main's batches
+LOOP_MEMORY_SLACK = 4 << 30
+LOOP_TURN_SLACK = 64 << 20      # allocator rounding between equal turns
+LOOP_FORCED_B = 16
+LOOP_KEYS = (64, 32, 16, 8, 4, 2, 1)
+LOOP_SHARDED_CUT = 2
 # kernels of the query path; pdist_l1 and pdist_linf run in the builder
 MAIN_KERNELS = ("pdist", "rankeval", "range_filter", "pdist_rankeval")
 # the Pallas kernel (or kernel body) each CUDA kernel replaces
@@ -343,6 +383,8 @@ REPLACES = {
     "pdist_l1": "src/repro/kernels/pdist.py:36",
     "pdist_linf": "src/repro/kernels/pdist.py:43",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    # not a Pallas kernel: the cond of the reference's compiled kNN loop
+    "knn_loop_cond": "src/repro/core/executor.py:178",
 }
 
 LM_ARCH = "llama3-8b"
@@ -522,15 +564,23 @@ def same_knn(got, want) -> bool:
 
 
 def shape_spy(names=("pdist", "range_filter")):
-    """({name: {}} for ``names``, an unstarted patch of ``_cuda.launch``)
-    that tallies each launch of those pdist / range_filter /
-    pdist_rankeval entry points by its (nq, np), the C arguments after
-    the pointers (pdist_rankeval: (B, G)); under a lock, as the router
-    launches from one thread per replica."""
+    """({name: {}} for ``names``, an unstarted patch of ``_cuda.launch``
+    and ``_cuda.add_launches``) that tallies each launch of those pdist
+    / range_filter / pdist_rankeval entry points by its (nq, np), the C
+    arguments after the pointers (pdist_rankeval: (B, G)); under a lock,
+    as the router launches from one thread per replica.  A launch made
+    inside ``_cuda.recording()`` (the kNN loop's warm-up round and
+    capture) is not a launch that runs: its shape is kept with the
+    recording and tallied once for each replayed round that
+    ``add_launches`` counts for it."""
     from repro_torch.kernels import _cuda
     shapes = {name: {} for name in names}
-    real_launch = _cuda.launch
+    recorded = {}           # id(tally.kernels) -> (tally.kernels, shapes)
+    real_launch, real_add = _cuda.launch, _cuda.add_launches
     lock = threading.Lock()
+
+    def tally(name, shape, n):
+        shapes[name][shape] = shapes[name].get(shape, 0) + n
 
     def spy(name, *args, **kw):
         real_launch(name, *args, **kw)
@@ -541,10 +591,22 @@ def shape_spy(names=("pdist", "range_filter")):
                 nq, npts = args[5:7]
             else:
                 nq, npts = args[3:5]
+            rec = _cuda.current_recording()
             with lock:
-                shapes[name][nq, npts] = shapes[name].get((nq, npts), 0) + 1
+                if rec is None:
+                    tally(name, (nq, npts), 1)
+                else:
+                    recorded.setdefault(id(rec.kernels), (rec.kernels, []))[
+                        1].append((name, (nq, npts)))
 
-    return shapes, mock.patch.object(_cuda, "launch", spy)
+    def add_spy(kernels, times):
+        real_add(kernels, times)
+        with lock:
+            for name, shape in recorded.get(id(kernels), (None, ()))[1]:
+                tally(name, shape, times)
+
+    return shapes, mock.patch.multiple(_cuda, launch=spy,
+                                       add_launches=add_spy)
 
 
 def phase_main(X, ix, batches, snap_cls, executor_cls):
@@ -589,7 +651,8 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
               f"kNN {r['knn']:.2f} q/s (B={B}, k={K_NN}, wall clock incl. "
               f"host refinement); candidates/query range "
               f"{r['range_cand']:.2f} kNN {r['knn_cand']:.2f}; kNN "
-              f"rounds/batch={r['rounds']} host_syncs/batch={r['syncs']}; "
+              f"driver={r['driver']} rounds/batch={r['rounds']} "
+              f"host_syncs/batch={r['syncs']}; "
               f"last compact gather={r['compact']}", flush=True)
     sync()
     spying.stop()
@@ -600,6 +663,11 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     for name in MAIN_KERNELS:
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
+    check(rates["on"]["driver"] == rates["off"]["driver"] == "loop"
+          and counts["knn_loop_cond"] == sum(rates["on"]["rounds"])
+          + sum(rates["off"]["rounds"]),
+          "main: the kNN batches did not all run the device loop (auto "
+          "on a card), or knn_loop_cond's launches are not the rounds")
     for name, by in shapes.items():
         check(sum(by.values()) == counts[name],
               f"{name}: the shape tally misses launches")
@@ -633,7 +701,7 @@ def query_batches(ex, batches, host_range, host_knn, tag: str) -> dict:
     (the rows refinement scans), the kNN rounds and host syncs, and the
     last compact gather."""
     nq = len(batches) * B
-    out = {"rounds": [], "syncs": []}
+    out = {"rounds": [], "syncs": [], "drivers": set()}
     cand = []
     t0 = time.perf_counter()
     for (Q, rs), want in zip(batches, host_range):
@@ -652,6 +720,7 @@ def query_batches(ex, batches, host_range, host_knn, tag: str) -> dict:
         ids, ds = ex.knn_query_batch(Q, K_NN)
         out["rounds"].append(ex.last_knn["rounds"])
         out["syncs"].append(ex.last_knn["host_syncs"])
+        out["drivers"].add(ex.last_knn["driver"])
         cand.append(ex.last_profile.candidates_per_query)
         for b in range(B):
             check(np.array_equal(ds[b], want[b][1])
@@ -660,6 +729,7 @@ def query_batches(ex, batches, host_range, host_knn, tag: str) -> dict:
                   f"query {b})")
     out["knn"] = nq / (time.perf_counter() - t0)
     out["knn_cand"] = float(np.mean(cand))
+    out["driver"] = "+".join(sorted(out["drivers"])) or "none"
     return out
 
 
@@ -874,6 +944,345 @@ def phase_kernels(ix, snap, batches, counts, shapes):
         + sass_instructions("pdist_rankeval",
                             f"pdist_rankeval_kernelILi{C}E"))
     return out
+
+
+# ---------------------------------------------------------------- knn_loop
+def d2h_copies(fn) -> int:
+    """Device-to-host copies one call of ``fn`` makes (torch.profiler's
+    memcpy records)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(e.count for e in prof.key_averages()
+               if "DtoH" in e.key or "Device -> Host" in e.key)
+
+
+def mem_now() -> tuple[int, int]:
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def fresh_memory() -> tuple[int, int]:
+    """(allocated, reserved) after a collection and an empty cache: what
+    the process holds with no cached blocks."""
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return mem_now()
+
+
+def loop_turns(make_ex, batches, host_knn, tag: str, drivers) -> list:
+    """kNN batches through a fresh executor a turn (``make_ex()``), the
+    turns under ``drivers`` in order: every answer equal to main's host
+    answers; q/s (all batches, the first's capture included), rounds,
+    host syncs, launches, the loop's captures and their ms, and
+    memory_allocated / memory_reserved after each batch, peak reserved
+    over the turn and reserved after the executor is dropped (each turn
+    starts from an empty cache).  Returns each turn's numbers."""
+    from repro_torch.kernels import _cuda
+    out = []
+    for i, driver in enumerate(drivers):
+        os.environ["REPRO_KNN_DRIVER"] = driver
+        base = fresh_memory()
+        ex = make_ex()
+        _cuda.reset_launches()
+        rounds, syncs, mem, stages = [], [], [], []
+        t0 = time.perf_counter()
+        for (Q, _), want in zip(batches, host_knn):
+            ids, ds = ex.knn_query_batch(Q, K_NN)
+            for b in range(len(Q)):
+                check(same_knn((ids[b], ds[b]), want[b]),
+                      f"knn_loop: {tag} turn {i + 1} ({driver}): query {b} "
+                      f"differs from the host index")
+            check(ex.last_knn["driver"] == driver,
+                  f"knn_loop: {tag} ran {ex.last_knn['driver']}, not "
+                  f"{driver}")
+            rounds.append(ex.last_knn["rounds"])
+            syncs.append(ex.last_knn["host_syncs"])
+            stages.append(ex.last_profile.stages)
+            sync()
+            mem.append(mem_now())
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_reserved()
+        captures = list(ex._loop.captures) if ex._loop is not None else []
+        del ex
+        after = fresh_memory()
+        r = SimpleNamespace(driver=driver, qps=len(batches) * len(
+            batches[0][0]) / secs, rounds=rounds, syncs=syncs, mem=mem,
+            peak=peak, base=base, after=after, counts=counts,
+            captures=captures)
+        out.append(r)
+        print(f"knn_loop: {tag} turn {i + 1} {driver}: {len(batches)} kNN "
+              f"batches of {len(batches[0][0])} (k={K_NN}) {r.qps:.2f} q/s "
+              f"(wall clock incl. capture and host refinement); "
+              f"rounds/batch={rounds} host_syncs/batch={syncs}; graph "
+              f"captures {len(captures)} "
+              f"({', '.join(f'{c * 1e3:.1f}' for c in captures)} ms); "
+              f"launches {json.dumps(counts)}; profile stages, mean ms a "
+              f"batch after the first: " + " ".join(
+                  f"{k}={np.mean([st[k] for st in stages[1:]]) * 1e3:.1f}"
+                  for k in stages[0]), flush=True)
+        print(f"knn_loop: {tag} turn {i + 1} {driver}: memory (allocated, "
+              f"reserved) before {base}, after each batch "
+              f"{[m for m in mem]}, peak reserved {peak}, after the "
+              f"executor is dropped {after}", flush=True)
+    return out
+
+
+def loop_launches_hold(turns, S: int, tag: str) -> None:
+    """Replays counted: under the loop, pdist_rankeval = S x the rounds,
+    knn_loop_cond = the rounds and pdist = 2 S a batch (the planner's
+    pivots and the seed); under rounds, pdist_rankeval = S x the
+    rounds."""
+    for t in turns:
+        n, R = t.counts, sum(t.rounds)
+        want = {"pdist_rankeval": S * R,
+                "pdist": 2 * S * len(t.rounds)}
+        if t.driver == "loop":
+            want["knn_loop_cond"] = R
+            check(set(t.syncs) == {2}, f"knn_loop: {tag} loop host_syncs "
+                  f"{t.syncs}, not 2 a batch")
+        for name, v in want.items():
+            check(n.get(name, 0) == v, f"knn_loop: {tag} {t.driver}: "
+                  f"{name} launched {n.get(name, 0)} times, not {v}")
+        check(t.after[1] <= t.base[1], f"knn_loop: {tag} {t.driver}: "
+              f"reserved {t.after[1]} after the executor was dropped, above "
+              f"the {t.base[1]} before it")
+
+
+def loop_memory_holds(turns, tag: str) -> int:
+    """Peak reserved under the loop <= under rounds + LOOP_MEMORY_SLACK,
+    and no growth from the first loop turn to the second.  Returns the
+    loop's excess over rounds."""
+    loop = [t.peak - t.base[1] for t in turns if t.driver == "loop"]
+    rounds = [t.peak - t.base[1] for t in turns if t.driver == "rounds"]
+    excess = max(loop) - max(rounds)
+    check(excess <= LOOP_MEMORY_SLACK, f"knn_loop: {tag}: peak reserved "
+          f"under the loop {loop} exceeds rounds' {rounds} by {excess} B")
+    check(loop[-1] <= loop[0] + LOOP_TURN_SLACK, f"knn_loop: {tag}: the "
+          f"loop's peak grew from turn to turn: {loop}")
+    print(f"knn_loop: {tag}: peak reserved over each turn's start, loop "
+          f"{loop} B, rounds {rounds} B: loop - rounds = {excess} B <= "
+          f"{LOOP_MEMORY_SLACK} B; the loop's second turn within "
+          f"{LOOP_TURN_SLACK} B of its first",
+          flush=True)
+    return excess
+
+
+def loop_cond_row(launches: int) -> dict:
+    """knn_loop_cond's row: the condition alone in a WHILE graph at
+    main's B, held to its plain version (rounds and flag, all open and
+    all done, max_rounds 1 and 64), timed per round: the graph at
+    max_rounds 64 (CUDA events, one launch) / 64 against the plain
+    version's 64 rounds on the card / 64."""
+    from repro_torch.kernels.graph_loop import (WhileGraph, loop_cond_plain,
+                                                loop_rounds,
+                                                loop_rounds_plain)
+    err = 0
+    for fill in (False, True):
+        for mr in (1, 3, 64):
+            done = torch.full((B,), fill, dtype=torch.bool, device=DEVICE)
+            got = loop_rounds(done, mr)
+            want = loop_rounds_plain(done, mr)
+            err = max(err, *(abs(int(g) - int(w))
+                             for g, w in zip(got, want)))
+    check(err == 0, "knn_loop: knn_loop_cond differs from its plain version")
+    R = 64
+    done = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    rounds = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    flag = torch.zeros_like(rounds)
+    graph = WhileGraph(None, done, rounds, R, flag)
+
+    def run_graph():
+        rounds.zero_()
+        graph.launch()
+
+    def run_plain():
+        rounds.zero_()
+        for _ in range(R):
+            loop_cond_plain(done, rounds, R)
+
+    ms = time_ms(run_graph, 20) / R
+    plain_ms = time_ms(run_plain, 5) / R
+    check(int(rounds) == R, "knn_loop: the timed WHILE graph ran "
+          f"{int(rounds)} rounds, not {R}")
+    graph.close()
+    b_ms, by = bound(B + 4 * 3, 0)
+    print(f"kernels: knn_loop_cond (one thread; the condition of the "
+          f"loop's WHILE node) at B={B} max_abs_err={err} ms={ms:.5f} a "
+          f"round (the graph at max_rounds {R}, {R} rounds) plain_ms="
+          f"{plain_ms:.5f} a round bound_ms={b_ms:.8f} ({by}) "
+          f"library_ms=None", flush=True)
+    return {"name": "knn_loop_cond", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/graph_loop.cu",
+            "replaces": REPLACES["knn_loop_cond"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def forced_rounds_batch(snap, batches, host_knn) -> None:
+    """(b) a batch of LOOP_FORCED_B queries forced to >= 3 rounds on
+    main's snapshot: its filter plane set to its own f32 rows with the
+    margin widened to 8 (max k-th distance + BALL_ABS) (a looser bound
+    stays certified; round 2's radius stays under the k-th distance plus
+    that margin), beside a 1-round batch of as many queries on main's
+    snapshot: answers equal to the host's, and device-to-host copies
+    (torch.profiler) equal for the two batches under the loop, each
+    after its graph's capture; the host-driven rounds' copies of the
+    same two batches printed beside them."""
+    from repro_torch.core import QueryExecutor
+    from repro_torch.core.planner import _BALL_ABS
+    os.environ["REPRO_KNN_DRIVER"] = "loop"
+    Q, want = batches[0][0][:LOOP_FORCED_B], host_knn[0][:LOOP_FORCED_B]
+    eps = 8.0 * (max(float(w[1][-1]) for w in want) + _BALL_ABS)
+    wide = dataclasses.replace(snap, rows_lp=snap.rows, lp_eps=eps)
+    seen, host_rounds = {}, {}
+    for tag, ex in (("1-round", QueryExecutor(snap)),
+                    ("forced", QueryExecutor(wide))):
+        ex.knn_query_batch(Q, K_NN)             # the capture
+        t0 = time.perf_counter()
+        copies = d2h_copies(lambda: ex.knn_query_batch(Q, K_NN))
+        secs = time.perf_counter() - t0
+        ids, ds = ex.knn_query_batch(Q, K_NN)
+        for b in range(len(Q)):
+            check(same_knn((ids[b], ds[b]), want[b]),
+                  f"knn_loop: (b) {tag} query {b} differs from the host")
+        seen[tag] = (copies, ex.last_knn["rounds"],
+                     ex.last_profile.candidates_per_query, secs)
+        os.environ["REPRO_KNN_DRIVER"] = "rounds"
+        host_rounds[tag] = d2h_copies(lambda: ex.knn_query_batch(Q, K_NN))
+        check(ex.last_knn["rounds"] == seen[tag][1],
+              f"knn_loop: (b) {tag}: rounds differ between the drivers")
+        os.environ["REPRO_KNN_DRIVER"] = "loop"
+        del ex
+    check(seen["1-round"][1] == 1 and seen["forced"][1] >= 3,
+          f"knn_loop: (b) rounds {seen}")
+    check(seen["1-round"][0] == seen["forced"][0] > 0,
+          f"knn_loop: (b) device-to-host copies differ: {seen}")
+    print(f"knn_loop: (b) {LOOP_FORCED_B} of batch 0's queries: main's "
+          f"snapshot {seen['1-round'][1]} round, "
+          f"{seen['1-round'][0]} device-to-host copies, "
+          f"{seen['1-round'][2]:.1f} candidates/query, "
+          f"{seen['1-round'][3] * 1e3:.1f} ms (profiled); margin widened "
+          f"to {eps:.6f}: {seen['forced'][1]} rounds, "
+          f"{seen['forced'][0]} device-to-host copies, "
+          f"{seen['forced'][2]:.1f} candidates/query, "
+          f"{seen['forced'][3] * 1e3:.1f} ms; answers equal to the host; "
+          f"REPRO_KNN_DRIVER=rounds on the same batches: "
+          f"{host_rounds['1-round']} and {host_rounds['forced']} "
+          f"device-to-host copies", flush=True)
+
+
+def loop_keys(snap, batches, host_knn) -> None:
+    """(c) one executor through LOOP_KEYS batch buckets of batch 0
+    (64 down to 1 queries: 7 graph keys, 4 kept): reserved memory after
+    each, none above the first four's largest (the card's buffers and
+    pool hold the largest key's needs)."""
+    from repro_torch.core import QueryExecutor
+    os.environ["REPRO_KNN_DRIVER"] = "loop"
+    fresh_memory()
+    ex = QueryExecutor(snap)
+    Q, want = batches[0][0], host_knn[0]
+    reserved = []
+    for n in LOOP_KEYS:
+        ids, ds = ex.knn_query_batch(Q[:n], K_NN)
+        for b in range(n):
+            check(same_knn((ids[b], ds[b]), want[b]),
+                  f"knn_loop: (c) B={n} query {b} differs from the host")
+        sync()
+        reserved.append(torch.cuda.memory_reserved())
+        if n == B:
+            loop_kernels_vs_plain(ex)
+    graphs = len(ex._loop.entries)
+    check(graphs <= 4 and len(ex._loop.captures) == len(LOOP_KEYS),
+          f"knn_loop: (c) {graphs} graphs kept, "
+          f"{len(ex._loop.captures)} captures")
+    check(max(reserved[4:]) <= max(reserved[:4]),
+          f"knn_loop: (c) reserved grew with the keys: {reserved}")
+    print(f"knn_loop: (c) batch sizes {list(LOOP_KEYS)} on one executor: "
+          f"{len(ex._loop.captures)} captures, {graphs} graphs kept (one "
+          f"pool on the card: {ex._loop.card.graphs} graph(s)); reserved "
+          f"after each {reserved}: no growth past the first four keys",
+          flush=True)
+    del ex
+
+
+def loop_kernels_vs_plain(ex) -> None:
+    """pdist_rankeval and pdist at the loop's shapes, on the inputs the
+    card's buffers hold after ``ex``'s batch of B (its queries, the
+    radii the loop ended at): bit for bit against their plain
+    versions."""
+    from repro_torch.core.planner import _R_ABS, _R_REL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import pdist_rankeval_plain
+    from repro_torch.kernels.pdist import pdist_plain
+    snap, card = ex.snap, ex._loop.card
+    with card.lock:
+        st = card.buffers(ex, B)
+        q, rf = st.qf.clone(), st.r.clone()
+    d, G = snap.d, snap.K * snap.m
+    args = (q, snap.pivots.reshape(G, d), snap.coef.reshape(G, -1),
+            snap.model_lo.reshape(-1), snap.model_hi.reshape(-1),
+            snap.model_n.reshape(-1), rf * (1.0 + _R_REL) + _R_ABS,
+            snap.n_rings)
+    fused, plain = ops.pdist_rankeval(*args), pdist_rankeval_plain(*args)
+    for f, p in zip(fused, plain):
+        check(same_bits(f, p), "knn_loop: pdist_rankeval differs from its "
+              "plain version at the loop's shape")
+    rows = snap.rows.reshape(-1, d)
+    check(torch.equal(ops.pdist(q, rows), pdist_plain(q, rows)),
+          "knn_loop: pdist differs from its plain version at the seed's "
+          "shape")
+    print(f"knn_loop: pdist_rankeval ({B}, G={G}) on the loop's queries and "
+          f"final radii, and pdist ({B}, {rows.shape[0]}) on its queries: "
+          f"bit for bit equal to their plain versions", flush=True)
+
+
+def phase_knn_loop(snap, batches, host_knn, counts) -> dict:
+    """The device-resident kNN loop (module doc, parts (a)-(d)).
+    Returns knn_loop_cond's kernel row."""
+    from repro_torch.core import QueryExecutor, ShardedExecutor
+    from repro_torch.sharding import Mesh
+    t_phase = time.perf_counter()
+    has_if = hasattr(torch._C, "_CUDAGraph") and hasattr(
+        torch._C._CUDAGraph, "begin_capture_to_if_node")
+    print(f"knn_loop: torch {torch.__version__} (CUDA {torch.version.cuda}):"
+          f" CUDAGraph.begin_capture_to_if_node "
+          f"{'present' if has_if else 'absent'}; the loop runs as a WHILE "
+          f"conditional node built by csrc/graph_loop.cu over one captured "
+          f"round", flush=True)
+    try:
+        turns = loop_turns(lambda: QueryExecutor(snap), batches, host_knn,
+                           "(a) single", ("loop", "rounds", "loop",
+                                          "rounds"))
+        loop_launches_hold(turns, 1, "(a) single")
+        loop_memory_holds(turns, "(a) single")
+        loop, rounds = turns[0::2], turns[1::2]
+        print(f"knn_loop: (a) q/s loop {[round(t.qps, 2) for t in loop]} "
+              f"rounds {[round(t.qps, 2) for t in rounds]} (turns 1, 3 and "
+              f"2, 4; no gain claimed); host_syncs/batch loop 2, rounds "
+              f"{sorted(set(rounds[0].syncs))}", flush=True)
+        forced_rounds_batch(snap, batches, host_knn)
+        loop_keys(snap, batches, host_knn)
+        mesh = Mesh((torch.device(DEVICE, 0),) * SHARDS)
+        sel = batches[:LOOP_SHARDED_CUT]
+        print(f"knn_loop: CUT: (d) runs {len(sel)} of main's "
+              f"{len(batches)} kNN batches a turn", flush=True)
+        turns = loop_turns(lambda: ShardedExecutor(snap, mesh=mesh), sel,
+                           host_knn, f"(d) sharded {mesh_name(mesh)}",
+                           ("loop", "rounds"))
+        loop_launches_hold(turns, SHARDS, "(d) sharded")
+        loop_memory_holds(turns, "(d) sharded")
+    finally:
+        os.environ.pop("REPRO_KNN_DRIVER", None)
+    row = loop_cond_row(counts["knn_loop_cond"])
+    print(f"knn_loop: all parts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return row
 
 
 def phase_lp(ix, batches, host_range, host_knn, rates) -> list:
@@ -1600,7 +2009,8 @@ def serving_sync(X, ix, batches, rng, deletable, mem) -> None:
           f"{n_mut / t_del:.1f} (refreshes excluded); refresh "
           f"s/generation {t_refresh / SERVE_ROUNDS:.4f}; engine range "
           f"{nq / t_range:.2f} q/s, kNN {nq / t_knn:.2f} q/s (B={B}, "
-          f"k={K_NN}, wall clock incl. host refinement)", flush=True)
+          f"k={K_NN}, kNN driver={engine.executor.last_knn['driver']}, "
+          f"wall clock incl. host refinement)", flush=True)
     if FOUND_SAMPLE < SERVE_ROWS:
         print(f"serving: CUT: (a)'s r = 1e-9 queries cover {FOUND_SAMPLE} "
               f"of each round's {SERVE_ROWS} inserted and {SERVE_ROWS} "
@@ -1840,8 +2250,10 @@ def serving_obs(engine, batches) -> None:
     mean = {m: np.mean(v, axis=0) for m, v in qps.items()}
     print(f"serving: (e) REPRO_OBS on: range {mean['on'][0]:.2f} q/s, kNN "
           f"{mean['on'][1]:.2f} q/s; off: range {mean['off'][0]:.2f} q/s, "
-          f"kNN {mean['off'][1]:.2f} q/s (after a warm-up batch of each "
-          f"kind, turns on, off, off, on; batch 0 of each kind a turn; per "
+          f"kNN {mean['off'][1]:.2f} q/s (kNN driver "
+          f"{engine.executor.last_knn['driver']}; after a warm-up batch of "
+          f"each kind, turns on, off, off, on; batch 0 of each kind a turn; "
+          f"per "
           f"turn {qps}); _emit_profile a batch on: range "
           f"{np.mean(emit['on', 'range']) * 1e3:.2f} ms, kNN "
           f"{np.mean(emit['on', 'knn']) * 1e3:.2f} ms, off: range "
@@ -2330,8 +2742,8 @@ def sharded_turns(sx, one, batches, host_range, host_knn) -> None:
         print(f"sharded: (a) turn {i + 1} {tag} ({n} + {n} batches) range "
               f"{r['range']:.2f} q/s kNN {r['knn']:.2f} q/s (B={B}, "
               f"k={K_NN}, REPRO_COMPACT=off, wall clock incl. host "
-              f"refinement); kNN rounds/batch={r['rounds']} "
-              f"host_syncs/batch={r['syncs']}; launches "
+              f"refinement); kNN driver={r['driver']} rounds/batch="
+              f"{r['rounds']} host_syncs/batch={r['syncs']}; launches "
               f"{json.dumps(counts)}", flush=True)
     (r_sh, c_sh, shapes), (r_one, c_one, _) = seen[0], seen[1]
     for name in ("pdist", "range_filter", "pdist_rankeval"):
@@ -2341,9 +2753,10 @@ def sharded_turns(sx, one, batches, host_range, host_knn) -> None:
               f"sharded: {name} launched {c_sh.get(name, 0)} times, not "
               f"{S} x the single-device {c_one.get(name, 0)}")
     check(r_sh["rounds"] == r_one["rounds"]
-          and r_sh["syncs"] == r_one["syncs"],
-          "sharded: kNN rounds or host_syncs differ from the single-device "
-          "executor's")
+          and (r_sh["syncs"] == r_one["syncs"]
+               or r_sh["driver"] != r_one["driver"]),
+          "sharded: kNN rounds, or host_syncs under one driver, differ "
+          "from the single-device executor's")
     for name, by in shapes.items():
         check(sum(by.values()) == c_sh[name],
               f"sharded: {name}: the shape tally misses launches")
@@ -2355,7 +2768,9 @@ def sharded_turns(sx, one, batches, host_range, host_knn) -> None:
         return seen[a][0][kind] / seen[b][0][kind]
 
     print(f"sharded: (a) launches per kernel = {S} x the single-device "
-          f"run's; equal rounds and host_syncs; q/s sharded / single: "
+          f"run's; equal rounds, and host_syncs where the drivers are "
+          f"equal (sharded {r_sh['driver']}, single {r_one['driver']}); "
+          f"q/s sharded / single: "
           f"turns 1/2 range {ratio(0, 1, 'range'):.4f} kNN "
           f"{ratio(0, 1, 'knn'):.4f}, turns 4/3 range "
           f"{ratio(3, 2, 'range'):.4f} kNN {ratio(3, 2, 'knn'):.4f}",
@@ -2479,6 +2894,18 @@ def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
     shard_kernels_vs_plain(sx, *batches[0])
     one = QueryExecutor(res)
     sharded_turns(sx, one, batches, host_range, host_knn)
+    if len({d.index for d in mesh.devices}) > 1:
+        # auto took the host-driven rounds here; the loop refuses
+        os.environ["REPRO_KNN_DRIVER"] = "loop"
+        try:
+            sx.knn_query_batch(batches[0][0], K_NN)
+        except RuntimeError as e:
+            print(f"sharded: REPRO_KNN_DRIVER=loop on {mesh_name(mesh)} "
+                  f"raises: {e}", flush=True)
+        else:
+            fail("sharded: the kNN loop ran on a mesh over several cards")
+        finally:
+            os.environ.pop("REPRO_KNN_DRIVER", None)
     sharded_split({f"S={sx.n_shards}": sx, "single": one}, *batches[0])
     del sx, one
 
@@ -2492,8 +2919,8 @@ def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
     r = query_batches(sx3, sel, host_range, host_knn, "sharded: (b)")
     print(f"sharded: (b) {mesh_name(mesh3)}: K {res.K} padded to "
           f"{sx3.snap.K}; {len(sel)} + {len(sel)} batches equal to the host "
-          f"(range {r['range']:.2f} q/s, kNN {r['knn']:.2f} q/s)",
-          flush=True)
+          f"(range {r['range']:.2f} q/s, kNN {r['knn']:.2f} q/s, kNN "
+          f"driver={r['driver']})", flush=True)
     del sx3, res
 
     os.environ["REPRO_ROWS_DTYPE"] = "bf16"
@@ -2515,8 +2942,9 @@ def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
           f"{two_byte}")
     print(f"sharded: (c) REPRO_ROWS_DTYPE=bf16 (lp_eps {lp.lp_eps}), "
           f"REPRO_COMPACT=on, S={mesh.size}: {len(sel)} + {len(sel)} "
-          f"batches equal to the f32 results; launches {json.dumps(counts)}"
-          f" (no 2-byte entry point)", flush=True)
+          f"batches equal to the f32 results (kNN driver={r['driver']}); "
+          f"launches {json.dumps(counts)} (no 2-byte entry point)",
+          flush=True)
     del lp
 
     sharded_store(path, mesh, batches, host_range, host_knn)
@@ -2546,8 +2974,8 @@ def phase_sharded(X, ix, batches, host_range, host_knn, spilled,
           f"{SERVE_ROWS} inserts {t_ins:.2f} s, {SERVE_ROWS} deletes "
           f"{t_del:.2f} s, refresh {t_refresh:.3f} s (generation "
           f"{engine.generation}); a range ({t_r:.3f} s) and a kNN "
-          f"({t_k:.3f} s) batch equal to the host index; launches "
-          f"{json.dumps(counts)}", flush=True)
+          f"({t_k:.3f} s, driver {ex.last_knn['driver']}) batch equal to "
+          f"the host index; launches {json.dumps(counts)}", flush=True)
     del engine, ex
     print(f"sharded: all parts in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -2625,7 +3053,8 @@ def dispatch_log():
 
     def execute_knn(ex, Q, plan):
         out = real_knn(ex, Q, plan)
-        log.subs.append(("knn", plan.B, ex.last_knn["rounds"]))
+        log.subs.append(("knn", plan.B, ex.last_knn["rounds"],
+                         ex.last_knn["driver"]))
         return out
 
     with mock.patch.object(ServingFrontend, "_execute", execute), \
@@ -3105,7 +3534,8 @@ def frontend_counted(fe, sel, host_range, host_knn) -> dict:
           f"{len(log.subs)} sub-batches (range sizes "
           f"{sorted(s[1] for s in subs_r)}, kNN sizes "
           f"{sorted(s[1] for s in subs_k)}, kNN rounds "
-          f"{sorted(set(s[2] for s in subs_k))})", flush=True)
+          f"{sorted(set(s[2] for s in subs_k))}, kNN driver "
+          f"{'+'.join(sorted(set(s[3] for s in subs_k)))})", flush=True)
     print(f"frontend: (d) launches {json.dumps(counts)}: pdist_rankeval = "
           f"{n_b} batches + {len(subs_r)} range sub-batches + {rounds} kNN "
           f"sub-batch rounds; range_filter = {len(subs_r)} range "
@@ -3763,6 +4193,7 @@ def main() -> int:
     phase_error_bound(ix, snap)
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
     kernels += phase_lp(ix, batches, host_range, host_knn, rates)
+    kernels.append(phase_knn_loop(snap, batches, host_knn, counts))
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)

@@ -10,10 +10,21 @@ device rows:
     plan's compacted candidate gather, the union certified candidate
     rows gathered once into a power-of-two bucket, so filter bytes
     scale with TriPrune's survivors instead of padded slots;
-  * kNN: the certified growing-radius schedule driven from the host,
-    one round at a time (the reference's ``_knn_host_rounds``): a
-    ``pdist`` distance matrix over every slot, the plan math per round,
-    and ``torch.topk`` for the k-th distance.
+  * kNN: the certified growing-radius schedule: a ``pdist`` distance
+    matrix over every slot (the seed), then per round the plan math,
+    the ball, the candidate count and ``torch.topk`` for the k-th
+    distance, driven by ``REPRO_KNN_DRIVER`` (the reference's
+    ``_knn_driver``).  ``loop`` keeps the rounds on the device: on a
+    card one launch of a CUDA graph runs every round (a WHILE
+    conditional node over one captured round, ``kernels/graph_loop.py``)
+    and the batch's certified masks and rounds come back in one
+    readback, so a batch costs O(1) host syncs however many rounds it
+    takes; on the CPU the same round runs in a Python loop.  ``rounds``
+    is the reference's ``_knn_host_rounds``: ``ok`` reaches the host
+    once a round.  ``auto`` picks ``rounds`` for a one-part executor on
+    the CPU and ``loop`` everywhere else, as the reference does, except
+    on a mesh over several cards, where it picks ``rounds``: a graph's
+    capture holds one device.
 
 ``_PagedBackend`` serves a store-backed snapshot (``snap.store`` set;
 the storage tier, the reference's DESIGN.md §7–§8): the plan's masks
@@ -50,20 +61,31 @@ device→host copy: it reads the final mask the backend returned and the
 snapshot's host mirrors (``host_syncs`` are equal with ``REPRO_OBS`` on
 and off).
 
-Left for a later slice: the compiled device kNN loop (ROADMAP A5).
+The loop's graphs (``_LoopGraphs``): keyed by (power-of-two batch
+bucket, k, max_rounds) — a batch is padded with copies of its first
+query, which certify with it, so results and rounds do not change — at
+most ``_LOOP_GRAPHS`` an executor, least recently used dropped first,
+over inputs and state buffers shared by the executor's graphs.  Every
+graph on a card draws its round temporaries from one private memory
+pool, and one lock a card (``_CardLoop``) holds each loop from copy-in
+to readback, so the card holds one set of round temporaries however
+many graphs, executors and router threads use it.
 """
 from __future__ import annotations
 
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ..kernels import ops
+from .. import env
+from ..kernels import _cuda, ops
 from ..kernels.dispatch import compact_enabled
+from ..kernels.graph_loop import WhileGraph, loop_cond_plain
 from ..obs import registry as _obs
 from ..obs.profile import QueryProfile, record_profile
 from ..obs.trace import span
@@ -122,6 +144,342 @@ def _knn_round_masks(d2, cand, rf, eps):
     cnt = torch.sum(candb, dim=1)
     dm = torch.where(candb, d2, torch.full_like(d2, float("inf")))
     return candb, cnt, dm
+
+
+# ---------------------------------------------------------------------------
+# the kNN driver, and the device-resident loop: one copy of the round for
+# the CPU loop and the card's CUDA graph, over the executor's parts
+# ---------------------------------------------------------------------------
+def _cards(ex) -> set:
+    """The CUDA device indices the executor's parts lie on."""
+    return {torch.cuda.current_device() if p.device.index is None
+            else p.device.index for p in ex._parts
+            if p.device.type == "cuda"}
+
+
+def _knn_driver(ex) -> str:
+    """Which resident kNN driver runs the schedule, resolved per call
+    so ``REPRO_KNN_DRIVER`` set on a long-lived executor takes effect.
+    ``loop`` keeps the rounds on the device; ``rounds`` drives them from
+    the host.  ``auto`` picks ``rounds`` for a one-part executor on the
+    CPU, where the device is the host, and ``loop`` on a card and on
+    any sharded executor, as the reference's rule does — except on a
+    mesh over several cards, where it picks ``rounds``: the loop's graph
+    is captured on one card (``_knn_device_loop`` raises there)."""
+    mode = env.get("REPRO_KNN_DRIVER")
+    if mode in ("loop", "rounds"):
+        return mode
+    if ex.snap.device.type == "cpu" and ex.n_shards <= 1:
+        return "rounds"
+    return "rounds" if len(_cards(ex)) > 1 else "loop"
+
+
+def _bucket_rows(n: int) -> int:
+    """The loop's batch bucket: the next power of two (≥ 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _knn_seed(ex, qf, r0, k_eff: int, out: list | None = None):
+    """The schedule's seed, eager and on the device: each part's
+    filter-plane squared distances (into ``out``'s blocks where given),
+    the plane's margin eps, and each query's start radius — the plan's
+    radius ``r0`` skipped ahead on the doubling schedule to the first
+    round whose radius covers the merged k-th distance estimate."""
+    d2s, eps = ex._seed_dists(qf, out)
+    kth0 = torch.sqrt(torch.clamp(_merged_kth(d2s, k_eff, qf.device),
+                                  min=0.0))
+    seed = kth0 * (1.0 + _SEED_REL) + _BALL_ABS
+    t0 = torch.ceil(torch.log2(torch.clamp(seed, min=1e-30) / r0))
+    return d2s, eps, r0 * torch.exp2(torch.clamp(t0, min=0.0))
+
+
+def _round_certify(ex, qf, d2s: list, eps: float, k_eff: int, rf):
+    """One round at radii ``rf``, either driver's: each part's (ball
+    ∧ candidate mask, count, masked distances) — the plan's mask at
+    ``rf``, the ball at ``rf·(1+_R_REL)+_BALL_ABS+eps`` — and the
+    guard-band ``ok`` from the merged count and k-th distance."""
+    lead = qf.device
+    parts = [_knn_round_masks(d2, cand, rf.to(d2.device), eps)
+             for d2, cand in zip(d2s, ex._round_masks(qf, rf))]
+    cnt = _merged_count([p[1] for p in parts], lead)
+    kth = torch.sqrt(torch.clamp(
+        _merged_kth([p[2] for p in parts], k_eff, lead), min=0.0))
+    return parts, (cnt >= k_eff) & (
+        kth <= rf * (1.0 - _R_REL) - _BALL_ABS - eps)
+
+
+def _knn_round(ex, qf, d2s: list, eps: float, k_eff: int, st) -> None:
+    """One round of the certified schedule, in place on the loop state
+    ``st`` (``done``, ``r``, each part's ``final`` block), in the
+    reference's order: ``ok`` (:func:`_round_certify` at ``r``), then
+    ``newly``, ``final``, ``done``, ``r``.  No host sync: the round the
+    card's graph captures."""
+    rf = st.r
+    parts, ok = _round_certify(ex, qf, d2s, eps, k_eff, rf)
+    newly = ok & ~st.done
+    for (candb, _, _), fin in zip(parts, st.final):
+        torch.where(newly.to(fin.device)[:, None], candb, fin, out=fin)
+    torch.logical_or(st.done, newly, out=st.done)
+    torch.where(st.done, rf, rf * 2.0, out=st.r)
+
+
+def _loop_state(ex, B: int, device) -> SimpleNamespace:
+    """Zeroed loop state for B queries: ``done``, ``r`` and ``rounds``
+    on ``device`` (the lead), a ``final`` block a part."""
+    return SimpleNamespace(
+        done=torch.zeros(B, dtype=torch.bool, device=device),
+        r=torch.zeros(B, dtype=torch.float32, device=device),
+        rounds=torch.zeros(1, dtype=torch.int32, device=device),
+        final=[torch.zeros(B, p.valid.numel(), dtype=torch.bool,
+                           device=p.device) for p in ex._parts])
+
+
+def _reset(st, r_start) -> None:
+    """A batch's start: nothing done, no round run, r at its start.
+    ``final`` needs no reset: a query's row is written whole when it
+    certifies, and a row never certified is the full scan's."""
+    st.done.zero_()
+    st.rounds.zero_()
+    st.r.copy_(r_start)
+
+
+def _knn_packed(ex, st, B: int) -> torch.Tensor:
+    """The loop's result as one uint8 tensor on the lead device, what
+    one readback copies: ``rounds`` as int32 in bytes 0–3, then from
+    byte 8 the (B, P) certified masks of the batch's first B queries —
+    each part's block where its query certified, the part's valid slots
+    (the exact full scan) where it never did.  Every part lies on the
+    lead's device (the loop runs on one device)."""
+    sizes = [f.shape[1] for f in st.final]
+    out = torch.empty(8 + B * sum(sizes), dtype=torch.uint8,
+                      device=st.done.device)
+    out[:4].view(torch.int32).copy_(st.rounds)
+    final = out[8:].view(B, -1).view(torch.bool)
+    o = 0
+    for f, p, n in zip(st.final, ex._parts, sizes):
+        torch.where(st.done[:B, None], f[:B], p.valid.reshape(-1)[None],
+                    out=final[:, o:o + n])
+        o += n
+    return out
+
+
+def _unpacked(host: np.ndarray, B: int):
+    """(final (B, P) bool, rounds) from :func:`_knn_packed`'s bytes."""
+    return host[8:].reshape(B, -1).view(bool), int(host[:4].view(np.int32)[0])
+
+
+# graphs a _LoopGraphs keeps (least recently used dropped first)
+_LOOP_GRAPHS = 4
+
+
+class _CardLoop:
+    """One card's share of the kNN loop's graphs, across executors.
+
+    Every loop on the card runs under ``lock``, from copy-in to
+    readback, over one set of buffers (:meth:`buffers`: the queries,
+    each part's seed distances and certified masks, ``done``, ``r``,
+    ``rounds``, ``flag``), and every graph draws its round temporaries
+    from one private pool (``torch.cuda.graph_pool_handle``).  So the
+    card holds one batch's buffers and one round's temporaries however
+    many graphs, executors (the frontend's replicas, a serving engine's
+    standby) and threads use it.  Buffers grow to the largest batch
+    seen; growing them moves ``gen`` on, which retires every graph
+    captured over the old ones.  Pool and buffers live while a graph
+    does (``graphs``); the next capture after the last graph goes takes
+    a new pool (PyTorch cannot join a pool it has released).  ``stream``
+    is the card's capture stream."""
+
+    _cards: dict = {}
+    _guard = threading.Lock()
+
+    def __init__(self, index: int):
+        self.index = index
+        self.lock = threading.Lock()
+        self.pool = None
+        self.graphs = 0
+        self.gen = 0
+        self._arena = None
+        self._count = threading.Lock()
+        with torch.cuda.device(index):
+            self.stream = torch.cuda.Stream()
+
+    @classmethod
+    def of(cls, index: int) -> "_CardLoop":
+        with cls._guard:
+            card = cls._cards.get(index)
+            if card is None:
+                card = cls._cards[index] = cls(index)
+            return card
+
+    def join_pool(self):
+        """The pool, for one more graph."""
+        with self._count:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.graphs += 1
+            return self.pool
+
+    def leave_pool(self) -> None:
+        """One graph fewer; the last takes the pool and buffers along."""
+        with self._count:
+            self.graphs -= 1
+            if self.graphs == 0:
+                self.pool = None
+                self._arena = None
+
+    def trim(self) -> None:
+        """Drop the buffers where no graph holds them (a batch that
+        captured nothing: ``max_rounds`` 0)."""
+        with self._count:
+            if self.graphs == 0:
+                self._arena = None
+
+    def buffers(self, ex, Bp: int) -> SimpleNamespace:
+        """The loop's buffers for ``ex`` (its parts on this card) at Bp
+        queries: views into two arenas (f32: queries, r, each part's
+        distances; bool: done, each part's masks) and two int32s.  Call
+        under ``lock``."""
+        d = ex.snap.d
+        sizes = [p.valid.numel() for p in ex._parts]
+        n32 = Bp * (d + 1 + sum(sizes))
+        n8 = Bp * (1 + sum(sizes))
+        a = self._arena
+        if a is None or a.f32.numel() < n32 or a.b8.numel() < n8:
+            dev = torch.device("cuda", self.index)
+            self._arena = None
+            a = self._arena = SimpleNamespace(
+                f32=torch.zeros(n32 if a is None else max(n32, a.f32.numel()),
+                                dtype=torch.float32, device=dev),
+                b8=torch.zeros(n8 if a is None else max(n8, a.b8.numel()),
+                               dtype=torch.bool, device=dev),
+                i32=torch.zeros(2, dtype=torch.int32, device=dev))
+            self.gen += 1
+        f, b = a.f32, a.b8
+        st = SimpleNamespace(qf=f[:Bp * d].view(Bp, d),
+                             r=f[Bp * d:Bp * (d + 1)],
+                             done=b[:Bp], rounds=a.i32[:1],
+                             flag=a.i32[1:], d2=[], final=[], gen=self.gen)
+        o32, o8 = Bp * (d + 1), Bp
+        for n in sizes:
+            st.d2.append(f[o32:o32 + Bp * n].view(Bp, n))
+            st.final.append(b[o8:o8 + Bp * n].view(Bp, n))
+            o32 += Bp * n
+            o8 += Bp * n
+        return st
+
+
+class _LoopEntry:
+    """One captured loop: the round's PyTorch graph (it holds the pool's
+    memory), the WHILE graph over it, the buffers' generation it was
+    captured over, and what the capture recorded — the launches and
+    wrapper calls one round makes."""
+
+    def __init__(self, card: _CardLoop, round_graph, loop: WhileGraph,
+                 gen: int, tally: _cuda.Tally, seconds: float):
+        self.card, self.round_graph, self.loop = card, round_graph, loop
+        self.gen, self.tally, self.seconds = gen, tally, seconds
+
+    def close(self) -> None:
+        if self.loop is not None:
+            self.loop.close()
+            self.loop = self.round_graph = None
+            self.card.leave_pool()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # interpreter shutdown: CUDA may be gone
+            pass
+
+
+class _LoopGraphs:
+    """An executor's kNN loops on its card: at most ``_LOOP_GRAPHS``
+    captured graphs keyed by (batch bucket, k, max_rounds), over the
+    card's buffers.  ``captures`` lists each capture's seconds (a
+    warm-up round, the capture, the WHILE graph's build)."""
+
+    def __init__(self, ex, card: _CardLoop):
+        self.ex = weakref.proxy(ex)
+        self.card = card
+        # entries close when dropped (evicted, or with the executor)
+        self.entries: OrderedDict = OrderedDict()
+        self.captures: list = []
+
+    def _capture(self, st, eps: float, k_eff: int,
+                 max_rounds: int) -> _LoopEntry:
+        """Capture one round at the batch's shapes into the card's pool
+        and build the WHILE graph over it.  The round runs once eagerly
+        first (its launches recorded, not counted), so every kernel is
+        loaded before the capture; its temporaries are released after."""
+        ex, card = self.ex, self.card
+        t0 = time.perf_counter()
+        with _cuda.recording():
+            _knn_round(ex, st.qf, st.d2, eps, k_eff, st)
+        torch.cuda.empty_cache()
+        try:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError as e:
+            raise RuntimeError(
+                "REPRO_KNN_DRIVER=loop needs torch.cuda.CUDAGraph("
+                "keep_graph=True), which this PyTorch lacks") from e
+        pool = card.join_pool()
+        try:
+            card.stream.wait_stream(torch.cuda.current_stream(card.index))
+            with _cuda.recording() as tally, torch.cuda.stream(card.stream):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    _knn_round(ex, st.qf, st.d2, eps, k_eff, st)
+                finally:
+                    graph.capture_end()
+            loop = WhileGraph(graph, st.done, st.rounds, max_rounds,
+                              st.flag)
+        except BaseException:
+            del graph
+            card.leave_pool()
+            raise
+        entry = _LoopEntry(card, graph, loop, st.gen, tally,
+                           time.perf_counter() - t0)
+        self.captures.append(entry.seconds)
+        _obs.count("executor.knn_loop_captures")
+        return entry
+
+    def run(self, qf, r0, k_eff: int, max_rounds: int) -> np.ndarray:
+        """One batch through its key's graph, captured at the key's
+        first use (or after the card's buffers grew): the padded queries
+        and the seed into the buffers, one launch, the packed result
+        read back.  Returns the host bytes of :func:`_knn_packed`."""
+        ex, card = self.ex, self.card
+        B, d = qf.shape
+        Bp = _bucket_rows(B)
+        key = (Bp, k_eff, max_rounds)
+        with card.lock, torch.cuda.device(card.index):
+            st = card.buffers(ex, Bp)
+            st.qf[:B].copy_(qf)
+            st.qf[B:].copy_(qf[:1].expand(Bp - B, d))
+            r0p = torch.cat([r0, r0[:1].expand(Bp - B)])
+            d2s, eps, r_start = _knn_seed(ex, st.qf, r0p, k_eff, st.d2)
+            _reset(st, r_start)
+            entry = self.entries.pop(key, None)
+            if entry is not None and entry.gen != st.gen:
+                entry.close()               # over buffers since replaced
+                entry = None
+            if entry is None and max_rounds > 0:
+                entry = self._capture(st, eps, k_eff, max_rounds)
+                _reset(st, r_start)
+            if entry is not None:
+                self.entries[key] = entry
+                while len(self.entries) > _LOOP_GRAPHS:
+                    self.entries.popitem(last=False)[1].close()
+                entry.loop.launch()
+            host = _knn_packed(ex, st, B).cpu().numpy()
+            card.trim()
+        if entry is not None:
+            rounds = int(host[:4].view(np.int32)[0])
+            _cuda.add_launches(entry.tally.kernels, rounds)
+            _cuda.add_launches({"knn_loop_cond": 1}, rounds)
+            ops.count_replayed(entry.tally.calls, rounds)
+        return host
 
 
 def _resident_only(snap: LIMSSnapshot) -> None:
@@ -194,29 +552,35 @@ class _ResidentBackend:
         return hits
 
     def knn_candidates(self, plan: CandidatePlan):
-        """The certified growing-radius schedule, one host-driven round
-        at a time: seed skip-ahead to the first schedule radius that
-        covers the k-th distance estimate, the guard-band certification
-        per query, and the exact full scan for anything the schedule
-        never certifies.  The certified set is a superset of the closed
-        k-th ball, so refinement returns the host index's results.
+        """The certified growing-radius schedule, by the driver
+        ``_knn_driver`` picks: seed skip-ahead to the first schedule
+        radius that covers the k-th distance estimate, the guard-band
+        certification per query, and the exact full scan for anything
+        the schedule never certifies.  The certified set is a superset
+        of the closed k-th ball, so refinement returns the host index's
+        results whichever driver ran."""
+        ex = self.ex
+        if _knn_driver(ex) == "rounds":
+            return self._knn_host_rounds(plan)
+        final, rounds = ex._knn_device_loop(plan)
+        ex.last_driver = "loop"
+        return final, rounds
 
-        The wide work runs per part of the executor (the whole snapshot,
-        or each cluster shard on its device); the candidate count and
-        the k-th distance merge on the lead device, and the round's
-        ``ok`` flags reach the host once a round."""
+    def _knn_host_rounds(self, plan: CandidatePlan):
+        """The same schedule driven from the host, one round at a time
+        (the reference's ``_knn_host_rounds``).  The wide work runs per
+        part of the executor (the whole snapshot, or each cluster shard
+        on its device); the candidate count and the k-th distance merge
+        on the lead device, and the round's ``ok`` flags reach the host
+        once a round."""
         ex = self.ex
         s = ex.snap
         qf = plan.qf
         lead = qf.device
         k_eff = plan.k
-        d2s, eps = ex._seed_dists(qf)
-        kth0 = torch.sqrt(torch.clamp(_merged_kth(d2s, k_eff, lead),
-                                      min=0.0))
         r0 = torch.from_numpy(plan.radii.astype(np.float32)).to(lead)
-        seed = kth0 * (1.0 + _SEED_REL) + _BALL_ABS
-        t0 = torch.ceil(torch.log2(torch.clamp(seed, min=1e-30) / r0))
-        r = (r0 * torch.exp2(torch.clamp(t0, min=0.0))).cpu().numpy()
+        d2s, eps, r = _knn_seed(ex, qf, r0, k_eff)
+        r = r.cpu().numpy()
         ex._count_sync()
         B = plan.B
         done = np.zeros(B, bool)
@@ -225,13 +589,7 @@ class _ResidentBackend:
         for t in range(plan.max_rounds):
             rounds = t + 1
             rf = torch.from_numpy(r).to(lead)
-            parts = [_knn_round_masks(d2, cand, rf.to(d2.device), eps)
-                     for d2, cand in zip(d2s, ex._round_masks(qf, rf))]
-            cnt = _merged_count([p[1] for p in parts], lead)
-            kth = torch.sqrt(torch.clamp(
-                _merged_kth([p[2] for p in parts], k_eff, lead), min=0.0))
-            ok = ((cnt >= k_eff) &
-                  (kth <= rf * (1.0 - _R_REL) - _BALL_ABS - eps))
+            parts, ok = _round_certify(ex, qf, d2s, eps, k_eff, rf)
             ok = ok.cpu().numpy()
             ex._count_sync()
             newly = ok & ~done
@@ -516,6 +874,8 @@ class QueryExecutor:
         self.last_profile: QueryProfile | None = None
         # per-thread sync counter, as in the reference
         self._tls = threading.local()
+        # the kNN loop's CUDA graphs (created at the first loop on a card)
+        self._loop: _LoopGraphs | None = None
 
     @property
     def live(self) -> int:
@@ -598,18 +958,63 @@ class QueryExecutor:
                  for fr, q in zip(frows, self._replicas(qf))]
         return _on_lead(masks, qf.device).to(torch.bool)
 
-    def _seed_dists(self, qf) -> tuple[list, float]:
+    def _seed_dists(self, qf, out: list | None = None) -> tuple[list, float]:
         """The kNN rounds' distances: f32 squared distances to every slot
         on the filter plane (inf where invalid), one (B, P_part) block a
-        part, plus the plane's margin eps."""
+        part (written into ``out``'s blocks where given: the loop's
+        buffers), plus the plane's margin eps."""
         frows, eps = self._filter_plane()
         d = self.snap.d
-        out = []
-        for p, fr, q in zip(self._parts, frows, self._replicas(qf)):
+        blocks = []
+        for i, (p, fr, q) in enumerate(zip(self._parts, frows,
+                                           self._replicas(qf))):
             d2 = ops.pdist(q, fr.reshape(-1, d))
             inf = torch.full_like(d2, float("inf"))
-            out.append(torch.where(p.valid.reshape(-1)[None], d2, inf))
-        return out, eps
+            blocks.append(torch.where(p.valid.reshape(-1)[None], d2, inf,
+                                      out=None if out is None else out[i]))
+        return blocks, eps
+
+    def _knn_device_loop(self, plan: CandidatePlan):
+        """(final (B, P) bool mask, rounds) of the device-resident loop:
+        the seed eagerly on the device, then every round without a host
+        sync — one CUDA graph launch on a card, a Python loop over the
+        CPU tensors on the CPU (its condition read from CPU memory, no
+        readback) — and the masks and rounds in one readback.  The batch
+        is padded to its power-of-two bucket with copies of its first
+        query (per-row work: results and rounds unchanged).  Raises
+        on a mesh over several cards: a graph's capture holds one."""
+        _resident_only(self.snap)
+        qf = plan.qf
+        B = plan.B
+        r0 = torch.from_numpy(plan.radii.astype(np.float32)).to(qf.device)
+        if qf.device.type == "cuda":
+            cards = _cards(self)
+            if len(cards) > 1:
+                raise RuntimeError(
+                    f"REPRO_KNN_DRIVER=loop: this mesh spans {len(cards)} "
+                    f"cards, and the kNN loop runs as one CUDA graph, "
+                    f"captured on one card (a PyTorch capture and a "
+                    f"conditional node's body each hold one device); use "
+                    f"REPRO_KNN_DRIVER=rounds or auto here")
+            if self._loop is None:
+                self._loop = _LoopGraphs(self, _CardLoop.of(cards.pop()))
+            host = self._loop.run(qf, r0, plan.k, plan.max_rounds)
+        else:
+            Bp = _bucket_rows(B)
+            qp = torch.cat([qf, qf[:1].expand(Bp - B, -1)])
+            r0p = torch.cat([r0, r0[:1].expand(Bp - B)])
+            d2s, eps, r_start = _knn_seed(self, qp, r0p, plan.k)
+            st = _loop_state(self, Bp, qf.device)
+            _reset(st, r_start)
+            if plan.max_rounds > 0:
+                while True:
+                    _knn_round(self, qp, d2s, eps, plan.k, st)
+                    if not bool(loop_cond_plain(st.done, st.rounds,
+                                                plan.max_rounds)):
+                        break
+            host = _knn_packed(self, st, B).numpy()
+        self._count_sync()
+        return _unpacked(host, B)
 
     def _refine_rows(self, idx: np.ndarray) -> np.ndarray:
         """f64 rows for flat slot ids: the resident matrix or a page
@@ -878,15 +1283,18 @@ class ShardedExecutor(QueryExecutor):
       snapshot carries a bf16/f16 filter plane (as the reference, whose
       ``shard_map`` pipeline never ships the plane); no compacted
       gather.
-    * kNN: the host-driven rounds of ``_ResidentBackend``, their two
-      reductions merged on the lead: the candidate count is the sum of
+    * kNN: the same device-resident loop as the single-device executor
+      (``_knn_round``, one copy), run over the shards: each round's two
+      reductions merge on the lead — the candidate count is the sum of
       the shards' counts, the k-th distance the k-th smallest of the
       shards' ``min(k, P/S)`` smallest (the reference's ``psum`` and
-      tiled ``all_gather`` of shard-local ``top_k``); ``ok`` reaches the
-      host once a round.  The reference runs the sharded schedule as
-      its compiled loop; the rounds certify the same superset of the
-      k-th ball, so refinement returns identical results
-      (``last_driver`` reads "rounds").
+      tiled ``all_gather`` of shard-local ``top_k`` inside its
+      ``shard_map`` loop); the seed filters each shard's f32 rows with
+      eps 0, as the reference's sharded loop does.  ``auto`` picks the
+      loop on the CPU and on a mesh naming one card (one CUDA graph
+      captures every shard's round), and the host-driven rounds on a
+      mesh over several cards, where ``loop`` raises: a graph is
+      captured on one device.
     * a store-backed snapshot: only the plan math runs sharded; the
       paged backend does the rest on the lead, as in the reference.
 

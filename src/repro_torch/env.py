@@ -1,7 +1,8 @@
 """Registry of the ``REPRO_*`` environment knobs the port reads.
 
 Port of ``repro/env.py``, cut to the knobs the port reads: the
-resident query path's (with the reduced-precision filter plane's), the paged storage tier's (``storage/``), the
+resident query path's (with the reduced-precision filter plane's and
+the kNN driver's), the paged storage tier's (``storage/``), the
 observability layer's (``obs/``), the monitor's and the serving
 engine's.  Consumers call :func:`get` instead of ``os.environ.get`` so
 that a typo like ``REPRO_COMPACT=of`` fails loudly with the list of
@@ -42,6 +43,11 @@ _KNOBS = (
          "radius so no true result can be cut (exact f32/f64 refinement "
          "keeps final results bitwise identical). off/f32 (default) "
          "disables the extra plane."),
+    Knob("REPRO_KNN_DRIVER",
+         ("", "auto", "loop", "rounds"), "auto",
+         "kNN driver: loop (device lax.while_loop), rounds (host-stepped "
+         "vectorized rounds), auto (rounds on single-shard XLA-CPU, "
+         "loop elsewhere)."),
     Knob("REPRO_STORAGE",
          ("", "paged"), "",
          "Snapshot storage tier: resident (default) or paged."),

@@ -19,10 +19,17 @@ Every C entry point takes its pointers and the stream as ``void*`` and
 returns the launch's ``cudaGetLastError()``; :func:`launch` makes the
 operands' device current where another one is, passes that device's
 current stream, raises on a nonzero code and otherwise counts the launch
-in :data:`LAUNCHES`.  The first launch builds and binds every library
-under a lock, so threads that launch their first kernels together (an
-async snapshot refresh beside a query thread) build once and never see
-a half-bound table.  A
+in :data:`LAUNCHES` — or, on a thread inside :func:`recording` (a CUDA
+graph's warm-up or capture, where the launch is not the one that runs),
+in the recording's tally, which the graph's owner adds to
+:data:`LAUNCHES` once per replay that ran it (:func:`add_launches`).
+``graph_loop.cu`` holds no launch entry: its host functions
+(:data:`HOST_FUNCS`, bound by :func:`host`) build, launch and destroy
+the kNN loop's conditional CUDA graph, whose one-thread kernel
+``knn_loop_cond`` runs only as a node of that graph.  The first launch
+builds and binds every library under a lock, so threads that launch
+their first kernels together (an async snapshot refresh beside a query
+thread) build once and never see a half-bound table.  A
 kernel with one entry point per operand type (``flash_attention_f32``
 and ``flash_attention_bf16``, one template) names them in
 :data:`VARIANTS`; its launches are counted under the kernel's name.
@@ -31,6 +38,7 @@ every module on machines without nvcc or a card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,7 +46,7 @@ import shutil
 import subprocess
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -69,6 +77,13 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I, _I)),
     "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 8),
 }
+# host functions of a library (no launch of their own, no count):
+# name -> (source, argument types); each returns a cudaError_t
+HOST_FUNCS: dict[str, tuple[str, tuple]] = {
+    "graph_loop_build": ("graph_loop.cu", (_P, _P, _I, _P, _I, _P, _P, _P)),
+    "graph_loop_launch": ("graph_loop.cu", (_P, _P)),
+    "graph_loop_destroy": ("graph_loop.cu", (_P, _P)),
+}
 # kernel name -> the variants of its C symbol (one per operand type)
 VARIANTS = {"flash_attention": ("f32", "bf16")}
 # kernel name -> its source under csrc/ (one source may hold several:
@@ -80,15 +95,20 @@ SOURCES = {"pdist": "pdist.cu", "pdist_bf16": "pdist.cu",
            "range_filter_bf16": "range_filter.cu",
            "range_filter_f16": "range_filter.cu", "pdist_rankeval": "fused.cu",
            "pdist_l1": "pdist_lp.cu", "pdist_linf": "pdist_lp.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "knn_loop_cond": "graph_loop.cu"}
 
-# launches per kernel since the last reset_launches(): only launch() adds,
-# under _LAUNCH_LOCK (the router launches from one thread per replica,
-# and ``+= 1`` on a dict entry is a read-modify-write)
-LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
+# launches per kernel since the last reset_launches(): only launch() and
+# add_launches() add, under _LAUNCH_LOCK (the router launches from one
+# thread per replica, and ``+= 1`` on a dict entry is a
+# read-modify-write)
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 _LAUNCH_LOCK = threading.Lock()
+# the tally of the thread's open recording(), if any
+_RECORDING = threading.local()
 
-# filled once, by one update under _LOAD_LOCK: empty or complete
+# filled once, by one update under _LOAD_LOCK: empty or complete; the
+# kernels by (name, variant), the host functions by (name, None)
 _FUNCS: dict[tuple[str, str | None], ctypes._CFuncPtr] = {}
 _LOAD_LOCK = threading.Lock()
 
@@ -105,6 +125,42 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@dataclass
+class Tally:
+    """What a :func:`recording` saw: launches by kernel name
+    (``kernels``) and wrapper calls by wrapper name (``calls``, which
+    ``ops`` fills for its observability counters)."""
+    kernels: dict = field(default_factory=dict)
+    calls: dict = field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread's launches are tallied in the
+    yielded :class:`Tally` instead of :data:`LAUNCHES`: the launches of
+    a CUDA graph's warm-up and capture, which are not the launches the
+    graph's replays make."""
+    prev = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally = Tally()
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def current_recording() -> Tally | None:
+    """This thread's open recording, or None."""
+    return getattr(_RECORDING, "tally", None)
+
+
+def add_launches(kernels: dict, times: int) -> None:
+    """Count ``times`` launches of each kernel tallied in ``kernels``
+    (name -> launches a replay makes): a graph's replays."""
+    with _LAUNCH_LOCK:
+        for name, n in kernels.items():
+            LAUNCHES[name] += n * times
 
 
 def nvcc() -> str:
@@ -179,6 +235,11 @@ def _load() -> None:
             return
         libs = {src: ctypes.CDLL(str(b.path)) for src, b in build().items()}
         funcs = {}
+        for name, (src, argtypes) in HOST_FUNCS.items():
+            fn = getattr(libs[src], name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            funcs[name, None] = fn
         for name, (symbol, argtypes) in SIGNATURES.items():
             for variant in VARIANTS.get(name, (None,)):
                 fn = getattr(libs[SOURCES[name]], symbol.format(variant))
@@ -219,5 +280,17 @@ def launch(name: str, *args, device: torch.device,
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally.kernels[name] = tally.kernels.get(name, 0) + 1
+        return
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+
+
+def host(name: str):
+    """The bound host function ``name`` of :data:`HOST_FUNCS` (building
+    and loading the libraries at the first call)."""
+    if not _FUNCS:
+        _load()
+    return _FUNCS[name, None]

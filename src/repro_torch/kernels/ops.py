@@ -34,12 +34,19 @@ reference's ``_count_launch`` does: ``kernels.<name>.launches`` and a
 per-lane ``kernels.<name>.<lane>``, where the lane is ``cuda`` (the
 hand-written kernel, one launch a call) or ``torch`` (the plain version
 on a CPU tensor).  The count lands after the call returns, so on CUDA
-tensors it equals ``_cuda.LAUNCHES``' tally of the same calls.
+tensors it equals ``_cuda.LAUNCHES``' tally of the same calls.  Under
+a CUDA graph the count follows the launches that run, as
+``_cuda.LAUNCHES`` does: a call made while ``_cuda.recording()`` is open
+(the graph's warm-up and capture) lands in the recording's tally, and
+:func:`count_replayed` counts the tally once per replay that ran it.
+The reference counts a call under ``jit`` once, when it traces; the
+port counts every launch the card runs.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _cuda
 from . import flash_attention as _flash
 from . import fused as _fused
 from . import pdist as _pdist
@@ -56,10 +63,25 @@ def _count_launch(name: str, probe: torch.Tensor) -> None:
     """Per-kernel call counter (``kernels.<name>.launches``) plus its
     lane, ``cuda`` or ``torch`` by the operands' device; no-op and
     allocation-free with ``REPRO_OBS=off``."""
+    tally = _cuda.current_recording()
+    if tally is not None:       # whatever the mode: replays count by it
+        tally.calls[name] = tally.calls.get(name, 0) + 1
+        return
     if not _obs.enabled():
         return
     _obs.count(f"kernels.{name}.launches")
     _obs.count(f"kernels.{name}.{'cuda' if probe.is_cuda else 'torch'}")
+
+
+def count_replayed(calls: dict, times: int) -> None:
+    """Count the wrapper calls a recording tallied (``calls``: name ->
+    calls a replay makes) ``times`` times, on the ``cuda`` lane: the
+    calls a CUDA graph's replays ran."""
+    if not _obs.enabled() or times <= 0:
+        return
+    for name, n in calls.items():
+        _obs.count(f"kernels.{name}.launches", n * times)
+        _obs.count(f"kernels.{name}.cuda", n * times)
 
 
 def far_rows(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -162,4 +184,4 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
 
 __all__ = ["pdist", "pdist_grouped", "rankeval", "range_filter",
            "pdist_rankeval", "flash_attention", "fused_plan_enabled", "FAR",
-           "GROUPED", "far_rows"]
+           "GROUPED", "far_rows", "count_replayed"]

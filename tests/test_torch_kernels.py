@@ -445,7 +445,8 @@ def test_cpu_tensors_launch_nothing():
                                    "rankeval", "range_filter",
                                    "range_filter_bf16", "range_filter_f16",
                                    "pdist_rankeval", "pdist_l1",
-                                   "pdist_linf", "flash_attention"}
+                                   "pdist_linf", "flash_attention",
+                                   "knn_loop_cond"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -557,6 +558,7 @@ def test_first_launch_loads_once_across_threads(monkeypatch, tmp_path):
     monkeypatch.setattr(_cuda, "_FUNCS", {})
     want = {(name, v) for name in _cuda.SIGNATURES
             for v in _cuda.VARIANTS.get(name, (None,))}
+    want |= {(name, None) for name in _cuda.HOST_FUNCS}
     start = threading.Barrier(4)
     seen = []
 
@@ -623,7 +625,8 @@ def test_kernels_match_plain_on_card():
                               "pdist_rankeval": 1, "pdist_l1": 1,
                               "pdist_linf": 1, "flash_attention": 0,
                               "pdist_bf16": 0, "pdist_f16": 0,
-                              "range_filter_bf16": 0, "range_filter_f16": 0}
+                              "range_filter_bf16": 0, "range_filter_f16": 0,
+                              "knn_loop_cond": 0}
 
 
 def _same(got, want):

@@ -176,10 +176,12 @@ def test_pad_clusters_store_backed_keeps_no_rows(env, tmp_path):
 
 # ------------------------------------------------------- sharded results
 @pytest.mark.parametrize("S", SHARDS)
-def test_sharded_equals_reference_and_host(env, S):
+def test_sharded_equals_reference_and_host(env, S, monkeypatch):
     """Range and kNN ids and f64 distances identical to the reference's
     single-device executor and to the host index; the kNN rounds and
-    host syncs equal the port's single-device executor's."""
+    host syncs equal the port's single-device executor's, both under the
+    host-driven rounds (the loop's case is the test below)."""
+    monkeypatch.setenv("REPRO_KNN_DRIVER", "rounds")
     X, ref_ix = env["X"], env["ref_ix"]
     sx = ShardedExecutor(env["snap"], mesh=_mesh(S))
     assert sx.n_shards == S and sx.snap.K % S == 0
@@ -201,6 +203,34 @@ def test_sharded_equals_reference_and_host(env, S):
             assert sx.last_knn[key] == single.last_knn[key], key
         assert sx.last_driver == "rounds"
     for b, q in enumerate(Q):
+        h_ids, h_ds, _ = ref_ix.knn_query(q, 6)
+        kk = sx.knn_query_batch(q[None], 6)
+        np.testing.assert_allclose(kk[1][0], np.sort(h_ds), atol=0)
+        assert set(map(int, kk[0][0])) == set(map(int, h_ids))
+
+
+@pytest.mark.parametrize("S", SHARDS)
+def test_sharded_loop_equals_reference_and_host(env, S, monkeypatch):
+    """The same under the device-resident loop (``auto`` picks it for a
+    sharded executor on the CPU, as the reference does): kNN ids and f64
+    distances identical to the reference's and to the host index, and
+    rounds, host syncs and driver equal to the single-device loop's."""
+    X, ref_ix = env["X"], env["ref_ix"]
+    sx = ShardedExecutor(env["snap"], mesh=_mesh(S))
+    Q = _queries(X, 8, seed=3)
+    single = env["single"]
+    for k in (6, 500, N + 99):
+        monkeypatch.delenv("REPRO_KNN_DRIVER", raising=False)
+        kk = sx.knn_query_batch(Q, k)
+        assert sx.last_driver == ("loop" if S > 1 else "rounds")
+        monkeypatch.setenv("REPRO_KNN_DRIVER", "loop")
+        _same_knn(kk, sx.knn_query_batch(Q, k))
+        _same_knn(kk, env["ref_ex"].knn_query_batch(Q, k))
+        _same_knn(kk, single.knn_query_batch(Q, k))
+        for key in ("rounds", "host_syncs", "driver"):
+            assert sx.last_knn[key] == single.last_knn[key], key
+        assert sx.last_driver == "loop" and sx.last_knn["host_syncs"] == 2
+    for q in Q[:3]:
         h_ids, h_ds, _ = ref_ix.knn_query(q, 6)
         kk = sx.knn_query_batch(q[None], 6)
         np.testing.assert_allclose(kk[1][0], np.sort(h_ds), atol=0)
@@ -295,11 +325,13 @@ def test_store_backed_sharded_io_equals_reference(env, ref, tmp_path, S):
 
 
 # --------------------------------------------------------- observability
-def test_profile_sharded_complete(env):
+def test_profile_sharded_complete(env, monkeypatch):
     """The sharded profile reads ``n_shards == S`` (the single-device
-    executor's reads 1) and is complete (test_obs.py's sharded case)."""
+    executor's reads 1) and is complete (test_obs.py's sharded case),
+    under the host-driven rounds."""
     from repro_torch import obs
     obs.configure("on")
+    monkeypatch.setenv("REPRO_KNN_DRIVER", "rounds")
     X = env["X"]
     Q = _queries(X, 4, seed=9)
     sx = ShardedExecutor(env["snap"], mesh=_mesh(3))
@@ -312,6 +344,22 @@ def test_profile_sharded_complete(env):
     assert sx.last_profile.n_shards == 3
     env["single"].knn_query_batch(Q, 5)
     assert env["single"].last_profile.n_shards == 1
+
+
+def test_profile_sharded_loop_complete(env, monkeypatch):
+    """The same profile under ``auto``, which picks the loop for the
+    sharded executor: ``driver`` reads "loop", two host syncs."""
+    from repro_torch import obs
+    obs.configure("on")
+    monkeypatch.delenv("REPRO_KNN_DRIVER", raising=False)
+    X = env["X"]
+    Q = _queries(X, 4, seed=9)
+    sx = ShardedExecutor(env["snap"], mesh=_mesh(3))
+    sx.knn_query_batch(Q, 5)
+    p = sx.last_profile
+    assert p.n_shards == 3 and p.kind == "knn" and p.driver == "loop"
+    assert p.backend == "resident" and p.host_syncs == 2
+    assert p.n_clusters == sx.snap.K and p.candidates_per_query > 0
 
 
 @pytest.mark.parametrize("S", (2, 4))
@@ -516,6 +564,7 @@ def test_plans_equal_reference_shard_map(ref, tmp_path):
                           want["range_ds"])
     _same_knn(sx.knn_query_batch(Q, 6), (want["knn_ids"], want["knn_ds"]))
     assert sx.last_knn["rounds"] == int(want["knn_rounds"])
+    assert sx.last_knn["driver"] == "loop"
 
 
 # ------------------------------------------------------------ on the card
@@ -524,11 +573,13 @@ def test_sharded_on_card_equals_host(monkeypatch):
     """S = 4 shards on the card (a mesh naming ``cuda:0`` four times; on
     a machine with several cards, the cards in turn): range and kNN
     equal the host index's and the CPU port's single-device executor's,
-    with the same rounds and host syncs, and each query-path kernel
-    launched four times where one device launches it once."""
+    with the same rounds and host syncs under the host-driven rounds,
+    and each query-path kernel launched four times where one device
+    launches it once."""
     from repro_torch.kernels import _cuda
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    monkeypatch.setenv("REPRO_KNN_DRIVER", "rounds")
     X = gauss_mix(N, D, seed=7)
     ix = LIMSIndex(MetricSpace(X, "l2"), n_clusters=6, m=3, n_rings=10)
     card = LIMSSnapshot.build(ix, device="cuda")
@@ -556,3 +607,38 @@ def test_sharded_on_card_equals_host(monkeypatch):
         np.testing.assert_allclose(np.sort(ds), np.sort(h_ds), atol=0)
     for name in ("pdist", "range_filter", "pdist_rankeval"):
         assert tallies[1][name] == 4 * tallies[0][name] > 0, name
+
+
+@pytest.mark.gpu
+def test_sharded_loop_on_card_equals_host(monkeypatch):
+    """S = 4 shards on ``cuda:0`` four times under the loop (``auto``
+    picks it on a mesh of one card): kNN equal to the host index's and
+    the CPU port's single-device loop, the same rounds and host syncs,
+    and ``pdist_rankeval`` counted four times a replayed round."""
+    from repro_torch.kernels import _cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    monkeypatch.delenv("REPRO_KNN_DRIVER", raising=False)
+    X = gauss_mix(N, D, seed=7)
+    ix = LIMSIndex(MetricSpace(X, "l2"), n_clusters=6, m=3, n_rings=10)
+    card = LIMSSnapshot.build(ix, device="cuda")
+    cpu = QueryExecutor(LIMSSnapshot.build(ix, device=CPU))
+    sx = ShardedExecutor(card, mesh=Mesh((torch.device("cuda", 0),) * 4))
+    one = QueryExecutor(card)
+    Q = _queries(X, 16, seed=1)
+    for ex, S in ((one, 1), (sx, 4)):
+        _cuda.reset_launches()
+        kk = ex.knn_query_batch(Q, 7)
+        n = dict(_cuda.LAUNCHES)
+        assert ex.last_driver == "loop"
+        monkeypatch.setenv("REPRO_KNN_DRIVER", "loop")
+        _same_knn(kk, cpu.knn_query_batch(Q, 7))
+        monkeypatch.delenv("REPRO_KNN_DRIVER")
+        assert ex.last_knn["rounds"] == cpu.last_knn["rounds"]
+        assert ex.last_knn["host_syncs"] == cpu.last_knn["host_syncs"] == 2
+        assert n["pdist_rankeval"] == S * ex.last_knn["rounds"]
+        assert n["knn_loop_cond"] == ex.last_knn["rounds"]
+    for q, (ids, ds) in zip(Q, zip(*kk)):
+        h_ids, h_ds, _ = ix.knn_query(q, 7)
+        np.testing.assert_allclose(ds, np.sort(h_ds), atol=0)
+        assert set(map(int, ids)) == set(map(int, h_ids))
