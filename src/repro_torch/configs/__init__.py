@@ -1,2 +1,2 @@
 """Model configurations of the port (``repro/configs``): the schema and
-the dense-family architectures."""
+the ten architectures."""

@@ -2,10 +2,9 @@
 
 Port of ``repro/configs/base.py``, copied: ``ModelConfig`` (one per
 architecture, exact paper numbers) with its ``reduced()`` shrink used
-by the CPU tests, ``MoEConfig`` and ``SSMConfig`` (so ``reduced()``
-keeps its code), and the shape cells ``ShapeCell`` / ``SHAPES``.
-``RunConfig`` and ``long_context_ok`` wait for the slices that train
-and shard.
+by the CPU tests, ``MoEConfig`` and ``SSMConfig``, the shape cells
+``ShapeCell`` / ``SHAPES`` and ``long_context_ok`` (``base.py:143-148``).
+``RunConfig`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -142,3 +141,11 @@ SHAPES = {
     "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
+
+
+# long_500k requires sub-quadratic attention: SSM / hybrid / sliding-window.
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    return cfg.family in SUBQUADRATIC_FAMILIES or cfg.sliding_window is not None

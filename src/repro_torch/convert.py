@@ -17,6 +17,7 @@ import torch
 from .core.snapshot import (DEVICE_FIELDS, HOST_FIELDS, LP_DTYPES,
                             SCALAR_FIELDS, LIMSSnapshot, host_tables)
 from .kernels.dispatch import resolve_device
+from .models.params import torch_dtype
 
 # every field snapshot_from_reference reads
 FIELDS = DEVICE_FIELDS + HOST_FIELDS + SCALAR_FIELDS
@@ -66,21 +67,32 @@ def _tensor(a, device, dtype) -> torch.Tensor:
                 dtype is not None else t.dtype)
 
 
-def params_from_reference(tree: dict, device=None, dtype=None) -> dict:
+def params_from_reference(tree: dict, device=None, dtype=None,
+                          specs=None) -> dict:
     """The port's parameter tree from the reference's, handed over as
     nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
-    the same leaf names and shapes, on ``device`` (default ``cuda``).
-    Leaves keep their dtypes unless ``dtype`` is given, which casts the
-    floating leaves except the norm weights (names ending in ``norm``),
-    which the specs pin to float32."""
+    the same leaf names and shapes (every family's: ``layers``, ``moe``,
+    ``mixer``, ``shared``, ``shared_proj``, the encdec ``enc_layers`` /
+    ``dec_layers``), on ``device`` (default ``cuda``).  Leaves keep
+    their dtypes unless ``dtype`` is given: then each floating leaf
+    takes its ``ParamSpec``'s own dtype where ``specs`` (the model's
+    spec tree, ``zoo.model_specs(cfg)``; required with ``dtype``) pins
+    one, as ``init_params`` does, and ``dtype`` elsewhere."""
+    if dtype is not None and specs is None:
+        raise ValueError("params_from_reference: dtype needs the specs, "
+                         "which say which leaves keep their own dtype")
     dev = resolve_device(device)
 
-    def walk(node, name):
+    def walk(node, spec):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return _tensor(node, dev, None if name.endswith("norm") else dtype)
+            return {k: walk(v, None if spec is None else spec[k])
+                    for k, v in node.items()}
+        want = dtype
+        if spec is not None and spec.dtype is not None:
+            want = torch_dtype(spec.dtype)
+        return _tensor(node, dev, want)
 
-    return walk(tree, "")
+    return walk(tree, specs if dtype is not None else None)
 
 
 __all__ = ["FIELDS", "snapshot_from_reference", "params_from_reference"]

@@ -75,7 +75,7 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
     "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I, _I)),
     "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I, _I)),
-    "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 8),
+    "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 9),
 }
 # host functions of a library (no launch of their own, no count):
 # name -> (source, argument types); each returns a cudaError_t

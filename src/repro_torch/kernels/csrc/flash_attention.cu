@@ -16,11 +16,17 @@
 // once to the output type.  A masked score is -1e30 (not -inf, so the
 // exponent stays finite).  The causal mask is qpos >= kpos, both counted
 // from 0 at the top left (flash_attention.py:50-52); keys at or beyond kv_len
-// are masked; kv tiles wholly above the diagonal (and, in the tensor-core
-// body, wholly at or beyond kv_len) are skipped, which changes nothing (such
-// a tile gives p = 0 and alpha = 1 exactly).  The plain PyTorch version
-// (../ref.py flash_attention_ref) runs the same recurrence over 128-wide kv
-// blocks.
+// are masked; with a sliding window (window > 0) keys with qpos - kpos >=
+// window are masked too, the predicate of the reference model's jnp
+// attention (repro/models/layers.py:89-90, :160-161).  kv tiles wholly above
+// the diagonal, wholly before every row's window (and, in the tensor-core
+// body, wholly at or beyond kv_len) are skipped, which changes nothing: a
+// tile after the skipped ones gives p = 0 and alpha = 1 exactly, and a row
+// whose first tiles are all masked carries p = 1 there until its first
+// visible key, where alpha = exp(-1e30 - m) = 0 clears l and the output
+// exactly (a row with no visible key at all is not specified).  The plain
+// PyTorch version (../ref.py flash_attention_ref) runs the same recurrence
+// over 128-wide kv blocks.
 //
 // Two bodies; launch<T> picks one by type and head width:
 //
@@ -60,15 +66,18 @@
 //   across a kv head's q heads (L2 serves it), ping-pong of softmax and
 //   GEMM within a warpgroup, a persistent grid.
 //
-// * f32 (every D) and bf16 with D in {16, 32}: flash_kernel, f32 math on the
-//   CUDA cores.  q is cast to f32 and scaled by 1/sqrt(D) in f32, dot
+// * f32 (every D) and bf16 with D in {16, 32, 80, 112}: flash_kernel, f32
+//   math on the CUDA cores.  q is cast to f32 and scaled by 1/sqrt(D) in f32, dot
 //   products are explicit f32 fused multiply-adds (the flags forbid
 //   contraction everywhere else), exp is expf.  Each thread owns 4 rows and a
 //   4 x 4 score tile of a 64-row q tile and 64-key kv tile, read as float4s
 //   from shared-memory tiles whose rows are padded by 4 floats so a warp's
 //   float4 reads hit distinct banks.  Bounded at the f32 rate of the CUDA
 //   cores (67 TFLOP/s); it serves the f32 checks, whose bar a bf16 pass
-//   would miss, and head widths too narrow for a 128-byte swizzle row.
+//   would miss, head widths too narrow for a 128-byte swizzle row, and the
+//   widths 80 (zamba2) and 112 (kimi-k2), whose rows of 160 and 224 bytes
+//   are not whole 64-column TMA boxes.  At D 80 and 112 a thread's D / 16
+//   output columns are one every 16 (the narrow layout), not float4 groups.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,12 +118,12 @@ __device__ __forceinline__ void st_s4(float* p, float4 v) {
     *reinterpret_cast<float4*>(p) = v;
 }
 
-// Output column of a thread's c-th accumulator: D >= 64 takes float4 groups
-// (4tx + 64g .. +3) so the V reads are 16 bytes a thread; narrower heads take
-// one column every 16.
+// Output column of a thread's c-th accumulator: D a multiple of 64 takes
+// float4 groups (4tx + 64g .. +3) so the V reads are 16 bytes a thread; other
+// widths take one column every 16.
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int c) {
-    if constexpr (D >= 64) return 4 * tx + 64 * (c >> 2) + (c & 3);
+    if constexpr (D % 64 == 0) return 4 * tx + 64 * (c >> 2) + (c & 3);
     else return tx + 16 * c;
 }
 
@@ -128,7 +137,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int hq, int hk,
-             int sq, int sk, int kv_len, int causal, float scale) {
+             int sq, int sk, int kv_len, int causal, int window,
+             float scale) {
     static_assert(D % 16 == 0 && D <= 128, "head width");
     constexpr int QS = D + 4;           // Q and K tile row stride (floats)
     constexpr int PS = BK + 4;          // P tile row stride
@@ -168,8 +178,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     int n_kt = sk / BK;
     if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
-    const bool masked = causal || kv_len < sk;
-    for (int kt = 0; kt < n_kt; ++kt) {
+    // the first tile holding a key inside row q0's window
+    const int kt0 = (window > 0 && q0 - window + 1 > 0)
+                        ? (q0 - window + 1) / BK : 0;
+    const bool masked = causal || kv_len < sk || window > 0;
+    for (int kt = kt0; kt < n_kt; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();                // the last tile's readers are done
         const long long t_base = kv_base + (long long)k0 * D;
@@ -211,7 +224,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                     const int qpos = q0 + 4 * ty + i, kpos = k0 + tx + 16 * j;
-                    const bool ok = (!causal || qpos >= kpos) && kpos < kv_len;
+                    const bool ok = (!causal || qpos >= kpos) && kpos < kv_len &&
+                                    (window <= 0 || qpos - kpos < window);
                     if (!ok) s[i][j] = NEG;
                 }
         }
@@ -253,7 +267,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int u = 0; u < 4; ++u) {
                 const float* vr = Vs + (kk + u) * D;
                 float vv[NC];
-                if constexpr (D >= 64) {
+                if constexpr (D % 64 == 0) {
 #pragma unroll
                     for (int g = 0; g < D / 64; ++g) {
                         const float4 w = ld_s4(vr + 4 * tx + 64 * g);
@@ -466,14 +480,17 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 // Accumulator layout of wgmma m64nN (per thread of a warpgroup: warp w,
 // lane l): element r sits at row 16 w + l / 4 + 8 ((r / 2) % 2) and column
 // 8 (r / 4) + 2 (l % 4) + r % 2.  Elements 8 j .. 8 j + 7 of an S
-// accumulator are therefore the A fragment of k step j of P V.
-template <int D>
+// accumulator are therefore the A fragment of k step j of P V.  WINDOW
+// compiles the sliding window in: without it (window = 0) the body is the
+// unwindowed one, whose window tests cost 4.6% at the Llama prefill shape
+// when they were runtime branches (tools/ab_flash.py, PERF.md).
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
                 __grid_constant__ const CUtensorMap tk,
                 __grid_constant__ const CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int hq, int hk, int sq,
-                int sk, int kv_len, int causal, float scale2) {
+                int sk, int kv_len, int causal, int window, float scale2) {
     using L = Smem<D>;
     constexpr int NB = D / BOX_COLS;    // boxes per tile
     constexpr int KS = D / 16;          // k steps of Q K^T
@@ -496,6 +513,11 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
     const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // most kv tiles first
     int n_kt = (kv_len + BK - 1) / BK;
     if (causal) n_kt = min(n_kt, q0 / BK + 1);
+    // tiles kt0 .. n_kt - 1, kt0 the first holding a key inside row q0's
+    // window; it counts the pipeline's steps from 0
+    const int kt0 = (WINDOW && q0 - window + 1 > 0)
+                        ? (q0 - window + 1) / BK : 0;
+    const int n_it = max(n_kt - kt0, 0);
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
@@ -519,19 +541,20 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
             for (int c = 0; c < NB; ++c)
                 tma_load(sq_s + c * BOX_BYTES, &tq, q_full, c * BOX_COLS, q_row);
-            for (int it = 0; it < n_kt; ++it) {
+            for (int it = 0; it < n_it; ++it) {
                 const int st = it & 1;
+                const int k_tile = k_row + (kt0 + it) * BK;
                 if (it >= 2) mbar_wait(empty(st), ((it >> 1) - 1) & 1);
                 mbar_expect_tx(k_full(st), BK * D * 2);
 #pragma unroll
                 for (int c = 0; c < NB; ++c)
                     tma_load(k_s(st) + c * BOX_BYTES, &tk, k_full(st),
-                             c * BOX_COLS, k_row + it * BK);
+                             c * BOX_COLS, k_tile);
                 mbar_expect_tx(v_full(st), BK * D * 2);
 #pragma unroll
                 for (int c = 0; c < NB; ++c)
                     tma_load(v_s(st) + c * BOX_BYTES, &tv, v_full(st),
-                             c * BOX_COLS, k_row + it * BK);
+                             c * BOX_COLS, k_tile);
             }
         }
     } else {
@@ -552,10 +575,10 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
         uint32_t ph[KV][4], pl[KV][4];
 
         mbar_wait(q_full, 0);
-        for (int it = 0; it < n_kt; ++it) {
+        for (int it = 0; it < n_it; ++it) {
             const int st = it & 1;
             const uint32_t par = (it >> 1) & 1;
-            const int k0 = it * BK;
+            const int k0 = (kt0 + it) * BK;
 
             // S = Q K^T
             mbar_wait(k_full(st), par);
@@ -572,12 +595,15 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
 
 #pragma unroll
             for (int r = 0; r < 64; ++r) s[r] = __fmul_rn(s[r], scale2);
-            if ((causal && k0 + BK - 1 > q0) || k0 + BK > kv_len) {
+            if ((causal && k0 + BK - 1 > q0) || k0 + BK > kv_len ||
+                (WINDOW && q0 + BQ - 1 - k0 >= window)) {
 #pragma unroll
                 for (int r = 0; r < 64; ++r) {
                     const int kpos = k0 + 8 * (r >> 2) + cq + (r & 1);
                     const int qpos = (r & 2) ? qb : qa;
-                    if ((causal && qpos < kpos) || kpos >= kv_len) s[r] = NEG;
+                    if ((causal && qpos < kpos) || kpos >= kv_len ||
+                        (WINDOW && qpos - kpos >= window))
+                        s[r] = NEG;
                 }
             }
 
@@ -721,7 +747,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int d) {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hk, int sq, int sk, int kv_len, int causal,
+           int hq, int hk, int sq, int sk, int kv_len, int causal, int window,
            void* stream) {
     if (sq % BQ != 0 || sk % BK != 0 ||
         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
@@ -733,14 +759,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
         !tensor_map(&mv, v, (long long)b * hk * sk, D))
         return (int)cudaErrorInvalidValue;
     const int smem = Smem<D>::BYTES;
+    const auto kernel = window > 0 ? flash_tc_kernel<D, true>
+                                   : flash_tc_kernel<D, false>;
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     // log2(e) / sqrt(D) rounded once to f32
     const float scale2 = (float)(1.4426950408889634 / sqrt((double)D));
     const dim3 grid((unsigned)hq, (unsigned)b, (unsigned)(sq / BQ));
-    flash_tc_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        mq, mk, mv, (__nv_bfloat16*)o, hq, hk, sq, sk, kv_len, causal, scale2);
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        mq, mk, mv, (__nv_bfloat16*)o, hq, hk, sq, sk, kv_len, causal, window,
+        scale2);
     return (int)cudaGetLastError();
 }
 
@@ -749,7 +778,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b,
              int hq, int hk, int sq, int sk, int kv_len, int causal,
-             void* stream) {
+             int window, void* stream) {
     const size_t smem = smem_bytes<D>();
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -762,70 +791,85 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
     const dim3 grid((unsigned)(sq / BQ), (unsigned)hq, (unsigned)b);
     flash_kernel<T, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, hq, hk, sq, sk, kv_len,
-        causal, scale);
+        causal, window, scale);
     return (int)cudaGetLastError();
 }
 
 // bf16 with D 64 or 128 goes to the tensor cores (the 128-byte swizzle
-// row is 64 bf16); every other case to the CUDA cores
-constexpr bool tensor_core_body(bool bf16, int d) { return bf16 && d >= 64; }
+// row is 64 bf16, and a tile whole boxes of it); every other case to the
+// CUDA cores
+constexpr bool tensor_core_body(bool bf16, int d) {
+    return bf16 && (d == 64 || d == 128);
+}
+
+constexpr bool head_width(int d) {
+    return d == 16 || d == 32 || d == 64 || d == 80 || d == 112 || d == 128;
+}
 
 template <typename T, int D>
 int launch_body(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hk, int sq, int sk, int kv_len, int causal,
-                void* stream) {
+                int window, void* stream) {
     if constexpr (tensor_core_body(std::is_same_v<T, __nv_bfloat16>, D))
         return tc::launch<D>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal,
-                             stream);
+                             window, stream);
     else
         return launch_d<T, D>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal,
-                              stream);
+                              window, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hk, int sq, int sk, int d, int kv_len, int causal,
-           void* stream) {
+           int window, void* stream) {
     if (b <= 0 || hq <= 0 || sq <= 0) return 0;
     if (hk <= 0 || hq % hk != 0 || sq % BQ != 0 || sk <= 0 || sk % BK != 0 ||
-        kv_len <= 0 || kv_len > sk)
+        kv_len <= 0 || kv_len > sk || window < 0)
         return (int)cudaErrorInvalidValue;
+#define FLASH_D(W)                                                           \
+    case W:                                                                  \
+        return launch_body<T, W>(q, k, v, o, b, hq, hk, sq, sk, kv_len,       \
+                                 causal, window, stream);
     switch (d) {
-        case 16: return launch_body<T, 16>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal, stream);
-        case 32: return launch_body<T, 32>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal, stream);
-        case 64: return launch_body<T, 64>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal, stream);
-        case 128: return launch_body<T, 128>(q, k, v, o, b, hq, hk, sq, sk, kv_len, causal, stream);
+        FLASH_D(16)
+        FLASH_D(32)
+        FLASH_D(64)
+        FLASH_D(80)
+        FLASH_D(112)
+        FLASH_D(128)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef FLASH_D
 }
 
 }  // namespace
 
 // q (b, hq, sq, d), k and v (b, hk, sk, d), out (b, hq, sq, d), contiguous,
 // all of one type; sq and sk multiples of 64 (128 for the tensor-core body;
-// the wrapper pads to 128); d in {16, 32, 64, 128}; keys at kv_len and
-// beyond are masked (kv_len = sk masks none).  Each returns the CUDA error
-// code of the launch (0 on success; cudaErrorInvalidValue for shapes it does
-// not take).
+// the wrapper pads to 128); d in {16, 32, 64, 80, 112, 128}; keys at kv_len
+// and beyond are masked (kv_len = sk masks none), and with window > 0 keys
+// with qpos - kpos >= window (window = 0: no window).  Each returns the CUDA
+// error code of the launch (0 on success; cudaErrorInvalidValue for shapes it
+// does not take).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int b, int hq, int hk, int sq,
                                    int sk, int d, int kv_len, int causal,
-                                   void* stream) {
+                                   int window, void* stream) {
     return launch<float>(q, k, v, o, b, hq, hk, sq, sk, d, kv_len, causal,
-                         stream);
+                         window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int b, int hq,
                                     int hk, int sq, int sk, int d, int kv_len,
-                                    int causal, void* stream) {
+                                    int causal, int window, void* stream) {
     return launch<__nv_bfloat16>(q, k, v, o, b, hq, hk, sq, sk, d, kv_len,
-                                 causal, stream);
+                                 causal, window, stream);
 }
 
 // The body a launch of this type (bf16 nonzero) and head width takes: 1 the
 // tensor cores, 0 the CUDA cores, -1 none (the launch is refused).
 extern "C" int flash_attention_body(int bf16, int d) {
-    if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+    if (!head_width(d)) return -1;
     return tensor_core_body(bf16 != 0, d) ? 1 : 0;
 }

@@ -7,7 +7,9 @@ launches ``csrc/flash_attention.cu`` (entry points
 runs the plain version ``ref.flash_attention_ref``, which repeats the
 kernel's recurrence over 128-wide kv blocks.  Operands come padded:
 Sq and Sk multiples of 128 (``ops.flash_attention`` pads and passes
-``kv_len``).
+``kv_len``).  ``window`` masks keys with ``qpos - kpos >= window`` (a
+sliding window, mixtral's 4,096).  Head widths 80 and 112 (zamba2,
+kimi-k2) run on the CUDA-core body in f32 and bf16 alike.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from . import _cuda
 from .ref import flash_attention_ref
 
 TILE = 128                      # Sq and Sk come padded to multiples of this
-HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)   # the widths the kernel is built for
 _VARIANT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -56,24 +58,29 @@ def check_operands(q, k, v) -> torch.device:
     return dev
 
 
-def flash_attention_cuda(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
+def flash_attention_cuda(q, k, v, causal: bool, kv_len: int,
+                         window: int | None = None) -> torch.Tensor:
     b, hq, sq, d = q.shape
     _, hk, sk, _ = k.shape
     out = torch.empty_like(q)
     _cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, hq, hk, sq, sk, d, kv_len, int(causal),
-                 device=q.device, variant=_VARIANT[q.dtype])
+                 window or 0, device=q.device, variant=_VARIANT[q.dtype])
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    kv_len: int | None = None) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, kv_len: int | None = None,
+                    window: int | None = None) -> torch.Tensor:
     """(B, Hq, Sq, D) attention output in q's dtype; keys at or beyond
-    ``kv_len`` (default: none) are masked."""
+    ``kv_len`` (default: none) are masked, and with ``window`` keys with
+    ``qpos - kpos >= window``."""
+    if window is not None and window <= 0:
+        raise ValueError(f"window {window} must be positive")
     if check_operands(q, k, v).type == "cuda":
         sk = k.shape[2]
         kv = sk if kv_len is None else kv_len
         if not 0 < kv <= sk:
             raise ValueError(f"kv_len {kv} outside (0, {sk}]")
-        return flash_attention_cuda(q, k, v, causal, kv)
-    return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        return flash_attention_cuda(q, k, v, causal, kv, window)
+    return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                               window=window)

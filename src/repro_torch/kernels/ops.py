@@ -160,11 +160,12 @@ def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20):
 
 
 def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
-                    bk: int = 128):
+                    bk: int = 128, window: int | None = None):
     """Padded flash attention: (B,Hq,Sq,D) x (B,Hk,Sk,D) -> (B,Hq,Sq,D).
     ``bq`` and ``bk`` are the padding multiples, multiples of 128 (the
     kernel's tiles divide 128; the plain version steps over 128-wide kv
-    blocks)."""
+    blocks).  ``window`` (a sliding window) masks keys with
+    ``qpos - kpos >= window``."""
     if bq % _flash.TILE or bk % _flash.TILE:
         raise ValueError(f"bq {bq} and bk {bk} must be multiples of "
                          f"{_flash.TILE}")
@@ -177,7 +178,7 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
         k = torch.nn.functional.pad(k, (0, 0, 0, pk))
         v = torch.nn.functional.pad(v, (0, 0, 0, pk))
     out = _flash.flash_attention(q, k, v, causal=causal,
-                                 kv_len=sk if pk else None)
+                                 kv_len=sk if pk else None, window=window)
     _count_launch("flash_attention", q)
     return out[:, :, :sq]
 

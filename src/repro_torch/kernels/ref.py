@@ -64,7 +64,8 @@ _BK = 128       # kv block width of the reference wrapper's default tiling
 
 
 def flash_attention_ref(q, k, v, causal: bool = True,
-                        kv_len: int | None = None):
+                        kv_len: int | None = None,
+                        window: int | None = None):
     """Online-softmax GQA attention: the plain version of
     ``csrc/flash_attention.cu`` and the CPU lane of
     ``ops.flash_attention``.
@@ -75,7 +76,9 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     masked scores at -1e30, running max and sum, the output divided by
     max(l, 1e-30).  The causal mask is ``qpos >= kpos`` from the top left
     (the kernel's, not ``attention_ref``'s bottom-right alignment); keys
-    at or beyond ``kv_len`` are masked."""
+    at or beyond ``kv_len`` are masked, and with ``window`` keys with
+    ``qpos - kpos >= window`` (the sliding window of
+    ``repro/models/layers.py:89-90``)."""
     b, hq, sq, d = q.shape
     _, hk, sk, _ = k.shape
     g = hq // hk
@@ -91,11 +94,13 @@ def flash_attention_ref(q, k, v, causal: bool = True,
         kb = k[:, :, j0:j0 + _BK].to(f32)
         vb = v[:, :, j0:j0 + _BK].to(f32)
         s = torch.einsum("bkgqd,bktd->bkgqt", qf, kb)
-        if causal or kv_len is not None:
+        if causal or kv_len is not None or window is not None:
             kpos = j0 + torch.arange(kb.shape[2], device=q.device)[None, :]
             ok = qpos >= kpos if causal else torch.ones_like(qpos >= kpos)
             if kv_len is not None:
                 ok = ok & (kpos < kv_len)
+            if window is not None:
+                ok = ok & (qpos - kpos < window)
             s = torch.where(ok, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])

@@ -1,5 +1,6 @@
-"""Shared transformer building blocks: RMSNorm, RoPE (partial rotary),
-GQA attention (dense / chunked / decode) and the SwiGLU MLP.
+"""Shared transformer building blocks: RMSNorm (and Mamba2's gated
+RMSNorm), RoPE (partial rotary), GQA attention (dense / chunked /
+decode, sliding-window aware) and the SwiGLU MLP.
 
 Port of ``repro/models/layers.py``: pure functions over parameter
 subtrees (dicts of tensors), f32 softmax and norm math, matmuls in the
@@ -8,11 +9,9 @@ model dtype.  Products the reference takes with
 their outputs are never rounded to bf16 (TF32 stays off, PyTorch's
 default).  On a CUDA tensor the model's prefill attention is the
 hand-written ``kernels.ops.flash_attention`` (``transformer.attention``);
-the functions here are the plain versions the CPU runs.
-``gated_rmsnorm`` waits for mamba2, and the reference's ``q0`` (a query
-offset) and ``window`` (sliding window, ring cache in decode) wait for
-the slice that ports sliding-window configurations (ROADMAP A14): every
-query here starts at position 0 and sees every earlier key.
+the functions here are the plain versions the CPU runs.  ``q0`` is the
+absolute position of query row 0; ``window`` masks keys with
+``qpos - kpos >= window``; a windowed decode cache is a ring buffer.
 """
 from __future__ import annotations
 
@@ -28,6 +27,14 @@ F32 = torch.float32
 # ----------------------------------------------------------------- norms
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     xf = x.to(F32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.to(F32)).to(x.dtype)
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5):
+    """Mamba2 output norm: rmsnorm(x * silu(z)) * w."""
+    xf = x.to(F32) * F.silu(z.to(F32))
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * w.to(F32)).to(x.dtype)
 
@@ -74,17 +81,22 @@ def _grouped_out(w, v):
     return torch.einsum("bkgqt,bkth->bkgqh", w.to(v.dtype), v)
 
 
-def _causal_mask(sq: int, t: int, device):
-    """(sq, t) boolean mask, both positions counted from 0."""
-    qpos = torch.arange(sq, device=device)[:, None]
+def _causal_mask(sq: int, t: int, q0: int, window: int | None, device):
+    """(sq, t) boolean mask; q0 = absolute position of q row 0."""
+    qpos = q0 + torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(t, device=device)[None, :]
-    return qpos >= kpos
+    ok = qpos >= kpos
+    if window is not None:
+        ok = ok & ((qpos - kpos) < window)
+    return ok
 
 
-def dense_attention(q, k, v, causal=True) -> torch.Tensor:
+def dense_attention(q, k, v, q0: int = 0, causal=True,
+                    window: int | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, hd); k/v: (B, T, Hk, hd).  Full-score f32 softmax;
     q is scaled in its own dtype before the product, as the reference
-    does (``layers.py:104``)."""
+    does (``layers.py:104``).  The window applies with the causal mask
+    only, as there."""
     b, sq, hq, hd = q.shape
     t, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -93,14 +105,15 @@ def dense_attention(q, k, v, causal=True) -> torch.Tensor:
     vt = v.transpose(1, 2)
     s = _grouped_scores(qg * (hd ** -0.5), kt)
     if causal:
-        m = _causal_mask(sq, t, q.device)
+        m = _causal_mask(sq, t, q0, window, q.device)
         s = torch.where(m[None, None, None], s, _NEG)
     w = torch.softmax(s, dim=-1)
     o = _grouped_out(w, vt)
     return o.reshape(b, hq, sq, hd).transpose(1, 2)
 
 
-def chunked_attention(q, k, v, causal=True, chunk_q: int = 2048,
+def chunked_attention(q, k, v, q0: int = 0, causal=True,
+                      window: int | None = None, chunk_q: int = 2048,
                       chunk_k: int = 2048):
     """Two-level online-softmax attention in plain torch: a loop over q
     chunks, an inner loop over kv chunks (the reference's two scans).
@@ -134,11 +147,13 @@ def chunked_attention(q, k, v, causal=True, chunk_q: int = 2048,
             vc = vt[:, :, jk * chunk_k:(jk + 1) * chunk_k]
             s = _grouped_scores(qc, kc)
             if causal or kv_limit is not None:
-                qpos = iq * chunk_q + torch.arange(
+                qpos = q0 + iq * chunk_q + torch.arange(
                     chunk_q, device=q.device)[:, None]
                 kpos = jk * chunk_k + torch.arange(
                     chunk_k, device=q.device)[None, :]
                 ok = (qpos >= kpos) if causal else (qpos >= -1)
+                if window is not None:
+                    ok = ok & ((qpos - kpos) < window)
                 if kv_limit is not None:
                     ok = ok & (kpos < kv_limit)
                 s = torch.where(ok[None, None, None], s, _NEG)
@@ -155,19 +170,27 @@ def chunked_attention(q, k, v, causal=True, chunk_q: int = 2048,
     return o[:, :sq_real]
 
 
-def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
-    """Single-step attention against the cache.
+def decode_attention(q, k_cache, v_cache, pos: int,
+                     window: int | None = None) -> torch.Tensor:
+    """Single-step attention against a (possibly ring-buffered) cache.
 
     q: (B, 1, Hq, hd); caches: (B, T, Hk, hd); pos: the absolute
-    position of the new token.  Entries with index > pos are masked.
-    The scores contract against the cache layout directly (no
-    transposed copy of the cache)."""
+    position of the new token.  Entries with index > pos (or outside
+    the sliding window) are masked.  The scores contract against the
+    cache layout directly (no transposed copy of the cache)."""
     b, _, hq, hd = q.shape
     t, hk = k_cache.shape[1], k_cache.shape[2]
     g = hq // hk
     qg = q.reshape(b, hk, g, hd) * (hd ** -0.5)
     s = torch.einsum("bkgh,btkh->bkgt", qg.to(F32), k_cache.to(F32))
-    ok = torch.arange(t, device=q.device) <= pos
+    idx = torch.arange(t, device=q.device)
+    if window is None:
+        ok = idx <= pos
+    else:
+        # ring buffer (cache size t == min(window, seq)): slot i holds the
+        # largest absolute position p <= pos with p % t == i; p >= 0 means
+        # valid (p is within the window because t <= window)
+        ok = (pos - torch.remainder(pos - idx, t)) >= 0
     s = torch.where(ok[None, None, None], s, _NEG)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkh->bkgh", w.to(v_cache.dtype), v_cache)

@@ -1,0 +1,149 @@
+"""Mixture-of-Experts FFN with sort-based capacity dispatch.
+
+Port of ``repro/models/moe.py`` (``moe.py:19-136``): flatten the
+tokens, take each token's top-k experts, sort the assignments by expert
+(stable), give each its position within its expert's segment, drop those
+beyond capacity, gather the kept tokens into (E, cap, D) buffers, run
+the experts' SwiGLU as batched products and scatter-add the gated
+outputs back.  Router math in f32 with the load-balance and z losses.
+The expert products are plain ``torch.einsum`` (batched matmuls), as the
+reference computes them outside any Pallas kernel.
+
+A dropped assignment is written to slot ``a`` (the number of
+assignments), as the reference writes it: past the (E * cap + 1)-slot
+table that write is discarded (JAX drops out-of-bounds scatter
+updates); inside it, it lands on a real slot, and of several writes to
+one slot the last in sorted order stays, as the reference's sequential
+scatter leaves it on the CPU.  So when E * cap > a and an assignment is
+dropped from an expert at or after slot ``a``'s, the token in slot
+``a`` loses that expert (ROADMAP Queue C); the port keeps that result.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig, MoEConfig
+from .params import ParamSpec
+
+F32 = torch.float32
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    m = cfg.moe
+    d = cfg.d_model
+    sp = {
+        "router": ParamSpec((d, m.n_experts), ("embed_noshard", "experts"),
+                            dtype="float32"),
+        "we1": ParamSpec((m.n_experts, d, m.d_expert),
+                         ("experts", "embed", "expert_mlp")),
+        "we3": ParamSpec((m.n_experts, d, m.d_expert),
+                         ("experts", "embed", "expert_mlp")),
+        "we2": ParamSpec((m.n_experts, m.d_expert, d),
+                         ("experts", "expert_mlp", "embed")),
+    }
+    if m.n_shared_experts:
+        f = m.d_expert * m.n_shared_experts
+        sp.update({
+            "ws1": ParamSpec((d, f), ("embed", "mlp")),
+            "ws3": ParamSpec((d, f), ("embed", "mlp")),
+            "ws2": ParamSpec((f, d), ("mlp", "embed")),
+        })
+    return sp
+
+
+def _scatter_last(slot, vals, n: int, fill):
+    """``full((n,), fill).at[slot].set(vals)`` with the reference's
+    semantics on the CPU: indices >= n are dropped, and of several
+    writes to one index the last (in ``slot``'s order) stays."""
+    order = torch.arange(slot.shape[0], device=slot.device)
+    inb = slot < n
+    last = torch.full((n,), -1, dtype=torch.int64, device=slot.device)
+    last.scatter_reduce_(0, slot[inb], order[inb], reduce="amax")
+    return torch.where(last >= 0, vals[last.clamp(min=0)],
+                       torch.full((), fill, dtype=vals.dtype,
+                                  device=vals.device))
+
+
+def _dispatch_one_group(xf, logits, m: MoEConfig, cap: int):
+    """Route one token group: (T_g, D) -> gathered (E, cap, D) buffers,
+    tok_of_slot (E * cap,) int32 (-1 where empty), gate_of_slot f32 and
+    the occupied mask."""
+    t, d = xf.shape
+    gate_vals, expert_idx = torch.topk(logits, m.top_k, dim=-1)  # (T, k)
+    gates = torch.softmax(gate_vals, dim=-1)
+    a = t * m.top_k
+    flat_e = expert_idx.reshape(a)
+    flat_t = torch.arange(t, dtype=torch.int32,
+                          device=xf.device).repeat_interleave(m.top_k)
+    flat_g = gates.reshape(a)
+    se, order = torch.sort(flat_e, stable=True)
+    st_, sg = flat_t[order], flat_g[order]
+    seg_start = torch.searchsorted(
+        se, torch.arange(m.n_experts, dtype=se.dtype, device=se.device))
+    pos = torch.arange(a, device=xf.device) - seg_start[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, a)
+    n = m.n_experts * cap + 1
+    tok_of_slot = _scatter_last(slot, torch.where(keep, st_, -1), n, -1)[:-1]
+    gate_of_slot = _scatter_last(slot, torch.where(keep, sg, 0.0), n,
+                                 0.0)[:-1]
+    occupied = tok_of_slot >= 0
+    xin = torch.where(occupied[:, None], xf[tok_of_slot.clamp(min=0).long()],
+                      torch.zeros((), dtype=xf.dtype, device=xf.device))
+    return (xin.reshape(m.n_experts, cap, d), tok_of_slot, gate_of_slot,
+            occupied)
+
+
+def _combine_one_group(eo, tok_of_slot, gate_of_slot, occupied, t: int,
+                       d: int):
+    contrib = eo.reshape(-1, d).to(F32) * gate_of_slot[:, None]
+    idx = torch.where(occupied, tok_of_slot, t).long()
+    return torch.zeros(t + 1, d, dtype=F32, device=eo.device).index_add_(
+        0, idx, contrib)[:-1]
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, D) -> (y, aux) with aux = {load_balance, router_z}.
+    Tokens are split into ``cfg.moe_dispatch_groups`` groups (halved
+    until they divide B * S) and routed group-locally."""
+    m: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = xf.to(F32) @ p["router"].to(F32)
+    probs = torch.softmax(logits, dim=-1)                         # (T, E)
+
+    # ---- aux losses (f32, global) -------------------------------------
+    _, expert_idx_all = torch.topk(logits, m.top_k, dim=-1)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert_idx_all[:, 0], m.n_experts).to(F32).mean(dim=0)
+    load_balance = m.n_experts * torch.sum(me * ce)
+    router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    # ---- grouped dispatch ---------------------------------------------
+    groups = max(1, getattr(cfg, "moe_dispatch_groups", 1) or 1)
+    while t % groups:
+        groups //= 2
+    tg = t // groups
+    a_g = tg * m.top_k
+    cap = int(max(min(tg, 16), round(a_g / m.n_experts * m.capacity_factor)))
+    routed = [_dispatch_one_group(xg, lg, m, cap) for xg, lg in
+              zip(xf.reshape(groups, tg, d),
+                  logits.reshape(groups, tg, m.n_experts))]
+    xin = torch.stack([r[0] for r in routed])                 # (G, E, cap, D)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["we1"])) * \
+        torch.einsum("gecd,edf->gecf", xin, p["we3"])
+    eo = torch.einsum("gecf,efd->gecd", h, p["we2"])
+    yf = torch.cat([_combine_one_group(e, *r[1:], tg, d)
+                    for e, r in zip(eo, routed)])
+
+    if m.n_shared_experts:
+        hs = F.silu(xf @ p["ws1"]) * (xf @ p["ws3"])
+        yf = yf + (hs @ p["ws2"]).to(F32)
+
+    y = yf.to(x.dtype).reshape(b, s, d)
+    return y, {"load_balance": load_balance, "router_z": router_z}
+
+
+__all__ = ["moe_specs", "moe_ffn"]

@@ -1,26 +1,28 @@
-"""Decoder-only LM of the dense family: full-sequence forward, prefill and
-greedy-decode steps against a KV cache.
+"""Decoder-only LM of the dense, moe, ssm, hybrid and vlm families:
+full-sequence forward, prefill and greedy-decode steps against a cache.
 
-Port of ``repro/models/transformer.py`` (``transformer.py:35-150``,
-``:257-327``, ``:396-460``), dense family only.  Parameters are nested
-dicts of tensors with the reference's leaf names; the stacked
-``layers`` tensors (leading dim L) run as a Python loop, with no scan
-or remat.  Modes:
+Port of ``repro/models/transformer.py`` (``transformer.py:28-231``,
+``:257-512``).  Parameters are nested dicts of tensors with the
+reference's leaf names; the stacked ``layers`` tensors (leading dim L)
+run as a Python loop, with no scan or remat.  Modes:
 
-* ``forward_seq``: tokens -> final hidden states (and the per-layer
-  keys and values with ``collect_cache``);
+* ``forward_seq``: tokens (after an optional ``prefix_embeds``) ->
+  final hidden states (and the per-layer keys and values with
+  ``collect_cache``);
 * ``prefill``: tokens -> (last-position logits, populated cache);
 * ``decode_step``: one token + cache -> (logits, cache).
 
 On a CUDA tensor the full-sequence attention is the hand-written
-``kernels.ops.flash_attention`` (causal, from position 0: for those
-inputs it computes what ``dense_attention`` computes, with q scaled in
-f32); on the CPU it is ``dense_attention`` or ``chunked_attention``,
-picked as ``transformer.py:105`` picks them.  Decode attention is plain
-torch on both, as in the reference.  The moe, ssm, hybrid, vlm and
-encdec families and sliding-window configurations raise
-``NotImplementedError`` (ROADMAP A14): they never take a plain path on
-the card unannounced.
+``kernels.ops.flash_attention`` (causal from position 0, with the
+configuration's sliding window: for those inputs it computes what
+``dense_attention`` computes, with q scaled in f32); on the CPU it is
+``dense_attention`` or ``chunked_attention``, picked as
+``transformer.py:105`` picks them.  Decode attention, the MoE dispatch
+and the SSD scan are plain torch on both, as the reference computes
+them in jnp.  A sliding-window cache is a ring of min(cache_len,
+window) slots: prefill keeps the last slots rolled so slot = pos % t,
+and decode writes slot pos % t.  ``lm_loss`` waits for the training
+slice.
 """
 from __future__ import annotations
 
@@ -32,19 +34,11 @@ from ..kernels.dispatch import resolve_device
 from .layers import (F32, apply_rope, attention_specs, chunked_attention,
                      decode_attention, dense_attention, mlp_specs, rmsnorm,
                      rope_tables, swiglu)
+from .mamba2 import mamba_decode, mamba_dims, mamba_forward, mamba_specs
+from .moe import moe_ffn, moe_specs
 from .params import ParamSpec, map_specs, torch_dtype
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run."""
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; only "
-            f"dense is (ROADMAP A14)")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            f"(ROADMAP A14)")
+ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 # --------------------------------------------------------------- specs
@@ -54,20 +48,31 @@ def _stack(specs: dict, n: int) -> dict:
 
 
 def block_specs(cfg: ModelConfig) -> dict:
-    """One transformer block (attention + FFN)."""
+    """One transformer block (attention + FFN or MoE)."""
     d = cfg.d_model
-    return {
+    sp = {
         "attn_norm": ParamSpec((d,), ("embed_noshard",), init="ones",
                                dtype="float32"),
         "attn": attention_specs(d, cfg.n_q_heads, cfg.n_kv_heads, cfg.hd),
         "mlp_norm": ParamSpec((d,), ("embed_noshard",), init="ones",
                               dtype="float32"),
-        "mlp": mlp_specs(d, cfg.d_ff),
+    }
+    if cfg.moe is not None:
+        sp["moe"] = moe_specs(cfg)
+    else:
+        sp["mlp"] = mlp_specs(d, cfg.d_ff)
+    return sp
+
+
+def mamba_block_specs(cfg: ModelConfig) -> dict:
+    return {
+        "norm": ParamSpec((cfg.d_model,), ("embed_noshard",), init="ones",
+                          dtype="float32"),
+        "mixer": mamba_specs(cfg),
     }
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab
     sp: dict = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), init="normal"),
@@ -76,7 +81,18 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         sp["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
-    sp["layers"] = _stack(block_specs(cfg), cfg.n_layers)
+    if cfg.family in ATTN_FAMILIES:
+        sp["layers"] = _stack(block_specs(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        sp["layers"] = _stack(mamba_block_specs(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
+        n_inv = cfg.n_layers // cfg.shared_every
+        sp["layers"] = _stack(mamba_block_specs(cfg), cfg.n_layers)
+        sp["shared"] = block_specs(cfg)          # ONE shared block
+        sp["shared_proj"] = ParamSpec((n_inv, 2 * d, d),
+                                      ("layers", "embed", "embed_noshard"))
+    else:
+        raise ValueError(cfg.family)
     return sp
 
 
@@ -90,34 +106,41 @@ def layer_params(layers: dict, i: int) -> dict:
 def plain_attention(q, k, v, cfg: ModelConfig):
     """The reference's choice (``transformer.py:105``): dense attention
     for ``attn_impl="dense"`` or a sequence within one chunk, else the
-    chunked online softmax."""
+    chunked online softmax; causal, with the configuration's window."""
     sq = q.shape[1]
     if cfg.attn_impl == "dense" or sq <= cfg.attn_chunk:
-        return dense_attention(q, k, v, causal=True)
+        return dense_attention(q, k, v, causal=True,
+                               window=cfg.sliding_window)
     ck = min(cfg.attn_chunk, sq)
-    return chunked_attention(q, k, v, causal=True, chunk_q=ck, chunk_k=ck)
+    return chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                             chunk_q=ck, chunk_k=ck)
 
 
 def attention(q, k, v, cfg: ModelConfig):
-    """Full-sequence causal attention of (B, S, H, hd) tensors: the flash
-    kernel on a CUDA tensor, :func:`plain_attention` on the CPU."""
+    """Full-sequence causal attention of (B, S, H, hd) tensors with the
+    configuration's sliding window: the flash kernel on a CUDA tensor,
+    :func:`plain_attention` on the CPU."""
     if not q.is_cuda:
         return plain_attention(q, k, v, cfg)
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True)
+                            v.transpose(1, 2), causal=True,
+                            window=cfg.sliding_window)
     return o.transpose(1, 2)
+
+
+def _qkv(p: dict, xn, cfg: ModelConfig, cos, sin):
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xn, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xn, p["wv"])
+    rot = int(cfg.hd * cfg.partial_rotary)
+    return apply_rope(q, cos, sin, rot), apply_rope(k, cos, sin, rot), v
 
 
 def attn_block(p: dict, x, cfg: ModelConfig, cos, sin):
     """Full-sequence attention sub-block (pre-norm, residual outside).
     Returns (output, (k, v))."""
     xn = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", xn, p["attn"]["wq"])
-    k = torch.einsum("bsd,dhk->bshk", xn, p["attn"]["wk"])
-    v = torch.einsum("bsd,dhk->bshk", xn, p["attn"]["wv"])
-    rot = int(cfg.hd * cfg.partial_rotary)
-    q = apply_rope(q, cos, sin, rot)
-    k = apply_rope(k, cos, sin, rot)
+    q, k, v = _qkv(p["attn"], xn, cfg, cos, sin)
     o = attention(q, k, v, cfg)
     return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"]), (k, v)
 
@@ -129,6 +152,8 @@ def _zero_aux(device) -> dict:
 
 def ffn_block(p: dict, x, cfg: ModelConfig):
     xn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return moe_ffn(p["moe"], xn, cfg)
     return swiglu(p["mlp"], xn), _zero_aux(x.device)
 
 
@@ -139,9 +164,18 @@ def transformer_layer(p, x, cfg: ModelConfig, cos, sin):
     return (x + f).to(x.dtype), aux, kv
 
 
+def _mamba_layer(lp: dict, h, cfg: ModelConfig, cache=None):
+    y, nc = mamba_forward(lp["mixer"], rmsnorm(h, lp["norm"], cfg.norm_eps),
+                          cfg, cache=cache)
+    return (h + y).to(h.dtype), nc
+
+
 # --------------------------------------------- full-sequence forward pass
-def _embed(params, tokens):
-    return params["embed"][tokens.long()]
+def _embed(params, tokens, prefix_embeds=None):
+    x = params["embed"][tokens.long()]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _unembed(params, x, cfg: ModelConfig):
@@ -153,108 +187,244 @@ def _unembed(params, x, cfg: ModelConfig):
     return xn @ params["lm_head"].to(F32)
 
 
-def _run_layers(params, tokens, cfg: ModelConfig, on_kv=None):
-    """Embed and run every layer; ``on_kv(i, k, v)`` receives layer i's
-    keys and values (B, S, Hk, hd)."""
-    check_supported(cfg)
-    x = _embed(params, tokens)
-    s = x.shape[1]
-    rot = int(cfg.hd * cfg.partial_rotary)
-    cos, sin = rope_tables(torch.arange(s, device=x.device), rot,
-                           cfg.rope_theta)
+def _rope(s: int, cfg: ModelConfig, device):
+    return rope_tables(torch.arange(s, device=device),
+                       int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
+
+
+def _run_layers(params, x, cfg: ModelConfig, on_kv=None):
+    """Run every transformer layer over embedded ``x``; ``on_kv(i, k,
+    v)`` receives layer i's keys and values (B, S, Hk, hd).  Returns
+    (hidden, aux summed over the layers)."""
+    cos, sin = _rope(x.shape[1], cfg, x.device)
+    aux = _zero_aux(x.device)
     for i in range(cfg.n_layers):
-        x, _, (k, v) = transformer_layer(layer_params(params["layers"], i),
+        x, a, (k, v) = transformer_layer(layer_params(params["layers"], i),
                                          x, cfg, cos, sin)
+        aux = {n: aux[n] + a[n] for n in aux}
         if on_kv is not None:
             on_kv(i, k, v)
+    return x, aux
+
+
+def _hybrid_layers(params, x, cfg: ModelConfig, cache=None, on_kv=None):
+    """Zamba2-style: super-blocks of ``shared_every`` mamba layers, each
+    followed by one invocation of the SHARED attention block (common
+    weights, per-invocation concat down-projection).  With ``cache`` the
+    mamba layers start from and update its conv and ssm state (layer
+    by layer); ``on_kv(j, k, v)`` receives invocation j's keys and
+    values."""
+    cos, sin = _rope(x.shape[1], cfg, x.device)
+    k = cfg.shared_every
+    x0 = x                                 # residual stream of embeddings
+    shared = params["shared"]
+    for j in range(cfg.n_layers // k):
+        h = x
+        for i in range(j * k, (j + 1) * k):
+            lc = None if cache is None else {"conv": cache["conv"][i],
+                                             "ssm": cache["ssm"][i]}
+            h, nc = _mamba_layer(layer_params(params["layers"], i), h, cfg,
+                                 lc)
+            if cache is not None:
+                cache["conv"][i], cache["ssm"][i] = nc["conv"], nc["ssm"]
+        inp2 = torch.cat([h, x0], dim=-1) @ params["shared_proj"][j]
+        a, kv = attn_block(shared, inp2, cfg, cos, sin)
+        f, _ = ffn_block(shared, inp2 + a, cfg)
+        x = (h + a + f).to(h.dtype)
+        if on_kv is not None:
+            on_kv(j, *kv)
     return x
 
 
-def forward_seq(params, tokens, cfg: ModelConfig,
+def forward_seq(params, tokens, cfg: ModelConfig, prefix_embeds=None,
                 collect_cache: bool = False):
     """Full-sequence forward.  Returns (hidden, aux, (k, v) stacked
-    (L, B, S, Hk, hd) with ``collect_cache``, else None)."""
-    kvs: list = []
-    x = _run_layers(params, tokens, cfg,
-                    (lambda i, k, v: kvs.append((k, v))) if collect_cache
-                    else None)
-    cache = None
-    if collect_cache:
-        cache = (torch.stack([k for k, _ in kvs]),
-                 torch.stack([v for _, v in kvs]))
-    return x, _zero_aux(x.device), cache
+    (L, B, S, Hk, hd) with ``collect_cache`` for the attention families,
+    else None)."""
+    x = _embed(params, tokens, prefix_embeds)
+    if cfg.family in ATTN_FAMILIES:
+        kvs: list = []
+        x, aux = _run_layers(params, x, cfg,
+                             (lambda i, k, v: kvs.append((k, v)))
+                             if collect_cache else None)
+        cache = None
+        if collect_cache:
+            cache = (torch.stack([k for k, _ in kvs]),
+                     torch.stack([v for _, v in kvs]))
+        return x, aux, cache
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, _ = _mamba_layer(layer_params(params["layers"], i), x, cfg)
+        return x, _zero_aux(x.device), None
+    if cfg.family == "hybrid":
+        return _hybrid_layers(params, x, cfg), _zero_aux(x.device), None
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------- serving
 def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
     """Logical description of the decode cache: {name: (shape, axes,
     dtype)}."""
-    check_supported(cfg)
-    kv = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    out = {}
+    t = cache_len
+    if cfg.sliding_window is not None:
+        t = min(cache_len, cfg.sliding_window)
     axes = ("layers", "batch", "kv_seq", "kv_heads", "qkv")
-    return {"k": (kv, axes, cfg.dtype), "v": (kv, axes, cfg.dtype),
-            "pos": ((), (), "int32")}
+    if cfg.family in ATTN_FAMILIES:
+        kv = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.hd)
+        out["k"] = (kv, axes, cfg.dtype)
+        out["v"] = (kv, axes, cfg.dtype)
+    elif cfg.family in ("ssm", "hybrid"):
+        _, n_heads, conv_dim = mamba_dims(cfg)
+        s = cfg.ssm
+        out["conv"] = ((cfg.n_layers, batch, s.d_conv - 1, conv_dim),
+                       ("layers", "batch", "conv", "ssm_inner"), cfg.dtype)
+        out["ssm"] = ((cfg.n_layers, batch, n_heads, s.head_dim, s.d_state),
+                      ("layers", "batch", "ssm_inner", "qkv", "ssm_state"),
+                      "float32")
+        if cfg.family == "hybrid":
+            n_inv = cfg.n_layers // cfg.shared_every
+            kv = (n_inv, batch, t, cfg.n_kv_heads, cfg.hd)
+            out["k"] = (kv, axes, cfg.dtype)
+            out["v"] = (kv, axes, cfg.dtype)
+    out["pos"] = ((), (), "int32")
+    return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Zeroed k and v (L, B, T, Hk, hd) on ``device`` (default ``cuda``),
-    and ``pos``, which the port keeps as a Python int: the host always
-    knows it, so a decode step never waits for the card to read it."""
+def zeros_cache(spec: dict, device) -> dict:
+    """Zeroed tensors of a cache spec on ``device``, and ``pos`` = 0,
+    which the port keeps as a Python int: the host always knows it, so
+    a decode step never waits for the card to read it."""
     dev = resolve_device(device)
     out = {name: torch.zeros(shape, dtype=torch_dtype(dt), device=dev)
-           for name, (shape, _, dt) in cache_spec(cfg, batch,
-                                                  cache_len).items()
-           if shape}
+           for name, (shape, _, dt) in spec.items() if shape}
     out["pos"] = 0
     return out
 
 
-def prefill(params, tokens, cfg: ModelConfig, cache_len: int):
-    """Run the prompt (B, S), return (last-token logits (B, 1, V) f32,
-    populated cache).  Each layer's keys and values go straight into the
-    cache, not through a stacked copy."""
-    b, s = tokens.shape
-    if s > cache_len:
-        raise ValueError(f"prompt of {s} tokens exceeds cache_len "
-                         f"{cache_len}")
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+    """The zeroed cache of :func:`cache_spec` on ``device`` (default
+    ``cuda``)."""
+    return zeros_cache(cache_spec(cfg, batch, cache_len), device)
+
+
+def _store_kv(cache, total: int, roll: bool):
+    """``on_kv`` writing layer i's keys and values straight into the
+    cache: positions 0..total-1 from slot 0, or, for a sliding window
+    with more positions than slots, the last t rotated so slot =
+    pos % t (``transformer.py:305-312``)."""
+    t = cache["k"].shape[2]
 
     def store(i, k, v):
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        if roll and total > t:
+            shift = total % t
+            cache["k"][i] = torch.roll(k[:, total - t:], shift, dims=1)
+            cache["v"][i] = torch.roll(v[:, total - t:], shift, dims=1)
+        else:
+            cache["k"][i, :, :total] = k
+            cache["v"][i, :, :total] = v
+    return store
 
-    x = _run_layers(params, tokens, cfg, store)
-    cache["pos"] = s
+
+def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
+            prefix_embeds=None):
+    """Run the prompt (B, S) (after ``prefix_embeds`` (B, P, D) for a
+    vlm), return (last-token logits (B, 1, V) f32, populated cache).
+    Each layer's keys and values go straight into the cache, not
+    through a stacked copy."""
+    b, s = tokens.shape
+    total = s + (0 if prefix_embeds is None else prefix_embeds.shape[1])
+    if total > cache_len and (cfg.sliding_window is None
+                              or cfg.family not in ATTN_FAMILIES):
+        raise ValueError(f"prompt of {total} positions exceeds cache_len "
+                         f"{cache_len}")
+    cache = init_cache(cfg, b, cache_len, device=tokens.device)
+    x = _embed(params, tokens, prefix_embeds)
+    if cfg.family in ATTN_FAMILIES:
+        x, _ = _run_layers(params, x, cfg, _store_kv(
+            cache, total, roll=cfg.sliding_window is not None))
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, nc = _mamba_layer(layer_params(params["layers"], i), x, cfg,
+                                 {"conv": cache["conv"][i],
+                                  "ssm": cache["ssm"][i]})
+            cache["conv"][i], cache["ssm"][i] = nc["conv"], nc["ssm"]
+    elif cfg.family == "hybrid":
+        x = _hybrid_layers(params, x, cfg, cache,
+                           _store_kv(cache, total, roll=False))
+    else:
+        raise ValueError(cfg.family)
+    cache["pos"] = total
     return _unembed(params, x[:, -1:], cfg), cache
+
+
+def _decode_attn(p: dict, xn, kall, vall, i: int, slot: int, pos: int,
+                 cfg: ModelConfig, cos, sin, window):
+    """One token's attention sub-block against cache layer ``i``: its
+    key and value written at ``slot``; returns the projected output."""
+    q, kn, vn = _qkv(p["attn"], xn, cfg, cos, sin)
+    kall[i, :, slot] = kn[:, 0].to(kall.dtype)
+    vall[i, :, slot] = vn[:, 0].to(vall.dtype)
+    o = decode_attention(q, kall[i], vall[i], pos, window=window)
+    return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
 
 
 def decode_step(params, token, cache, cfg: ModelConfig):
     """token: (B,) int, the token at position ``cache["pos"]``.  Returns
-    (logits (B, 1, V) f32, cache).  The k and v tensors are updated in
-    place (one slot per layer); the returned dict holds them and the
-    advanced ``pos``."""
-    check_supported(cfg)
+    (logits (B, 1, V) f32, cache).  The cache tensors are updated in
+    place (one slot per layer, or the layer's conv and ssm state); the
+    returned dict holds them and the advanced ``pos``."""
     pos = int(cache["pos"])
-    kall, vall = cache["k"], cache["v"]
-    if pos >= kall.shape[2]:
-        raise ValueError(f"the cache of {kall.shape[2]} slots is full")
     x = _embed(params, token)[:, None, :]                  # (B, 1, D)
-    rot = int(cfg.hd * cfg.partial_rotary)
-    cos, sin = rope_tables(torch.tensor([pos], device=x.device), rot,
-                           cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", xn, lp["attn"]["wq"])
-        kn = torch.einsum("bsd,dhk->bshk", xn, lp["attn"]["wk"])
-        vn = torch.einsum("bsd,dhk->bshk", xn, lp["attn"]["wv"])
-        q = apply_rope(q, cos, sin, rot)
-        kn = apply_rope(kn, cos, sin, rot)
-        kall[i, :, pos] = kn[:, 0].to(kall.dtype)
-        vall[i, :, pos] = vn[:, 0].to(vall.dtype)
-        o = decode_attention(q, kall[i], vall[i], pos)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        f, _ = ffn_block(lp, x, cfg)
-        x = (x + f).to(x.dtype)
+    cos, sin = rope_tables(torch.tensor([pos], device=x.device),
+                           int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
+    if "k" in cache:
+        t = cache["k"].shape[2]
+        window = cfg.sliding_window if cfg.family in ATTN_FAMILIES else None
+        if window is None and pos >= t:
+            raise ValueError(f"the cache of {t} slots is full")
+        slot = pos % t if window is not None else pos
+
+    if cfg.family in ATTN_FAMILIES:
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+            x = x + _decode_attn(lp, xn, cache["k"], cache["v"], i, slot,
+                                 pos, cfg, cos, sin, window)
+            f, _ = ffn_block(lp, x, cfg)
+            x = (x + f).to(x.dtype)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_decode_layer(params, x, cache, cfg, i)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, x, cache, cfg, cos, sin, pos)
+    else:
+        raise ValueError(cfg.family)
     logits = _unembed(params, x, cfg)
     return logits, dict(cache, pos=pos + 1)
+
+
+def _mamba_decode_layer(params, h, cache, cfg: ModelConfig, i: int):
+    lp = layer_params(params["layers"], i)
+    y, nc = mamba_decode(lp["mixer"], rmsnorm(h, lp["norm"], cfg.norm_eps),
+                         cfg, {"conv": cache["conv"][i],
+                               "ssm": cache["ssm"][i]})
+    cache["conv"][i], cache["ssm"][i] = nc["conv"], nc["ssm"]
+    return (h + y).to(h.dtype)
+
+
+def _hybrid_decode(params, x, cache, cfg: ModelConfig, cos, sin, pos: int):
+    k = cfg.shared_every
+    x0 = x
+    shared = params["shared"]
+    for j in range(cfg.n_layers // k):
+        h = x
+        for i in range(j * k, (j + 1) * k):
+            h = _mamba_decode_layer(params, h, cache, cfg, i)
+        inp2 = torch.cat([h, x0], dim=-1) @ params["shared_proj"][j]
+        xn = rmsnorm(inp2, shared["attn_norm"], cfg.norm_eps)
+        a = _decode_attn(shared, xn, cache["k"], cache["v"], j, pos, pos,
+                         cfg, cos, sin, None)
+        f, _ = ffn_block(shared, inp2 + a, cfg)
+        x = (h + a + f).to(h.dtype)
+    return x

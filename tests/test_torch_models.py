@@ -6,11 +6,12 @@ Pallas kernel in interpret mode and its models as jitted jnp; the port
 runs ``repro_torch`` on CPU tensors, where ``ops.flash_attention`` is
 the kernel's plain version and the model's attention is
 ``dense_attention`` / ``chunked_attention`` as in the reference.  Whole
-models are the four dense configurations, ``reduced()`` in float32, with
-the reference's own randomly initialised parameters carried across by
-``params_from_reference``.  The retrieval twin at the end is a reduced
-``examples/retrieval_serving.py``: an encoder LM's embeddings, indexed
-by LIMS, queried by exact kNN.
+models are the ten configurations (four dense; the other families are
+held more closely in ``tests/test_torch_families.py``), ``reduced()`` in
+float32, with the reference's own randomly initialised parameters
+carried across by ``params_from_reference``.  The retrieval twin at the
+end is a reduced ``examples/retrieval_serving.py``: an encoder LM's
+embeddings, indexed by LIMS, queried by exact kNN.
 """
 import dataclasses
 
@@ -23,6 +24,7 @@ import torch
 from repro.configs.base import ModelConfig as RefConfig
 from repro.configs.registry import ARCHS as REF_ARCHS
 from repro.kernels import ref as ref_kernel_ref
+from repro.models import encdec as ref_encdec
 from repro.models import layers as ref_layers
 from repro.models import zoo as ref_zoo
 from repro.models.params import init_params as ref_init
@@ -36,10 +38,11 @@ from repro_torch.core.batched import BatchedLIMS
 from repro_torch.core.metrics import dist_one_to_many
 from repro_torch.kernels import _cuda, ops
 from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.models import layers, transformer, zoo
+from repro_torch.models import encdec, layers, transformer, zoo
 from repro_torch.models.params import count_params, init_params
 
-DENSE = sorted(ARCHS)
+DENSE = sorted(n for n, c in ARCHS.items() if c.family == "dense")
+ALL = DENSE + sorted(set(ARCHS) - set(DENSE))
 
 
 @pytest.fixture
@@ -278,71 +281,54 @@ def _reduced(name):
 
 @pytest.fixture(scope="module")
 def models():
-    """Per dense arch: (reference config, reference params, port config,
-    port params converted from the reference's, tokens)."""
+    """Per arch: (reference config, reference params, port config, port
+    params converted from the reference's, tokens, extra batch entries:
+    a vlm's prefix embeddings or an encdec's source frames, numpy).  The
+    dense archs draw their tokens first, as before the other families
+    were ported.  A MoE router is scaled by 50, as the reference's
+    tests/test_models.py makes routing decisive."""
     out = {}
     rng = np.random.default_rng(3)
-    for name in DENSE:
+    for name in ALL:
         rcfg = _reduced(name)
         rp = ref_init(ref_zoo.model_specs(rcfg), jax.random.PRNGKey(0),
                       rcfg.dtype)
+        if rcfg.moe is not None:
+            rp = jax.tree_util.tree_map_with_path(
+                lambda path, x: x * 50.0
+                if any(getattr(k, "key", None) == "router" for k in path)
+                else x, rp)
         cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
         tp = params_from_reference(jax.tree.map(np.asarray, rp),
                                    device="cpu")
         tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-        out[name] = (rcfg, rp, cfg, tp, tokens)
+        extra = {}
+        if cfg.family == "vlm":
+            extra["prefix_embeds"] = rng.normal(
+                0, 0.02, (B, cfg.n_prefix_embeds, cfg.d_model)).astype(
+                    np.float32)
+        if cfg.family == "encdec":
+            extra["src_embeds"] = rng.normal(
+                0, 0.02, (B, 40, cfg.d_model)).astype(np.float32)
+        out[name] = (rcfg, rp, cfg, tp, tokens, extra)
     return out
 
 
 def test_configs_equal_reference():
-    """The port's dense configs and their reductions field for field."""
-    for name in DENSE:
+    """The port's ten configs and their reductions field for field."""
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
+    for name in ALL:
         assert dataclasses.asdict(get_arch(name)) == \
             dataclasses.asdict(REF_ARCHS[name])
         assert dataclasses.asdict(get_arch(name).reduced()) == \
             dataclasses.asdict(REF_ARCHS[name].reduced())
-    assert sorted(ARCHS) == sorted(n for n, c in REF_ARCHS.items()
-                                   if c.family == "dense")
-
-
-@pytest.mark.parametrize("name", sorted(set(REF_ARCHS) - set(ARCHS)))
-def test_other_archs_not_ported(name):
-    """The six non-dense archs: KeyError naming ROADMAP A14; their
-    configs, carried over by hand, raise NotImplementedError."""
-    with pytest.raises(KeyError, match="A14"):
-        get_arch(name)
-    ref = REF_ARCHS[name]
-    cfg = ModelConfig(**{f.name: getattr(ref, f.name)
-                         for f in dataclasses.fields(RefConfig)
-                         if f.name not in ("moe", "ssm")})
-    for call in (lambda: zoo.model_specs(cfg),
-                 lambda: zoo.prefill_fn(cfg, 64),
-                 lambda: zoo.decode_fn(cfg)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
-
-
-def test_sliding_window_not_ported():
-    """A dense config with a sliding window raises too, on every entry
-    point, and never runs a plain path."""
-    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(),
-                              sliding_window=32)
-    tokens = torch.zeros(1, 8, dtype=torch.int32)
-    for call in (lambda: zoo.model_specs(cfg),
-                 lambda: zoo.prefill_fn(cfg, 64),
-                 lambda: transformer.forward_seq({}, tokens, cfg),
-                 lambda: transformer.decode_step({}, tokens[:, 0],
-                                                 {"pos": 0, "k": None,
-                                                  "v": None}, cfg)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
 
 
 def test_params_from_reference_leaves(models):
     """Leaf names, shapes and dtypes equal the reference tree's; the
     values are the reference's bit for bit; ``dtype`` casts all but the
-    norm weights."""
-    rcfg, rp, cfg, tp, _ = models["llama3-8b"]
+    norm weights, which the specs pin to float32, and needs the specs."""
+    rcfg, rp, cfg, tp, _, _ = models["llama3-8b"]
     flat_r = {jax.tree_util.keystr(k): v for k, v in
               jax.tree_util.tree_flatten_with_path(rp)[0]}
 
@@ -359,7 +345,11 @@ def test_params_from_reference_leaves(models):
         assert flat_t[k].dtype == torch.float32 and a.dtype == np.float32
         np.testing.assert_array_equal(flat_t[k].numpy(), np.asarray(a))
     bf = params_from_reference(jax.tree.map(np.asarray, rp), device="cpu",
-                               dtype=torch.bfloat16)
+                               dtype=torch.bfloat16,
+                               specs=zoo.model_specs(cfg))
+    with pytest.raises(ValueError, match="needs the specs"):
+        params_from_reference(jax.tree.map(np.asarray, rp), device="cpu",
+                              dtype=torch.bfloat16)
     assert bf["embed"].dtype == torch.bfloat16
     assert bf["layers"]["attn"]["wq"].dtype == torch.bfloat16
     assert bf["final_norm"].dtype == torch.float32
@@ -409,57 +399,95 @@ def test_init_params_shapes_and_scale():
     assert torch.equal(again["layers"]["mlp"]["w1"], lay["mlp"]["w1"])
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_forward_prefill_decode_match_reference(models, name):
-    """forward_seq logits, prefill (tokens[:, :-1]) and one decode step
-    (tokens[:, -1]) and the caches against the reference's on the same
-    parameters and tokens, f32, within SCALED."""
-    rcfg, rp, cfg, tp, tokens = models[name]
-    x, _, _ = ref_forward(rp, jnp.asarray(tokens), rcfg)
-    want_full = np.asarray(ref_unembed(rp, x, rcfg))
-    xt, aux, kv = transformer.forward_seq(tp, torch.from_numpy(tokens), cfg,
-                                          collect_cache=True)
-    full = transformer._unembed(tp, xt, cfg)
-    _close_scaled(full, want_full)
-    assert kv[0].shape == (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-    assert float(aux["load_balance"]) == 0.0
+def _full_logits(params, tokens, extra, cfg, ref=False):
+    """Teacher-forced logits over the whole of ``tokens`` (B, S, V) on
+    either package: forward_seq + _unembed (a vlm after its prefix), or
+    an encdec's decoder over the encoded source."""
+    if ref:
+        tok = jnp.asarray(tokens)
+        if cfg.family == "encdec":
+            mem = ref_encdec.encode(params, jnp.asarray(extra["src_embeds"]),
+                                    cfg)
+            return np.asarray(ref_encdec.decode_train(params, mem, tok, cfg))
+        prefix = extra.get("prefix_embeds")
+        x, _, _ = ref_forward(params, tok, cfg, None if prefix is None
+                              else jnp.asarray(prefix))
+        return np.asarray(ref_unembed(params, x, cfg))
+    tok = torch.from_numpy(tokens)
+    if cfg.family == "encdec":
+        mem = encdec.encode(params, torch.from_numpy(extra["src_embeds"]),
+                            cfg)
+        return encdec.decode_train(params, mem, tok, cfg)
+    prefix = extra.get("prefix_embeds")
+    x, _, _ = transformer.forward_seq(params, tok, cfg, None if prefix is None
+                                      else torch.from_numpy(prefix))
+    return transformer._unembed(params, x, cfg)
 
-    lj, cj = jax.jit(ref_zoo.prefill_fn(rcfg, S + 8))(
-        rp, {"tokens": jnp.asarray(tokens[:, :-1])})
+
+def _prefill_batch(tokens, extra, to):
+    return {"tokens": to(tokens[:, :-1]), **{k: to(a) for k, a in
+                                              extra.items()}}
+
+
+def _cache_len(cfg):
+    return S + 8 + cfg.n_prefix_embeds
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_forward_prefill_decode_match_reference(models, name):
+    """Teacher-forced logits, prefill (tokens[:, :-1]) and one decode
+    step (tokens[:, -1]) and every cache entry against the reference's
+    on the same parameters and batch, f32, within SCALED."""
+    rcfg, rp, cfg, tp, tokens, extra = models[name]
+    _close_scaled(_full_logits(tp, tokens, extra, cfg),
+                  _full_logits(rp, tokens, extra, rcfg, ref=True))
+    if cfg.family in ("dense", "moe", "vlm"):
+        prefix = extra.get("prefix_embeds")
+        _, aux, kv = transformer.forward_seq(
+            tp, torch.from_numpy(tokens), cfg, None if prefix is None
+            else torch.from_numpy(prefix), collect_cache=True)
+        assert kv[0].shape == (cfg.n_layers, B, S + cfg.n_prefix_embeds,
+                               cfg.n_kv_heads, cfg.hd)
+        assert (float(aux["load_balance"]) > 0.0) == (cfg.moe is not None)
+
+    lj, cj = jax.jit(ref_zoo.prefill_fn(rcfg, _cache_len(cfg)))(
+        rp, _prefill_batch(tokens, extra, jnp.asarray))
     dj, cj = jax.jit(ref_zoo.decode_fn(rcfg))(rp, jnp.asarray(tokens[:, -1]),
                                               cj)
-    lt, ct = zoo.prefill_fn(cfg, S + 8)(
-        tp, {"tokens": torch.from_numpy(tokens[:, :-1])})
+    lt, ct = zoo.prefill_fn(cfg, _cache_len(cfg))(
+        tp, _prefill_batch(tokens, extra, torch.from_numpy))
     _close_scaled(lt, lj)
     dt, ct = zoo.decode_fn(cfg)(tp, torch.from_numpy(tokens[:, -1]), ct)
     _close_scaled(dt, dj)
-    _close_scaled(ct["k"], cj["k"])
-    _close_scaled(ct["v"], cj["v"])
-    assert ct["pos"] == int(cj["pos"]) == S
+    assert sorted(ct) == sorted(cj)
+    for entry in cj:
+        if entry != "pos":
+            _close_scaled(ct[entry], cj[entry])
+    assert ct["pos"] == int(cj["pos"]) == S + cfg.n_prefix_embeds
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_decode_matches_forward(models, name):
     """The port's own serving contract (test_models.py:59): prefill of
-    tokens[:, :-1] then decode of tokens[:, -1] give forward_seq's logits
-    at -2 and -1, at that test's tolerances."""
-    _, _, cfg, tp, tokens = models[name]
-    t = torch.from_numpy(tokens)
-    x, _, _ = transformer.forward_seq(tp, t, cfg)
-    full = transformer._unembed(tp, x, cfg)
-    lp, cache = zoo.prefill_fn(cfg, S + 8)(tp, {"tokens": t[:, :-1]})
+    tokens[:, :-1] then decode of tokens[:, -1] give the teacher-forced
+    logits at -2 and -1, at that test's tolerances."""
+    _, _, cfg, tp, tokens, extra = models[name]
+    full = _full_logits(tp, tokens, extra, cfg)
+    lp, cache = zoo.prefill_fn(cfg, _cache_len(cfg))(
+        tp, _prefill_batch(tokens, extra, torch.from_numpy))
     np.testing.assert_allclose(lp[:, 0].numpy(), full[:, -2].numpy(),
                                rtol=2e-3, atol=2e-3)
-    ld, cache = zoo.decode_fn(cfg)(tp, t[:, -1], cache)
+    ld, cache = zoo.decode_fn(cfg)(tp, torch.from_numpy(tokens[:, -1]),
+                                   cache)
     np.testing.assert_allclose(ld[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=5e-3, atol=5e-3)
-    assert cache["pos"] == S
+    assert cache["pos"] == S + cfg.n_prefix_embeds
 
 
 def test_chunked_model_path_matches_reference(models):
     """attn_impl="chunked" with sequences longer than attn_chunk takes
     the chunked path on both sides (transformer.py:105)."""
-    rcfg, rp, cfg, tp, tokens = models["chatglm3-6b"]
+    rcfg, rp, cfg, tp, tokens, _ = models["chatglm3-6b"]
     rcfg = dataclasses.replace(rcfg, attn_impl="chunked", attn_chunk=16)
     cfg = dataclasses.replace(cfg, attn_impl="chunked", attn_chunk=16)
     x, _, _ = ref_forward(rp, jnp.asarray(tokens), rcfg)

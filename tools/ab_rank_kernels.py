@@ -18,23 +18,17 @@ on inputs made from ``--seed`` at the query path's shapes:
   replayed from a CUDA graph (device time with no host cost); and the
   bare launch at (1, 1), the floor.
 
-Each turn prints one JSON line; the last lines are each metric's mean
-over the A and the B turns with B / A, and whether the two trees' outputs
-agree bit for bit (hashes of rank, rid, dq and the ranks).  The card's
-name and power limit head the table.  Exits nonzero without a card, or if
-the outputs differ.
+The turns, the means with B / A and the bit-for-bit check of the
+outputs (hashes of rank, rid, dq and the ranks) are ``tools/abba.py``'s.
 """
 from __future__ import annotations
 
-import argparse
 import hashlib
-import json
-import subprocess
 import sys
 from pathlib import Path
 
-HERE = Path(__file__).resolve().parent
-ROOT = HERE.parent
+import abba
+
 G, NC, C = 192, 71_998, 9           # rankeval: groups, values, coefficients
 B, D = 64, 8                        # pdist_rankeval: queries, width
 N_RINGS = 20
@@ -74,14 +68,12 @@ def digest(*ts) -> str:
 
 
 def worker(tree: Path, seed: int) -> dict:
-    sys.path.insert(0, str(tree / "src"))
-    sys.path.insert(0, str(ROOT))
     import torch
     from chip_smoke import graph_ms, host_us, time_ms
     from repro_torch.kernels import _cuda, ops
     dev = torch.device("cuda")
     (x, coef, lo, hi, n), pargs = inputs(seed, dev)
-    out = {"tree": str(tree)}
+    out = {}
 
     rk, rid = ops.rankeval(x, coef, lo, hi, n, N_RINGS)
     out["rankeval_hash"] = digest(rk, rid)
@@ -113,48 +105,5 @@ def worker(tree: Path, seed: int) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--a", type=Path, required=True, help="tree A")
-    ap.add_argument("--b", type=Path, default=ROOT, help="tree B")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        print(json.dumps(worker(args.worker.resolve(), args.seed)))
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ab_rank_kernels: no CUDA device is available", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    turns = {"A": [], "B": []}
-    for side in "ABBA":
-        tree = (args.a if side == "A" else args.b).resolve()
-        res = subprocess.run(
-            [sys.executable, __file__, "--a", str(args.a), "--seed",
-             str(args.seed), "--worker", str(tree)],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            print(f"ab_rank_kernels: turn {side} ({tree}) failed:\n"
-                  f"{res.stdout}{res.stderr}", file=sys.stderr)
-            return 1
-        row = json.loads(res.stdout.strip().splitlines()[-1])
-        print(f"{side} {json.dumps(row)}", flush=True)
-        turns[side].append(row)
-    print(f"card: {smi}")
-    same = all(turns["A"][0][k] == r[k] for r in turns["A"] + turns["B"]
-               for k in ("rankeval_hash", "pdist_rankeval_hash"))
-    for k in turns["A"][0]:
-        if k.endswith(("_ms", "_us")):
-            a = sum(r[k] for r in turns["A"]) / 2
-            b = sum(r[k] for r in turns["B"]) / 2
-            print(f"{k}: A {a:.5f} B {b:.5f} B/A {b / a:.3f}")
-    print(f"outputs bit for bit equal between the trees: {same}")
-    return 0 if same else 1
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(abba.main(worker, __doc__, __file__))
