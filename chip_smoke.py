@@ -2,13 +2,13 @@
 """Drive the PyTorch/CUDA port's exact query path, device-resident kNN
 loop, index builder, serving lifecycle, paged storage tier,
 cluster-sharded executor, replica-set serving frontend and LM serving
-path (dense, then the moe, ssm, hybrid, vlm and encdec families) on one
-CUDA card (or more, for the sharded phase's mesh and the frontend's
-replicas).
+path (dense, then the moe, ssm, hybrid, vlm and encdec families), the
+paper's baselines beside the executor, and LM training on one CUDA card
+(or more, for the sharded phase's mesh and the frontend's replicas).
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only |
-                          --families-only]
+                          --families-only | --train-only]
 
 Phases, each printing lines that start with its name:
 
@@ -93,7 +93,8 @@ Phases, each printing lines that start with its name:
             snapshot of it); (b) Skewed L1 and (c) Skewed L-infinity,
             each against a host build of its own (structures, 64 range
             and 64 kNN queries, query 0 against an f64 brute-force
-            scan); structure differences pass only at ties within one
+            scan; the queries in spawned worker processes, two a
+            part); structure differences pass only at ties within one
             ulp of the host's f64 distances.  The launch counters are
             zeroed before each build: pdist_l1 and pdist_linf must have
             run exactly once in (b) and (c), pivot_columns' one grouped
@@ -310,15 +311,58 @@ Phases, each printing lines that start with its name:
             the kernel's rows at D 80 (zamba2), D 112 (kimi), window
             4,096 (mixtral), non-causal (seamless's encoder) and the
             cross-attention, on the operands the main path gave it,
-            held to flash_attention_ref and the f64 answer (no further
-            from it than the plain version, whose f32 score rounding is
-            printed) and timed beside SDPA and the bound of flash_work.
+            held to flash_attention_ref and the f64 answer (within the
+            bar 2**-7 widened by exactly the plain version's measured
+            f32 score rounding, 2 x err x max |v|, which the plain
+            version with its scores rounded to bf16 must fail) and timed
+            beside SDPA and the bound of flash_work;
+15. baselines the paper's comparison (the twin of benchmarks/bench_range.py
+            and bench_knn.py; after frontend:): GaussMix at n = 200,000
+            (a CUT of --n: BallTree and ZMIndex build, and every
+            baseline queries, in Python), d = 8, one batch of 64 range
+            (0.01% selectivity) and kNN (k = 10) queries through the
+            host LIMSIndex (K 64, m 3, N 20, degree 8), LinearScan,
+            MLIndex (K 64), NLIMS, ZMIndex (range only) and BallTree,
+            and the port's QueryExecutor on the card over a snapshot of
+            the host index: every answer equal to the host index's (ids
+            and f64 distances; kNN ids as sets at ties); a row per
+            method (build s, q/s, pages and distance computations per
+            query); the counters zeroed before the snapshot build and
+            read after the executor's batches (pdist, rankeval,
+            range_filter and pdist_rankeval must run), and the four
+            kernels bit for bit against their plain versions at this
+            phase's shapes;
+16. train   (last; --train-only runs phases 1, 2 and this one) the twin
+            of examples/train_lm.py: first a reduced llama3-8b step in
+            f32 (selective remat, 2 microbatches) on the card against
+            the CPU port's; then llama3-8b at full width in bf16 cut to
+            4 of 32 layers (the CUT line prints parameters and bytes),
+            train_4k's seq 4,096 at a global batch of 8 in 4
+            microbatches, remat "selective", AdamW: every parameter's
+            gradient (each layer's slice) finite and nonzero on one
+            microbatch, wq / wk / wv included (the autograd Function
+            gives the flash kernel the plain attention's gradient);
+            (a) 8 steps on TokenPipeline's batches: the loss falls,
+            flash_attention launches 2 x layers x microbatches a step
+            and no other kernel runs, ms a step (median, min, max),
+            tokens/s, peak memory, the device-busy share and top device
+            operations of one more step under torch.profiler; the
+            Function's q / k / v gradients at one layer's shape (2, 32,
+            4096, 128) x (2, 8, 4096, 128) against autograd through
+            plain_attention; row 5-train (the kernel at the training
+            shape held to its plain version and the f64 answer, beside
+            SDPA and flash_work's bound); (b) run_training over 12
+            steps, a checkpoint every 4 in TMPDIR (keep 1), a failure
+            injected at step 6: it ends at step 12 with one restart, and
+            its losses, first pass and replay, equal (a)'s within
+            2**-7; (c) 3 steps each of Adafactor and 8-bit Adam.
 
-Before the last line it prints the kernels as one JSON object and the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.  Any
-failed check raises, so the script exits nonzero and prints no result.
-It also exits nonzero when no CUDA device is available or the port's
-sources are missing beside it.
+The whole run, the build included, must end within 1,200 s; the
+``total:`` line prints its seconds.  Before the last line it prints the
+kernels as one JSON object and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.  Any failed check raises, so the script
+exits nonzero and prints no result.  It also exits nonzero when no CUDA
+device is available or the port's sources are missing beside it.
 """
 from __future__ import annotations
 
@@ -328,6 +372,7 @@ import copy
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -367,6 +412,10 @@ LINF_N = 200_000                # (c)'s cut n; --linf-n overrides it
 # (e): L1 and L-infinity builds at a width the old pdist_lp.cu tile could
 # not launch (d >= 202), on GaussMix, at an n that keeps (e) near 30 s
 WIDE_D, WIDE_N = 256, 20_000
+# (b), (c) and (e)'s query checks: BUILDER_SLICES slices of a part's
+# queries, one spawned worker a slice, running beside the builder's
+# later parts; a slice's answer waited for at most BUILDER_QUERY_WAIT_S
+BUILDER_SLICES, BUILDER_WORKERS, BUILDER_QUERY_WAIT_S = 2, 8, 600.0
 # serving: rounds of SERVE_ROWS inserts + SERVE_ROWS deletes, a refresh
 # every SERVE_REFRESH mutations; (c)'s query thread runs
 # SERVE_ASYNC_BATCHES batches of each kind; (a) sends FOUND_SAMPLE of a
@@ -422,6 +471,29 @@ REPLACES = {
     # not a Pallas kernel: the cond of the reference's compiled kNN loop
     "knn_loop_cond": "src/repro/core/executor.py:178",
 }
+
+# baselines: the paper's comparison on its own GaussMix corpus, cut to
+# BASELINE_N rows (BallTree and ZMIndex build and every baseline queries
+# in Python on the host), BASELINE_BATCHES batches of each kind
+BASELINE_N, BASELINE_BATCHES = 200_000, 1
+
+# train: examples/train_lm.py's twin at TRAIN_ARCH's full width in bf16,
+# the depth cut to TRAIN_LAYERS so weights, gradients and AdamW state fit
+# one card; train_4k's seq at a global batch of TRAIN_BATCH in
+# TRAIN_MICRO microbatches.  TRAIN_LR: the schedule warms up over 100
+# steps, so step s runs at s / 100 of it; at 1e-2 the first steps'
+# updates (1e-4 and up) reach past half a bf16 ulp of the weights
+# (~1.2e-4 at 0.0156), where 3e-4 would leave them unchanged.  (a) runs
+# TRAIN_STEPS steps, (b) FAULT_STEPS with a checkpoint every
+# FAULT_EVERY and a failure injected at FAULT_AT, (c) OTHER_STEPS of
+# each other optimizer.  Bars: (b)'s losses against (a)'s (bf16 noise:
+# the embedding's backward accumulates with atomics), the flash
+# Function's gradients against plain attention's, and the reduced f32
+# step on the card against the CPU port's (as the CPU tests' SCALED)
+TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = 4_096, 8, 4, 1e-2
+TRAIN_STEPS, FAULT_STEPS, FAULT_EVERY, FAULT_AT, OTHER_STEPS = 8, 12, 4, 6, 3
+TRAIN_REPLAY_REL, TRAIN_GRAD_REL, TRAIN_F32_REL = 2.0 ** -7, 2.0 ** -8, 2e-3
 
 LM_ARCH = "llama3-8b"
 # (a)'s cut depth, and its bar on max |diff| relative to the compared
@@ -1758,16 +1830,64 @@ def phase_builder_l2(X, ix, t_host, batches, host_range, host_knn):
     return ixd
 
 
-def phase_builder_lp(metric, n, data="skewed", d=D, rows=True):
+def builder_queries(X, metric, host, dev, Q, rs, first):
+    """A slice of (b), (c) or (e)'s queries, in a worker process: range
+    and kNN queries ``first``, ``first`` + 1, ... of a batch through the
+    host- and the device-built index, query 0 also against an f64
+    brute-force scan.  The host query path is Python on one core (20-45
+    s a part at these sizes), so the slices run beside each other and
+    the builder's later parts.  Returns (what differs, or None; each
+    index's query seconds): a worker that raised SystemExit, as
+    ``check`` does, would never answer."""
+    from repro_torch.core.metrics import dist_one_to_many
+    t_q = {"host": 0.0, "device": 0.0}
+    for b, (q, r) in enumerate(zip(Q, rs), first):
+        t0 = time.perf_counter()
+        want_r, want_k = host.range_query(q, r)[:2], host.knn_query(q, K_NN)[:2]
+        t1 = time.perf_counter()
+        got_r, got_k = dev.range_query(q, r)[:2], dev.knn_query(q, K_NN)[:2]
+        t_q["host"] += t1 - t0
+        t_q["device"] += time.perf_counter() - t1
+        if not (same_range(got_r, want_r) and same_knn(got_k, want_k)):
+            return (f"query {b}: the device-built index differs from the "
+                    f"host build"), t_q
+        if b == 0:
+            dist = dist_one_to_many(q, X, metric)
+            hit = np.nonzero(dist <= r)[0]
+            top = np.argsort(dist, kind="stable")[:K_NN]
+            if not (same_range(got_r, (hit, dist[hit]))
+                    and same_knn(got_k, (top, dist[top]))):
+                return "query 0 differs from brute force", t_q
+    return None, t_q
+
+
+def builder_query_results(pending) -> None:
+    """Waits for each part's builder_queries slices (at most
+    BUILDER_QUERY_WAIT_S each) and fails at the first difference."""
+    for tag, results in pending:
+        t_q = {"host": 0.0, "device": 0.0}
+        for result in results:
+            diff, t = result.get(timeout=BUILDER_QUERY_WAIT_S)
+            check(diff is None, f"builder: {tag} {diff}")
+            for k in t_q:
+                t_q[k] += t[k]
+        print(f"builder: {tag} {B} range (selectivity {SELECTIVITY}) and "
+              f"{B} kNN (k={K_NN}) queries identical between the device- "
+              f"and host-built index; query 0 equals the f64 brute-force "
+              f"scan; host query path s={json.dumps(t_q)} (summed over "
+              f"{len(results)} worker processes)", flush=True)
+
+
+def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
     """(b), (c) or (e): ``data`` (Skewed, the paper's L1 data set, or
     GaussMix) at width ``d`` with ``metric``: a host and a device build,
-    their structures, 64 range and 64 kNN queries through both, query 0
-    against brute force; the kernel launched once in the build; then
-    the kernel against its plain version at pivot_columns' grouped
-    launch shape and, with ``rows``, its row there (returned) and a
-    printed line at the reference's chunked launch shape."""
+    their structures, 64 range and 64 kNN queries through both (handed
+    to ``pool``: builder_queries), query 0 against brute force; the
+    kernel launched once in the build; then the kernel against its plain
+    version at pivot_columns' grouped launch shape and, with ``rows``,
+    its row there and a printed line at the reference's chunked launch
+    shape.  Returns (the row or None, (tag, the pending queries))."""
     from repro_torch.build import cluster_major
-    from repro_torch.core.metrics import dist_one_to_many
     from repro_torch.data.datasets import gauss_mix, skewed
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.pdist import METRICS
@@ -1790,28 +1910,10 @@ def phase_builder_lp(metric, n, data="skewed", d=D, rows=True):
     compare_structures(tag, X, metric, host, dev)
 
     (Q, rs), = make_queries(X, np.random.default_rng(2), 1, metric)
-    t_q = {"host": 0.0, "device": 0.0}
-    for b, (q, r) in enumerate(zip(Q, rs)):
-        t0 = time.perf_counter()
-        want_r, want_k = host.range_query(q, r)[:2], host.knn_query(q, K_NN)[:2]
-        t1 = time.perf_counter()
-        got_r, got_k = dev.range_query(q, r)[:2], dev.knn_query(q, K_NN)[:2]
-        t_q["host"] += t1 - t0
-        t_q["device"] += time.perf_counter() - t1
-        check(same_range(got_r, want_r) and same_knn(got_k, want_k),
-              f"builder: {tag} query {b}: the device-built index differs "
-              f"from the host build")
-        if b == 0:
-            dist = dist_one_to_many(q, X, metric)
-            hit = np.nonzero(dist <= r)[0]
-            top = np.argsort(dist, kind="stable")[:K_NN]
-            check(same_range(got_r, (hit, dist[hit]))
-                  and same_knn(got_k, (top, dist[top])),
-                  f"builder: {tag} query 0 differs from brute force")
-    print(f"builder: {tag} {B} range (selectivity {SELECTIVITY}) and {B} "
-          f"kNN (k={K_NN}) queries identical between the device- and "
-          f"host-built index; query 0 equals the f64 brute-force scan; "
-          f"host query path s={json.dumps(t_q)}", flush=True)
+    size = -(-B // BUILDER_SLICES)
+    pending = (tag, [pool.apply_async(builder_queries, (
+        X, metric, host, dev, Q[i:i + size], rs[i:i + size], i))
+        for i in range(0, B, size)])
 
     # the kernel at the shape pivot_columns launches it with: every
     # cluster's m pivots against its own n_max member slots
@@ -1832,7 +1934,7 @@ def phase_builder_lp(metric, n, data="skewed", d=D, rows=True):
     print(f"kernels: {name} at pivot_columns' grouped launch ({K}, {m}, "
           f"{n_max}, d {d}) equals its plain version bit for bit", flush=True)
     if not rows:
-        return None
+        return None, pending
     p_norm = 1.0 if metric == "l1" else float("inf")
     out = torch.empty(K, m, n_max, device=DEVICE)
     row = kernel_row(
@@ -1869,7 +1971,7 @@ def phase_builder_lp(metric, n, data="skewed", d=D, rows=True):
         bare=lambda: _cuda.launch(name, q1.data_ptr(), p1.data_ptr(),
                                   out.data_ptr(), 1, nq, npts, d,
                                   device=q1.device))
-    return row
+    return row, pending
 
 
 def phase_retrain(X, ix, ixd, batches):
@@ -3668,6 +3770,186 @@ def phase_frontend(X, ix, batches, host_range, host_knn, spilled) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------- baselines
+def baseline_answers(ix, batches, knn: bool):
+    """Per query (ids, dists) and stats of ``ix`` over ``batches``, and
+    the wall seconds of each kind."""
+    rng_out, knn_out, stats = [], [], []
+    t0 = time.perf_counter()
+    for Q, rs in batches:
+        for q, r in zip(Q, rs):
+            ids, d, st = ix.range_query(q, r)
+            rng_out.append((np.asarray(ids), np.asarray(d)))
+            stats.append(("range", st))
+    t_range = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if knn:
+        for Q, _ in batches:
+            for q in Q:
+                ids, d, st = ix.knn_query(q, K_NN)
+                knn_out.append((np.asarray(ids), np.asarray(d)))
+                stats.append(("knn", st))
+    return rng_out, knn_out, stats, t_range, time.perf_counter() - t0
+
+
+def baselines_kernels_vs_plain(ix, snap, Q, rs, shapes) -> None:
+    """The executor's kernels against their plain versions, bit for
+    bit, at this phase's shapes: pdist at (B, P) and (B, G),
+    range_filter at (B, P) on the guard-widened radii, pdist_rankeval at
+    (B, G) and rankeval over the snapshot's rank columns."""
+    from repro_torch.core.planner import _BALL_ABS, _R_ABS, _R_REL
+    from repro_torch.core.snapshot import rank_columns
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import pdist_rankeval_plain
+    from repro_torch.kernels.pdist import pdist_plain
+    from repro_torch.kernels.range_filter import range_filter_plain
+    from repro_torch.kernels.rankeval import rank_math_plain
+    q = torch.from_numpy(Q.astype(np.float32)).to(DEVICE)
+    rf = torch.from_numpy(rs.astype(np.float32)).to(DEVICE)
+    P, G, C = snap.n_slots, snap.K * snap.m, snap.coef.shape[-1]
+    rows, piv = snap.rows.reshape(P, D), snap.pivots.reshape(G, D)
+    coef = snap.coef.reshape(G, C)
+    lo, hi, nn = (t.reshape(G) for t in
+                  (snap.model_lo, snap.model_hi, snap.model_n))
+    N = snap.n_rings
+    for pts in (rows, piv):
+        check(torch.equal(ops.pdist(q, pts), pdist_plain(q, pts)),
+              f"baselines: pdist differs from its plain version at "
+              f"({B}, {pts.shape[0]})")
+    r = rf * (1.0 + _R_REL) + _BALL_ABS
+    mask, cnt = ops.range_filter(q, rows, r)
+    mask_p, cnt_p = range_filter_plain(q, rows, r * r)
+    check(torch.equal(mask, mask_p) and torch.equal(cnt, cnt_p),
+          f"baselines: range_filter differs from its plain version at "
+          f"({B}, {P})")
+    rg = rf * (1.0 + _R_REL) + _R_ABS
+    for f, p in zip(ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg, N),
+                    pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg, N)):
+        check(same_bits(f, p), f"baselines: pdist_rankeval differs from "
+              f"its plain version at ({B}, {G})")
+    x = torch.from_numpy(rank_columns(ix)).to(DEVICE)
+    for a, b in zip(ops.rankeval(x, coef, lo, hi, nn, N),
+                    rank_math_plain(x, coef, lo, hi, nn, N)):
+        check(torch.equal(a, b), f"baselines: rankeval differs from its "
+              f"plain version at {tuple(x.shape)}")
+    print(f"baselines: pdist at ({B}, {P}) and ({B}, {G}), range_filter at "
+          f"({B}, {P}), pdist_rankeval at ({B}, {G}) and rankeval at "
+          f"{tuple(x.shape)} equal their plain versions bit for bit; the "
+          f"executor's launches by (nq, np): "
+          + "; ".join(f"{name} " + ", ".join(f"{n} x {s}" for s, n in
+                                             sorted(by.items()))
+                      for name, by in shapes.items()), flush=True)
+
+
+def phase_baselines(n: int) -> None:
+    """The paper's comparison (benchmarks/bench_range.py, bench_knn.py)
+    on one GaussMix corpus: the five baselines, the host LIMSIndex and
+    the port's QueryExecutor on the card answer the same range and kNN
+    batches; every answer equals the host index's."""
+    from repro_torch import baselines
+    from repro_torch.core import LIMSIndex, MetricSpace, QueryExecutor
+    from repro_torch.core.snapshot import LIMSSnapshot
+    from repro_torch.data.datasets import gauss_mix
+    from repro_torch.kernels import _cuda
+    t_phase = time.perf_counter()
+    if n > BASELINE_N:
+        print(f"baselines: CUT: the corpus has n={BASELINE_N:,} rows, not "
+              f"--n {n:,}: BallTree and ZMIndex build, and every baseline "
+              f"queries, in Python on the host", flush=True)
+        n = BASELINE_N
+    X = gauss_mix(n, D, seed=0)
+    space = MetricSpace(X, "l2")
+    batches = make_queries(X, np.random.default_rng(3), BASELINE_BATCHES)
+    nq = BASELINE_BATCHES * B
+    t0 = time.perf_counter()
+    ix = LIMSIndex(space, n_clusters=K_CLUSTERS, m=M, n_rings=RINGS,
+                   degree=DEGREE)
+    t_build = time.perf_counter() - t0
+    want_r, want_k, stats, t_r, t_k = baseline_answers(ix, batches, True)
+    rows = [("lims (host)", t_build, stats, t_r, t_k)]
+    methods = (("LinearScan", {}), ("MLIndex", dict(n_clusters=K_CLUSTERS)),
+               ("NLIMS", dict(n_clusters=K_CLUSTERS, m=M, n_rings=RINGS,
+                              degree=DEGREE)),
+               ("ZMIndex", {}), ("BallTree", {}))
+    for name, kw in methods:
+        t0 = time.perf_counter()
+        bl = getattr(baselines, name)(space, **kw)
+        t_build = time.perf_counter() - t0
+        knn = name != "ZMIndex"
+        got_r, got_k, stats, t_r, t_k = baseline_answers(bl, batches, knn)
+        for i, (g, w) in enumerate(zip(got_r, want_r)):
+            check(same_range(g, w), f"baselines: {name} range query {i} "
+                  f"differs from the host index")
+        for i, (g, w) in enumerate(zip(got_k, want_k)):
+            check(same_knn(g, w), f"baselines: {name} kNN query {i} "
+                  f"differs from the host index")
+        rows.append((bl.name, t_build, stats, t_r, t_k if knn else None))
+    # the port's executor on the card, its launches counted
+    shapes, spying = shape_spy(("pdist", "range_filter", "pdist_rankeval"))
+    sync()
+    _cuda.reset_launches()
+    spying.start()
+    t0 = time.perf_counter()
+    snap = LIMSSnapshot.build(ix, device=DEVICE)
+    ex = QueryExecutor(snap)
+    sync()
+    t_snap = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for bi, (Q, rs) in enumerate(batches):
+        for b, g in enumerate(ex.range_query_batch(Q, rs)):
+            check(same_range(g, want_r[bi * B + b]), f"baselines: the "
+                  f"executor's range query {bi * B + b} differs from the "
+                  f"host index")
+    ex_r = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for bi, (Q, _) in enumerate(batches):
+        ids, ds = ex.knn_query_batch(Q, K_NN)
+        for b in range(B):
+            check(same_knn((ids[b], ds[b]), want_k[bi * B + b]),
+                  f"baselines: the executor's kNN query {bi * B + b} "
+                  f"differs from the host index")
+    ex_k = time.perf_counter() - t0
+    sync()
+    spying.stop()
+    counts = dict(_cuda.LAUNCHES)
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0, f"baselines: kernel {name} was not launched "
+              f"on the executor's path")
+    print(f"baselines: GaussMix n={n:,} d={D}; {BASELINE_BATCHES} batches "
+          f"of {B} range (selectivity {SELECTIVITY:g}) and kNN (k={K_NN}) "
+          f"queries; every answer of every method equals the host "
+          f"LIMSIndex's (ids and f64 distances; kNN ids as sets at ties)",
+          flush=True)
+    for name, t_build, stats, t_r, t_k in rows:
+        per = {}
+        for kind, st in stats:
+            acc = per.setdefault(kind, [0, 0, 0])
+            acc[0] += 1
+            acc[1] += st.pages
+            acc[2] += st.dist_comps
+        line = f"baselines: {name:12s} build {t_build:.3f} s; range " \
+               f"{nq / t_r:.2f} q/s pages/query " \
+               f"{per['range'][1] / per['range'][0]:.1f} dist/query " \
+               f"{per['range'][2] / per['range'][0]:.1f}"
+        if t_k is not None:
+            line += (f"; kNN {nq / t_k:.2f} q/s pages/query "
+                     f"{per['knn'][1] / per['knn'][0]:.1f} dist/query "
+                     f"{per['knn'][2] / per['knn'][0]:.1f}")
+        else:
+            line += "; kNN: none (ZM answers range and point queries only)"
+        print(line, flush=True)
+    print(f"baselines: {'executor':12s} snapshot on the card in "
+          f"{t_snap:.3f} s; range {nq / ex_r:.2f} q/s kNN {nq / ex_k:.2f} q/s "
+          f"(one snapshot + plan + kernels + host f64 refinement; no page "
+          f"accounting); launches {json.dumps(counts)}", flush=True)
+    Q, rs = batches[0]
+    baselines_kernels_vs_plain(ix, snap, Q, rs, shapes)
+    del ex, snap
+    torch.cuda.empty_cache()
+    print(f"baselines: all in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # ---------------------------------------------------------------------- lm
 def lm_model(cfg, seed: int):
     """The port's own random parameters for ``cfg`` on the card."""
@@ -3693,11 +3975,15 @@ def assert_close(got, want, tol, what):
     return err
 
 
-def exact_attention(q, k, v, kv_len=None, causal=True, window=None):
+def exact_attention(q, k, v, kv_len=None, causal=True, window=None,
+                    score_dtype=None):
     """GQA attention of (B, H, S, D) tensors in f64 with the kernel's
     mask (causal from the top-left origin, keys at or beyond ``kv_len``
     masked, and with ``window`` keys with qpos - kpos >= window): the
-    arbiter where a kernel and its plain version part."""
+    arbiter where a kernel and its plain version part.  With
+    ``score_dtype`` the scores are the f32 products of q * scale and k
+    rounded to that dtype, the rest still f64: the error of a kernel
+    that kept its scores in that dtype."""
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -3711,49 +3997,73 @@ def exact_attention(q, k, v, kv_len=None, causal=True, window=None):
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
     for bi in range(b):
         for h in range(hk):
-            s = torch.einsum("gqd,kd->gqk", q[bi, h * g:(h + 1) * g].double(),
-                             k[bi, h].double()) / d ** 0.5
+            if score_dtype is None:
+                s = torch.einsum("gqd,kd->gqk",
+                                 q[bi, h * g:(h + 1) * g].double(),
+                                 k[bi, h].double()) / d ** 0.5
+            else:
+                s = torch.einsum("gqd,kd->gqk",
+                                 q[bi, h * g:(h + 1) * g].float()
+                                 * (1.0 / d ** 0.5), k[bi, h].float())
+                s = s.to(score_dtype).double()
             out[bi, h * g:(h + 1) * g] = torch.softmax(
                 s.masked_fill(~ok, float("-inf")), -1) @ v[bi, h].double()
     return out
 
 
-def check_flash_bf16(got, q, k, v, kv_len, what, causal=True, window=None,
-                     f64_bar=True):
-    """Holds a bf16 flash_attention output to the f64 answer within
-    rtol = atol = 2**-7 everywhere, and reads it against its plain
-    version (flash_attention_ref) at the same bar: wherever the two part
-    by more than the bar, the output must lie nearer the f64 answer than
-    the plain version does.  The plain version's f32 scores carry the
-    rounding of a sequential f32 dot product of q * scale and k; at rows
-    whose leading keys nearly tie, with |v| ~ 100, that alone moves an
-    output by about the bar (PERF.md, Findings).  With ``f64_bar`` the
-    output must also lie within the bar of the f64 answer; without it
-    (the families' rows, whose f32 scores of large q and k carry more
-    than a bar of that rounding in the plain version too), no further
-    from it than the larger of the bar and the plain version's own
-    distance.  Returns max |got - plain| and the readings."""
+def flash_refs(q, k, v, kv_len, causal=True, window=None):
+    """(plain version's output, the f64 answer) on the same operands."""
     from repro_torch.kernels.ref import flash_attention_ref
-    tol = 2.0 ** -7
     plain = flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
                                 window=window).double()
-    exact = exact_attention(q, k, v, kv_len, causal, window)
+    return plain, exact_attention(q, k, v, kv_len, causal, window)
+
+
+def flash_verdict(got, plain, exact, shift: float = 0.0):
+    """(passes, max |got - plain|, readings) of a bf16 flash_attention
+    output against its plain version and the f64 answer: within the bar
+    rtol = atol = 2**-7 of the f64 answer everywhere, the bar widened by
+    ``shift`` (absolute, added to every element's bar); and wherever it
+    parts from the plain version by more than the bar, nearer the f64
+    answer than the plain version."""
+    tol = 2.0 ** -7
     got = got.double()
-    share = lambda a, ref: (a - ref).abs() / (tol * (1.0 + ref.abs()))
-    got_off, plain_off = share(got, exact), share(plain, exact)
-    beyond = share(got, plain) > 1
+    bar = tol * (1.0 + exact.abs())
+    got_off, plain_off = (got - exact).abs() / bar, (plain - exact).abs() / bar
+    beyond = (got - plain).abs() / (tol * (1.0 + plain.abs())) > 1
     n_beyond, n_plain_off = int(beyond.sum()), int((plain_off > 1).sum())
     n_blamed = int((beyond & (got_off >= plain_off)).sum())
-    worst = float(got_off.max())
+    widened = float(((got - exact).abs() / (bar + shift)).max())
     err = float((got - plain).abs().max())
     readings = (f"max |diff| from plain {err:.4g}; {n_beyond} elements "
                 f"beyond rtol = atol = 2**-7 of plain, {n_blamed} of them "
                 f"no nearer the f64 answer than plain; max share of the bar "
-                f"from the f64 answer: kernel {worst:.4g}, plain "
-                f"{float(plain_off.max()):.4g} (plain beyond it at "
+                f"from the f64 answer: kernel {float(got_off.max()):.4g}, "
+                f"plain {float(plain_off.max()):.4g} (plain beyond it at "
                 f"{n_plain_off} elements)")
-    limit = 1.0 if f64_bar else max(1.0, float(plain_off.max()))
-    check(n_blamed == 0 and worst <= limit, f"{what}: {readings}")
+    if shift:
+        readings += (f"; of the bar widened by the plain version's score "
+                     f"rounding {shift:.4g}: kernel {widened:.4g}")
+    return n_blamed == 0 and widened <= 1.0, err, readings
+
+
+def check_flash_bf16(got, q, k, v, kv_len, what, causal=True, window=None,
+                     shift: float = 0.0):
+    """Holds a bf16 flash_attention output to the f64 answer within
+    rtol = atol = 2**-7 everywhere, and reads it against its plain
+    version (flash_attention_ref) at the same bar: wherever the two part
+    by more than the bar, the output must lie nearer the f64 answer than
+    the plain version does (flash_verdict).  The plain version's f32
+    scores carry the rounding of a sequential f32 dot product of q *
+    scale and k; at rows whose leading keys nearly tie, with |v| ~ 100,
+    that alone moves an output by about the bar (PERF.md, Findings).
+    ``shift`` widens the f64 bar by exactly that rounding where the
+    caller measured it (score_rounding: the families' rows, whose large
+    q and k carry more than a bar of it); the dense rows keep the strict
+    bar.  Returns max |got - plain| and the readings."""
+    ok, err, readings = flash_verdict(
+        got, *flash_refs(q, k, v, kv_len, causal, window), shift)
+    check(ok, f"{what}: {readings}")
     return err, readings
 
 
@@ -4357,12 +4667,13 @@ def flash_work(b, hq, hk, d, sq, kv_len, causal, window, itemsize=2):
     return live, flops, nbytes
 
 
-def score_rounding(q, k, v, kv_len, causal, window) -> str:
-    """The f32 rounding in the plain version's scores, shown: over the
-    live pairs, max |score| and its f32 ulp, the most the plain version's
-    f32 scores (q * scale in f32, then q k^T in f32) part from the f64
+def score_rounding(q, k, v, kv_len, causal, window) -> tuple[float, str]:
+    """The f32 rounding in the plain version's scores: over the live
+    pairs, max |score| and its f32 ulp, the most the plain version's f32
+    scores (q * scale in f32, then q k^T in f32) part from the f64
     scores, and the output shift that alone can give (2 x that x max
-    |v|: softmax weights move by at most 2 x the score error, relative)."""
+    |v|: softmax weights move by at most 2 x the score error, relative).
+    Returns (that shift, the readings)."""
     b, hq, sq, d = q.shape
     hk, g = k.shape[1], q.shape[1] // k.shape[1]
     qpos = torch.arange(sq, device=q.device)[:, None]
@@ -4383,7 +4694,8 @@ def score_rounding(q, k, v, kv_len, causal, window) -> str:
                                  .masked_fill(~ok, 0).max()))
     vmax = float(v[:, :, :kv_len].abs().max())
     ulp = 2.0 ** (np.floor(np.log2(top)) - 23) if top > 0 else 0.0
-    return (f"plain's f32 scores: max |score| {top:.4g} (f32 ulp there "
+    return 2 * err * vmax, (
+            f"plain's f32 scores: max |score| {top:.4g} (f32 ulp there "
             f"{ulp:.3g}), max |f32 - f64 score| {err:.4g}, max |v| "
             f"{vmax:.4g}, so up to {2 * err * vmax:.4g} of output shift "
             f"from the scores alone against the bar 2**-7 x (1 + |out|)")
@@ -4392,8 +4704,10 @@ def score_rounding(q, k, v, kv_len, causal, window) -> str:
 def family_flash_row(label, key, qkv, launches, real_len):
     """One flash_attention row at a family's shape: the kernel on the
     first operands the main path gave it, held to flash_attention_ref
-    and the f64 answer (check_flash_bf16, with the plain version's score
-    rounding shown), timed beside the plain version, its bound (the
+    and the f64 answer (flash_verdict: the f64 bar widened by exactly
+    the plain version's measured score rounding, score_rounding's 2 x
+    err x max |v|; the plain version with its scores rounded to bf16
+    must fail it), timed beside the plain version, its bound (the
     function's own work, flash_work) and scaled_dot_product_attention on
     the unpadded operands (``enable_gqa``; a window as an explicit
     boolean mask)."""
@@ -4402,14 +4716,26 @@ def family_flash_row(label, key, qkv, launches, real_len):
     (qs, ks, causal, kv_len, window), (q, k, v) = key, qkv
     b, hq, sq, d = qs
     hk, sk = ks[1], ks[2]
-    err, readings = check_flash_bf16(
-        fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
-                           window=window), q, k, v, kv_len,
-        f"families: flash_attention {label}", causal=causal, window=window,
-        f64_bar=False)
     sq_real = min(real_len[0], sq)
-    rounding = score_rounding(q[:, :, :sq_real], k, v, kv_len, causal,
-                              window)
+    shift, rounding = score_rounding(q[:, :, :sq_real], k, v, kv_len,
+                                     causal, window)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                             window=window)
+    plain, exact = flash_refs(q, k, v, kv_len, causal, window)
+    ok, err, readings = flash_verdict(got, plain, exact, shift)
+    check(ok, f"families: flash_attention {label}: {readings}")
+    # the widened bar must reject the plain version with its scores
+    # kept in bf16 (a kernel that stored S in bf16)
+    planted = exact_attention(q, k, v, kv_len, causal, window,
+                              score_dtype=torch.bfloat16)
+    share = float(((planted - exact).abs() / (
+        2.0 ** -7 * (1.0 + exact.abs()) + shift)).max())
+    check(not flash_verdict(planted, plain, exact, shift)[0],
+          f"families: flash_attention {label}: the widened bar passes the "
+          f"plain version with bf16 scores ({share:.4g} widened bars)")
+    readings += (f"; the plain version with bf16 scores reaches {share:.4g} "
+                 f"widened bars and fails the check, as it must")
+    del plain, exact, planted
     live, flops, nbytes = flash_work(b, hq, hk, d, sq_real, kv_len, causal,
                                      window)
     qu, ku, vu = q[:, :, :sq_real], k[:, :, :kv_len], v[:, :, :kv_len]
@@ -4514,6 +4840,337 @@ def phase_families(seed: int) -> list:
     print(f"families: all in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return kernel_rows
+
+
+# -------------------------------------------------------------------- train
+def train_state(cfg, run, seed: int):
+    """A fresh train state: the port's own random parameters for ``cfg``
+    drawn on the card from ``seed`` (the same seed gives the same
+    state)."""
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train.step import init_state
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(zoo.model_specs(cfg), gen, cfg.dtype, device=DEVICE)
+    return init_state(cfg, run, params)
+
+
+def train_batches(cfg):
+    """step -> the pipeline's batch of that step on the card
+    (``_batch_for_step``, what TokenPipeline yields at that step)."""
+    from repro_torch.data.pipeline import DataShard, _batch_for_step
+    return lambda s: {k: torch.from_numpy(v).to(DEVICE) for k, v in
+                      _batch_for_step(s, DataShard(0, 1), cfg.vocab,
+                                      TRAIN_BATCH, TRAIN_SEQ).items()}
+
+
+def train_reduced_check(seed: int) -> None:
+    """One microbatched step of the reduced llama in f32 (selective
+    remat) on the card against the CPU port's step from the same
+    parameters and batch."""
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(),
+                              dtype="float32", remat="selective")
+    run = RunConfig(learning_rate=1e-3, microbatches=2)
+    cell = ShapeCell("t", 64, 4, "train")
+    out = {}
+    for dev in ("cpu", DEVICE):
+        params = init_params(zoo.model_specs(cfg),
+                             torch.Generator().manual_seed(seed), "float32",
+                             device="cpu")
+        params = optim.tree_map(lambda p: p.to(dev), params)
+        batch = zoo.make_batch(cfg, cell, seed, device=dev)
+        state, m = build_train_step(cfg, run)(init_state(cfg, run, params),
+                                              batch)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach() for p in optim.tree_leaves(state["params"])])
+    (mc, pc), (md, pd) = out["cpu"], out[DEVICE]
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(pd, pc))
+    check(abs(md["loss"] - mc["loss"]) <= 1e-4 * abs(mc["loss"])
+          and abs(md["grad_norm"] - mc["grad_norm"]) <= 1e-3 * mc["grad_norm"]
+          and worst <= TRAIN_F32_REL,
+          f"train: the reduced f32 step on the card differs from the CPU "
+          f"port's: {md} against {mc}, params {worst:.3g}")
+    print(f"train: reduced {TRAIN_ARCH} f32 step (remat selective, 2 "
+          f"microbatches) on the card equals the CPU port's: loss "
+          f"{md['loss']:.6f} / {mc['loss']:.6f}, grad_norm "
+          f"{md['grad_norm']:.6f} / {mc['grad_norm']:.6f}, updated params "
+          f"within {worst:.3g} of their scale (bar {TRAIN_F32_REL:g})",
+          flush=True)
+
+
+def train_grads_check(cfg, state, batch) -> None:
+    """Every parameter leaf's gradient on the first microbatch is finite
+    and nonzero (a stacked leaf: each layer's slice), the attention
+    projections wq / wk / wv included; the kernel launches twice a
+    layer (selective remat relaunches it in the recompute)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import zoo
+    params = state["params"]
+    micro = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batch.items()}
+    flat = _flatten(params)                 # {"a/b": leaf}
+    leaves = list(flat.values())
+    for p in leaves:
+        p.requires_grad_(True)
+    _cuda.reset_launches()
+    loss, _ = zoo.loss_fn(cfg)(params, micro)
+    grads = torch.autograd.grad(loss, leaves)
+    sync()
+    launches = _cuda.LAUNCHES["flash_attention"]
+    smallest = []
+    for name, g in zip(flat, grads):
+        parts = g if name.startswith("layers/") else g[None]
+        for i, part in enumerate(parts):
+            big = float(part.float().abs().max())
+            check(bool(torch.isfinite(part).all()) and big > 0,
+                  f"train: the gradient of {name}[{i}] is not finite and "
+                  f"nonzero (max |g| {big})")
+            smallest.append((big, f"{name}[{i}]" if parts is g else name))
+    del grads
+    check(launches == 2 * cfg.n_layers,
+          f"train: flash_attention launched {launches} times in one "
+          f"microbatch's forward and backward, not 2 x {cfg.n_layers}")
+    smallest.sort()
+    qkv_min = {w: min(v for v, n in smallest if n.startswith(f"layers/attn/{w}"))
+               for w in ("wq", "wk", "wv")}
+    print(f"train: every parameter's gradient on microbatch 0 is finite "
+          f"and nonzero ({len(smallest)} leaves and layer slices; smallest "
+          f"max |g|: " + ", ".join(f"{n} {v:.3g}" for v, n in smallest[:4])
+          + "; the smallest layer's max |g| of " + ", ".join(
+              f"{w} {v:.3g}" for w, v in qkv_min.items())
+          + f"); loss {float(loss):.4f}; flash_attention launched "
+          f"{launches} times (2 x {cfg.n_layers} layers)", flush=True)
+
+
+def train_flash_grads(cfg, qkv) -> None:
+    """The differentiable flash_attention at one full-width layer's
+    shape, on the operands the training gave the kernel: its q / k / v
+    gradients against autograd through plain_attention on the card."""
+    import functools
+    from repro_torch.models import layers, transformer
+    q, k, v = (t.transpose(1, 2).detach().clone().requires_grad_(True)
+               for t in qkv)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    go = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
+    plain = functools.partial(transformer.plain_attention, cfg=cfg)
+    got = torch.autograd.grad(layers.flash_attention(q, k, v, plain),
+                              (q, k, v), go)
+    want = torch.autograd.grad(plain(q, k, v), (q, k, v), go)
+    errs = []
+    for name, a, b in zip("qkv", got, want):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        errs.append(f"d{name} max |diff| {err:.4g} of {scale:.4g} "
+                    f"({'bit-equal' if torch.equal(a, b) else 'differs'})")
+        check(scale > 0 and err <= TRAIN_GRAD_REL * scale,
+              f"train: the flash Function's d{name} differs from autograd "
+              f"through plain_attention: {err} > {TRAIN_GRAD_REL} x {scale}")
+    print(f"train: the differentiable flash_attention at {tuple(qkv[0].shape)} "
+          f"x {tuple(qkv[1].shape)} bf16 causal (one full-width layer, the "
+          f"training's own operands): q/k/v gradients against autograd "
+          f"through plain_attention (chunked at {cfg.attn_chunk}): "
+          + "; ".join(errs) + f" (bar {TRAIN_GRAD_REL:g} of the scale)",
+          flush=True)
+
+
+def train_row(qkv, launches: int, per_step: int) -> dict:
+    """Row 5-train: the flash kernel at the training shape, on the first
+    operands training gave it, held to its plain version and the f64
+    answer (check_flash_bf16's strict bar), timed beside SDPA and
+    flash_work's bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = qkv
+    b, hq, s, d = q.shape
+    hk = k.shape[1]
+    err, readings = check_flash_bf16(
+        fa.flash_attention(q, k, v, causal=True, kv_len=s), q, k, v, s,
+        "train: flash_attention at the training shape")
+    live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    print(f"train: flash_attention at ({b}, {hq}, {s}, {d}) x ({b}, {hk}, "
+          f"{s}, {d}) bf16 causal: {per_step} launches a step, {launches} "
+          f"in (a); against flash_attention_ref and the f64 answer: "
+          f"{readings}", flush=True)
+    return kernel_row(
+        "flash_attention train", launches, err,
+        lambda: fa.flash_attention(q, k, v, causal=True, kv_len=s), 10,
+        lambda: flash_attention_ref(q, k, v, causal=True, kv_len=s), 2,
+        nbytes, flops, library=sdpa, flop_per_s=BF16_TC_FLOP_PER_S,
+        kernel="flash_attention",
+        note=f"{per_step} launches a step (2 x {TRAIN_LAYERS} layers x "
+             f"{TRAIN_MICRO} microbatches: selective remat relaunches it)")
+
+
+def phase_train(seed: int) -> dict:
+    """The twin of examples/train_lm.py at llama3-8b's full width in
+    bf16 (depth cut): (a) TRAIN_STEPS AdamW steps on the pipeline's
+    batches, (b) run_training with an injected failure, (c) Adafactor
+    and 8-bit Adam.  Returns the 5-train kernel row."""
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import zoo
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime.fault import FaultConfig, run_training
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step
+    t_phase = time.perf_counter()
+    train_reduced_check(seed)
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    n = count_params(zoo.model_specs(cfg))
+    print(f"train: CUT: {TRAIN_ARCH} runs {TRAIN_LAYERS} of {full.n_layers} "
+          f"layers at full width (d_model {cfg.d_model}, {cfg.n_q_heads} q / "
+          f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}), {cfg.dtype}: {n:,} parameters, {2 * n:,} bytes; "
+          f"AdamW at 16 B a parameter (bf16 weights and gradients, f32 "
+          f"moments and gradient accumulator) {16 * n:,} bytes", flush=True)
+    print(f"train: CUT: train_4k's seq {TRAIN_SEQ} at a global batch of "
+          f"{TRAIN_BATCH}, not 256, in {TRAIN_MICRO} microbatches; remat "
+          f"{cfg.remat}, attention {cfg.attn_impl} past {cfg.attn_chunk} in "
+          f"the backward pass", flush=True)
+    cell = ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                    microbatches=TRAIN_MICRO)
+    step = build_train_step(cfg, run, total_steps=FAULT_STEPS)
+    batches = train_batches(cfg)
+
+    # (a) the pipeline's batches, counted and timed
+    t0 = time.perf_counter()
+    state = train_state(cfg, run, seed)
+    sync()
+    print(f"train: (a) parameters and AdamW state on the card in "
+          f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+          f"{torch.cuda.memory_allocated()}", flush=True)
+    pipe = TokenPipeline(cfg, cell, device=DEVICE)
+    try:
+        batch = next(pipe)
+        train_grads_check(cfg, state, batch)
+        (tally, first), spying = family_flash_spy()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        losses, times = [], []
+        with spying:
+            for s in range(TRAIN_STEPS):
+                if s:
+                    batch = next(pipe)
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+        counts = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wall_ms, busy_ms, top = device_busy(
+            lambda: step(state, next(pipe)), n_top=8)
+    finally:
+        pipe.close()
+    per_step = 2 * TRAIN_LAYERS * TRAIN_MICRO
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train: (a) the loss does not fall: {losses}")
+    check(counts["flash_attention"] == TRAIN_STEPS * per_step
+          and sum(counts.values()) == counts["flash_attention"],
+          f"train: (a) launches {counts}: flash_attention must launch "
+          f"{per_step} times a step (2 x {TRAIN_LAYERS} layers x "
+          f"{TRAIN_MICRO} microbatches) and nothing else")
+    check(len(tally) == 1, f"train: (a) flash shapes {list(tally)}")
+    key = next(iter(tally))
+    med = float(np.median(times))
+    print(f"train: (a) {TRAIN_STEPS} AdamW steps (lr {TRAIN_LR:g}, warmup "
+          f"100) losses {[round(x, 4) for x in losses]}; ms a step median "
+          f"{med * 1e3:.1f} (min {min(times) * 1e3:.1f}, max "
+          f"{max(times) * 1e3:.1f}; step 0 first); "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; "
+          f"max_memory_allocated {peak}; launches {json.dumps(counts)}; "
+          f"flash shape {key}", flush=True)
+    print(f"train: (a) one more step under torch.profiler: device busy "
+          f"{busy_ms:.1f} ms of its {wall_ms:.1f} ms wall "
+          f"({100 * busy_ms / wall_ms:.2f}%); top device operations "
+          + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+    qkv = first[key]
+    train_flash_grads(cfg, qkv)
+    row = train_row(qkv, counts["flash_attention"], per_step)
+    del state, qkv, first, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the fault-tolerant loop: one injected failure, restore, replay
+    state = train_state(cfg, run, seed)
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        print(f"train: (b) checkpoints in {d} ({free:,} bytes free)",
+              flush=True)
+        fc = FaultConfig(ckpt_dir=d, ckpt_every=FAULT_EVERY, keep=1,
+                         inject_failures_at=(FAULT_AT,))
+        t0 = time.perf_counter()
+        state, stats = run_training(step, state, batches, FAULT_STEPS, fc)
+        secs = time.perf_counter() - t0
+        ck = os.path.join(d, f"step_{FAULT_STEPS:08d}")
+        on_disk = dir_bytes(ck) if os.path.isdir(ck) else 0
+    replayed = FAULT_AT - FAULT_EVERY
+    check(int(state["step"]) == FAULT_STEPS and stats.restarts == 1
+          and stats.steps_run == FAULT_STEPS + replayed,
+          f"train: (b) step {int(state['step'])}, restarts "
+          f"{stats.restarts}, steps run {stats.steps_run}")
+    by_step = [(s, x) for s, x in enumerate(stats.losses[:FAULT_AT])] + \
+        [(FAULT_EVERY + i, x) for i, x in enumerate(stats.losses[FAULT_AT:])]
+    rel = max(abs(x - losses[s]) / abs(losses[s]) for s, x in by_step
+              if s < TRAIN_STEPS)
+    check(rel <= TRAIN_REPLAY_REL, f"train: (b) the losses part from (a)'s "
+          f"uninterrupted run by {rel:.4g} (bar {TRAIN_REPLAY_REL:g})")
+    print(f"train: (b) run_training over {FAULT_STEPS} steps, checkpoint "
+          f"every {FAULT_EVERY} (keep 1), failure injected at step "
+          f"{FAULT_AT}: ended at step {int(state['step'])}, restarts "
+          f"{stats.restarts}, steps run {stats.steps_run} (steps "
+          f"{FAULT_EVERY}-{FAULT_AT - 1} replayed from the step-"
+          f"{FAULT_EVERY} checkpoint) in {secs:.1f} s, of which ~"
+          f"{secs - stats.steps_run * med:.1f} s not in steps (the "
+          f"checkpoints' IO, the restore; (a)'s median step "
+          f"{med * 1e3:.1f} ms); a checkpoint {on_disk:,} bytes on disk; "
+          f"losses by step "
+          f"{[(s, round(x, 4)) for s, x in by_step]}; steps 0-"
+          f"{TRAIN_STEPS - 1}, first pass and replay, within {rel:.4g} of "
+          f"(a)'s uninterrupted run (bar {TRAIN_REPLAY_REL:g})", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the other two optimizers
+    for opt in ("adafactor", "adamw8bit"):
+        run_o = dataclasses.replace(run, optimizer=opt)
+        step_o = build_train_step(cfg, run_o, total_steps=FAULT_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        state = train_state(cfg, run_o, seed)
+        opt_bytes = sum(t.numel() * t.element_size() for t in
+                        optim.tree_leaves(state["opt"]))
+        got, times = [], []
+        for s in range(OTHER_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step_o(state, batches(s))
+            got.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(got)), f"train: (c) {opt} losses {got}")
+        print(f"train: (c) {opt}: {OTHER_STEPS} steps, losses "
+              f"{[round(x, 4) for x in got]}, ms a step "
+              f"{[round(t * 1e3, 1) for t in times]}; optimizer state "
+              f"{opt_bytes:,} bytes; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()}", flush=True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"train: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
 
 
 # --------------------------------------------------------------- retrieval
@@ -4642,6 +5299,8 @@ def main() -> int:
                     help="run only the device and frontend phases")
     ap.add_argument("--families-only", action="store_true",
                     help="run only the device, build and families phases")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the device, build and train phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4663,6 +5322,9 @@ def main() -> int:
     if args.families_only:
         kernels = phase_families(args.seed)
         finish(kernels, t_start, smi, name, count)
+        return 0
+    if args.train_only:
+        finish([phase_train(args.seed)], t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -4710,18 +5372,27 @@ def main() -> int:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)
     del snap
+    # the builder parts' host query checks run in worker processes
+    pool = multiprocessing.get_context("spawn").Pool(BUILDER_WORKERS)
     try:
         t0 = time.perf_counter()
         ixd = phase_builder_l2(X, ix, t_host, batches, host_range, host_knn)
-        kernels.append(phase_builder_lp("l1", args.n))
+        row, pending = phase_builder_lp("l1", args.n, pool)
+        kernels.append(row)
+        pending = [pending]
         if args.linf_n != args.n:
             print(f"builder: CUT: the L-infinity part (c) runs at "
                   f"n={args.linf_n}, not {args.n}", flush=True)
-        kernels.append(phase_builder_lp("linf", args.linf_n))
+        row, queries = phase_builder_lp("linf", args.linf_n, pool)
+        kernels.append(row)
+        pending.append(queries)
         for metric in ("l1", "linf"):
-            phase_builder_lp(metric, WIDE_N, data="gaussmix", d=WIDE_D,
-                             rows=False)
+            pending.append(phase_builder_lp(
+                metric, WIDE_N, pool, data="gaussmix", d=WIDE_D,
+                rows=False)[1])
         phase_retrain(X, ix, ixd, batches)
+        builder_query_results(pending)
+        pool.close()
         print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
               flush=True)
         phase_serving(X, ix, batches)
@@ -4729,10 +5400,13 @@ def main() -> int:
         phase_sharded(X, ix, batches, host_range, host_knn, spilled, count)
         phase_frontend(X, ix_main, batches, host_range, host_knn, spilled)
     finally:
+        pool.terminate()
+        pool.join()
         # the spill (~0.3 GB at the default size) lives in TMPDIR
         shutil.rmtree(spilled["path"], ignore_errors=True)
     del X, ix, ix_main, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
+    phase_baselines(args.n)
 
     t0 = time.perf_counter()
     phase_lm_consistency(args.seed)
@@ -4743,6 +5417,7 @@ def main() -> int:
     print(f"lm: and retrieval: in {time.perf_counter() - t0:.1f} s",
           flush=True)
     kernels += phase_families(args.seed)
+    kernels.append(phase_train(args.seed))
     finish(kernels, t_start, smi, name, count)
     return 0
 

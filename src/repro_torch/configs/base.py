@@ -3,8 +3,8 @@
 Port of ``repro/configs/base.py``, copied: ``ModelConfig`` (one per
 architecture, exact paper numbers) with its ``reduced()`` shrink used
 by the CPU tests, ``MoEConfig`` and ``SSMConfig``, the shape cells
-``ShapeCell`` / ``SHAPES`` and ``long_context_ok`` (``base.py:143-148``).
-``RunConfig`` waits for the training slice.
+``ShapeCell`` / ``SHAPES``, ``long_context_ok`` (``base.py:143-148``) and
+``RunConfig`` (``base.py:152-168``), field for field.
 """
 from __future__ import annotations
 
@@ -149,3 +149,23 @@ SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
 
 def long_context_ok(cfg: ModelConfig) -> bool:
     return cfg.family in SUBQUADRATIC_FAMILIES or cfg.sliding_window is not None
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Execution-level knobs (sharding / optimizer / fault tolerance)."""
+    fsdp: bool = False              # shard weights over the data axis too
+    zero1: bool = False             # shard ONLY optimizer state + grad
+                                    # accumulators over data (no per-µb
+                                    # weight re-gather, unlike fsdp)
+    seq_shard_activations: bool = False   # SP for long prefill
+    microbatches: int = 1           # gradient accumulation (activation mem ÷ n)
+    optimizer: str = "adamw"        # adamw | adafactor | adamw8bit
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_compression: Optional[str] = None  # None | int8
+    remat_override: Optional[str] = None
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    keep_ckpts: int = 3

@@ -1,1 +1,1 @@
-"""Dataset generators (port of ``repro/data``)."""
+"""Dataset generators and the token pipeline (port of ``repro/data``)."""

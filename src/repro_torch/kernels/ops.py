@@ -165,7 +165,20 @@ def flash_attention(q, k, v, causal: bool = True, bq: int = 128,
     ``bq`` and ``bk`` are the padding multiples, multiples of 128 (the
     kernel's tiles divide 128; the plain version steps over 128-wide kv
     blocks).  ``window`` (a sliding window) masks keys with
-    ``qpos - kpos >= window``."""
+    ``qpos - kpos >= window``.
+
+    The CUDA kernel writes a fresh tensor through a raw pointer, so its
+    output carries no ``grad_fn``: a CUDA operand that requires grad
+    raises here while grad mode is on.  Differentiate through
+    ``models.layers.flash_attention`` (an autograd Function whose
+    backward is the plain attention's), inside whose forward grad mode
+    is off."""
+    if torch.is_grad_enabled() and q.is_cuda and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "ops.flash_attention has no backward: a CUDA operand requires "
+            "grad; call models.layers.flash_attention, which gives the "
+            "kernel the plain attention's gradient")
     if bq % _flash.TILE or bk % _flash.TILE:
         raise ValueError(f"bq {bq} and bk {bk} must be multiples of "
                          f"{_flash.TILE}")

@@ -2,29 +2,34 @@
 bidirectional encoder over stub modality-frontend frame embeddings and
 a causal decoder with cross-attention.
 
-Port of ``repro/models/encdec.py`` (``encdec.py:21-127``,
-``:144-249``): ``encode``, the teacher-forced ``decode_train`` (the
-decoder over a whole target sequence, which prefill runs over the prime
-tokens), ``encdec_prefill`` and ``encdec_decode_step``.  The speech /
+Port of ``repro/models/encdec.py`` (``encdec.py:21-249``): ``encode``,
+the teacher-forced ``decode_train`` (the decoder over a whole target
+sequence, which prefill runs over the prime tokens), ``encdec_loss``,
+``encdec_prefill`` and ``encdec_decode_step``.  Each encoder and
+decoder layer runs under ``transformer._remat`` (ref ``:95``, ``:123``).  The speech /
 text frontend is a stub: ``src_embeds`` are precomputed (B, S_src, D)
 frames.  On a CUDA tensor the encoder's, the decoder's and the
 cross-attention's full-sequence attention is the hand-written
 ``kernels.ops.flash_attention`` (non-causal with Sq != Sk for the
-cross-attention); on the CPU it is ``dense_attention`` or
-``chunked_attention``, picked as ``encdec.py:67`` picks them.  Decode
-attention is plain torch.  ``encdec_loss`` waits for the training slice.
+cross-attention), differentiable through ``layers.flash_attention``
+with the gradient of :func:`plain_attention`; on the CPU it is
+:func:`plain_attention`, ``dense_attention`` or ``chunked_attention``
+picked as ``encdec.py:67`` picks them.  Decode attention is plain
+torch.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
 from .layers import (F32, apply_rope, attention_specs, chunked_attention,
-                     decode_attention, dense_attention, mlp_specs, rmsnorm,
-                     rope_tables, swiglu)
+                     decode_attention, dense_attention, flash_attention,
+                     mlp_specs, rmsnorm, rope_tables, swiglu)
 from .params import ParamSpec, torch_dtype
-from .transformer import _qkv, _rope, _stack, layer_params, zeros_cache
+from .transformer import (_nll_loss, _qkv, _remat, _rope, _stack,
+                          layer_params, zeros_cache)
 
 
 def enc_block_specs(cfg: ModelConfig) -> dict:
@@ -65,13 +70,18 @@ def encdec_specs(cfg: ModelConfig) -> dict:
 
 def attention(q, k, v, cfg: ModelConfig, causal: bool):
     """(B, Sq, H, hd) x (B, T, Hk, hd) attention: the flash kernel on a
-    CUDA tensor; on the CPU dense attention when ``attn_impl="dense"`` or
-    both lengths fit one chunk, else the chunked online softmax over
-    whole chunks (``encdec.py:67-75``)."""
-    if q.is_cuda:
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal)
-        return o.transpose(1, 2)
+    CUDA tensor (its gradient that of :func:`plain_attention`),
+    :func:`plain_attention` on the CPU."""
+    if not q.is_cuda:
+        return plain_attention(q, k, v, cfg, causal)
+    return flash_attention(q, k, v, functools.partial(
+        plain_attention, cfg=cfg, causal=causal), causal=causal)
+
+
+def plain_attention(q, k, v, cfg: ModelConfig, causal: bool):
+    """Dense attention when ``attn_impl="dense"`` or both lengths fit
+    one chunk, else the chunked online softmax over whole chunks
+    (``encdec.py:67-75``)."""
     sq, t = q.shape[1], k.shape[1]
     if cfg.attn_impl == "dense" or max(sq, t) <= cfg.attn_chunk:
         return dense_attention(q, k, v, causal=causal)
@@ -100,15 +110,33 @@ def encode(params, src_embeds, cfg: ModelConfig):
     memory."""
     x = src_embeds.to(torch_dtype(cfg.dtype))
     cos, sin = _rope(x.shape[1], cfg, x.device)
+    layer = _remat(_enc_layer, cfg)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["enc_layers"], i)
-        xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        a, _ = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
-                       causal=False)
-        x = x + a
-        f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
-        x = (x + f).to(x.dtype)
+        x = layer(layer_params(params["enc_layers"], i), x, cfg, cos, sin)
     return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _enc_layer(lp, x, cfg: ModelConfig, cos, sin):
+    xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    a, _ = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
+                   causal=False)
+    x = x + a
+    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
+    return (x + f).to(x.dtype)
+
+
+def _dec_layer(lp, x, memory, cfg: ModelConfig, cos, sin):
+    """One decoder layer; returns (hidden, its self-attention (k, v))."""
+    xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    a, kv = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
+                    causal=True)
+    x = x + a
+    xn = rmsnorm(x, lp["cross_norm"], cfg.norm_eps)
+    c, _ = _attend(lp["cross"], xn, memory, cfg, None, None, None, None,
+                   causal=False, rope=False)
+    x = x + c
+    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
+    return (x + f).to(x.dtype), kv
 
 
 def _decoder(params, memory, tokens, cfg: ModelConfig, on_kv=None):
@@ -117,18 +145,10 @@ def _decoder(params, memory, tokens, cfg: ModelConfig, on_kv=None):
     values.  Returns the hidden states."""
     x = params["embed"][tokens.long()]
     cos, sin = _rope(x.shape[1], cfg, x.device)
+    layer = _remat(_dec_layer, cfg)
     for i in range(cfg.n_dec_layers or cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
-        xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        a, kv = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
-                        causal=True)
-        x = x + a
-        xn = rmsnorm(x, lp["cross_norm"], cfg.norm_eps)
-        c, _ = _attend(lp["cross"], xn, memory, cfg, None, None, None, None,
-                       causal=False, rope=False)
-        x = x + c
-        f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
-        x = (x + f).to(x.dtype)
+        x, kv = layer(layer_params(params["dec_layers"], i), x, memory, cfg,
+                      cos, sin)
         if on_kv is not None:
             on_kv(i, *kv)
     return x
@@ -143,6 +163,15 @@ def decode_train(params, memory, tokens, cfg: ModelConfig):
     """Teacher-forced decoder over the full target sequence -> logits
     (B, S, V) f32."""
     return _logits(params, _decoder(params, memory, tokens, cfg), cfg)
+
+
+def encdec_loss(params, batch: dict, cfg: ModelConfig):
+    """batch: src_embeds (B, S_src, D), tokens and labels (B, S) (-1 =
+    masked).  The masked mean NLL of the teacher-forced decoder's f32
+    logits (ref ``encdec.py:130-140``).  Returns (nll, {"nll"})."""
+    memory = encode(params, batch["src_embeds"], cfg)
+    logits = decode_train(params, memory, batch["tokens"], cfg)
+    return _nll_loss(logits, batch["labels"], cfg, None)
 
 
 # ------------------------------------------------------------------ serving

@@ -8,8 +8,13 @@ model dtype.  Products the reference takes with
 ``preferred_element_type=float32`` cast their operands to f32 first, so
 their outputs are never rounded to bf16 (TF32 stays off, PyTorch's
 default).  On a CUDA tensor the model's prefill attention is the
-hand-written ``kernels.ops.flash_attention`` (``transformer.attention``);
-the functions here are the plain versions the CPU runs.  ``q0`` is the
+hand-written ``kernels.ops.flash_attention``, called through
+:func:`flash_attention`, an autograd Function whose backward is the
+vector-Jacobian product of the plain attention recomputed on the saved
+q, k and v (the reference never differentiates its Pallas kernel: it
+trains through ``dense_attention`` / ``chunked_attention``, ref
+``transformer.py:105-113``); the other functions here are the plain
+versions the CPU runs.  ``q0`` is the
 absolute position of query row 0; ``window`` masks keys with
 ``qpos - kpos >= window``; a windowed decode cache is a ring buffer.
 """
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from .params import ParamSpec
 
 _NEG = -1e30
@@ -168,6 +174,46 @@ def chunked_attention(q, k, v, q0: int = 0, causal=True,
                     .to(q.dtype))
     o = torch.cat(outs, dim=3).reshape(b, hq, sq, hd).transpose(1, 2)
     return o[:, :sq_real]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: ``ops.flash_attention`` (the CUDA kernel on a card, its
+    plain version ``flash_attention_ref`` on the CPU); backward: the
+    plain attention ``plain(q, k, v)`` recomputed under grad on the
+    saved inputs, and its vector-Jacobian product.  Tensors are in the
+    model's (B, S, H, hd) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window)
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[:3])]
+            o = ctx.plain(*inputs)
+            want = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(o, want, grad_out))
+        grads = [next(got) if t.requires_grad else None for t in inputs]
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, plain, causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention of (B, Sq, Hq, hd) x (B, T, Hk, hd) tensors by the flash
+    kernel, differentiable: its gradient is that of ``plain`` (a
+    function of q, k, v computing the same attention in plain torch,
+    e.g. :func:`dense_attention`), recomputed in the backward pass.
+    Under remat the forward runs again in the recompute, so the kernel
+    launches twice a layer."""
+    return _FlashAttention.apply(q, k, v, plain, causal, window)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int,

@@ -1,11 +1,12 @@
 """Decoder-only LM of the dense, moe, ssm, hybrid and vlm families:
 full-sequence forward, prefill and greedy-decode steps against a cache.
 
-Port of ``repro/models/transformer.py`` (``transformer.py:28-231``,
-``:257-512``).  Parameters are nested dicts of tensors with the
-reference's leaf names; the stacked ``layers`` tensors (leading dim L)
-run as a Python loop, with no scan or remat.  Modes:
+Port of ``repro/models/transformer.py`` (``transformer.py:28-512``).
+Parameters are nested dicts of tensors with the reference's leaf names;
+the stacked ``layers`` tensors (leading dim L) run as a Python loop,
+each layer (each hybrid super-block) wrapped by :func:`_remat`.  Modes:
 
+* ``lm_loss``: tokens + labels -> (loss, metrics), the training loss;
 * ``forward_seq``: tokens (after an optional ``prefix_embeds``) ->
   final hidden states (and the per-layer keys and values with
   ``collect_cache``);
@@ -15,25 +16,29 @@ run as a Python loop, with no scan or remat.  Modes:
 On a CUDA tensor the full-sequence attention is the hand-written
 ``kernels.ops.flash_attention`` (causal from position 0, with the
 configuration's sliding window: for those inputs it computes what
-``dense_attention`` computes, with q scaled in f32); on the CPU it is
-``dense_attention`` or ``chunked_attention``, picked as
+``dense_attention`` computes, with q scaled in f32), called through
+``layers.flash_attention``, whose backward is that of
+:func:`plain_attention`; on the CPU it is :func:`plain_attention`,
+``dense_attention`` or ``chunked_attention`` picked as
 ``transformer.py:105`` picks them.  Decode attention, the MoE dispatch
 and the SSD scan are plain torch on both, as the reference computes
 them in jnp.  A sliding-window cache is a ring of min(cache_len,
 window) slots: prefill keeps the last slots rolled so slot = pos % t,
-and decode writes slot pos % t.  ``lm_loss`` waits for the training
-slice.
+and decode writes slot pos % t.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
 from ..kernels.dispatch import resolve_device
 from .layers import (F32, apply_rope, attention_specs, chunked_attention,
-                     decode_attention, dense_attention, mlp_specs, rmsnorm,
-                     rope_tables, swiglu)
+                     decode_attention, dense_attention, flash_attention,
+                     mlp_specs, rmsnorm, rope_tables, swiglu)
 from .mamba2 import mamba_decode, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_ffn, moe_specs
 from .params import ParamSpec, map_specs, torch_dtype
@@ -103,6 +108,53 @@ def layer_params(layers: dict, i: int) -> dict:
 
 
 # --------------------------------------------------------------- blocks
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective policy, the reference's
+    ``dots_with_no_batch_dims_saveable``: save the output of every matmul
+    without a batch dimension, recompute the rest (attention included).
+    A 2-D ``x @ w`` dispatches to ``aten.mm``; an einsum such as
+    ``bsd,dhk->bshk`` folds its free dimensions and dispatches to
+    ``aten.bmm`` with a batch of 1.  (An attention product whose batch
+    times kv heads is 1 is also a batch-1 ``bmm`` and is saved: memory
+    differs, values do not.)"""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SELECTIVE = functools.partial(create_selective_checkpoint_contexts,
+                               _save_dots)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return False
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``cfg.remat`` (ref ``transformer.py:85-92``): ``"none"`` returns
+    ``fn``; ``"full"`` checkpoints it (activations recomputed in the
+    backward pass); otherwise the selective policy :func:`_save_dots`.
+    Non-reentrant ``torch.utils.checkpoint``; a call that records no
+    gradient (grad mode off, or no tensor argument requiring grad) runs
+    ``fn`` as it is."""
+    if cfg.remat == "none":
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": _SELECTIVE}
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and _needs_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
 def plain_attention(q, k, v, cfg: ModelConfig):
     """The reference's choice (``transformer.py:105``): dense attention
     for ``attn_impl="dense"`` or a sequence within one chunk, else the
@@ -119,13 +171,13 @@ def plain_attention(q, k, v, cfg: ModelConfig):
 def attention(q, k, v, cfg: ModelConfig):
     """Full-sequence causal attention of (B, S, H, hd) tensors with the
     configuration's sliding window: the flash kernel on a CUDA tensor,
-    :func:`plain_attention` on the CPU."""
+    its gradient that of :func:`plain_attention`; :func:`plain_attention`
+    on the CPU."""
     if not q.is_cuda:
         return plain_attention(q, k, v, cfg)
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True,
-                            window=cfg.sliding_window)
-    return o.transpose(1, 2)
+    return flash_attention(q, k, v, functools.partial(plain_attention,
+                                                      cfg=cfg),
+                           causal=True, window=cfg.sliding_window)
 
 
 def _qkv(p: dict, xn, cfg: ModelConfig, cos, sin):
@@ -198,39 +250,48 @@ def _run_layers(params, x, cfg: ModelConfig, on_kv=None):
     (hidden, aux summed over the layers)."""
     cos, sin = _rope(x.shape[1], cfg, x.device)
     aux = _zero_aux(x.device)
+    layer = _remat(transformer_layer, cfg)
     for i in range(cfg.n_layers):
-        x, a, (k, v) = transformer_layer(layer_params(params["layers"], i),
-                                         x, cfg, cos, sin)
+        x, a, (k, v) = layer(layer_params(params["layers"], i), x, cfg, cos,
+                             sin)
         aux = {n: aux[n] + a[n] for n in aux}
         if on_kv is not None:
             on_kv(i, k, v)
     return x, aux
 
 
+def _super_block(params, h, x0, j: int, cfg: ModelConfig, cos, sin,
+                 cache=None):
+    """Hybrid super-block j: ``shared_every`` mamba layers, then the
+    SHARED attention block on their output concatenated with the
+    embeddings ``x0``.  Returns (hidden, the block's (k, v))."""
+    k = cfg.shared_every
+    shared = params["shared"]
+    for i in range(j * k, (j + 1) * k):
+        lc = None if cache is None else {"conv": cache["conv"][i],
+                                         "ssm": cache["ssm"][i]}
+        h, nc = _mamba_layer(layer_params(params["layers"], i), h, cfg, lc)
+        if cache is not None:
+            cache["conv"][i], cache["ssm"][i] = nc["conv"], nc["ssm"]
+    inp2 = torch.cat([h, x0], dim=-1) @ params["shared_proj"][j]
+    a, kv = attn_block(shared, inp2, cfg, cos, sin)
+    f, _ = ffn_block(shared, inp2 + a, cfg)
+    return (h + a + f).to(h.dtype), kv
+
+
 def _hybrid_layers(params, x, cfg: ModelConfig, cache=None, on_kv=None):
     """Zamba2-style: super-blocks of ``shared_every`` mamba layers, each
     followed by one invocation of the SHARED attention block (common
-    weights, per-invocation concat down-projection).  With ``cache`` the
-    mamba layers start from and update its conv and ssm state (layer
-    by layer); ``on_kv(j, k, v)`` receives invocation j's keys and
-    values."""
+    weights, per-invocation concat down-projection), each super-block
+    under :func:`_remat` (ref ``transformer.py:229``).  With ``cache``
+    the mamba layers start from and update its conv and ssm state
+    (layer by layer); ``on_kv(j, k, v)`` receives invocation j's keys
+    and values."""
     cos, sin = _rope(x.shape[1], cfg, x.device)
-    k = cfg.shared_every
     x0 = x                                 # residual stream of embeddings
-    shared = params["shared"]
-    for j in range(cfg.n_layers // k):
-        h = x
-        for i in range(j * k, (j + 1) * k):
-            lc = None if cache is None else {"conv": cache["conv"][i],
-                                             "ssm": cache["ssm"][i]}
-            h, nc = _mamba_layer(layer_params(params["layers"], i), h, cfg,
-                                 lc)
-            if cache is not None:
-                cache["conv"][i], cache["ssm"][i] = nc["conv"], nc["ssm"]
-        inp2 = torch.cat([h, x0], dim=-1) @ params["shared_proj"][j]
-        a, kv = attn_block(shared, inp2, cfg, cos, sin)
-        f, _ = ffn_block(shared, inp2 + a, cfg)
-        x = (h + a + f).to(h.dtype)
+    block = _remat(_super_block, cfg)
+    for j in range(cfg.n_layers // cfg.shared_every):
+        x, kv = block(params, x, x0, j, cfg, cos, sin, cache)
         if on_kv is not None:
             on_kv(j, *kv)
     return x
@@ -253,12 +314,49 @@ def forward_seq(params, tokens, cfg: ModelConfig, prefix_embeds=None,
                      torch.stack([v for _, v in kvs]))
         return x, aux, cache
     if cfg.family == "ssm":
+        layer = _remat(_mamba_layer, cfg)
         for i in range(cfg.n_layers):
-            x, _ = _mamba_layer(layer_params(params["layers"], i), x, cfg)
+            x, _ = layer(layer_params(params["layers"], i), x, cfg)
         return x, _zero_aux(x.device), None
     if cfg.family == "hybrid":
         return _hybrid_layers(params, x, cfg), _zero_aux(x.device), None
     raise ValueError(cfg.family)
+
+
+# --------------------------------------------------------------- training
+def lm_loss(params, batch: dict, cfg: ModelConfig):
+    """batch: tokens (B, S) int, labels (B, S) int (-1 = masked),
+    optional prefix_embeds (B, P, D).  The masked mean negative
+    log-likelihood in f32 over ``logsumexp`` of the f32 logits (the vlm
+    prefix positions dropped), plus the MoE router terms weighted by
+    ``router_aux_weight`` and ``router_z_weight`` (ref
+    ``transformer.py:235-253``).  Returns (loss, {"nll", "load_balance",
+    "router_z"})."""
+    prefix = batch.get("prefix_embeds")
+    x, aux, _ = forward_seq(params, batch["tokens"], cfg, prefix)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
+    return _nll_loss(_unembed(params, x, cfg), batch["labels"], cfg, aux)
+
+
+def _nll_loss(logits, labels, cfg: ModelConfig, aux: dict | None):
+    """The masked mean NLL of f32 ``logits`` against ``labels`` (-1 =
+    masked), plus the MoE terms of ``aux`` when ``cfg.moe`` is set."""
+    logits = logits.to(F32)
+    labels = labels.long()
+    mask = (labels >= 0).to(F32)
+    safe = torch.clamp(labels, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask),
+                                                     min=1.0)
+    if aux is None:
+        return nll, {"nll": nll}
+    loss = nll
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["load_balance"] \
+                    + cfg.moe.router_z_weight * aux["router_z"]
+    return loss, {"nll": nll, **aux}
 
 
 # ---------------------------------------------------------------- serving

@@ -1,8 +1,8 @@
-"""Unified model interface: specs, prefill and decode functions per
-family, and batch descriptions for prefill / decode shape cells.
+"""Unified model interface: specs, loss, prefill and decode functions
+per family, and batch descriptions for train / prefill / decode shape
+cells.
 
-Port of ``repro/models/zoo.py`` (``zoo.py:18-112``).  ``loss_fn`` and
-train cells wait for the training slice.
+Port of ``repro/models/zoo.py`` (``zoo.py:18-112``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,14 @@ def model_specs(cfg: ModelConfig) -> dict:
     if cfg.family == "encdec":
         return ed.encdec_specs(cfg)
     return tr.model_specs(cfg)
+
+
+def loss_fn(cfg: ModelConfig):
+    """``(params, batch) -> (loss, metrics)`` (ref ``zoo.py:24-27``);
+    runs on the device of the batch."""
+    if cfg.family == "encdec":
+        return lambda params, batch: ed.encdec_loss(params, batch, cfg)
+    return lambda params, batch: tr.lm_loss(params, batch, cfg)
 
 
 def prefill_fn(cfg: ModelConfig, cache_len: int):
@@ -50,13 +58,29 @@ def decode_fn(cfg: ModelConfig):
 
 # ------------------------------------------------------------------ batches
 def batch_desc(cfg: ModelConfig, cell: ShapeCell) -> dict:
-    """{name: (shape, dtype, logical_axes)} for a prefill or decode
-    cell."""
+    """{name: (shape, dtype, logical_axes)} for the given shape cell."""
     b, s = cell.global_batch, cell.seq_len
     if cfg.family == "vlm" and cfg.n_prefix_embeds:
         # the image-patch prefix is part of the context budget: text
         # tokens + prefix == seq_len (the decode cache is seq_len long)
         s = max(s - cfg.n_prefix_embeds, 1)
+    if cell.kind == "train":
+        if cfg.family == "encdec":
+            return {
+                "src_embeds": ((b, s, cfg.d_model), cfg.dtype,
+                               ("batch", "seq", "embed_noshard")),
+                "tokens": ((b, s), "int32", ("batch", "seq")),
+                "labels": ((b, s), "int32", ("batch", "seq")),
+            }
+        d = {
+            "tokens": ((b, s), "int32", ("batch", "seq")),
+            "labels": ((b, s), "int32", ("batch", "seq")),
+        }
+        if cfg.family == "vlm":
+            d["prefix_embeds"] = ((b, cfg.n_prefix_embeds, cfg.d_model),
+                                  cfg.dtype,
+                                  ("batch", "seq", "embed_noshard"))
+        return d
     if cell.kind == "prefill":
         if cfg.family == "encdec":
             return {
@@ -72,9 +96,6 @@ def batch_desc(cfg: ModelConfig, cell: ShapeCell) -> dict:
         return d
     if cell.kind == "decode":
         return {"token": ((b,), "int32", ("batch",))}
-    if cell.kind == "train":
-        raise NotImplementedError("train cells wait for the training "
-                                  "slice")
     raise ValueError(cell.kind)
 
 

@@ -209,6 +209,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.obs.demo, repro_torch.obs.report\n"
         "import repro_torch.storage, repro_torch.storage.prefetch\n"
         "import repro_torch.sharding, repro_torch.sharding.logical\n"
+        "import repro_torch.baselines, repro_torch.data.pipeline\n"
+        "import repro_torch.train.optim, repro_torch.train.compress\n"
+        "import repro_torch.train.step, repro_torch.ckpt.checkpoint\n"
+        "import repro_torch.runtime.fault, repro_torch.models.encdec\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert bad == ['jax'], bad\n"

@@ -496,19 +496,21 @@ def test_chunked_model_path_matches_reference(models):
 
 
 def test_batches_equal_reference():
-    """make_batch draws the reference's tokens for the same seed;
-    train cells wait for the training slice."""
+    """make_batch draws the reference's tokens for the same seed, for
+    train cells (tokens and labels) too."""
     cfg = get_arch("llama3-8b").reduced()
     for cell in (ShapeCell("p", 64, 2, "prefill"),
-                 ShapeCell("d", 64, 2, "decode")):
+                 ShapeCell("d", 64, 2, "decode"),
+                 ShapeCell("t", 64, 2, "train")):
         got = zoo.make_batch(cfg, cell, seed=5, device="cpu")
         want = ref_zoo.make_batch(REF_ARCHS["llama3-8b"].reduced(), cell, 5)
         assert sorted(got) == sorted(want)
         for k in got:
             assert got[k].dtype == torch.int32
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    with pytest.raises(NotImplementedError, match="train"):
-        zoo.batch_desc(cfg, ShapeCell("t", 64, 2, "train"))
+    assert zoo.batch_desc(cfg, ShapeCell("t", 64, 2, "train")) == \
+        ref_zoo.batch_desc(REF_ARCHS["llama3-8b"].reduced(),
+                           ShapeCell("t", 64, 2, "train"))
 
 
 def test_cache_spec_matches_reference():
