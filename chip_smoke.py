@@ -268,11 +268,13 @@ Phases, each printing lines that start with its name:
             answer on the same q, k, v within one bf16 ulp (rtol = atol
             = 2**-7), and lie nearer it than the plain version wherever
             they part from the plain version by more than that; then the
-            body each type and head width takes (bf16 at D 64 and 128:
-            the tensor cores), the HGMMA count of the flash library's
-            SASS, its kernel row at the prefill's padded shape (bound:
-            the function's own flops, one bf16 pass over the real rows,
-            at the tensor cores' rate; flash_work), with
+            body each type and head width takes (bf16 at D 64, 80, 112
+            and 128: the tensor cores, 80 and 112 in tiles padded to 128
+            columns; the check fails otherwise), the HGMMA count of the
+            flash library's SASS (HGMMA must show in flash_tc_kernel at
+            D 80, 112 and 128), its kernel row at the prefill's padded
+            shape (bound: the function's own flops, one bf16 pass over
+            the real rows, at the tensor cores' rate; flash_work), with
             scaled_dot_product_attention as the library yardstick, and an
             f32 kernel-vs-plain check at a small shape;
 13. retrieval the twin of examples/retrieval_serving.py steps 1-4: an
@@ -1651,11 +1653,12 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
 
 
-def device_busy(fn, n_top: int = 6) -> tuple[float, float, list]:
-    """(wall ms, device ms, top device activities) of one call of
-    ``fn`` under torch.profiler.  Only the device's own events count
-    (kernels and copies); the CPU ops that launched them are skipped,
-    or their device time would be counted twice."""
+def device_busy(fn, n_top: int | None = 6) -> tuple[float, float, list]:
+    """(wall ms, device ms, top device activities; all with ``n_top``
+    None) of one call of ``fn`` under torch.profiler.  Only the
+    device's own events count (kernels and copies); the CPU ops that
+    launched them are skipped, or their device time would be counted
+    twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
@@ -4285,22 +4288,24 @@ def flash_bodies_and_sass():
     width (its own flash_attention_body), and the HGMMA (wgmma)
     instructions in each kernel's SASS, read with cuobjdump from the CUDA
     toolkit or Triton's copy ("not available" without one).  Fails if
-    bf16 at D 128 is not the tensor-core body, or if readable SASS shows
-    no HGMMA in it."""
-    import ctypes
+    bf16 at D 64, 80, 112 or 128 is not the tensor-core body, if f32 at
+    any width or bf16 at D 16 or 32 is not the CUDA-core body, or if
+    readable SASS shows no HGMMA in flash_tc_kernel at D 80, 112 or
+    128."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
     lib = _cuda.build()[_cuda.SOURCES["flash_attention"]].path
-    body = ctypes.CDLL(str(lib)).flash_attention_body
-    body.argtypes = [ctypes.c_int, ctypes.c_int]
     names = {1: "tensor cores (flash_tc_kernel)",
              0: "CUDA cores (flash_kernel)"}
+    bodies = {(dt, d): fa.body(getattr(torch, dt), d)
+              for dt in ("float32", "bfloat16") for d in fa.HEAD_DIMS}
     print("kernels: flash_attention bodies: " + "; ".join(
-        f"{dt} D {d}: {names[body(bf, d)]}" for dt, bf in (("f32", 0),
-                                                          ("bf16", 1))
-        for d in fa.HEAD_DIMS), flush=True)
-    check(body(1, 128) == 1, "kernels: bf16 D 128 does not take the "
-          "tensor-core body")
+        f"{dt} D {d}: {names.get(b, b)}" for (dt, d), b in bodies.items()),
+        flush=True)
+    for (dt, d), b in bodies.items():
+        want = int(dt == "bfloat16" and d >= 64)
+        check(b == want, f"kernels: {dt} D {d} takes body {b}, not "
+              f"{names[want]}")
     exe, sass = dump_sass(lib)
     if sass is None or sass.returncode != 0:
         print("kernels: flash_attention SASS HGMMA count: not available "
@@ -4318,8 +4323,9 @@ def flash_bodies_and_sass():
                 fn.count("HGMMA")
     print(f"kernels: flash_attention SASS HGMMA count ({exe}): "
           f"{json.dumps(counts)}", flush=True)
-    check(counts.get("flash_tc_kernel<bf16, 128>", 0) > 0,
-          "kernels: no HGMMA in flash_tc_kernel<bf16, 128>'s SASS")
+    for d in (80, 112, 128):
+        check(counts.get(f"flash_tc_kernel<bf16, {d}>", 0) > 0,
+              f"kernels: no HGMMA in flash_tc_kernel<bf16, {d}>'s SASS")
 
 
 def phase_flash_kernel(launches, qkv):
@@ -4604,10 +4610,14 @@ def family_serve(name, layers, batch_size, prompt, steps, seed,
     for what, fn in (("prefill", lambda: prefill(params, batch)),
                      ("decode step", lambda: decode(
                          params, token, dict(cache, pos=cache["pos"] - 1)))):
-        wall, dev, top = device_busy(fn, n_top=5)
+        wall, dev, evs = device_busy(fn, n_top=None)
+        # the flash kernels' device time: a one-call profiler window of
+        # the kernel alone drops its records (kernel_row), this one not
+        flash = sum(t for k, t in evs if "flash" in k)
         print(f"families: {name} profile {what}: wall_ms={wall:.3f} "
               f"device_ms={dev:.3f} busy={dev / wall:.4f} "
-              f"top={json.dumps(top)}", flush=True)
+              f"top={json.dumps(evs[:5])} flash_attention_device_ms="
+              f"{flash:.4f}", flush=True)
     del params, cache
     torch.cuda.empty_cache()
     return row, tally, first
@@ -4759,8 +4769,10 @@ def family_flash_row(label, key, qkv, launches, real_len):
           f"{flops:.4g} flops, {nbytes:.4g} bytes unpadded; against "
           f"flash_attention_ref and the f64 answer: {readings}; {rounding}",
           flush=True)
-    body = ("tensor cores, P V in two bf16 passes" if d in (64, 128)
-            else "CUDA cores")
+    body = {1: "tensor cores, P V in two bf16 passes",
+            0: "CUDA cores"}[fa.body(q.dtype, d)]
+    if d % 64:
+        body += f", tiles padded from {d} to 128 columns"
     return kernel_row(
         f"flash_attention {label}", launches, err,
         lambda: fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,

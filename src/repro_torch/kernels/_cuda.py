@@ -78,11 +78,13 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 9),
 }
 # host functions of a library (no launch of their own, no count):
-# name -> (source, argument types); each returns a cudaError_t
+# name -> (source, argument types); each returns an int, a cudaError_t
+# but for flash_attention_body (the body a flash launch takes)
 HOST_FUNCS: dict[str, tuple[str, tuple]] = {
     "graph_loop_build": ("graph_loop.cu", (_P, _P, _I, _P, _I, _P, _P, _P)),
     "graph_loop_launch": ("graph_loop.cu", (_P, _P)),
     "graph_loop_destroy": ("graph_loop.cu", (_P, _P)),
+    "flash_attention_body": ("flash_attention.cu", (_I, _I)),
 }
 # kernel name -> the variants of its C symbol (one per operand type)
 VARIANTS = {"flash_attention": ("f32", "bf16")}

@@ -28,56 +28,77 @@
 // PyTorch version (../ref.py flash_attention_ref) runs the same recurrence
 // over 128-wide kv blocks.
 //
-// Two bodies; launch<T> picks one by type and head width:
+// Two bodies; launch<T> picks one by type and head width (tensor_core_body;
+// flash_attention_body reports the choice):
 //
-// * bf16, D in {64, 128}: flash_tc_kernel, on Hopper's tensor cores.  What
-//   bounds it: operations.  At a Llama-3-8B prefill (B 4, Hq 32, Hk 8, S 2048,
-//   D 128, causal, kv_len 2000) the function needs 4 D flops for each live
-//   (q, k) pair, 137 GFLOP, against 168 MB in and out; this body does Q K^T in
-//   one bf16 pass and P V in two, 1.5 x 137 GFLOP at 989 TFLOP/s = 0.21 ms,
-//   against 0.05 ms of memory time.  Design: one block per (b, h, 128-row q
-//   tile), two consumer warpgroups of 64 rows and one producer warp, with
-//   the last q tile (the most kv tiles) first.  The producer loads Q once and
-//   K and V tiles (128 keys) into a 2-stage ring with TMA (128-byte swizzle,
-//   boxes of 64 columns), completion on mbarriers; the consumers release a
-//   stage through a second barrier.  S = Q K^T is one wgmma m64n128k16 chain
-//   from shared memory, exact products of the bf16 operands in the f32
-//   accumulator; 1/sqrt(D) times log2(e) then scales S in f32, and the
-//   online softmax runs on the accumulator fragment (a row's 128 scores lie
-//   on the 4 lanes of a quad) with p = 2^(s - m) on the SFU's ex2: an
-//   argument error of ~1000 x 2^-24 at the largest scores, ~6e-5 relative in
-//   p.  Mask arithmetic runs only on the diagonal tile and the one holding
-//   kv_len.  P stays f32-valued: it splits in registers into P_hi = bf16(P)
-//   and P_lo = bf16(P - P_hi), and O += P_hi V + P_lo V is two wgmma chains
-//   with A from registers (the S accumulator's layout is the A fragment's)
-//   and V read MN-major through the descriptor's transpose bit, into one f32
-//   accumulator; the split's residual is ~2^-16 of P, far under the output's
-//   bf16 ulp.  (Rounding P once to bf16, as fused attention libraries do,
-//   is a coarser function: at random Llama-width weights scores have a
-//   standard deviation of ~250 and rows are near one-hot.)  O is rescaled
-//   by alpha before the P V chain is issued.  At the Llama layers its
-//   outputs lie within half of rtol = atol = 2^-7 of the f64 answer, nearer
-//   it than the plain version, whose sequential f32 dot products part from
-//   it where leading keys nearly tie (PERF.md).  The epilogue divides by
+// * bf16, D in {64, 80, 112, 128}: flash_tc_kernel, on Hopper's tensor
+//   cores.  What bounds it: operations.  At a Llama-3-8B prefill (B 4, Hq 32,
+//   Hk 8, S 2048, D 128, causal, kv_len 2000) the function needs 4 D flops for
+//   each live (q, k) pair, 137 GFLOP, against 168 MB in and out; this body
+//   does Q K^T in one bf16 pass and P V in two, 1.5 x 137 GFLOP at 989
+//   TFLOP/s = 0.21 ms, against 0.05 ms of memory time.  Design: one block per
+//   (b, h, 128-row q tile), two consumer warpgroups of 64 rows and one
+//   producer warp, with the last q tile (the most kv tiles) first.  The
+//   producer loads Q once and K and V tiles (128 keys) into a 2-stage ring
+//   with TMA (128-byte swizzle, boxes of 64 columns), completion on
+//   mbarriers; the consumers release a stage through a second barrier.  S =
+//   Q K^T is one wgmma m64n128k16 chain from shared memory, exact products of
+//   the bf16 operands in the f32 accumulator; 1/sqrt(D) times log2(e) then
+//   scales S in f32, and the online softmax runs on the accumulator fragment
+//   (a row's 128 scores lie on the 4 lanes of a quad) with p = 2^(s - m) on
+//   the SFU's ex2: an argument error of ~1000 x 2^-24 at the largest scores,
+//   ~6e-5 relative in p.  Mask arithmetic runs only on the diagonal tile and
+//   the one holding kv_len.  P stays f32-valued: it splits in registers into
+//   P_hi = bf16(P) and P_lo = bf16(P - P_hi), and O += P_hi V + P_lo V is two
+//   wgmma chains with A from registers (the S accumulator's layout is the A
+//   fragment's) and V read MN-major through the descriptor's transpose bit,
+//   into one f32 accumulator; the split's residual is ~2^-16 of P, far under
+//   the output's bf16 ulp.  (Rounding P once to bf16, as fused attention
+//   libraries do, is a coarser function: at random Llama-width weights scores
+//   have a standard deviation of ~250 and rows are near one-hot.)  O is
+//   rescaled by alpha before the P V chain is issued.  At the Llama layers
+//   its outputs lie within half of rtol = atol = 2^-7 of the f64 answer,
+//   nearer it than the plain version, whose sequential f32 dot products part
+//   from it where leading keys nearly tie (PERF.md).  The epilogue divides by
 //   max(l, 1e-30), rounds to bf16, stages each warpgroup's rows in its own
 //   (now unread) part of the Q tile and writes 16 bytes a thread.
 //   Registers: S 64, O 64 (D 128), P hi and lo 64; setmaxnreg gives the
 //   consumers 232 and the producer 40.  Not done here: sharing one K/V load
 //   across a kv head's q heads (L2 serves it), ping-pong of softmax and
 //   GEMM within a warpgroup, a persistent grid.
+//   Widths that are not whole boxes (80: zamba2, 112: kimi-k2) take the
+//   padded layout: every tile is laid out at DP = D rounded up to 64 columns
+//   (128 for both: two boxes a tile, 160 KB of shared memory a block, as at
+//   D 128), while the tensor maps keep the real (rows, D) shape with its row
+//   stride of 160 or 224 bytes.  A tile's second box starts at column 64 and
+//   runs past D, and TMA fills columns D..127 with zeros (the barriers still
+//   expect the whole boxes' bytes).  Q K^T runs D / 16 k-steps (5 or 7), so
+//   the zero columns are never multiplied, as two wgmma chains: box 0's four
+//   k-steps into S, box 1's into a second accumulator, added once in f32
+//   with round-to-nearest.  The tensor core rounds each k-step's sum into
+//   its accumulator toward zero, and over one 7-step chain at kimi-k2's
+//   random-weight scores (|s| to 1,904, raw dot products near 20,000) that
+//   bias left one output of the D 112 row no nearer the f64 answer than the
+//   plain version where the two part by more than 2^-7 (an emulation of the
+//   truncation gave the kernel's value there exactly; with two chains it
+//   gave 0 such outputs and 0.50 of the bar at most, against 0.91; PERF.md).
+//   D 64 and 128 keep the single chain, bit for bit.  P V keeps the m64n128
+//   chain over DP, whose accumulators for columns D..127 multiply V's zeros,
+//   stay 0 and are never stored.  That spends 128 / 80 = 1.6x (D 80) and
+//   128 / 112 = 1.14x (D 112) of P V's work on padding; the epilogue writes
+//   D / 8 16-byte chunks a row.
 //
-// * f32 (every D) and bf16 with D in {16, 32, 80, 112}: flash_kernel, f32
-//   math on the CUDA cores.  q is cast to f32 and scaled by 1/sqrt(D) in f32, dot
+// * f32 (every D) and bf16 with D in {16, 32}: flash_kernel, f32 math on the
+//   CUDA cores.  q is cast to f32 and scaled by 1/sqrt(D) in f32, dot
 //   products are explicit f32 fused multiply-adds (the flags forbid
 //   contraction everywhere else), exp is expf.  Each thread owns 4 rows and a
 //   4 x 4 score tile of a 64-row q tile and 64-key kv tile, read as float4s
 //   from shared-memory tiles whose rows are padded by 4 floats so a warp's
 //   float4 reads hit distinct banks.  Bounded at the f32 rate of the CUDA
 //   cores (67 TFLOP/s); it serves the f32 checks, whose bar a bf16 pass
-//   would miss, head widths too narrow for a 128-byte swizzle row, and the
-//   widths 80 (zamba2) and 112 (kimi-k2), whose rows of 160 and 224 bytes
-//   are not whole 64-column TMA boxes.  At D 80 and 112 a thread's D / 16
-//   output columns are one every 16 (the narrow layout), not float4 groups.
+//   would miss, and head widths too narrow for a 128-byte swizzle row.  At
+//   D 80 and 112 (f32) a thread's D / 16 output columns are one every 16
+//   (the narrow layout), not float4 groups.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -312,12 +333,18 @@ constexpr int BOX_BYTES = 128 * 128;  // 128 rows of 128 bytes
 constexpr int CONSUMER_WARPS = 8;
 constexpr uint32_t CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 
+// a tile's width in shared memory: D rounded up to whole boxes
+__host__ __device__ constexpr int padded_width(int d) {
+    return (d + BOX_COLS - 1) / BOX_COLS * BOX_COLS;
+}
+
 // Shared memory of one block, from a 1024-byte aligned base: the Q tile, two
-// K and two V stages (each tile D / 64 boxes of 128 rows x 128 bytes), then
-// the barriers: Q full, K full x2, V full x2, stage empty x2.
-template <int D>
+// K and two V stages (each tile DP / 64 boxes of 128 rows x 128 bytes, DP the
+// padded width), then the barriers: Q full, K full x2, V full x2, stage
+// empty x2.
+template <int DP>
 struct Smem {
-    static constexpr int TILE = 128 * D * 2;
+    static constexpr int TILE = 128 * DP * 2;
     static constexpr int Q = 0, K = TILE, V = 3 * TILE, BAR = 5 * TILE;
     static constexpr int BYTES = BAR + 7 * 8 + 1024;   // + alignment slack
 };
@@ -483,7 +510,10 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 // accumulator are therefore the A fragment of k step j of P V.  WINDOW
 // compiles the sliding window in: without it (window = 0) the body is the
 // unwindowed one, whose window tests cost 4.6% at the Llama prefill shape
-// when they were runtime branches (tools/ab_flash.py, PERF.md).
+// when they were runtime branches (tools/ab_flash.py, PERF.md).  D is the
+// real head width: it sets the k-steps of Q K^T, the scale and the columns
+// stored; DP, its padded width, sets the tiles, the boxes and the output
+// accumulators.
 template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
@@ -491,11 +521,16 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
                 __grid_constant__ const CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int hq, int hk, int sq,
                 int sk, int kv_len, int causal, int window, float scale2) {
-    using L = Smem<D>;
-    constexpr int NB = D / BOX_COLS;    // boxes per tile
-    constexpr int KS = D / 16;          // k steps of Q K^T
+    constexpr int DP = padded_width(D);
+    static_assert(D % 16 == 0 && DP <= 128, "head width");
+    using L = Smem<DP>;
+    constexpr int NB = DP / BOX_COLS;   // boxes per tile
+    constexpr int KS = D / 16;          // k steps of Q K^T: real columns only
     constexpr int KV = BK / 16;         // k steps of P V
-    constexpr int NO = D / 2;           // output accumulators per thread
+    constexpr int NO = DP / 2;          // output accumulators per thread
+    // Q K^T as one wgmma chain per box (padded widths) or one chain (D 64,
+    // 128: PR 14's body, kept bit for bit); see the header
+    constexpr bool BOX_CHAINS = D != DP;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -537,7 +572,8 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
         if (threadIdx.x == 256) {
             const int q_row = (b * hq + h) * sq + q0;
             const int k_row = (b * hk + h / (hq / hk)) * sk;
-            mbar_expect_tx(q_full, BQ * D * 2);
+            // whole boxes land, zero-filled columns past D included
+            mbar_expect_tx(q_full, BQ * DP * 2);
 #pragma unroll
             for (int c = 0; c < NB; ++c)
                 tma_load(sq_s + c * BOX_BYTES, &tq, q_full, c * BOX_COLS, q_row);
@@ -545,12 +581,12 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
                 const int st = it & 1;
                 const int k_tile = k_row + (kt0 + it) * BK;
                 if (it >= 2) mbar_wait(empty(st), ((it >> 1) - 1) & 1);
-                mbar_expect_tx(k_full(st), BK * D * 2);
+                mbar_expect_tx(k_full(st), BK * DP * 2);
 #pragma unroll
                 for (int c = 0; c < NB; ++c)
                     tma_load(k_s(st) + c * BOX_BYTES, &tk, k_full(st),
                              c * BOX_COLS, k_tile);
-                mbar_expect_tx(v_full(st), BK * D * 2);
+                mbar_expect_tx(v_full(st), BK * DP * 2);
 #pragma unroll
                 for (int c = 0; c < NB; ++c)
                     tma_load(v_s(st) + c * BOX_BYTES, &tv, v_full(st),
@@ -566,11 +602,15 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
         // this warpgroup's 64 rows of each Q box
         const uint32_t q_rows = sq_s + wg * 64 * 128;
 
-        float acc[NO], s[64];
+        float acc[NO], s[64], s1[BOX_CHAINS ? 64 : 1];
 #pragma unroll
         for (int r = 0; r < NO; ++r) acc[r] = 0.f;
 #pragma unroll
         for (int r = 0; r < 64; ++r) s[r] = 0.f;
+        if constexpr (BOX_CHAINS) {
+#pragma unroll
+            for (int r = 0; r < 64; ++r) s1[r] = 0.f;
+        }
         float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
         uint32_t ph[KV][4], pl[KV][4];
 
@@ -580,18 +620,30 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
             const uint32_t par = (it >> 1) & 1;
             const int k0 = (kt0 + it) * BK;
 
-            // S = Q K^T
+            // S = Q K^T; with BOX_CHAINS box 0's k-steps accumulate in s
+            // and box 1's in s1, and s += s1 rounds to nearest once
             mbar_wait(k_full(st), par);
             wg_fence();
 #pragma unroll
             for (int ks = 0; ks < KS; ++ks) {
                 const uint32_t off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
-                mma_ss_n128(s, desc_sw128(q_rows + off, 16, 1024),
-                            desc_sw128(k_s(st) + off, 16, 1024), ks > 0);
+                const uint64_t da = desc_sw128(q_rows + off, 16, 1024);
+                const uint64_t db = desc_sw128(k_s(st) + off, 16, 1024);
+                if constexpr (BOX_CHAINS) {
+                    if (ks < 4) mma_ss_n128(s, da, db, ks > 0);
+                    else mma_ss_n128(s1, da, db, ks > 4);
+                } else {
+                    mma_ss_n128(s, da, db, ks > 0);
+                }
             }
             wg_commit();
             wg_wait0();
             pin(s);
+            if constexpr (BOX_CHAINS) {
+                pin(s1);
+#pragma unroll
+                for (int r = 0; r < 64; ++r) s[r] = __fadd_rn(s[r], s1[r]);
+            }
 
 #pragma unroll
             for (int r = 0; r < 64; ++r) s[r] = __fmul_rn(s[r], scale2);
@@ -731,7 +783,8 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// a (rows, D) bf16 row-major matrix, boxes of 64 columns x 128 rows
+// a (rows, D) bf16 row-major matrix, boxes of 64 columns x 128 rows; a box
+// past column D is filled with zeros
 bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int d) {
     const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
@@ -758,7 +811,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
         !tensor_map(&mk, k, (long long)b * hk * sk, D) ||
         !tensor_map(&mv, v, (long long)b * hk * sk, D))
         return (int)cudaErrorInvalidValue;
-    const int smem = Smem<D>::BYTES;
+    const int smem = Smem<padded_width(D)>::BYTES;
     const auto kernel = window > 0 ? flash_tc_kernel<D, true>
                                    : flash_tc_kernel<D, false>;
     const cudaError_t e = cudaFuncSetAttribute(
@@ -795,11 +848,13 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
     return (int)cudaGetLastError();
 }
 
-// bf16 with D 64 or 128 goes to the tensor cores (the 128-byte swizzle
-// row is 64 bf16, and a tile whole boxes of it); every other case to the
-// CUDA cores
+// bf16 with D 64, 80, 112 or 128 goes to the tensor cores: a 128-byte
+// swizzle row is 64 bf16, and D 80 and 112 lie in two such boxes, padded
+// with zeros (the padded layout).  f32, whose checks need IEEE f32 math,
+// and bf16 at D 16 and 32, which no configuration uses, go to the CUDA
+// cores.
 constexpr bool tensor_core_body(bool bf16, int d) {
-    return bf16 && (d == 64 || d == 128);
+    return bf16 && d >= 64 && d <= 128 && d % 16 == 0;
 }
 
 constexpr bool head_width(int d) {

@@ -8,8 +8,12 @@ runs the plain version ``ref.flash_attention_ref``, which repeats the
 kernel's recurrence over 128-wide kv blocks.  Operands come padded:
 Sq and Sk multiples of 128 (``ops.flash_attention`` pads and passes
 ``kv_len``).  ``window`` masks keys with ``qpos - kpos >= window`` (a
-sliding window, mixtral's 4,096).  Head widths 80 and 112 (zamba2,
-kimi-k2) run on the CUDA-core body in f32 and bf16 alike.
+sliding window, mixtral's 4,096).  bf16 at head widths 64, 80, 112 and
+128 runs on the tensor-core body; widths 80 and 112 (zamba2, kimi-k2)
+there in the padded layout (tiles of 128 columns, the columns past D
+zero-filled by TMA).  f32 at every width, and bf16 at 16 and 32, run on
+the CUDA-core body; :func:`body` asks the library which body a launch
+takes.
 """
 from __future__ import annotations
 
@@ -56,6 +60,14 @@ def check_operands(q, k, v) -> torch.device:
                 and v.is_contiguous()):
             raise ValueError("the CUDA kernel takes contiguous operands")
     return dev
+
+
+def body(dtype: torch.dtype, d: int) -> int:
+    """The body a CUDA launch of this type and head width takes, as the
+    library decides it (``flash_attention_body``): 1 the tensor cores,
+    0 the CUDA cores, -1 none (the launch is refused).  Builds the
+    libraries at the first call."""
+    return _cuda.host("flash_attention_body")(int(dtype == torch.bfloat16), d)
 
 
 def flash_attention_cuda(q, k, v, causal: bool, kv_len: int,

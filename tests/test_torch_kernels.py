@@ -872,6 +872,12 @@ FLASH_TC_CASES = [
     ((2, 16, 4, 384, 384, 128, True), 1.0),
     ((1, 8, 2, 2000, 2000, 128, True), 16.0),
     ((2, 16, 4, 640, 640, 64, True), 16.0),
+    # D 80 and 112 in the padded layout (tiles of 128 columns, the
+    # columns past D zero-filled by TMA)
+    ((1, 16, 2, 2000, 2000, 112, True), 16.0),
+    ((2, 8, 8, 640, 640, 80, True), 16.0),
+    ((1, 4, 1, 256, 640, 80, True), 1.0),
+    ((1, 8, 2, 640, 256, 112, False), 1.0),
 ]
 _FLASH_CARD = ([(c, 1.0, dt) for c in FLASH_CASES
                 for dt in (torch.float32, torch.bfloat16)]
@@ -907,21 +913,41 @@ def test_flash_attention_matches_plain_on_card(case, scale, dtype):
     assert _cuda.LAUNCHES["flash_attention"] == 1
 
 
-def _tc_body_emulation(q, k, v, causal, kv_len, p_split=True):
+@pytest.mark.gpu
+def test_flash_attention_body_by_type_and_width_on_card():
+    """The flash library's own account of its bodies: bf16 at D 64, 80,
+    112 and 128 takes the tensor cores (80 and 112 in the padded
+    layout), f32 at every width and bf16 at D 16 and 32 the CUDA cores,
+    and a width it is not built for none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.flash_attention import body
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert body(bf16, 80) == body(bf16, 112) == 1
+    assert body(bf16, 64) == body(bf16, 128) == 1
+    assert body(f32, 80) == body(f32, 112) == body(f32, 128) == 0
+    assert body(bf16, 16) == body(bf16, 32) == 0
+    assert body(bf16, 96) == body(f32, 48) == -1
+
+
+def _tc_body_emulation(q, k, v, causal, kv_len, p_split=True, d=None):
     """The tensor-core body's rounding steps in plain torch: S from the
     bf16 operands accumulated in f32 (each product exact), then scaled in
-    f32 by log2(e)/sqrt(D) rounded once to f32; the online softmax over
+    f32 by log2(e)/sqrt(d) rounded once to f32; the online softmax over
     128-wide kv tiles in base 2 (exp2); P split into bf16 hi + lo for
     P V, or with ``p_split=False`` rounded once to bf16 (the one-pass
-    alternative).  q, k, v padded bf16 (B, H, S, D) -> bf16."""
-    b, hq, sq, d = q.shape
+    alternative).  q, k, v padded bf16 (B, H, S, W) -> bf16; ``d`` is the
+    head width the scale uses (default W; less than W when the operands
+    come with zero columns, as in the body's padded layout)."""
+    b, hq, sq, w = q.shape
     _, hk, sk, _ = k.shape
+    d = w if d is None else d
     f32 = torch.float32
-    qf = q.to(f32).reshape(b, hk, hq // hk, sq, d)
+    qf = q.to(f32).reshape(b, hk, hq // hk, sq, w)
     scale2 = torch.tensor(np.log2(np.e) / np.sqrt(d), dtype=f32)
     m = torch.full((b, hk, hq // hk, sq), -1e30, dtype=f32)
     l = torch.zeros_like(m)
-    acc = torch.zeros(b, hk, hq // hk, sq, d, dtype=f32)
+    acc = torch.zeros(b, hk, hq // hk, sq, w, dtype=f32)
     qpos = torch.arange(sq)[:, None]
     for k0 in range(0, sk, 128):
         kb, vb = (t[:, :, k0:k0 + 128].to(f32) for t in (k, v))
@@ -939,19 +965,23 @@ def _tc_body_emulation(q, k, v, causal, kv_len, p_split=True):
         pv = sum(torch.einsum("bkgqt,bktd->bkgqd", x, vb) for x in parts)
         acc = acc * alpha[..., None] + pv
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, hq, sq, d).to(torch.bfloat16)
+    return out.reshape(b, hq, sq, w).to(torch.bfloat16)
 
 
-def test_tc_precision_plan_matches_reference(ref_ops):
+@pytest.mark.parametrize("d", [128, 80, 112])
+def test_tc_precision_plan_matches_reference(ref_ops, d):
     """The tensor-core body's precision plan (one bf16 pass for Q K^T,
     scale after, exp2, P as bf16 hi + lo for P V) emulated on the CPU
     against the Pallas kernel in interpret mode, bf16, at scores of
     standard deviation ~256 (q and k scaled by 16), Hq/Hk = 4 and
     Sq = Sk = 300 padded to 384 (kv_len inside the last tile): within
-    the card check's 2**-7.  The one-pass-P alternative's error is
-    printed beside it, not asserted."""
+    the card check's 2**-7.  At D 80 and 112 the emulation also runs on
+    q, k and v zero-padded to 128 columns, as the body lays them out:
+    the padded output columns are exactly 0 and the real ones equal the
+    unpadded emulation's bit for bit.  The one-pass-P alternative's
+    error is printed beside it, not asserted."""
     import jax.numpy as jnp
-    b, hq, hk, s, d = 1, 8, 2, 300, 128
+    b, hq, hk, s = 1, 8, 2, 300
     q, k, v = (_normal(sh, seed) * f for sh, seed, f in
                (((b, hq, s, d), 21, 16.0), ((b, hk, s, d), 22, 16.0),
                 ((b, hk, s, d), 23, 1.0)))
@@ -964,10 +994,10 @@ def test_tc_precision_plan_matches_reference(ref_ops):
                           kt[:, :1].float()) / np.sqrt(d)
     assert 200.0 < float(scores[..., :s, :s].std()) < 320.0
     bar = 2.0 ** -7 * (1.0 + np.abs(want))
-    got = {}
-    for split in (True, False):
-        out = _tc_body_emulation(qt, kt, vt, True, s, p_split=split)
-        got[split] = out[:, :, :s].float().numpy()
+    outs = {split: _tc_body_emulation(qt, kt, vt, True, s, p_split=split)
+            for split in (True, False)}
+    got = {split: out[:, :, :s].float().numpy()
+           for split, out in outs.items()}
     print("; ".join(
         f"{name}: max |emulation - reference| "
         f"{np.abs(got[split] - want).max():.4g}, max share of the bar "
@@ -976,3 +1006,8 @@ def test_tc_precision_plan_matches_reference(ref_ops):
                             ("P rounded once", False))))
     np.testing.assert_allclose(got[True], want, rtol=2.0 ** -7,
                                atol=2.0 ** -7)
+    if d % 64:
+        wide = _tc_body_emulation(*(torch.nn.functional.pad(
+            t, (0, 128 - d)) for t in (qt, kt, vt)), True, s, d=d)
+        assert not wide[..., d:].any()
+        assert torch.equal(wide[..., :d], outs[True])
