@@ -12,12 +12,15 @@ paper's baselines beside the executor, and LM training on one CUDA card
 
 Phases, each printing lines that start with its name:
 
-1. device   the card's name, count and power limit (nvidia-smi);
+1. device   the card's name, count and power limit (nvidia-smi); then
+            env: the table of every REPRO_* knob (python -m
+            repro_torch.env); REPRO_TUNE_CACHE points at a file under
+            TMPDIR, so the tile table is the shipped one alone;
 2. build    nvcc builds the twelve kernel entry points (and the kNN
             loop's graph functions) from the seven sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
-            then again with -Xptxas -v for their register,
-            shared-memory and spill use;
+            and prints each entry function's registers, shared memory
+            and spills (ptxas -v, in the same build's log);
 3. main     GaussMix (n rows, d = 8, seed 0) -> host LIMSIndex(K=64, m=3,
             N=20, degree 8) -> LIMSSnapshot.build on the card ->
             range (0.01% selectivity) and kNN (k = 10) batches of 64
@@ -87,6 +90,26 @@ Phases, each printing lines that start with its name:
             checks with launches 4 x; then knn_loop_cond's kernel row
             (the condition alone in a WHILE graph against its plain
             version, all open / all done, max_rounds 1, 3, 64);
+6c. tune    the tile autotuner (repro_torch/kernels/autotune.py) with
+            its cache in a temporary file: (a) warm at the quick buckets
+            (every kernel and body: sql2, l1, linf, bf16, f16) and at
+            main's five (pdist and range_filter at (64, 4,607,872, d 8),
+            range_filter at (64, 1,048,576), pdist_rankeval at (64,
+            192) C 9, rankeval at (192, 71,998) C 9): every candidate
+            tile's outputs bit-equal to the plain version's, each entry
+            with its tiles, us and static us; (b) the four main kernels
+            at main's shapes, tuned and REPRO_AUTOTUNE=off in turns on,
+            off, off, on: equal outputs, wrapper and device (a CUDA
+            graph of 20 calls) ms; (c) one range and one kNN batch of
+            main's through a fresh executor under the shipped table,
+            equal to the host index;
+6d. roof    roofline.pipeline's report on the card at main's
+            snapshot and first batch (n = 1,000,000, batch 64, the
+            shapes main launches): each stage's counted bytes and flops
+            (roofline.analysis, the counts every kernel row's bound
+            comes from), its time, and its utilization against the
+            H100's data sheet; one above 1.05 is a wrong count and
+            fails;
 7. builder  the device index builder (LIMSIndex(backend="device")) at
             the same n: (a) GaussMix L2, held against main's host index
             (structures, then every range and kNN batch through a
@@ -353,7 +376,10 @@ Phases, each printing lines that start with its name:
             4096, 128) x (2, 8, 4096, 128) against autograd through
             plain_attention; row 5-train (the kernel at the training
             shape held to its plain version and the f64 answer, beside
-            SDPA and flash_work's bound); (b) run_training over 12
+            SDPA and flash_work's bound); the dry-run's memory model
+            (launch.dryrun.analyze_cell at this configuration on a mesh
+            of one card) printed beside (a)'s measured peak, with their
+            ratio (a reading, not a check); (b) run_training over 12
             steps, a checkpoint every 4 in TMPDIR (keep 1), a failure
             injected at step 6: it ends at step 12 with one restart, and
             its losses, first pass and replay, equal (a)'s within
@@ -392,15 +418,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# published H100 SXM peaks (the data sheet, at the full 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
-BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
-# flash_attention's bf16 body does Q K^T in one bf16 pass and P V in two
-# (P split into bf16 hi + lo): 1.5 passes of the function's flops, its
-# own cost (printed as a note); the bound counts the function's one pass
-FLASH_TC_PASSES = 1.5
 
 DEVICE = "cuda"
 PROFILER_WINDOWS = 5            # one-call profiler windows per kernel row
@@ -585,20 +602,13 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def bound(nbytes: float, flops: float,
-          flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
-    """The least time in ms: bytes at the HBM rate against ``flops`` at
-    ``flop_per_s``, the card's fastest rate for the operand types."""
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
-    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
-
-
-def rank_ops(n_coef: int) -> int:
-    """f32 operations of one rank_math evaluation: normalize (6),
-    Clenshaw (3 per coefficient past the first, +4), rank and ring id
-    (10)."""
-    return 6 + 3 * (n_coef - 1) + 4 + 10
+def launch_tile(kernel: str, metric=None, dims=None) -> tuple:
+    """The tile ints a bare launch of ``kernel`` takes last, as ``ops``
+    resolves them at ``dims`` (the tuning table's, else the static
+    tile); without ``dims`` the static tile (``pdist_grouped``'s)."""
+    from repro_torch.kernels import autotune
+    return autotune.tile_args(
+        kernel, autotune.tiles_for(kernel, metric, dims) if dims else None)
 
 
 # ------------------------------------------------------------------ phases
@@ -623,9 +633,7 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{b.name} {b.seconds:.2f} s' for b in built.values())})",
           flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        verbose = _cuda.build(extra_flags=("-Xptxas", "-v"), build_dir=tmp)
-    for b in verbose.values():
+    for b in built.values():
         use = re.findall(r"Used (\d+) registers.*?(?:, (\d+) bytes smem)?$",
                          b.log, re.M)
         regs = "/".join(u[0] for u in use) or "?"
@@ -897,6 +905,7 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     from repro_torch.kernels.pdist import pdist_plain
     from repro_torch.kernels.range_filter import range_filter_plain
     from repro_torch.kernels.rankeval import rank_math_plain
+    from repro_torch.roofline import analysis as ra
 
     Q, rs = batches[0]
     q = torch.from_numpy(Q.astype(np.float32)).to(DEVICE)
@@ -918,9 +927,7 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     check(torch.equal(got, want), "pdist differs from its plain version")
     del got, want
     row("pdist", 0.0, lambda: ops.pdist(q, rows), 20,
-        lambda: pdist_plain(q, rows), 3,
-        4.0 * (B * D + P * D + B * P),
-        B * P * (2 * D + 4) + 2 * D * (B + P),
+        lambda: pdist_plain(q, rows), 3, *ra.pdist_work(B, P, D),
         library=lambda: torch.cdist(q, rows) ** 2,
         note=f"main-path launches at this shape: "
              f"{shapes['pdist'].get((B, P), 0)} of {counts['pdist']}; "
@@ -931,9 +938,7 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     check(torch.equal(got, pdist_plain(q, piv)),
           f"pdist differs from its plain version at ({B}, {G})")
     kernel_row("pdist", counts["pdist"], 0.0, lambda: ops.pdist(q, piv), 200,
-               lambda: pdist_plain(q, piv), 20,
-               4.0 * (B * D + G * D + B * G),
-               B * G * (2 * D + 4) + 2 * D * (B + G),
+               lambda: pdist_plain(q, piv), 20, *ra.pdist_work(B, G, D),
                library=lambda: torch.cdist(q, piv) ** 2,
                shape=f"({B}, {G})",
                note=f"main-path launches at this shape: "
@@ -959,14 +964,14 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     nc = x.shape[1]
     outs = torch.empty(2, G, nc, dtype=torch.int32, device=DEVICE)
     ptrs = [t.data_ptr() for t in (x, coef, lo, hi, nn, outs[0], outs[1])]
+    ptrs += [G, nc, C, N,
+             *launch_tile("rankeval", None, {"g": G, "b": nc, "c": C})]
     row("rankeval", 0.0,
         lambda: ops.rankeval(x, coef, lo, hi, nn, N), 50,
         lambda: rank_math_plain(x, coef, lo, hi, nn, N), 5,
-        4.0 * (G * nc + G * C + 3 * G) + 8.0 * G * nc,
-        G * nc * rank_ops(C),
-        bare=lambda: _cuda.launch("rankeval", *ptrs, G, nc, C, N,
-                                  device=x.device),
-        note=issue_floor(G * nc, rank_ops(C)) + "; "
+        *ra.rankeval_work(G, nc, C),
+        bare=lambda: _cuda.launch("rankeval", *ptrs, device=x.device),
+        note=issue_floor(G * nc, ra.rank_ops(C)) + "; "
         + sass_instructions("rankeval", f"rankeval_kernelILi{C}E")
         + " over the 8 values a thread")
 
@@ -986,8 +991,7 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     row("range_filter", 0.0,
         lambda: ops.range_filter(q, rows, r), 20,
         lambda: range_filter_plain(q, rows, r2), 3,
-        4.0 * (B * D + P * D + B) + B * P + 4.0 * B * (-(-P // 128)),
-        B * P * (2 * D + 5) + 2 * D * (B + P),
+        *ra.range_filter_work(B, P, D),
         note=f"main-path launches at this shape: "
              f"{shapes['range_filter'].get((B, P), 0)} of "
              f"{counts['range_filter']} (the others on compacted buckets); "
@@ -1030,8 +1034,10 @@ def phase_kernels(ix, snap, batches, counts, shapes):
 
     def bare_at(b, g, out):
         ptrs = [t.data_ptr() for t in (q, piv, coef, lo, hi, nn, rg, *out)]
-        return lambda: _cuda.launch("pdist_rankeval", *ptrs, b, g, D, C, N,
-                                    device=q.device)
+        ptrs += [b, g, D, C, N,
+                 *launch_tile("pdist_rankeval", None,
+                              {"g": g, "b": b, "d": D, "c": C})]
+        return lambda: _cuda.launch("pdist_rankeval", *ptrs, device=q.device)
 
     bare, floor = bare_at(B, G, outs), bare_at(1, 1, one)
     at = [time_ms(bare, 200), graph_ms(bare)]
@@ -1046,14 +1052,160 @@ def phase_kernels(ix, snap, batches, counts, shapes):
     row("pdist_rankeval", errs[0],
         lambda: ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg, N), 200,
         lambda: pdist_rankeval_plain(q, piv, coef, lo, hi, nn, rg, N), 20,
-        4.0 * (B * D + G * D + G * C + 3 * G + B) + 4.0 * B * G
-        + 8.0 * G * B,
-        2 * D * (B + G) + B * G * (2 * D + 4 + 3 + 2 * rank_ops(C)),
+        *ra.pdist_rankeval_work(B, G, D, C),
         bare=bare, graph=True,
         note=f"launch_floor_ms={fl[0]:.5f} graph_floor_ms={fl[1]:.5f}; "
         + sass_instructions("pdist_rankeval",
                             f"pdist_rankeval_kernelILi{C}E"))
     return out
+
+
+# -------------------------------------------------------------------- tune
+def phase_tune(ix, snap, batches, host_range, host_knn) -> None:
+    """The kernel tile autotuner (kernels/autotune.py) on the card, with
+    REPRO_TUNE_CACHE pointed at a temporary file: (a) ``warm`` at the
+    quick buckets (every kernel and body: sql2, l1, linf, bf16, f16) and
+    main's: every candidate's outputs bit-equal to the plain version's at
+    its bucket (``tune`` checks each before timing it), each entry
+    printed with its tiles, us and static us; (b) the four main kernels
+    at main's shapes at their tuned tiles and with REPRO_AUTOTUNE=off:
+    equal outputs, the wrapper's ms (CUDA events) and the device's (a
+    CUDA graph of 20 calls); (c) one range and one kNN batch of main's
+    through a fresh executor under the shipped table alone, equal to the
+    host index's."""
+    from repro_torch.core import QueryExecutor
+    from repro_torch.core.planner import _BALL_ABS, _R_ABS, _R_REL
+    from repro_torch.core.snapshot import rank_columns
+    from repro_torch.kernels import autotune, ops
+    t_phase = time.perf_counter()
+    prev = {k: os.environ.get(k) for k in ("REPRO_TUNE_CACHE",
+                                           "REPRO_AUTOTUNE")}
+    tmp = tempfile.mkdtemp()
+    try:
+        os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+        os.environ["REPRO_AUTOTUNE"] = "on"
+        autotune._reset()
+        t0 = time.perf_counter()
+        shapes = autotune._WARM_QUICK + autotune._WARM_MAIN
+        res = autotune.warm(shapes)
+        for key, ent in res.items():
+            ntiles = len(autotune._candidates(
+                *autotune._parse_key(key)[1:]))
+            static = autotune.static_tiles(*autotune._parse_key(key)[1:])
+            print(f"tune: (a) {key}: {ntiles} candidate tiles, each "
+                  f"bit-equal to the plain version; tiles {ent['tiles']} "
+                  f"{ent['us']:.3f} us, static {static} "
+                  f"{ent['static_us']:.3f} us "
+                  f"({ent['static_us'] / ent['us']:.3f}x)", flush=True)
+        print(f"tune: (a) warm over {len(shapes)} buckets in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # (b) main's four kernels at the tuned tiles and at the static ones
+        Q, rs = batches[0]
+        q = torch.from_numpy(Q.astype(np.float32)).to(DEVICE)
+        rf = torch.from_numpy(rs.astype(np.float32)).to(DEVICE)
+        P, G, C = snap.n_slots, snap.K * snap.m, snap.coef.shape[-1]
+        N = snap.n_rings
+        rows = snap.rows.reshape(P, D)
+        piv = snap.pivots.reshape(G, D)
+        coef = snap.coef.reshape(G, C)
+        lo, hi, nn = (t.reshape(G) for t in
+                      (snap.model_lo, snap.model_hi, snap.model_n))
+        x = torch.from_numpy(rank_columns(ix)).to(DEVICE)
+        r = rf * (1.0 + _R_REL) + _BALL_ABS
+        rg = rf * (1.0 + _R_REL) + _R_ABS
+        p_pad = -(-P // 128) * 128
+        rows_b = (
+            ("pdist", ("pdist", "sql2", {"q": B, "p": P, "d": D}),
+             lambda: ops.pdist(q, rows), 20),
+            ("range_filter",
+             ("range_filter", "sql2", {"q": B, "p": p_pad, "d": D}),
+             lambda: ops.range_filter(q, rows, r), 20),
+            ("rankeval", ("rankeval", None,
+                          {"g": G, "b": x.shape[1], "c": C}),
+             lambda: ops.rankeval(x, coef, lo, hi, nn, N), 50),
+            ("pdist_rankeval", ("pdist_rankeval", None,
+                                {"g": G, "b": B, "d": D, "c": C}),
+             lambda: ops.pdist_rankeval(q, piv, coef, lo, hi, nn, rg, N),
+             200))
+        for name, (kernel, metric, dims), fn, iters in rows_b:
+            got = {}
+            for mode in ("on", "off", "off", "on"):
+                os.environ["REPRO_AUTOTUNE"] = mode
+                out = autotune._outputs(fn())
+                got.setdefault(mode, {"out": out, "ms": [], "dev": []})
+                got[mode]["ms"].append(time_ms(fn, iters))
+                got[mode]["dev"].append(graph_ms(fn))
+            check(autotune.same_outputs(got["on"]["out"], got["off"]["out"]),
+                  f"tune: (b) {name}'s outputs at its tuned tiles differ "
+                  "from the static tiles'")
+            os.environ["REPRO_AUTOTUNE"] = "on"
+            tiles = autotune.tiles_for(kernel, metric, dims)
+            static = autotune.static_tiles(kernel, metric, dims)
+            lookup_us = host_us(lambda: autotune.tiles_for(
+                kernel, metric, dims, q.device))
+            on, off = ({k: float(np.mean(v)) for k, v in got[m].items()
+                        if k != "out"} for m in ("on", "off"))
+            print(f"tune: (b) {name} at {tuple(dims.values())}: tuned "
+                  f"{tiles or static}{'' if tiles else ' (static)'} "
+                  f"wrapper_ms={on['ms']:.5f} device_ms={on['dev']:.5f}; "
+                  f"REPRO_AUTOTUNE=off {static} wrapper_ms={off['ms']:.5f} "
+                  f"device_ms={off['dev']:.5f}; device off/tuned "
+                  f"{off['dev'] / on['dev']:.3f}x (turns on, off, off, on); "
+                  f"outputs equal; the table lookup {lookup_us:.3f} host us "
+                  f"a call", flush=True)
+            del got
+
+        # (c) main's batches under the shipped table alone
+        os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "none.json")
+        autotune._reset()
+        shipped = [k for k in autotune._entries()
+                   if k.startswith(autotune.backend_key() + "/")]
+        ex = QueryExecutor(snap)
+        rates = query_batches(ex, batches[:1], host_range[:1], host_knn[:1],
+                              "tune (c), the shipped table")
+        main_tiles = []
+        for kernel, metric, dims in autotune._WARM_MAIN:
+            bd = {k: autotune.bucket(v) for k, v in dims.items()}
+            t = autotune.tiles_for(kernel, metric, dims)
+            main_tiles.append(f"{kernel} {tuple(bd.values())} "
+                              f"{t if t else 'static'}")
+        print(f"tune: (c) a fresh executor under the shipped table "
+              f"({len(shipped)} entries for {autotune.backend_key()}; main's "
+              f"buckets: {'; '.join(main_tiles)}): 1 range and 1 kNN batch "
+              f"equal to the host index (range {rates['range']:.2f} q/s, "
+              f"kNN {rates['knn']:.2f} q/s)", flush=True)
+        del ex
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune._reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tune: phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase_roof(snap, batch) -> None:
+    """The query pipeline's roofline report on the card
+    (roofline.pipeline.pipeline_report at main's snapshot, n =
+    1,000,000, and main's first batch of 64: the shapes the main path
+    launches; each stage's bytes and flops from roofline.analysis, its
+    time by CUDA events, against the H100's data sheet); a stage above
+    1.05 of its bound is a wrong count."""
+    from repro_torch.roofline.pipeline import pipeline_report, render
+    t0 = time.perf_counter()
+    rep = pipeline_report(snapshot=snap, queries=batch)
+    for line in render(rep).splitlines():
+        print(f"roof: {line}", flush=True)
+    for st in rep["stages"]:
+        check(st["roofline_utilization"] <= 1.05,
+              f"roof: {st['stage']} at {st['roofline_utilization']:.4f} of "
+              "its bound: the count is wrong")
+    print(f"roof: every stage at most 1.05 of its bound; phase in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------- knn_loop
@@ -1228,7 +1380,8 @@ def loop_cond_row(launches: int) -> dict:
     check(int(rounds) == R, "knn_loop: the timed WHILE graph ran "
           f"{int(rounds)} rounds, not {R}")
     graph.close()
-    b_ms, by = bound(B + 4 * 3, 0)
+    from repro_torch.roofline import analysis as ra, hw
+    b_ms, by = hw.bound(*ra.knn_loop_cond_work(B))
     print(f"kernels: knn_loop_cond (one thread; the condition of the "
           f"loop's WHILE node) at B={B} max_abs_err={err} ms={ms:.5f} a "
           f"round (the graph at max_rounds {R}, {R} rounds) plain_ms="
@@ -1416,6 +1569,7 @@ def phase_lp(ix, batches, host_range, host_knn, rates) -> list:
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.pdist import pdist_plain
     from repro_torch.kernels.range_filter import range_filter_plain
+    from repro_torch.roofline import analysis as ra
     t_phase = time.perf_counter()
     G = ix.K * ix.m
     out = []
@@ -1498,8 +1652,7 @@ def phase_lp(ix, batches, host_range, host_knn, rates) -> list:
         out.append(kernel_row(
             f"pdist_{dt}", counts[f"pdist_{dt}"], 0.0,
             lambda: ops.pdist(q, plane), 20, lambda: pdist_plain(q, plane),
-            3, 4.0 * B * D + 2.0 * P * D + 4.0 * B * P,
-            B * P * (2 * D + 4) + 2 * D * (B + P),
+            3, *ra.pdist_work(B, P, D, point_bytes=2),
             note=f"library: none (no PyTorch call computes a 2-byte-point "
                  f"f32 Gram distance); lp-phase launches at this shape: "
                  f"{shapes[f'pdist_{dt}'].get((B, P), 0)}"))
@@ -1507,9 +1660,7 @@ def phase_lp(ix, batches, host_range, host_knn, rates) -> list:
             f"range_filter_{dt}", counts[f"range_filter_{dt}"], 0.0,
             lambda: ops.range_filter(q, plane, r), 20,
             lambda: range_filter_plain(q, plane, r * r), 3,
-            4.0 * (B * D + B) + 2.0 * P * D + B * P
-            + 4.0 * B * (-(-P // 128)),
-            B * P * (2 * D + 5) + 2 * D * (B + P),
+            *ra.range_filter_work(B, P, D, point_bytes=2),
             note="library: none; lp-phase launches at this shape: "
                  f"{shapes[f'range_filter_{dt}'].get((B, P), 0)}"))
         del ex, snap, plane
@@ -1560,7 +1711,10 @@ def wrapper_breakdown(args, n_rings: int) -> None:
     fn = _cuda._FUNCS["pdist_rankeval", None]
     outs = torch.empty(3, G, B, dtype=torch.int32, device=dev)
     cargs = ([t.data_ptr() for t in (*args, *outs)]
-             + [B, G, q.shape[1], coef.shape[1], n_rings])
+             + [B, G, q.shape[1], coef.shape[1], n_rings,
+                *launch_tile("pdist_rankeval", None,
+                             {"g": G, "b": B, "d": q.shape[1],
+                              "c": coef.shape[1]})])
     stream = _cuda.current_stream(index)
 
     def outputs_one():
@@ -1614,7 +1768,7 @@ def issue_floor(cells: int, instr_per_cell: int) -> str:
 
 
 def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
-               flops, library=None, flop_per_s=F32_FLOP_PER_S, note="",
+               flops, library=None, flop_per_s=None, note="",
                shape="", bare=None, graph=False, kernel=None) -> dict:
     """Time ``call`` (the wrapper) and ``plain`` with CUDA events, and
     the kernel's own device time under the profiler: the median over
@@ -1626,8 +1780,11 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
     (graph_ms).  Print the row (with ``note``, and ``shape`` where it is
     not the row's main-path shape) and return it for the JSON line;
     ``kernel`` names the launched kernel where the row's name is one of
-    its shapes."""
+    its shapes.  The bound is ``roofline.hw.bound`` of ``nbytes`` and
+    ``flops`` (``roofline.analysis``'s counts) at ``flop_per_s`` (f32 if
+    None)."""
     from repro_torch.kernels import _cuda
+    from repro_torch.roofline.hw import bound
     ms = time_ms(call, iters)
     plain_ms = time_ms(plain, plain_iters)
     library_ms = time_ms(library, 10) if library else None
@@ -1892,6 +2049,7 @@ def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
     shape.  Returns (the row or None, (tag, the pending queries))."""
     from repro_torch.build import cluster_major
     from repro_torch.data.datasets import gauss_mix, skewed
+    from repro_torch.roofline import analysis as ra
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.pdist import METRICS
     name, plain = METRICS[metric]
@@ -1940,15 +2098,15 @@ def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
         return None, pending
     p_norm = 1.0 if metric == "l1" else float("inf")
     out = torch.empty(K, m, n_max, device=DEVICE)
+    tile = launch_tile(name)
     row = kernel_row(
         name, counts[name], err, lambda: ops.pdist_grouped(q, p, metric), 20,
         lambda: plain(q, p), 3,
-        4.0 * (K * m * d + K * n_max * d + K * m * n_max),
-        3.0 * d * K * m * n_max,
+        *ra.pdist_lp_work(K, m, n_max, d),
         library=lambda: torch.cdist(q, p, p=p_norm),
         shape=f"pivot_columns' grouped launch ({K}, {m}, {n_max}, d {d})",
         bare=lambda: _cuda.launch(name, q.data_ptr(), p.data_ptr(),
-                                  out.data_ptr(), K, m, n_max, d,
+                                  out.data_ptr(), K, m, n_max, d, *tile,
                                   device=q.device))
 
     # and at the reference's launch shape, the chunked (cc·m, cc·n_max)
@@ -1963,16 +2121,16 @@ def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
     del got
     nq, npts = q1.shape[0], p1.shape[0]
     out = torch.empty(nq, npts, device=DEVICE)
+    tile = launch_tile("pdist", metric, {"q": nq, "p": npts, "d": d})
     kernel_row(
         name, counts[name], 0.0, lambda: ops.pdist(q1, p1, metric), 20,
-        lambda: plain(q1, p1), 3, 4.0 * (nq * d + npts * d + nq * npts),
-        3.0 * d * nq * npts,
+        lambda: plain(q1, p1), 3, *ra.pdist_lp_work(1, nq, npts, d),
         library=lambda: torch.cdist(q1, p1, p=p_norm),
         shape=f"the full function's ({nq}, {npts}, d {d}) (cc={cc}, "
               f"n_max={n_max})",
         note="(the reference's chunked launch; not on the path now)",
         bare=lambda: _cuda.launch(name, q1.data_ptr(), p1.data_ptr(),
-                                  out.data_ptr(), 1, nq, npts, d,
+                                  out.data_ptr(), 1, nq, npts, d, *tile,
                                   device=q1.device))
     return row, pending
 
@@ -4358,6 +4516,8 @@ def phase_flash_kernel(launches, qkv):
         "kernels: flash_attention at the prefill shape")
     print(f"kernels: flash_attention at the prefill's padded shape against "
           f"flash_attention_ref and the f64 answer: {readings}", flush=True)
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
     live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
     ms_at = lambda passes, rate: passes * flops / rate * 1e3
     print(f"kernels: flash_attention at the prefill's padded shape "
@@ -4365,13 +4525,13 @@ def phase_flash_kernel(launches, qkv):
           f"kv_len {s}: {live:,} live pairs per head over the {s} real "
           f"rows, {flops:.4g} flops, {nbytes:.4g} bytes unpadded; bound at "
           f"the function's own work (one bf16 pass at "
-          f"{BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s) "
-          f"{ms_at(1, BF16_TC_FLOP_PER_S):.4f} ms; notes: the work the "
-          f"tensor-core body does ({FLASH_TC_PASSES:g} bf16 passes: Q K^T "
+          f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s) "
+          f"{ms_at(1, hw.PEAK_FLOPS_BF16):.4f} ms; notes: the work the "
+          f"tensor-core body does ({hw.FLASH_TC_PASSES:g} bf16 passes: Q K^T "
           f"once, P V as P_hi V + P_lo V) "
-          f"{ms_at(FLASH_TC_PASSES, BF16_TC_FLOP_PER_S):.4f} ms, 3 bf16 "
-          f"passes {ms_at(3, BF16_TC_FLOP_PER_S):.4f} ms, the CUDA cores' "
-          f"f32 rate {ms_at(1, F32_FLOP_PER_S):.4f} ms", flush=True)
+          f"{ms_at(hw.FLASH_TC_PASSES, hw.PEAK_FLOPS_BF16):.4f} ms, 3 bf16 "
+          f"passes {ms_at(3, hw.PEAK_FLOPS_BF16):.4f} ms, the CUDA cores' "
+          f"f32 rate {ms_at(1, hw.PEAK_FLOPS_F32):.4f} ms", flush=True)
     try:
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             qp, kp, vp, is_causal=True, enable_gqa=True)
@@ -4384,7 +4544,7 @@ def phase_flash_kernel(launches, qkv):
         "flash_attention", launches, err,
         lambda: fa.flash_attention(qp, kp, vp, causal=True, kv_len=s), 10,
         lambda: flash_attention_ref(qp, kp, vp, causal=True, kv_len=s), 3,
-        nbytes, flops, library=sdpa, flop_per_s=BF16_TC_FLOP_PER_S)
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_BF16)
 
 
 # ---------------------------------------------------------------- families
@@ -4657,26 +4817,6 @@ def flash_expected(cfg_name: str, layers) -> int:
     return n
 
 
-def flash_work(b, hq, hk, d, sq, kv_len, causal, window, itemsize=2):
-    """(live pairs per head, flops, bytes) of the attention function
-    itself: the (q, k) pairs its mask keeps over the real ``sq`` query
-    rows and ``kv_len`` keys, 4 flops a pair and head-dim element (Q K^T
-    and P V once each), and q, k, v read and o written once, unpadded.
-    What the kernel adds (padded rows and keys, the tensor-core body's
-    second P V pass) is its own cost, not the bound's."""
-    qpos = np.arange(sq)[:, None]
-    kpos = np.arange(kv_len)[None, :]
-    ok = np.ones((sq, kv_len), bool)
-    if causal:
-        ok &= qpos >= kpos
-    if window is not None:
-        ok &= qpos - kpos < window
-    live = int(ok.sum())
-    flops = 4.0 * b * hq * d * live
-    nbytes = float(itemsize) * (2 * b * hq * sq * d + 2 * b * hk * kv_len * d)
-    return live, flops, nbytes
-
-
 def score_rounding(q, k, v, kv_len, causal, window) -> tuple[float, str]:
     """The f32 rounding in the plain version's scores: over the live
     pairs, max |score| and its f32 ulp, the most the plain version's f32
@@ -4746,6 +4886,8 @@ def family_flash_row(label, key, qkv, launches, real_len):
     readings += (f"; the plain version with bf16 scores reaches {share:.4g} "
                  f"widened bars and fails the check, as it must")
     del plain, exact, planted
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
     live, flops, nbytes = flash_work(b, hq, hk, d, sq_real, kv_len, causal,
                                      window)
     qu, ku, vu = q[:, :, :sq_real], k[:, :, :kv_len], v[:, :, :kv_len]
@@ -4780,12 +4922,13 @@ def family_flash_row(label, key, qkv, launches, real_len):
         lambda: flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
                                     window=window), 3,
         nbytes, flops, library=sdpa,
-        flop_per_s=BF16_TC_FLOP_PER_S, kernel="flash_attention",
-        note=f"body: {body}; notes: {FLASH_TC_PASSES:g} bf16 passes (the "
+        flop_per_s=hw.PEAK_FLOPS_BF16, kernel="flash_attention",
+        note=f"body: {body}; notes: {hw.FLASH_TC_PASSES:g} bf16 passes (the "
              f"tensor-core body's work) "
-             f"{FLASH_TC_PASSES * flops / BF16_TC_FLOP_PER_S * 1e3:.4f} ms, "
+             f"{hw.FLASH_TC_PASSES * flops / hw.PEAK_FLOPS_BF16 * 1e3:.4f} "
+             f"ms, "
              f"the f32 CUDA-core rate "
-             f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms")
+             f"{flops / hw.PEAK_FLOPS_F32 * 1e3:.4f} ms")
 
 
 def phase_families(seed: int) -> list:
@@ -5005,6 +5148,8 @@ def train_row(qkv, launches: int, per_step: int) -> dict:
     err, readings = check_flash_bf16(
         fa.flash_attention(q, k, v, causal=True, kv_len=s), q, k, v, s,
         "train: flash_attention at the training shape")
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
     live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)
@@ -5016,7 +5161,7 @@ def train_row(qkv, launches: int, per_step: int) -> dict:
         "flash_attention train", launches, err,
         lambda: fa.flash_attention(q, k, v, causal=True, kv_len=s), 10,
         lambda: flash_attention_ref(q, k, v, causal=True, kv_len=s), 2,
-        nbytes, flops, library=sdpa, flop_per_s=BF16_TC_FLOP_PER_S,
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_BF16,
         kernel="flash_attention",
         note=f"{per_step} launches a step (2 x {TRAIN_LAYERS} layers x "
              f"{TRAIN_MICRO} microbatches: selective remat relaunches it)")
@@ -5109,6 +5254,20 @@ def phase_train(seed: int) -> dict:
           f"{busy_ms:.1f} ms of its {wall_ms:.1f} ms wall "
           f"({100 * busy_ms / wall_ms:.2f}%); top device operations "
           + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.sharding.logical import LogicalMesh
+    rec = analyze_cell(TRAIN_ARCH, "train_4k", False, cfg=cfg, run=run,
+                       cell=cell, mesh=LogicalMesh(("data", "model"), (1, 1)))
+    mem = rec["mem"]["bytes"]
+    print(f"train: (a) the dry-run's memory model at this configuration "
+          f"(launch.dryrun.analyze_cell, a mesh of one card, remat "
+          f"{rec['run']['remat']}): total {mem['total']:,} B ("
+          + ", ".join(f"{k} {v:,}" for k, v in mem.items() if k != "total")
+          + f") beside the measured peak {peak:,} B: model / measured "
+          f"{mem['total'] / peak:.4f} (a reading, not a check); its "
+          f"roofline at the H100's ceilings: {rec['roofline']['bottleneck']}"
+          f"-bound, {rec['roofline']['step_time_lower_bound_s'] * 1e3:.1f} "
+          f"ms a step at the least", flush=True)
     qkv = first[key]
     train_flash_grads(cfg, qkv)
     row = train_row(qkv, counts["flash_attention"], per_step)
@@ -5328,8 +5487,14 @@ def main() -> int:
     from repro_torch.data.datasets import gauss_mix
 
     os.environ["REPRO_ROWS_DTYPE"] = "off"     # the lp: phase sets it
+    # the tuning table: the shipped defaults, no user cache from HOME
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(
+        tempfile.gettempdir(), f"chip_smoke-tune-{os.getpid()}.json")
     t_start = time.perf_counter()
     name, count, smi = phase_device()
+    from repro_torch import env
+    for line in env.describe().splitlines():
+        print(f"env: {line}", flush=True)
     phase_build()
     if args.families_only:
         kernels = phase_families(args.seed)
@@ -5380,6 +5545,8 @@ def main() -> int:
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
     kernels += phase_lp(ix, batches, host_range, host_knn, rates)
     kernels.append(phase_knn_loop(snap, batches, host_knn, counts))
+    phase_tune(ix, snap, batches, host_range, host_knn)
+    phase_roof(snap, batches[0])
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)

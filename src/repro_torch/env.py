@@ -1,10 +1,11 @@
 """Registry of the ``REPRO_*`` environment knobs the port reads.
 
-Port of ``repro/env.py``, cut to the knobs the port reads: the
-resident query path's (with the reduced-precision filter plane's and
-the kNN driver's), the paged storage tier's (``storage/``), the
-observability layer's (``obs/``), the monitor's and the serving
-engine's.  Consumers call :func:`get` instead of ``os.environ.get`` so
+Port of ``repro/env.py``, cut to the knobs the port reads: the kernel
+tile autotuner's (``kernels/autotune.py``), the resident query path's
+(with the reduced-precision filter plane's and the kNN driver's), the
+paged storage tier's (``storage/``), the observability layer's
+(``obs/``), the monitor's and the serving engine's.
+``python -m repro_torch.env`` prints them all (:func:`describe`).  Consumers call :func:`get` instead of ``os.environ.get`` so
 that a typo like ``REPRO_COMPACT=of`` fails loudly with the list of
 accepted values rather than silently selecting a default.
 
@@ -12,7 +13,8 @@ Conventions (as in the reference):
 
 * The empty string is always accepted and means "use the default".
 * Values are matched case-insensitively after stripping whitespace.
-* Free-form knobs (numbers) declare ``values=None`` and are returned raw.
+* Free-form knobs (numbers, paths) declare ``values=None`` and are
+  returned raw.
 """
 from __future__ import annotations
 
@@ -23,12 +25,20 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class Knob:
     name: str
-    values: tuple[str, ...] | None  # None -> free-form (a number)
+    values: tuple[str, ...] | None  # None -> free-form (a number, a path)
     default: str
     help: str
 
 
 _KNOBS = (
+    Knob("REPRO_AUTOTUNE",
+         ("", "off", "on", "force"), "on",
+         "Kernel tile autotuning: off (static tiles), on (consult the "
+         "tuning table, static tiles on a miss), force (tune misses via "
+         "timed launches on the card and write the cache)."),
+    Knob("REPRO_TUNE_CACHE", None, "",
+         "Path of the user tuning-cache JSON (default "
+         "~/.cache/repro-torch-tune.json)."),
     Knob("REPRO_COMPACT",
          ("", "on", "off"), "on",
          "Compacted candidate gather on the resident range path: gather "
@@ -118,3 +128,20 @@ def get(name: str) -> str:
             f"{name}={raw!r} is not a valid setting ({knob.help} "
             f"Valid values: {valid}, or empty/unset for the default.)")
     return knob.default if val == "" else val
+
+
+def describe() -> str:
+    """Human-readable table of all knobs (``python -m repro_torch.env``)."""
+    lines = []
+    for k in _KNOBS:
+        vals = ("free-form" if k.values is None
+                else "|".join(v for v in k.values if v))
+        cur = os.environ.get(k.name)
+        cur_s = f"  [set: {cur!r}]" if cur is not None else ""
+        lines.append(f"{k.name} ({vals}; default {k.default!r}){cur_s}\n"
+                     f"    {k.help}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(describe())

@@ -55,26 +55,32 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CUDA_ROOTS = ("/usr/local/cuda",)
 
+# -Xptxas -v only reports: each kernel's registers, shared memory and
+# spills land in the build's log (Built.log), and the code is the same
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel name -> (C symbol, argument types without the trailing stream)
+# (the query kernels' last ints are their tile: pdist, range_filter and
+# the l1 / linf bodies (bp, bq), rankeval bb, pdist_rankeval (bb, bg);
+# kernels/autotune.py says what each means)
 SIGNATURES: dict[str, tuple[str, tuple]] = {
-    "pdist": ("pdist_sql2", (_P, _P, _P, _I, _I, _I)),
-    "pdist_bf16": ("pdist_sql2_bf16", (_P, _P, _P, _I, _I, _I)),
-    "pdist_f16": ("pdist_sql2_f16", (_P, _P, _P, _I, _I, _I)),
-    "rankeval": ("rankeval", (_P,) * 7 + (_I,) * 4),
-    "range_filter": ("range_filter", (_P,) * 5 + (_I,) * 3),
-    "range_filter_bf16": ("range_filter_bf16", (_P,) * 5 + (_I,) * 3),
-    "range_filter_f16": ("range_filter_f16", (_P,) * 5 + (_I,) * 3),
-    "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 5),
-    "pdist_l1": ("pdist_l1", (_P, _P, _P, _I, _I, _I, _I)),
-    "pdist_linf": ("pdist_linf", (_P, _P, _P, _I, _I, _I, _I)),
+    "pdist": ("pdist_sql2", (_P, _P, _P) + (_I,) * 5),
+    "pdist_bf16": ("pdist_sql2_bf16", (_P, _P, _P) + (_I,) * 5),
+    "pdist_f16": ("pdist_sql2_f16", (_P, _P, _P) + (_I,) * 5),
+    "rankeval": ("rankeval", (_P,) * 7 + (_I,) * 5),
+    "range_filter": ("range_filter", (_P,) * 5 + (_I,) * 5),
+    "range_filter_bf16": ("range_filter_bf16", (_P,) * 5 + (_I,) * 5),
+    "range_filter_f16": ("range_filter_f16", (_P,) * 5 + (_I,) * 5),
+    "pdist_rankeval": ("pdist_rankeval", (_P,) * 10 + (_I,) * 7),
+    "pdist_l1": ("pdist_l1", (_P, _P, _P) + (_I,) * 6),
+    "pdist_linf": ("pdist_linf", (_P, _P, _P) + (_I,) * 6),
     "flash_attention": ("flash_attention_{}", (_P,) * 4 + (_I,) * 9),
 }
 # host functions of a library (no launch of their own, no count):
@@ -189,8 +195,8 @@ def build(extra_flags: tuple[str, ...] = (), build_dir: Path = BUILD_DIR,
     """Compile every source, one nvcc process each, all started
     together; returns the libraries by source name.  Raises
     ``RuntimeError`` with nvcc's output if any fails.  ``extra_flags``
-    (for example ``("-Xptxas", "-v")``) join the hash, so they build
-    libraries of their own; ``force`` rebuilds a library that exists."""
+    join the hash, so they build libraries of their own; ``force``
+    rebuilds a library that exists."""
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     flags = NVCC_FLAGS + tuple(extra_flags)

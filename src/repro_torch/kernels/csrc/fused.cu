@@ -14,7 +14,10 @@
 // the stores) are the cost.  The design keeps that chain short and the same
 // at any shape:
 // - a block owns a tile of TB = 8 queries x TG = 8 groups, one pair a
-//   thread, so the plan's shape gives 192 blocks, enough for all 132 SMs;
+//   thread, so the plan's shape gives 192 blocks, enough for all 132 SMs.
+//   The tile is a launch parameter (the autotuner's bb = TB and bg = TG,
+//   each 8, the static tile, or 16), one template instantiation each; every
+//   pair is one thread's arithmetic, so no result depends on it;
 // - the tile's query and pivot norms (gram.cuh's sq_norm), its groups'
 //   constants (rank_group) and coefficients are staged once in shared
 //   memory; C is a template parameter (1..16, the runtime loop for any
@@ -33,12 +36,9 @@
 
 namespace {
 
-constexpr int TB = 8;                   // queries a block
-constexpr int TG = 8;                   // groups a block
-constexpr int THREADS = TB * TG;
-
-template <int C>
-__global__ void __launch_bounds__(THREADS)
+// TB queries x TG groups a block, one pair a thread
+template <int C, int TB, int TG>
+__global__ void __launch_bounds__(TB * TG)
 pdist_rankeval_kernel(const float* __restrict__ q, const float* __restrict__ piv,
                       const float* __restrict__ coef, const float* __restrict__ lo,
                       const float* __restrict__ hi, const float* __restrict__ n,
@@ -46,6 +46,8 @@ pdist_rankeval_kernel(const float* __restrict__ q, const float* __restrict__ piv
                       int* __restrict__ rank_lo, int* __restrict__ rank_hi,
                       int B, int G, int d, int n_coef, int n_rings,
                       unsigned gtiles) {
+    constexpr int THREADS = TB * TG;
+    static_assert(TB + 2 * TG <= THREADS, "staging takes TB + 2 TG threads");
     extern __shared__ float c_s[];              // (TG, n_coef)
     __shared__ RankGroup grp_s[TG];
     __shared__ float qn_s[TB], rg_s[TB], pn_s[TG];
@@ -104,7 +106,7 @@ pdist_rankeval_kernel(const float* __restrict__ q, const float* __restrict__ piv
     }
 }
 
-template <int C>
+template <int C, int TB, int TG>
 int launch(const float* q, const float* piv, const float* coef,
            const float* lo, const float* hi, const float* n, const float* rg,
            float* dq, int* rank_lo, int* rank_hi, int B, int G, int d,
@@ -115,26 +117,43 @@ int launch(const float* q, const float* piv, const float* coef,
     const size_t smem = (size_t)TG * n_coef * sizeof(float);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            pdist_rankeval_kernel<C>,
+            pdist_rankeval_kernel<C, TB, TG>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    pdist_rankeval_kernel<C>
-        <<<(unsigned)(btiles * gtiles), THREADS, smem, stream>>>(
+    pdist_rankeval_kernel<C, TB, TG>
+        <<<(unsigned)(btiles * gtiles), TB * TG, smem, stream>>>(
             q, piv, coef, lo, hi, n, rg, dq, rank_lo, rank_hi, B, G, d,
             n_coef, n_rings, (unsigned)gtiles);
     return (int)cudaGetLastError();
 }
 
+// The tile of bb queries x bg groups, each 8 or 16.
+template <int C>
+int launch_tile(const float* q, const float* piv, const float* coef,
+                const float* lo, const float* hi, const float* n,
+                const float* rg, float* dq, int* rank_lo, int* rank_hi, int B,
+                int G, int d, int n_coef, int n_rings, int bb, int bg,
+                cudaStream_t stream) {
+#define FUSED_TILE(tb, tg)                                                 \
+    if (bb == tb && bg == tg)                                              \
+        return launch<C, tb, tg>(q, piv, coef, lo, hi, n, rg, dq, rank_lo, \
+                                 rank_hi, B, G, d, n_coef, n_rings, stream);
+    FUSED_TILE(8, 8) FUSED_TILE(8, 16) FUSED_TILE(16, 8) FUSED_TILE(16, 16)
+#undef FUSED_TILE
+    return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q (B, d), piv (G, d), coef (G, C), lo/hi/n (G,), rg (B,) f32;
-// dq (B, G) f32; rank_lo/rank_hi (G, B) int32.
+// dq (B, G) f32; rank_lo/rank_hi (G, B) int32; the tile bb queries x bg
+// groups.
 extern "C" int pdist_rankeval(const void* q, const void* piv, const void* coef,
                               const void* lo, const void* hi, const void* n,
                               const void* rg, void* dq, void* rank_lo,
                               void* rank_hi, int B, int G, int d, int n_coef,
-                              int n_rings, void* stream) {
+                              int n_rings, int bb, int bg, void* stream) {
     if (B <= 0 || G <= 0) return 0;
     if (n_coef <= 0) return (int)cudaErrorInvalidValue;
     const float *qf = (const float*)q, *pf = (const float*)piv;
@@ -147,15 +166,15 @@ extern "C" int pdist_rankeval(const void* q, const void* piv, const void* coef,
     switch (n_coef) {
 #define FUSED_CASE(c)                                                      \
     case c:                                                                \
-        return launch<c>(qf, pf, cf, lf, hf, nf, rf, df, rl, rh, B, G, d,  \
-                         n_coef, n_rings, s);
+        return launch_tile<c>(qf, pf, cf, lf, hf, nf, rf, df, rl, rh, B, G, \
+                              d, n_coef, n_rings, bb, bg, s);
         FUSED_CASE(1) FUSED_CASE(2) FUSED_CASE(3) FUSED_CASE(4)
         FUSED_CASE(5) FUSED_CASE(6) FUSED_CASE(7) FUSED_CASE(8)
         FUSED_CASE(9) FUSED_CASE(10) FUSED_CASE(11) FUSED_CASE(12)
         FUSED_CASE(13) FUSED_CASE(14) FUSED_CASE(15) FUSED_CASE(16)
 #undef FUSED_CASE
         default:
-            return launch<0>(qf, pf, cf, lf, hf, nf, rf, df, rl, rh, B, G, d,
-                             n_coef, n_rings, s);
+            return launch_tile<0>(qf, pf, cf, lf, hf, nf, rf, df, rl, rh, B,
+                                  G, d, n_coef, n_rings, bb, bg, s);
     }
 }

@@ -10,7 +10,7 @@
 // 2d + 4 = 20 instructions an output, under 0.2 ms of issue at the card's
 // clock.  So the design (stream.cuh) streams the output: each point is read
 // once, by the thread that owns it with three neighbours, into registers; a
-// block holds all query rows (up to QCAP at a time) in shared memory and
+// block holds all query rows (up to bq at a time) in shared memory and
 // walks them, and for each row a thread stores its four outputs as one
 // 16-byte streaming store (st.global.cs: the matrix does not fit the 50 MB
 // L2 and is not read back here), neighbouring threads on neighbouring
@@ -67,7 +67,7 @@ __device__ __forceinline__ void pdist_rows(const Points<D, true, T>& pts,
     }
 }
 
-template <class T, int D>
+template <class T, int D, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 pdist_sql2_kernel(const float* __restrict__ q, const T* __restrict__ p,
                   float* __restrict__ out, int nq, int np, int d, int qcap,
@@ -76,7 +76,8 @@ pdist_sql2_kernel(const float* __restrict__ q, const T* __restrict__ p,
     const int dd = D > 0 ? D : d;
     float* q_s = reinterpret_cast<float*>(smem);     // (qcap, dd)
     float* qn_s = q_s + qcap * dd;                   // (qcap,)
-    const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
+    const long long pt =
+        (long long)blockIdx.x * (THREADS * PPT) + PPT * threadIdx.x;
     Points<D, true, T> pts;
     pts.load(p, pt, np, dd);
     const long long live = np - pt;         // points of the thread in range
@@ -99,49 +100,57 @@ pdist_sql2_kernel(const float* __restrict__ q, const T* __restrict__ p,
 
 template <class T, int D>
 int launch(const float* q, const T* p, float* out, int nq, int np, int d,
-           cudaStream_t stream) {
-    const int qcap = query_cap(d, 1);
+           int bp, int bq, cudaStream_t stream) {
+    if (!tile_ok(bp, bq)) return (int)cudaErrorInvalidValue;
+    const int qcap = query_cap(d, 1, bq);
     if (qcap < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)qcap * (d + 1) * sizeof(float);
-    const cudaError_t e = allow_smem(pdist_sql2_kernel<T, D>, smem);
-    if (e != cudaSuccess) return (int)e;
     const bool vec = np % 4 == 0 && aligned(out, 16);
-    const unsigned grid = (unsigned)((np + BP - 1) / BP);
-    pdist_sql2_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        q, p, out, nq, np, d, qcap, vec);
-    return (int)cudaGetLastError();
+    const unsigned grid = (unsigned)((np + bp - 1) / bp);
+    return with_threads(bp, [&](auto threads) {
+        constexpr int TH = decltype(threads)::value;
+        const cudaError_t e = allow_smem(pdist_sql2_kernel<T, D, TH>, smem);
+        if (e != cudaSuccess) return (int)e;
+        pdist_sql2_kernel<T, D, TH><<<grid, TH, smem, stream>>>(
+            q, p, out, nq, np, d, qcap, vec);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <class T>
 int pdist_sql2_of(const void* q, const void* p, void* out, int nq, int np,
-                  int d, void* stream) {
+                  int d, int bp, int bq, void* stream) {
     if (nq <= 0 || np <= 0) return 0;
     const float* qf = (const float*)q;
     const T* pt = (const T*)p;
     float* of = (float*)out;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (body_width(d, q, p)) {
-        case 8: return launch<T, 8>(qf, pt, of, nq, np, d, s);
-        case 32: return launch<T, 32>(qf, pt, of, nq, np, d, s);
-        default: return launch<T, 0>(qf, pt, of, nq, np, d, s);
+        case 8: return launch<T, 8>(qf, pt, of, nq, np, d, bp, bq, s);
+        case 32: return launch<T, 32>(qf, pt, of, nq, np, d, bp, bq, s);
+        default: return launch<T, 0>(qf, pt, of, nq, np, d, bp, bq, s);
     }
 }
 
 }  // namespace
 
 // q (nq, d) f32 and p (np, d) row-major, p in f32 / bf16 / f16; out (nq,
-// np) f32.  Each returns the CUDA error code of the launch (0 on success).
+// np) f32; the tile (bp, bq) as stream.cuh takes it.  Each returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int pdist_sql2(const void* q, const void* p, void* out, int nq,
-                          int np, int d, void* stream) {
-    return pdist_sql2_of<float>(q, p, out, nq, np, d, stream);
+                          int np, int d, int bp, int bq, void* stream) {
+    return pdist_sql2_of<float>(q, p, out, nq, np, d, bp, bq, stream);
 }
 
 extern "C" int pdist_sql2_bf16(const void* q, const void* p, void* out,
-                               int nq, int np, int d, void* stream) {
-    return pdist_sql2_of<__nv_bfloat16>(q, p, out, nq, np, d, stream);
+                               int nq, int np, int d, int bp, int bq,
+                               void* stream) {
+    return pdist_sql2_of<__nv_bfloat16>(q, p, out, nq, np, d, bp, bq,
+                                        stream);
 }
 
 extern "C" int pdist_sql2_f16(const void* q, const void* p, void* out,
-                              int nq, int np, int d, void* stream) {
-    return pdist_sql2_of<__half>(q, p, out, nq, np, d, stream);
+                              int nq, int np, int d, int bp, int bq,
+                              void* stream) {
+    return pdist_sql2_of<__half>(q, p, out, nq, np, d, bp, bq, stream);
 }

@@ -28,12 +28,12 @@
 // x 289,664 slots, d = 8) reading the 0.59 GB of padded rows outweighs
 // writing the 0.22 GB of distances.  So the design is stream.cuh's: each
 // point is read once, into the registers of the thread that owns it with
-// three neighbours; a block holds its group's query rows (up to QCAP at a
+// three neighbours; a block holds its group's query rows (up to bq at a
 // time) in shared memory and walks them, and for each row a thread stores
 // its four outputs as one 16-byte streaming store where np % 4 == 0 and out
 // is 16-B aligned, else, and for the ragged last points, one by one.  A
-// block's shared memory is a chunk of whole query rows, query_cap(d, 0) of
-// them, so any d up to about 51,000 floats runs.  Blocks are numbered
+// block's shared memory is a chunk of whole query rows, query_cap(d, 0, bq)
+// of them, so any d up to about 51,000 floats runs.  Blocks are numbered
 // group-major along x, so no grid dimension limits G.
 #include <climits>
 
@@ -83,8 +83,9 @@ __device__ __forceinline__ void lp_rows(const Points<D, false>& pts,
     }
 }
 
-// Block x covers points [(x % nblk) * BP, + BP) of group x / nblk.
-template <class Op, int D>
+// Block x covers points [(x % nblk) * BP, + BP) of group x / nblk, BP =
+// THREADS * PPT.
+template <class Op, int D, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 pdist_lp_kernel(const float* __restrict__ q, const float* __restrict__ p,
                 float* __restrict__ out, int nq, int np, int d, int qcap,
@@ -94,7 +95,8 @@ pdist_lp_kernel(const float* __restrict__ q, const float* __restrict__ p,
     float* q_s = reinterpret_cast<float*>(smem);     // (qcap, dd)
     const unsigned g = blockIdx.x / nblk;
     const long long pt =
-        (long long)(blockIdx.x - g * nblk) * BP + PPT * threadIdx.x;
+        (long long)(blockIdx.x - g * nblk) * (THREADS * PPT)
+        + PPT * threadIdx.x;
     q += (long long)g * nq * dd;
     p += (long long)g * np * dd;
     out += (long long)g * nq * np;
@@ -120,23 +122,28 @@ pdist_lp_kernel(const float* __restrict__ q, const float* __restrict__ p,
 
 template <class Op, int D>
 int launch(const float* q, const float* p, float* out, int G, int nq, int np,
-           int d, cudaStream_t stream) {
-    const int qcap = min(query_cap(d, 0), nq);
+           int d, int bp, int bq, cudaStream_t stream) {
+    if (!tile_ok(bp, bq)) return (int)cudaErrorInvalidValue;
+    const int qcap = min(query_cap(d, 0, bq), nq);
     if (qcap < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)qcap * d * sizeof(float);
-    const cudaError_t e = allow_smem(pdist_lp_kernel<Op, D>, smem);
-    if (e != cudaSuccess) return (int)e;
-    const long long nblk = ((long long)np + BP - 1) / BP;
+    const long long nblk = ((long long)np + bp - 1) / bp;
     if (nblk * G > INT_MAX) return (int)cudaErrorInvalidValue;
     const bool vec = np % PPT == 0 && aligned(out, 16);
-    pdist_lp_kernel<Op, D><<<(unsigned)(nblk * G), THREADS, smem, stream>>>(
-        q, p, out, nq, np, d, qcap, (unsigned)nblk, vec);
-    return (int)cudaGetLastError();
+    return with_threads(bp, [&](auto threads) {
+        constexpr int TH = decltype(threads)::value;
+        const cudaError_t e = allow_smem(pdist_lp_kernel<Op, D, TH>, smem);
+        if (e != cudaSuccess) return (int)e;
+        pdist_lp_kernel<Op, D, TH><<<(unsigned)(nblk * G), TH, smem,
+                                     stream>>>(
+            q, p, out, nq, np, d, qcap, (unsigned)nblk, vec);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <class Op>
 int pdist_lp(const void* q, const void* p, void* out, int G, int nq, int np,
-             int d, void* stream) {
+             int d, int bp, int bq, void* stream) {
     if (G <= 0 || nq <= 0 || np <= 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
     if (d <= 0)             // an empty sum or max: +0, as the plain versions
@@ -145,22 +152,24 @@ int pdist_lp(const void* q, const void* p, void* out, int G, int nq, int np,
     const float *qf = (const float*)q, *pf = (const float*)p;
     float* of = (float*)out;
     switch (body_width(d, q, p)) {
-        case 8: return launch<Op, 8>(qf, pf, of, G, nq, np, d, s);
-        case 32: return launch<Op, 32>(qf, pf, of, G, nq, np, d, s);
-        default: return launch<Op, 0>(qf, pf, of, G, nq, np, d, s);
+        case 8: return launch<Op, 8>(qf, pf, of, G, nq, np, d, bp, bq, s);
+        case 32: return launch<Op, 32>(qf, pf, of, G, nq, np, d, bp, bq, s);
+        default: return launch<Op, 0>(qf, pf, of, G, nq, np, d, bp, bq, s);
     }
 }
 
 }  // namespace
 
-// q (G, nq, d), p (G, np, d) f32 row-major; out (G, nq, np) f32.  Each
-// returns the CUDA error code of the launch (0 on success).
+// q (G, nq, d), p (G, np, d) f32 row-major; out (G, nq, np) f32; the tile
+// (bp, bq) as stream.cuh takes it.  Each returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int pdist_l1(const void* q, const void* p, void* out, int G,
-                        int nq, int np, int d, void* stream) {
-    return pdist_lp<L1>(q, p, out, G, nq, np, d, stream);
+                        int nq, int np, int d, int bp, int bq, void* stream) {
+    return pdist_lp<L1>(q, p, out, G, nq, np, d, bp, bq, stream);
 }
 
 extern "C" int pdist_linf(const void* q, const void* p, void* out, int G,
-                          int nq, int np, int d, void* stream) {
-    return pdist_lp<LInf>(q, p, out, G, nq, np, d, stream);
+                          int nq, int np, int d, int bp, int bq,
+                          void* stream) {
+    return pdist_lp<LInf>(q, p, out, G, nq, np, d, bp, bq, stream);
 }

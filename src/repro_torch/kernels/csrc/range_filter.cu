@@ -17,7 +17,7 @@
 // enough independent work in flight to hide the f32 latency:
 //   * each point is read once, into the registers of the thread that owns it
 //     with three neighbours; a block holds all query rows with their norms
-//     and r2 (up to QCAP at a time) in shared memory;
+//     and r2 (up to bq at a time) in shared memory;
 //   * for each row a thread packs its four mask bytes into one 4-byte
 //     streaming store (a warp writes 128 contiguous bytes);
 //   * a warp is one 128-point count tile: one warp reduction adds its lanes'
@@ -25,8 +25,8 @@
 //     together, so counts need no shared memory or atomics and are the same
 //     in every run;
 //   * the clamp is folded into the threshold (r2_test); rows are unrolled by
-//     4 and the d = 8 body is held to 80 registers, so 6 blocks of 128
-//     threads share an SM.
+//     4 and the d = 8 body is held to 80 registers, so 768 threads (6 blocks
+//     of 128 at the static tile) share an SM.
 // Mask rows whose start is not 4-B aligned (np % 4 != 0) and the ragged last
 // points are stored byte by byte.
 //
@@ -102,10 +102,11 @@ __device__ __forceinline__ void filter_rows(
     }
 }
 
-// The register body at d = 8 is held to 6 blocks an SM (at most 80
-// registers): more warps to hide the latency of its dependent f32 chains.
-template <class T, int D>
-__global__ void __launch_bounds__(THREADS, D == 8 ? 6 : 1)
+// The register body at d = 8 is held to 768 threads an SM (6 blocks of 128;
+// at most 80 registers): more warps to hide the latency of its dependent f32
+// chains.
+template <class T, int D, int THREADS>
+__global__ void __launch_bounds__(THREADS, D == 8 ? 768 / THREADS : 1)
 range_filter_kernel(const float* __restrict__ q, const T* __restrict__ p,
                     const float* __restrict__ r2,
                     unsigned char* __restrict__ mask, int* __restrict__ cnt,
@@ -115,7 +116,8 @@ range_filter_kernel(const float* __restrict__ q, const T* __restrict__ p,
     float2* qr_s = reinterpret_cast<float2*>(smem);   // (qcap,) of (qn, r2e)
     float* q_s = reinterpret_cast<float*>(qr_s + qcap);   // (qcap, dd)
     const int lane = threadIdx.x & 31;
-    const long long pt = (long long)blockIdx.x * BP + PPT * threadIdx.x;
+    const long long pt =
+        (long long)blockIdx.x * (THREADS * PPT) + PPT * threadIdx.x;
     const long long tile = pt / TILE;
     const long long ntiles = ((long long)np + TILE - 1) / TILE;
     Points<D, true, T> pts;
@@ -146,23 +148,28 @@ range_filter_kernel(const float* __restrict__ q, const T* __restrict__ p,
 
 template <class T, int D>
 int launch(const float* q, const T* p, const float* r2,
-           unsigned char* mask, int* cnt, int nq, int np, int d,
-           cudaStream_t stream) {
-    const int qcap = query_cap(d, 2);
+           unsigned char* mask, int* cnt, int nq, int np, int d, int bp,
+           int bq, cudaStream_t stream) {
+    if (!tile_ok(bp, bq)) return (int)cudaErrorInvalidValue;
+    const int qcap = query_cap(d, 2, bq);
     if (qcap < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)qcap * (d + 2) * sizeof(float);
-    const cudaError_t e = allow_smem(range_filter_kernel<T, D>, smem);
-    if (e != cudaSuccess) return (int)e;
     const bool vec = np % PPT == 0 && aligned(mask, PPT);
-    const unsigned grid = (unsigned)((np + BP - 1) / BP);
-    range_filter_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        q, p, r2, mask, cnt, nq, np, d, qcap, vec);
-    return (int)cudaGetLastError();
+    const unsigned grid = (unsigned)((np + bp - 1) / bp);
+    return with_threads(bp, [&](auto threads) {
+        constexpr int TH = decltype(threads)::value;
+        const cudaError_t e = allow_smem(range_filter_kernel<T, D, TH>, smem);
+        if (e != cudaSuccess) return (int)e;
+        range_filter_kernel<T, D, TH><<<grid, TH, smem, stream>>>(
+            q, p, r2, mask, cnt, nq, np, d, qcap, vec);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <class T>
 int range_filter_of(const void* q, const void* p, const void* r2, void* mask,
-                    void* cnt, int nq, int np, int d, void* stream) {
+                    void* cnt, int nq, int np, int d, int bp, int bq,
+                    void* stream) {
     if (nq <= 0 || np <= 0) return 0;
     const float *qf = (const float*)q, *rf = (const float*)r2;
     const T* pt = (const T*)p;
@@ -170,31 +177,38 @@ int range_filter_of(const void* q, const void* p, const void* r2, void* mask,
     int* cf = (int*)cnt;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (body_width(d, q, p)) {
-        case 8: return launch<T, 8>(qf, pt, rf, mf, cf, nq, np, d, s);
-        case 32: return launch<T, 32>(qf, pt, rf, mf, cf, nq, np, d, s);
-        default: return launch<T, 0>(qf, pt, rf, mf, cf, nq, np, d, s);
+        case 8:
+            return launch<T, 8>(qf, pt, rf, mf, cf, nq, np, d, bp, bq, s);
+        case 32:
+            return launch<T, 32>(qf, pt, rf, mf, cf, nq, np, d, bp, bq, s);
+        default:
+            return launch<T, 0>(qf, pt, rf, mf, cf, nq, np, d, bp, bq, s);
     }
 }
 
 }  // namespace
 
 // q (nq, d) f32, p (np, d) in f32 / bf16 / f16, r2 (nq,) f32; mask (nq, np)
-// uint8; cnt (nq, ceil(np / 128)) int32.
+// uint8; cnt (nq, ceil(np / 128)) int32; the tile (bp, bq) as stream.cuh
+// takes it.
 extern "C" int range_filter(const void* q, const void* p, const void* r2,
                             void* mask, void* cnt, int nq, int np, int d,
-                            void* stream) {
-    return range_filter_of<float>(q, p, r2, mask, cnt, nq, np, d, stream);
+                            int bp, int bq, void* stream) {
+    return range_filter_of<float>(q, p, r2, mask, cnt, nq, np, d, bp, bq,
+                                  stream);
 }
 
 extern "C" int range_filter_bf16(const void* q, const void* p,
                                  const void* r2, void* mask, void* cnt,
-                                 int nq, int np, int d, void* stream) {
-    return range_filter_of<__nv_bfloat16>(q, p, r2, mask, cnt, nq, np, d,
-                                          stream);
+                                 int nq, int np, int d, int bp, int bq,
+                                 void* stream) {
+    return range_filter_of<__nv_bfloat16>(q, p, r2, mask, cnt, nq, np, d, bp,
+                                          bq, stream);
 }
 
 extern "C" int range_filter_f16(const void* q, const void* p, const void* r2,
                                 void* mask, void* cnt, int nq, int np, int d,
-                                void* stream) {
-    return range_filter_of<__half>(q, p, r2, mask, cnt, nq, np, d, stream);
+                                int bp, int bq, void* stream) {
+    return range_filter_of<__half>(q, p, r2, mask, cnt, nq, np, d, bp, bq,
+                                   stream);
 }

@@ -24,7 +24,12 @@
 //   every quad when x is not 16-B aligned;
 // - blocks of 128 threads (1,024 values): at 48 registers an SM holds ten,
 //   whose load, compute and store phases overlap better than those of five
-//   blocks of 256 (faster in a sweep of block sizes on the card);
+//   blocks of 256 (faster in a sweep of block sizes on the card).  The
+//   block is a launch parameter (the autotuner's tile bb = values a block =
+//   THREADS * 8: 512, 1,024, the static tile, or 2,048), one template
+//   instantiation each; a block always covers one group's values, and
+//   every value's rank is one thread's arithmetic, so no result depends on
+//   it;
 // - block x covers tile x % tiles of group x / tiles (group-major along x),
 //   so no grid dimension caps G.
 #include <climits>
@@ -35,18 +40,17 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int QPT = 2;                  // quads a thread
 constexpr int VPT = 4 * QPT;            // values a thread
-constexpr int TILE = THREADS * QPT;     // quads a block
 
-template <int C>
+template <int C, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 rankeval_kernel(const float* __restrict__ x, const float* __restrict__ coef,
                 const float* __restrict__ lo, const float* __restrict__ hi,
                 const float* __restrict__ n, int* __restrict__ rank,
                 int* __restrict__ rid, int B, int n_coef, int n_rings,
                 unsigned tiles, bool vec) {
+    constexpr int TILE = THREADS * QPT;         // quads a block
     extern __shared__ float c_s[];              // the group's n_coef
     __shared__ RankGroup grp_s;
     const unsigned g = blockIdx.x / tiles;
@@ -116,10 +120,11 @@ inline bool aligned16(const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-template <int C>
+template <int C, int THREADS>
 int launch(const float* x, const float* coef, const float* lo,
            const float* hi, const float* n, int* rank, int* rid, int G, int B,
            int n_coef, int n_rings, cudaStream_t stream) {
+    constexpr int TILE = THREADS * QPT;
     // the quads a row spans at most (phase 3), in whole tiles
     const long long quads = ((long long)B + 6) / 4;
     const long long tiles = (quads + TILE - 1) / TILE;
@@ -127,23 +132,46 @@ int launch(const float* x, const float* coef, const float* lo,
     const size_t smem = (size_t)n_coef * sizeof(float);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            rankeval_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            rankeval_kernel<C, THREADS>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     const bool vec = aligned16(x) && aligned16(rank) && aligned16(rid);
-    rankeval_kernel<C><<<(unsigned)(tiles * G), THREADS, smem, stream>>>(
-        x, coef, lo, hi, n, rank, rid, B, n_coef, n_rings, (unsigned)tiles,
-        vec);
+    rankeval_kernel<C, THREADS>
+        <<<(unsigned)(tiles * G), THREADS, smem, stream>>>(
+            x, coef, lo, hi, n, rank, rid, B, n_coef, n_rings,
+            (unsigned)tiles, vec);
     return (int)cudaGetLastError();
+}
+
+// The block of bb = THREADS * VPT values: 512, 1,024 or 2,048.
+template <int C>
+int launch_bb(const float* x, const float* coef, const float* lo,
+              const float* hi, const float* n, int* rank, int* rid, int G,
+              int B, int n_coef, int n_rings, int bb, cudaStream_t stream) {
+    switch (bb) {
+        case 512:
+            return launch<C, 64>(x, coef, lo, hi, n, rank, rid, G, B, n_coef,
+                                 n_rings, stream);
+        case 1024:
+            return launch<C, 128>(x, coef, lo, hi, n, rank, rid, G, B,
+                                  n_coef, n_rings, stream);
+        case 2048:
+            return launch<C, 256>(x, coef, lo, hi, n, rank, rid, G, B,
+                                  n_coef, n_rings, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
-// x (G, B) f32; coef (G, C) f32; lo/hi/n (G,) f32; rank/rid (G, B) int32.
+// x (G, B) f32; coef (G, C) f32; lo/hi/n (G,) f32; rank/rid (G, B) int32;
+// bb values a block.
 extern "C" int rankeval(const void* x, const void* coef, const void* lo,
                         const void* hi, const void* n, void* rank, void* rid,
-                        int G, int B, int n_coef, int n_rings, void* stream) {
+                        int G, int B, int n_coef, int n_rings, int bb,
+                        void* stream) {
     if (G <= 0 || B <= 0) return 0;
     if (n_coef <= 0) return (int)cudaErrorInvalidValue;
     const float *xf = (const float*)x, *cf = (const float*)coef;
@@ -154,14 +182,15 @@ extern "C" int rankeval(const void* x, const void* coef, const void* lo,
     switch (n_coef) {
 #define RANKEVAL_CASE(c)                                                  \
     case c:                                                               \
-        return launch<c>(xf, cf, lf, hf, nf, rk, rd, G, B, n_coef, n_rings, s);
+        return launch_bb<c>(xf, cf, lf, hf, nf, rk, rd, G, B, n_coef,      \
+                            n_rings, bb, s);
         RANKEVAL_CASE(1) RANKEVAL_CASE(2) RANKEVAL_CASE(3) RANKEVAL_CASE(4)
         RANKEVAL_CASE(5) RANKEVAL_CASE(6) RANKEVAL_CASE(7) RANKEVAL_CASE(8)
         RANKEVAL_CASE(9) RANKEVAL_CASE(10) RANKEVAL_CASE(11) RANKEVAL_CASE(12)
         RANKEVAL_CASE(13) RANKEVAL_CASE(14) RANKEVAL_CASE(15) RANKEVAL_CASE(16)
 #undef RANKEVAL_CASE
         default:
-            return launch<0>(xf, cf, lf, hf, nf, rk, rd, G, B, n_coef,
-                             n_rings, s);
+            return launch_bb<0>(xf, cf, lf, hf, nf, rk, rd, G, B, n_coef,
+                                n_rings, bb, s);
     }
 }

@@ -3,7 +3,7 @@
 // The kernels are bound by their output stream: every (query, point) cell
 // costs a handful of f32 operations and one store, and the points are read
 // once.  So a block of THREADS threads owns BP = THREADS * PPT consecutive
-// points and ALL query rows (in chunks of at most QCAP rows held in shared
+// points and ALL query rows (in chunks of at most BQ rows held in shared
 // memory):
 //   * each point row is read from device memory once, by one thread, as
 //     float4s, and stays in that thread's registers for every query row;
@@ -42,7 +42,19 @@
 // nearest (__fsub_rn).  The value starts at the first term, not at +0,
 // and that changes no result: a is +0 or more, or NaN, so +0 + a is a
 // and `a > +0 || a != a ? a : +0` is a.
+//
+// The tile is a launch parameter (the autotuner's, repro_torch/kernels/
+// autotune.py): bp = THREADS * PPT points a block, one of with_threads' four,
+// each a template instantiation, and bq, the most query rows a
+// chunk, a runtime bound under the shared memory's (query_cap) and, where
+// one thread loads each row, under THREADS.  The static tile (bp 512, bq
+// 64) is the one every launch took before the tile was a parameter, and
+// compiles to the same code.  No result depends on the tile: every output
+// is one thread's arithmetic on one (query, point) pair, and a count tile
+// is one warp's (range_filter.cu).
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -106,13 +118,24 @@ struct Coords<float> {
     }
 };
 
-constexpr int THREADS = 128;            // threads per block
 constexpr int PPT = 4;                  // consecutive points per thread
-constexpr int BP = THREADS * PPT;       // points per block
-constexpr int QCAP = 64;                // query rows per chunk at most
 constexpr int SMEM_CAP = 200 * 1024;    // shared memory a chunk may take
 static_assert(PPT == 4, "the stores pack four points");
-static_assert(QCAP <= THREADS, "one thread loads each query row");
+
+// Calls f(std::integral_constant<int, THREADS>) for the block of bp = THREADS
+// * PPT points, bp one of 128, 256, 512 (the static tile) and 1024; any
+// other bp is cudaErrorInvalidValue.  Every bp is a multiple of 128, the
+// count tile of range_filter.cu (one warp).
+template <class F>
+int with_threads(int bp, F&& f) {
+    switch (bp) {
+        case 128: return f(std::integral_constant<int, 32>{});
+        case 256: return f(std::integral_constant<int, 64>{});
+        case 512: return f(std::integral_constant<int, 128>{});
+        case 1024: return f(std::integral_constant<int, 256>{});
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
 
 // A point at or past np gets a NaN norm: every distance to it is NaN, which
 // no ball holds; its outputs are never stored.
@@ -284,11 +307,16 @@ __device__ __forceinline__ float load_query(const float* __restrict__ q,
 }
 
 // Query rows per chunk for width d, with `extra` floats per row beside the
-// row itself; 0 if not even one row fits.
-inline int query_cap(int d, int extra) {
+// row itself, at most bq; 0 if not even one row fits.
+inline int query_cap(int d, int extra, int bq) {
     const long long rows = SMEM_CAP / ((long long)(d + extra) * sizeof(float));
-    return (int)(rows < QCAP ? rows : QCAP);
+    return (int)(rows < bq ? rows : bq);
 }
+
+// Whether (bp, bq) is a tile the streaming kernels take: bq from 1 to the
+// block's threads (one thread loads each query row); bp is checked by
+// with_threads.
+inline bool tile_ok(int bp, int bq) { return bq >= 1 && bq <= bp / PPT; }
 
 inline bool aligned(const void* ptr, unsigned bytes) {
     return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;

@@ -6,7 +6,9 @@ queries ``q`` (B, d) and pivots ``piv`` (G, d): dq = sqrt(sql2) as
 On a CUDA tensor it launches ``csrc/fused.cu``; on a CPU tensor it runs
 :func:`pdist_rankeval_plain`.  Both share their arithmetic with the
 staged ``pdist`` -> sqrt -> ``rankeval`` chain of the same lane, so the
-fused and staged plans agree bit for bit.
+fused and staged plans agree bit for bit.  A CUDA launch takes a tile
+of ``bb`` queries x ``bg`` groups a block (each 8 or 16),
+``STATIC_TILES`` by default; no output depends on it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,15 @@ import torch
 from . import _cuda
 from .pdist import check_operands, gram_sq_plain
 from .rankeval import rank_math_plain
+
+STATIC_TILES = {"bg": 8, "bb": 8}
+
+
+def tile_args(tiles: dict | None = None) -> tuple:
+    """The tile ints a ``pdist_rankeval`` launch takes last, in their
+    order: (bb, bg); ``STATIC_TILES`` if None."""
+    t = tiles or STATIC_TILES
+    return t["bb"], t["bg"]
 
 
 def pdist_rankeval_plain(q, piv, coef, lo, hi, n, rg, n_rings: int):
@@ -26,7 +37,8 @@ def pdist_rankeval_plain(q, piv, coef, lo, hi, n, rg, n_rings: int):
     return dq, rank_lo, rank_hi
 
 
-def pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings: int):
+def pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings: int,
+                        tiles: dict | None = None):
     B, d = q.shape
     G, n_coef = coef.shape
     if piv.shape != (G, d) or rg.shape != (B,) or lo.shape != (G,) \
@@ -41,12 +53,15 @@ def pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings: int):
                  coef.data_ptr(), lo.data_ptr(), hi.data_ptr(), n.data_ptr(),
                  rg.data_ptr(), dq.data_ptr(), rank_lo.data_ptr(),
                  rank_hi.data_ptr(), B, G, d, n_coef, n_rings,
-                 device=q.device)
+                 *tile_args(tiles), device=q.device)
     return dq, rank_lo, rank_hi
 
 
-def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20):
-    """(dq (B, G) f32, rank_lo (G, B) int32, rank_hi (G, B) int32)."""
+def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20,
+                   tiles: dict | None = None):
+    """(dq (B, G) f32, rank_lo (G, B) int32, rank_hi (G, B) int32);
+    ``tiles``: the CUDA launch's."""
     if check_operands(q, piv, coef, lo, hi, n, rg).type == "cuda":
-        return pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings)
+        return pdist_rankeval_cuda(q, piv, coef, lo, hi, n, rg, n_rings,
+                                   tiles)
     return pdist_rankeval_plain(q, piv, coef, lo, hi, n, rg, n_rings)

@@ -41,12 +41,19 @@ a CUDA graph the count follows the launches that run, as
 :func:`count_replayed` counts the tally once per replay that ran it.
 The reference counts a call under ``jit`` once, when it traces; the
 port counts every launch the card runs.
+
+A CUDA launch of ``pdist``, ``range_filter``, ``rankeval`` or
+``pdist_rankeval`` takes its tile from the tuning table
+(``kernels/autotune.py``, under ``REPRO_AUTOTUNE``) where it has one for
+the card and the shape bucket, else the kernel's static tile;
+``pdist_grouped`` and the plain versions on a CPU tensor read no table.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
+from . import autotune
 from . import flash_attention as _flash
 from . import fused as _fused
 from . import pdist as _pdist
@@ -84,6 +91,15 @@ def count_replayed(calls: dict, times: int) -> None:
         _obs.count(f"kernels.{name}.cuda", n * times)
 
 
+def _tiles(kernel: str, metric: str | None, dims: dict,
+           probe: torch.Tensor) -> dict | None:
+    """The tuning table's tile for a CUDA launch (None: the kernel's
+    static tile); a CPU tensor's plain version has none."""
+    if not probe.is_cuda:
+        return None
+    return autotune.tiles_for(kernel, metric, dims, probe.device)
+
+
 def far_rows(n: int, like: torch.Tensor) -> torch.Tensor:
     """(n, d) padding rows at ``FAR`` in ``like``'s type and device
     (rounded from f32: +inf in f16, whose largest value is 65,504)."""
@@ -111,7 +127,12 @@ def pdist(q: torch.Tensor, p: torch.Tensor,
     """(nq, np) f32 pairwise distances. metric: sql2 | l1 | linf; sql2
     returns squared distances (take ``torch.sqrt`` or square radii) and
     reads bf16 / f16 points as they are."""
-    out = _pdist.pdist(_f32(q), _points(p, metric), metric)
+    q, p = _f32(q), _points(p, metric)
+    kernel = "pdist" + (_pdist.POINT_TYPES[p.dtype] if metric == "sql2"
+                        else "")
+    tiles = _tiles(kernel, metric, {"q": q.shape[0], "p": p.shape[0],
+                                    "d": q.shape[1]}, q)
+    out = _pdist.pdist(q, p, metric, tiles)
     _count_launch("pdist", q)
     return out
 
@@ -128,8 +149,11 @@ def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
 
 def rankeval(x, coef, lo, hi, n, n_rings: int = 20):
     """Batched rank-model eval (G groups x B values) + ring ids."""
-    out = _rankeval.rankeval(_f32(x), _f32(coef), _f32(lo), _f32(hi),
-                             _f32(n), n_rings)
+    x, coef = _f32(x), _f32(coef)
+    tiles = _tiles("rankeval", None, {"g": x.shape[0], "b": x.shape[1],
+                                      "c": coef.shape[1]}, x)
+    out = _rankeval.rankeval(x, coef, _f32(lo), _f32(hi), _f32(n), n_rings,
+                             tiles)
     _count_launch("rankeval", x)
     return out
 
@@ -143,7 +167,9 @@ def range_filter(q: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
     pad = (-npts) % _range_filter.TILE
     if pad:
         p = torch.cat([p, far_rows(pad, p)])
-    mask, cnt = _range_filter.range_filter(q, p, r * r)
+    tiles = _tiles("range_filter" + _pdist.POINT_TYPES[p.dtype], "sql2",
+                   {"q": q.shape[0], "p": p.shape[0], "d": q.shape[1]}, q)
+    mask, cnt = _range_filter.range_filter(q, p, r * r, tiles)
     _count_launch("range_filter", q)
     return mask[:, :npts], cnt
 
@@ -153,8 +179,12 @@ def pdist_rankeval(q, piv, coef, lo, hi, n, rg, n_rings: int = 20):
     widened-radius boundaries dq -/+ rg, one launch; bit-identical to
     the staged ``sqrt(pdist)`` + ``rankeval(cat(dq-rg, dq+rg))`` chain
     of the same device."""
-    out = _fused.pdist_rankeval(_f32(q), _f32(piv), _f32(coef), _f32(lo),
-                                _f32(hi), _f32(n), _f32(rg), n_rings)
+    q, coef = _f32(q), _f32(coef)
+    tiles = _tiles("pdist_rankeval", None,
+                   {"g": coef.shape[0], "b": q.shape[0], "d": q.shape[1],
+                    "c": coef.shape[1]}, q)
+    out = _fused.pdist_rankeval(q, _f32(piv), coef, _f32(lo), _f32(hi),
+                                _f32(n), _f32(rg), n_rings, tiles)
     _count_launch("pdist_rankeval", q)
     return out
 

@@ -24,6 +24,12 @@ reduced-precision filter plane): entry points ``pdist_sql2_bf16`` and
 to f32 as they load it, so the arithmetic and the result equal the
 plain version's, which upcasts first.  Queries stay f32; l1 and linf
 take f32 points only.
+
+Each CUDA launch takes a tile (``stream.cuh``): ``bp`` points a block
+(128, 256, 512 or 1,024) and ``bq`` query rows a chunk (at most bp / 4).
+``STATIC_TILES`` is the tile every launch took before it was a
+parameter; ``ops`` passes the tuning table's (``kernels/autotune.py``)
+where it has one.  No output depends on the tile.
 """
 from __future__ import annotations
 
@@ -87,6 +93,17 @@ def pdist_linf_plain(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return m
 
 
+# the streaming kernels' static tile (autotune's names; qb, the
+# reference's query sub-block, is pinned to bq)
+STATIC_TILES = {"bq": 64, "bp": 512, "qb": 64}
+
+
+def tile_args(tiles: dict | None = None) -> tuple:
+    """The tile ints a streaming launch (``pdist*``, ``range_filter*``)
+    takes last, in their order: (bp, bq); ``STATIC_TILES`` if None."""
+    t = tiles or STATIC_TILES
+    return t["bp"], t["bq"]
+
 # metric -> (CUDA kernel name, plain version)
 METRICS = {"sql2": ("pdist", pdist_plain),
            "l1": ("pdist_l1", pdist_l1_plain),
@@ -120,11 +137,12 @@ def check_operands(*ts: torch.Tensor,
     return dev
 
 
-def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
-               kernel: str = "pdist") -> torch.Tensor:
-    """One launch: (nq, np) from q (nq, d) and p (np, d); the l1 / linf
-    kernels also take groups, q (G, nq, d) and p (G, np, d) -> (G, nq,
-    np).  The sql2 kernel's entry point is the one for p's type."""
+def pdist_cuda(q: torch.Tensor, p: torch.Tensor, kernel: str = "pdist",
+               tiles: dict | None = None) -> torch.Tensor:
+    """One launch at ``tiles`` (``STATIC_TILES`` if None): (nq, np) from
+    q (nq, d) and p (np, d); the l1 / linf kernels also take groups, q
+    (G, nq, d) and p (G, np, d) -> (G, nq, np).  The sql2 kernel's entry
+    point is the one for p's type."""
     *gq, nq, d = q.shape
     *gp, npts, d2 = p.shape
     if d != d2:
@@ -137,21 +155,23 @@ def pdist_cuda(q: torch.Tensor, p: torch.Tensor,
     if kernel == "pdist":
         kernel += POINT_TYPES[p.dtype]
     _cuda.launch(kernel, q.data_ptr(), p.data_ptr(), out.data_ptr(),
-                 *groups, nq, npts, d, device=q.device)
+                 *groups, nq, npts, d, *tile_args(tiles), device=q.device)
     return out
 
 
-def pdist(q: torch.Tensor, p: torch.Tensor,
-          metric: str = "sql2") -> torch.Tensor:
+def pdist(q: torch.Tensor, p: torch.Tensor, metric: str = "sql2",
+          tiles: dict | None = None) -> torch.Tensor:
     """(nq, np) f32 distances between rows of q and p: squared L2
-    (``sql2``; p may be bf16 or f16), L1 or L-infinity."""
+    (``sql2``; p may be bf16 or f16), L1 or L-infinity.  ``tiles``: the
+    CUDA launch's (``STATIC_TILES`` if None); the plain version has
+    none."""
     if metric not in METRICS:
         raise ValueError(f"pdist: unknown metric {metric!r}")
     kernel, plain = METRICS[metric]
     dev = check_operands(q, points=p) if metric == "sql2" \
         else check_operands(q, p)
     if dev.type == "cuda":
-        return pdist_cuda(q, p, kernel)
+        return pdist_cuda(q, p, kernel, tiles)
     return plain(q, p)
 
 
@@ -159,7 +179,7 @@ def pdist_grouped(q: torch.Tensor, p: torch.Tensor,
                   metric: str) -> torch.Tensor:
     """(G, nq, np) f32 distances between the rows of q[g] and p[g] for
     every group g, q (G, nq, d) and p (G, np, d): L1 or L-infinity only.
-    On CUDA tensors one launch for all groups."""
+    On CUDA tensors one launch for all groups, at the static tile."""
     if metric not in GROUPED:
         raise ValueError(f"pdist_grouped: metric {metric!r} is not one of "
                          f"{GROUPED}")

@@ -8,14 +8,16 @@ mask (nq, np) and int32 hit counts per (query, ``TILE``-point tile).
 Points may be f32, bf16 or f16 (entry points ``range_filter``,
 ``range_filter_bf16`` and ``range_filter_f16`` of one template, which
 convert each coordinate exactly to f32 as they load it); queries and
-radii are f32.
+radii are f32.  A CUDA launch takes ``pdist``'s tile (``bp`` points a
+block, ``bq`` query rows a chunk; ``pdist.STATIC_TILES`` by default):
+every block size is whole count tiles, and no output depends on it.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .pdist import POINT_TYPES, check_operands, gram_sq_plain
+from .pdist import POINT_TYPES, check_operands, gram_sq_plain, tile_args
 
 TILE = 128      # points per count tile (the kernel's block width)
 
@@ -32,7 +34,8 @@ def range_filter_plain(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
     return hit.to(torch.uint8), cnt
 
 
-def range_filter_cuda(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
+def range_filter_cuda(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor,
+                      tiles: dict | None = None):
     nq, d = q.shape
     npts, d2 = p.shape
     if d != d2 or r2.shape != (nq,):
@@ -43,13 +46,15 @@ def range_filter_cuda(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
                       device=q.device)
     _cuda.launch("range_filter" + POINT_TYPES[p.dtype], q.data_ptr(),
                  p.data_ptr(), r2.data_ptr(), mask.data_ptr(),
-                 cnt.data_ptr(), nq, npts, d, device=q.device)
+                 cnt.data_ptr(), nq, npts, d, *tile_args(tiles),
+                 device=q.device)
     return mask, cnt
 
 
-def range_filter(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor):
+def range_filter(q: torch.Tensor, p: torch.Tensor, r2: torch.Tensor,
+                 tiles: dict | None = None):
     """(mask (nq, np) uint8, counts (nq, ceil(np / TILE)) int32) for the
-    L2 balls d2(q_i, p_j) <= r2_i."""
+    L2 balls d2(q_i, p_j) <= r2_i; ``tiles`` as ``pdist.pdist``'s."""
     if check_operands(q, r2, points=p).type == "cuda":
-        return range_filter_cuda(q, p, r2)
+        return range_filter_cuda(q, p, r2, tiles)
     return range_filter_plain(q, p, r2)

@@ -6,7 +6,9 @@ Port of ``repro/kernels/rankeval.py`` (``rankeval_pallas`` with
 which repeats ``csrc/rank_math.cuh`` step for step in f32.  The CUDA
 ``rank_math`` is one device function shared with ``csrc/fused.cu`` and
 ``rank_math_plain`` is shared the same way with ``fused.py``: the
-bit-identity of the fused and staged plans rests on that sharing.
+bit-identity of the fused and staged plans rests on that sharing.  A CUDA launch takes
+``bb`` values a block (512, 1,024 or 2,048; a block is one group's),
+``STATIC_TILES`` by default; no output depends on it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,14 @@ import torch
 
 from . import _cuda
 from .pdist import check_operands
+
+STATIC_TILES = {"bb": 1024}
+
+
+def tile_args(tiles: dict | None = None) -> tuple:
+    """The tile ints a ``rankeval`` launch takes last: (bb,);
+    ``STATIC_TILES`` if None."""
+    return ((tiles or STATIC_TILES)["bb"],)
 
 
 def rank_math_plain(x: torch.Tensor, coef: torch.Tensor, lo: torch.Tensor,
@@ -50,7 +60,8 @@ def _int32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(v), 0.0, v).to(torch.int32)
 
 
-def rankeval_cuda(x, coef, lo, hi, n, n_rings: int):
+def rankeval_cuda(x, coef, lo, hi, n, n_rings: int,
+                  tiles: dict | None = None):
     g, b = x.shape
     if coef.shape[0] != g or lo.shape != (g,) or hi.shape != (g,) \
             or n.shape != (g,):
@@ -60,12 +71,13 @@ def rankeval_cuda(x, coef, lo, hi, n, n_rings: int):
     _cuda.launch("rankeval", x.data_ptr(), coef.data_ptr(), lo.data_ptr(),
                  hi.data_ptr(), n.data_ptr(), rank.data_ptr(),
                  rid.data_ptr(), g, b, coef.shape[1], n_rings,
-                 device=x.device)
+                 *tile_args(tiles), device=x.device)
     return rank, rid
 
 
-def rankeval(x, coef, lo, hi, n, n_rings: int = 20):
-    """(rank, rid), both (G, B) int32."""
+def rankeval(x, coef, lo, hi, n, n_rings: int = 20,
+             tiles: dict | None = None):
+    """(rank, rid), both (G, B) int32; ``tiles``: the CUDA launch's."""
     if check_operands(x, coef, lo, hi, n).type == "cuda":
-        return rankeval_cuda(x, coef, lo, hi, n, n_rings)
+        return rankeval_cuda(x, coef, lo, hi, n, n_rings, tiles)
     return rank_math_plain(x, coef, lo, hi, n, n_rings)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..sharding.logical import maybe_constrain
 from .params import ParamSpec
 
 F32 = torch.float32
@@ -128,13 +129,18 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     tg = t // groups
     a_g = tg * m.top_k
     cap = int(max(min(tg, 16), round(a_g / m.n_experts * m.capacity_factor)))
-    routed = [_dispatch_one_group(xg, lg, m, cap) for xg, lg in
-              zip(xf.reshape(groups, tg, d),
-                  logits.reshape(groups, tg, m.n_experts))]
-    xin = torch.stack([r[0] for r in routed])                 # (G, E, cap, D)
+    # the reference's activation constraints (identities in one process)
+    dp = ("pod", "data")
+    xg = maybe_constrain(xf.reshape(groups, tg, d), (dp, None, None))
+    lg = maybe_constrain(logits.reshape(groups, tg, m.n_experts),
+                         (dp, None, None))
+    routed = [_dispatch_one_group(x_, l_, m, cap) for x_, l_ in zip(xg, lg)]
+    xin = maybe_constrain(torch.stack([r[0] for r in routed]),
+                          (dp, "model", None, None))      # (G, E, cap, D)
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["we1"])) * \
         torch.einsum("gecd,edf->gecf", xin, p["we3"])
-    eo = torch.einsum("gecf,efd->gecd", h, p["we2"])
+    eo = maybe_constrain(torch.einsum("gecf,efd->gecd", h, p["we2"]),
+                         (dp, "model", None, None))
     yf = torch.cat([_combine_one_group(e, *r[1:], tg, d)
                     for e, r in zip(eo, routed)])
 

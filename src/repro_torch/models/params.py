@@ -6,7 +6,10 @@ with the reference's rules (``fan_in``, ``normal`` at 0.02 x scale,
 ``zeros``, ``ones``) from an explicit ``torch.Generator``; its values
 are not JAX's threefry draws, so parity tests carry the reference's own
 parameters across (``repro_torch.convert.params_from_reference``).
-``abstract_params`` and ``axes_tree`` wait for sharding (ROADMAP A9).
+``abstract_params`` describes the parameters without allocating: a
+tensor on the ``meta`` device per leaf, with its sharding description
+(``sharding/logical.py``) as its ``sharding`` attribute where a mesh is
+given, the reference's ``ShapeDtypeStruct`` leaves.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import resolve_device
+from ..sharding.logical import guarded_sharding
 
 
 @dataclass(frozen=True)
@@ -94,6 +98,29 @@ def init_params(specs, generator: torch.Generator, dtype: str,
     return map_specs(one, specs)
 
 
+def abstract(shape: tuple, dtype: torch.dtype, sharding=None):
+    """A ``meta`` tensor standing for an array of ``shape`` and
+    ``dtype``, with ``sharding`` (a description, or None) attached."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    t.sharding = sharding
+    return t
+
+
+def abstract_params(specs, dtype: str, mesh=None, rules=None):
+    """ParamSpec tree -> the same tree of ``meta`` tensors (nothing is
+    allocated), each with its guarded sharding over ``mesh``."""
+    def one(s: ParamSpec):
+        sh = None if mesh is None else guarded_sharding(s.shape, s.axes,
+                                                        rules, mesh)
+        return abstract(s.shape, torch_dtype(s.dtype or dtype), sh)
+
+    return map_specs(one, specs)
+
+
+def axes_tree(specs):
+    return map_specs(lambda s: s.axes, specs)
+
+
 def count_params(specs) -> int:
     return int(sum(int(np.prod(s.shape)) for s in _leaves(specs)))
 
@@ -105,4 +132,5 @@ def tree_bytes(specs, dtype: str) -> int:
 
 
 __all__ = ["ParamSpec", "init_params", "count_params", "tree_bytes",
-           "map_specs", "torch_dtype"]
+           "map_specs", "torch_dtype", "abstract", "abstract_params",
+           "axes_tree"]

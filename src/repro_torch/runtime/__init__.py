@@ -1,1 +1,2 @@
-"""The fault-tolerant training loop (port of ``repro/runtime``)."""
+"""The fault-tolerant training loop and elastic resharding (port of
+``repro/runtime``)."""

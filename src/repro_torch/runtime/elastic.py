@@ -1,0 +1,55 @@
+"""Elastic scaling: rebuild the mesh from the devices that are alive and
+reshard state onto it.
+
+Port of ``repro/runtime/elastic.py``.  ``plan_mesh`` picks the largest
+usable (data, model) grid for the surviving device count (the model
+degree is pinned by the config's divisibility constraints; the data
+axis absorbs the loss); ``reshard_state`` moves every leaf through the
+host onto the new mesh with its sharding description (the checkpoint
+restore, ``ckpt/checkpoint.py``, is mesh-agnostic already).  One
+process holds a leaf whole: the description says how the mesh would
+split it, and the leaf lands on the mesh's first device.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..sharding.logical import LogicalMesh, sharding_for
+from ..train.optim import tree_map
+
+
+def plan_mesh(n_devices: int, model_parallel: int,
+              axis_names=("data", "model")) -> tuple:
+    """Largest (data, model) grid with the pinned model degree."""
+    mp = model_parallel
+    while mp > 1 and n_devices % mp:
+        mp //= 2
+    data = n_devices // mp
+    return (data, mp), axis_names
+
+
+def make_mesh_from(devices: Sequence, model_parallel: int) -> LogicalMesh:
+    shape, names = plan_mesh(len(devices), model_parallel)
+    return LogicalMesh(names, shape, tuple(devices[:shape[0] * shape[1]]))
+
+
+def reshard_state(state, specs_axes, mesh: LogicalMesh, rules: dict):
+    """Every leaf of ``state`` (nested dicts of tensors) through the host
+    onto ``mesh``'s first device (the CPU for a mesh without devices),
+    with ``sharding`` set to its description under ``rules``;
+    ``specs_axes`` holds each leaf's logical axes at the same keys."""
+    dev = torch.device("cpu") if not mesh.devices else mesh.devices[0]
+
+    def one(leaf, axes):
+        sh = sharding_for(axes, rules, mesh)
+        sh.shard_shape(tuple(leaf.shape))       # a spec that fits
+        out = leaf.detach().to("cpu", copy=True).to(dev)
+        out.sharding = sh
+        return out
+
+    return tree_map(one, state, specs_axes)
+
+
+__all__ = ["plan_mesh", "make_mesh_from", "reshard_state"]

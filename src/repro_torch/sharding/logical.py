@@ -1,10 +1,10 @@
-"""Logical-axis sharding rules and the cluster-sharded serving mesh.
+"""Logical-axis sharding rules, the cluster-sharded serving mesh and
+the LM-side sharding descriptions.
 
-Port of ``repro/sharding/logical.py``, the part the index's sharded
-serving uses.  Every tensor is annotated with *logical* axis names and a
-rule table maps them to mesh axes; a spec is a plain tuple with one
-entry per tensor axis (``None``, one mesh axis name, or a tuple of
-names), the reference's ``PartitionSpec`` parts.
+Port of ``repro/sharding/logical.py``.  Every tensor is annotated with
+*logical* axis names and a rule table maps them to mesh axes; a spec is
+a plain tuple with one entry per tensor axis (``None``, one mesh axis
+name, or a tuple of names), the reference's ``PartitionSpec`` parts.
 
 The serving mesh is 1-D, ``("data",)``, one entry per shard: the
 snapshot's ``clusters`` axis splits across it (the reference's
@@ -12,10 +12,16 @@ DESIGN.md §4).  A :class:`Mesh` may name one device several times; that
 runs several shards on one card (or on the CPU), as the reference's
 tests run fake XLA host devices.
 
-The LM-side helpers (``constrain``, ``maybe_constrain``,
-``guarded_sharding``, ``sharding_for``, ``tree_shardings``,
-``set_active_mesh_axes``) wait for the LM's training and MoE paths
-(ROADMAP A14).
+The LM side (the dry-run, the training step, elastic restore) uses an
+N-D :class:`LogicalMesh`: axis names and extents, devices optional (the
+256- and 512-chip production meshes have none).  A "sharding" there is
+a description, :class:`NamedSharding` (a mesh and a spec, with
+``shard_shape``), not a placement: the port runs in one process, and
+:func:`constrain` / :func:`maybe_constrain` return their tensor as it is
+(with one device on every axis, the reference's constraint is the
+identity too; over several devices it changes the layout, never the
+values).  Training over a data axis of several distinct cards in one
+process (GSPMD in the reference) is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -154,4 +160,149 @@ def shardable(dim: int, mesh: Mesh, axis: str = "model") -> bool:
     return dim % mesh.shape[axis] == 0
 
 
-__all__ = ["Mesh", "default_rules", "serving_mesh", "spec_for", "shardable"]
+# ---------------------------------------------------------------- LM side
+@dataclass(frozen=True)
+class LogicalMesh:
+    """An N-D mesh: ``axis_names`` with extents ``axis_sizes``, and
+    optionally its ``devices`` (``torch.device``s, row-major, one per
+    position; a device may repeat, as in :class:`Mesh`)."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    devices: Optional[tuple] = None
+
+    def __post_init__(self):
+        names, sizes = tuple(self.axis_names), tuple(self.axis_sizes)
+        if len(names) != len(sizes) or len(set(names)) != len(names):
+            raise ValueError(f"axes {names} and extents {sizes} do not "
+                             "match")
+        if any(int(n) < 0 for n in sizes):
+            raise ValueError(f"negative extent in {sizes}")
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "axis_sizes", tuple(int(n) for n in sizes))
+        if self.devices is not None:
+            devs = tuple(torch.device(d) for d in self.devices)
+            if len(devs) != self.size:
+                raise ValueError(f"{len(devs)} devices for a mesh of "
+                                 f"{self.size}")
+            object.__setattr__(self, "devices", devs)
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: extent}."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    @property
+    def empty(self) -> bool:
+        return self.size == 0
+
+    def distinct_devices(self, axis: str) -> int:
+        """How many distinct devices one line along ``axis`` holds (the
+        first line; 1 for a mesh without devices, which places
+        nothing)."""
+        if self.devices is None:
+            return 1
+        i = self.axis_names.index(axis)
+        stride = 1
+        for s in self.axis_sizes[i + 1:]:
+            stride *= s
+        return len({self.devices[k * stride]
+                    for k in range(self.axis_sizes[i])})
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A sharding description: ``spec`` (one entry per tensor axis) over
+    ``mesh``'s axes, the reference's ``NamedSharding``."""
+
+    mesh: object
+    spec: tuple
+
+    def shard_shape(self, shape: tuple) -> tuple:
+        """The per-device shape: each dim divided by the extents of the
+        mesh axes its entry names; ``ValueError`` where one does not
+        divide it (as the reference's)."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than "
+                             f"shape {shape}")
+        out = []
+        for i, n in enumerate(shape):
+            e = self.spec[i] if i < len(self.spec) else None
+            names = () if e is None else ((e,) if isinstance(e, str)
+                                          else tuple(e))
+            extent = 1
+            for a in names:
+                extent *= self.mesh.shape[a]
+            if extent and n % extent:
+                raise ValueError(f"dim {i} of {shape} does not divide by "
+                                 f"{extent} ({names})")
+            out.append(n // extent if extent else n)
+        return tuple(out)
+
+
+def guarded_sharding(shape: tuple, axes: tuple, rules: dict,
+                     mesh) -> NamedSharding:
+    return NamedSharding(mesh, spec_for(axes, rules, mesh, shape))
+
+
+def sharding_for(axes: tuple, rules: dict, mesh) -> NamedSharding:
+    return NamedSharding(mesh, spec_for(axes, rules, mesh))
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def tree_shardings(axes_tree, rules: dict, mesh):
+    """Map a nested dict of logical-axes tuples to NamedShardings."""
+    if _is_axes(axes_tree):
+        return sharding_for(axes_tree, rules, mesh)
+    return {k: tree_shardings(v, rules, mesh) for k, v in axes_tree.items()}
+
+
+def constrain(x: torch.Tensor, axes: tuple, rules: Optional[dict], mesh):
+    """Activation sharding constraint by logical axes: ``x`` itself (the
+    values a constraint never changes; one process places nothing).  The
+    spec is resolved, so an axis that does not divide raises as the
+    reference's does.  No-op without a mesh."""
+    if rules is None or mesh is None or mesh.empty:
+        return x
+    sharding_for(axes, rules, mesh).shard_shape(tuple(x.shape))
+    return x
+
+
+# Active-mesh context: model code (the MoE dispatch) adds activation
+# constraints only when the launcher declares the mesh axes it runs
+# under (the dry-run); elsewhere they are no-ops.
+_ACTIVE_AXES: tuple = ()
+
+
+def set_active_mesh_axes(names) -> None:
+    global _ACTIVE_AXES
+    _ACTIVE_AXES = tuple(names or ())
+
+
+def maybe_constrain(x: torch.Tensor, spec_elems: tuple) -> torch.Tensor:
+    """``spec_elems`` filtered to the declared mesh axes, as the
+    reference's; ``x`` itself (see :func:`constrain`)."""
+    if not _ACTIVE_AXES:
+        return x
+    if len(spec_elems) > x.dim():
+        raise ValueError(f"spec {spec_elems} has more entries than "
+                         f"x's {x.dim()} dims")
+    return x
+
+
+__all__ = ["Mesh", "LogicalMesh", "NamedSharding", "default_rules",
+           "serving_mesh", "spec_for", "shardable", "guarded_sharding",
+           "sharding_for", "tree_shardings", "constrain",
+           "set_active_mesh_axes", "maybe_constrain"]

@@ -1,8 +1,9 @@
 """The training step: loss -> grad -> clip -> (compress) -> optimizer
 update.
 
-Port of ``repro/train/step.py`` (``init_state`` ``:21``, ``global_norm``
-``:96``, ``build_train_step`` ``:102-185``).  The state is a dict of
+Port of ``repro/train/step.py`` (``init_state`` ``:21``,
+``abstract_state`` ``:31``, ``global_norm`` ``:96``, ``build_train_step``
+``:102-185``).  The state is a dict of
 ``params``, ``opt`` (the optimizer's state, ``train.optim``), ``step``
 (an int32 0-d tensor on the parameters' device) and ``rng``: a (2,)
 int64 CPU tensor of (seed, counter) from which each step seeds its own
@@ -12,21 +13,30 @@ reference's split key does.  Microbatch gradients accumulate in f32.
 
 The step updates the state's tensors in place (parameters, moments)
 and returns the state: at full width a second copy of either would not
-fit beside the first.  ``dp_axes`` and ``grad_shardings`` (the
-reference's data-parallel constraints) are accepted only as None: the
-LM-side sharding is not ported, and the step runs on one device.
-``abstract_state`` (the dry-run's input) is not ported either.
+fit beside the first.  ``dp_axes`` (the mesh axes of data parallelism:
+each microbatch is constrained to them) and ``grad_shardings`` (a
+sharding description per gradient accumulator, ZeRO-1's) are applied
+through ``sharding.logical.constrain``, which places nothing in one
+process: over a mesh with one card on its data axes they leave every
+value as the step without them gives it.  A data axis over several
+distinct cards (GSPMD in the reference) is not ported: the step raises
+``NotImplementedError`` for it.  ``abstract_state`` (the dry-run's
+input) describes the state on the ``meta`` device.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
 from ..models import zoo
+from ..models.params import ParamSpec, abstract, abstract_params, map_specs
+from ..sharding.logical import constrain, guarded_sharding
 from .compress import int8_compress_decompress
-from .optim import OPTIMIZERS, lr_schedule, tree_leaves, tree_map
+from .optim import (OPTIMIZERS, Q_BLOCK, lr_schedule, tree_leaves,
+                    tree_map)
 
 F32 = torch.float32
 
@@ -40,6 +50,57 @@ def init_state(cfg: ModelConfig, run: RunConfig, params):
         "step": torch.zeros((), dtype=torch.int32, device=some.device),
         "rng": torch.zeros(2, dtype=torch.int64),   # seed 0, counter 0
     }
+
+
+def abstract_state(cfg: ModelConfig, run: RunConfig, specs, mesh=None,
+                   rules=None):
+    """The state as ``meta`` tensors with sharding descriptions — the
+    dry-run's input; nothing is allocated.
+
+    Optimizer moments take their parameter's sharding (same shape);
+    Adafactor's row / column factors shard by the parameter's remaining
+    logical axes; under ZeRO-1 the optimizer state shards over the data
+    axis through the embed dimension, while weights stay TP-only."""
+    def sds(shape, dtype, axes):
+        sh = None if mesh is None else guarded_sharding(tuple(shape), axes,
+                                                        rules, mesh)
+        return abstract(shape, dtype, sh)
+
+    params = abstract_params(specs, cfg.dtype, mesh, rules)
+    if run.zero1 and rules is not None:
+        rules = dict(rules)
+        if rules.get("embed") is None:
+            rules["embed"] = "data"
+
+    if run.optimizer == "adamw":
+        def mom(s):
+            return sds(s.shape, F32, s.axes)
+        opt = {"mu": map_specs(mom, specs), "nu": map_specs(mom, specs),
+               "count": sds((), torch.int32, ())}
+    elif run.optimizer == "adafactor":
+        def fac(s: ParamSpec):
+            if len(s.shape) >= 2:
+                return {"vr": sds(s.shape[:-1], F32, s.axes[:-1]),
+                        "vc": sds(s.shape[:-2] + s.shape[-1:], F32,
+                                  s.axes[:-2] + s.axes[-1:])}
+            return {"v": sds(s.shape, F32, s.axes)}
+        opt = {"v": map_specs(fac, specs), "count": sds((), torch.int32, ())}
+    elif run.optimizer == "adamw8bit":
+        def q(s: ParamSpec):
+            n = int(np.prod(s.shape)) if s.shape else 1
+            blocks = -(-n // Q_BLOCK)
+            return {"mu_q": sds((blocks, Q_BLOCK), torch.int8, (None, None)),
+                    "mu_s": sds((blocks,), F32, (None,)),
+                    "nu_q": sds((blocks, Q_BLOCK), torch.int8, (None, None)),
+                    "nu_s": sds((blocks,), F32, (None,))}
+        opt = {"q": map_specs(q, specs), "count": sds((), torch.int32, ())}
+    else:
+        raise ValueError(run.optimizer)
+    # rng: the port's (seed, counter), int64 (the reference's is a
+    # (2,) uint32 key)
+    return {"params": params, "opt": opt,
+            "step": sds((), torch.int32, ()),
+            "rng": sds((2,), torch.int64, (None,))}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -58,23 +119,63 @@ def step_generator(rng: torch.Tensor, device) -> torch.Generator:
     return gen
 
 
-def _split(batch: dict, mb: int, i: int) -> dict:
-    """Microbatch ``i`` of ``mb``: rows i*B/mb .. (i+1)*B/mb - 1."""
-    return {k: x.reshape((mb, x.shape[0] // mb) + x.shape[1:])[i]
-            for k, x in batch.items()}
+def _split(batch: dict, mb: int, i: int, dp_axes=None, mesh=None) -> dict:
+    """Microbatch ``i`` of ``mb``: rows i*B/mb .. (i+1)*B/mb - 1; with
+    ``dp_axes``, the split constrained to them on its batch axis."""
+    out = {}
+    for k, x in batch.items():
+        y = x.reshape((mb, x.shape[0] // mb) + x.shape[1:])
+        if dp_axes:
+            y = constrain(y, (None, "batch") + (None,) * (y.dim() - 2),
+                          {"batch": tuple(dp_axes)}, mesh)
+        out[k] = y[i]
+    return out
+
+
+def _constrain_to(x: torch.Tensor, sharding) -> torch.Tensor:
+    """``x`` under a sharding description, through ``constrain`` (the
+    spec's entries as their own logical axes)."""
+    if sharding is None:
+        return x
+    spec = sharding.spec
+    return constrain(x, spec, {e: e for e in spec if e is not None},
+                     sharding.mesh)
+
+
+def _data_mesh(dp_axes, grad_shardings, mesh):
+    """The mesh the data-parallel constraints name (``mesh``, else the
+    gradient shardings'), checked to hold one card on each data axis."""
+    if mesh is None and grad_shardings is not None:
+        mesh = next((s.mesh for s in tree_leaves(grad_shardings)
+                     if s is not None), None)
+    if dp_axes and mesh is None:
+        raise ValueError("dp_axes name mesh axes: pass the mesh")
+    if mesh is not None and getattr(mesh, "devices", None) is not None:
+        for ax in set(dp_axes or ()) | {"pod", "data"}:
+            if ax in mesh.axis_names and mesh.distinct_devices(ax) > 1:
+                raise NotImplementedError(
+                    f"training over a data axis {ax!r} of several distinct "
+                    "devices in one process (GSPMD in the reference) is not "
+                    "ported")
+    return mesh
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig,
                      total_steps: int = 10_000,
                      dp_axes: tuple | None = None,
-                     grad_shardings=None) -> Callable:
+                     grad_shardings=None, mesh=None) -> Callable:
     """``(state, batch) -> (state, metrics)``; ``metrics`` holds the
     0-d tensors ``loss``, ``grad_norm``, ``lr`` and the loss's own
-    (``nll``, and ``load_balance`` / ``router_z`` for the LM families)."""
-    if dp_axes is not None or grad_shardings is not None:
-        raise NotImplementedError(
-            "dp_axes / grad_shardings: the LM-side sharding is not ported; "
-            "the step runs on one device")
+    (``nll``, and ``load_balance`` / ``router_z`` for the LM families).
+
+    ``dp_axes``: mesh axis names carrying data parallelism, each
+    microbatch constrained to them (the reference's re-constraint at
+    the microbatch reshape).  ``grad_shardings``: a tree of sharding
+    descriptions for the f32 gradient accumulators (ZeRO-1).  ``mesh``
+    (a ``sharding.logical.LogicalMesh``) is the mesh ``dp_axes`` name,
+    the reference's ambient ``with mesh:``; without it, the gradient
+    shardings' mesh."""
+    mesh = _data_mesh(dp_axes, grad_shardings, mesh)
     loss_fn = zoo.loss_fn(cfg)
     _, opt_update = OPTIMIZERS[run.optimizer]
     sched = lr_schedule(run.learning_rate, total=total_steps)
@@ -82,6 +183,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
     def grads_of(params, batch):
         """(loss, metrics, grads in the leaves' sorted-key order)."""
         leaves = tree_leaves(params)
+        shards = [None] * len(leaves) if grad_shardings is None \
+            else tree_leaves(grad_shardings)
         for p in leaves:
             p.requires_grad_(True)
         if run.microbatches <= 1:
@@ -92,13 +195,16 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         # gradient accumulation: activation memory / microbatches; the
         # f32 accumulator is params-shaped
         mb = run.microbatches
-        g_acc = [torch.zeros(p.shape, dtype=F32, device=p.device)
-                 for p in leaves]
+        g_acc = [_constrain_to(torch.zeros(p.shape, dtype=F32,
+                                           device=p.device), s)
+                 for p, s in zip(leaves, shards)]
         l_acc, m_acc = torch.zeros((), dtype=F32, device=leaves[0].device), {}
         for i in range(mb):
-            loss, metrics = loss_fn(params, _split(batch, mb, i))
-            for a, g in zip(g_acc, torch.autograd.grad(loss, leaves)):
-                a.add_(g.to(F32))
+            loss, metrics = loss_fn(params, _split(batch, mb, i, dp_axes,
+                                                   mesh))
+            for a, g, s in zip(g_acc, torch.autograd.grad(loss, leaves),
+                               shards):
+                _constrain_to(a.add_(g.to(F32)), s)
             l_acc = l_acc + loss.detach()
             for k, v in metrics.items():
                 m_acc[k] = m_acc.get(k, 0.0) + v.detach()

@@ -497,11 +497,21 @@ def test_microbatched_grads_match_full():
 
 
 def test_step_rejects_sharding_arguments():
+    """``dp_axes`` / ``grad_shardings`` run over a mesh with one card on
+    its data axes (tests/test_torch_launch.py); a data axis over several
+    distinct cards (GSPMD in the reference) is refused, and so are
+    ``dp_axes`` with no mesh to name."""
+    from repro_torch.sharding.logical import LogicalMesh, NamedSharding
     cfg = get_arch("llama3-8b").reduced()
-    with pytest.raises(NotImplementedError, match="sharding"):
+    two = LogicalMesh(("data", "model"), (2, 1),
+                      (torch.device("cpu"), torch.device("cuda", 0)))
+    with pytest.raises(NotImplementedError, match="data axis"):
+        build_train_step(cfg, RunConfig(), dp_axes=("data",), mesh=two)
+    with pytest.raises(NotImplementedError, match="data axis"):
+        build_train_step(cfg, RunConfig(),
+                         grad_shardings={"w": NamedSharding(two, ("data",))})
+    with pytest.raises(ValueError, match="mesh"):
         build_train_step(cfg, RunConfig(), dp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        build_train_step(cfg, RunConfig(), grad_shardings={})
 
 
 def test_int8_step_replays_from_its_counter():

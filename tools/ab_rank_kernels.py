@@ -20,6 +20,9 @@ on inputs made from ``--seed`` at the query path's shapes:
 
 The turns, the means with B / A and the bit-for-bit check of the
 outputs (hashes of rank, rid, dq and the ranks) are ``tools/abba.py``'s.
+The wrappers run under ``--autotune`` (``abba.py``; default off); the
+bare launches of a tree whose kernels take a tile take its static tile
+(``static_tile``).
 """
 from __future__ import annotations
 
@@ -60,6 +63,17 @@ def inputs(seed: int, device):
             [put(a) for a in (q, piv, pcoef, plo, phi, pn, rg)])
 
 
+def static_tile(kernel: str) -> tuple:
+    """The tree's static tile as a bare launch's last ints
+    (``autotune.tile_args``): () for a tree whose entry points take no
+    tile (before the autotuner)."""
+    try:
+        from repro_torch.kernels.autotune import tile_args
+    except ImportError:
+        return ()
+    return tile_args(kernel)
+
+
 def digest(*ts) -> str:
     h = hashlib.sha256()
     for t in ts:
@@ -81,18 +95,20 @@ def worker(tree: Path, seed: int) -> dict:
     ptrs = [t.data_ptr() for t in (x, coef, lo, hi, n, *outs)]
     out["rankeval_wrapper_ms"] = time_ms(
         lambda: ops.rankeval(x, coef, lo, hi, n, N_RINGS), 50)
+    ptrs += [G, NC, C, N_RINGS, *static_tile("rankeval")]
     out["rankeval_bare_ms"] = time_ms(
-        lambda: _cuda.launch("rankeval", *ptrs, G, NC, C, N_RINGS,
-                             device=dev), 50)
+        lambda: _cuda.launch("rankeval", *ptrs, device=dev), 50)
 
     fused = ops.pdist_rankeval(*pargs, n_rings=N_RINGS)
     out["pdist_rankeval_hash"] = digest(*fused)
 
+    tile = static_tile("pdist_rankeval")
+
     def bare_at(b, g):
         res = torch.empty(3, g, b, dtype=torch.int32, device=dev)
         p = [t.data_ptr() for t in (*pargs, *res)]
-        return lambda: _cuda.launch("pdist_rankeval", *p, b, g, D, C,
-                                    N_RINGS, device=dev)
+        p += [b, g, D, C, N_RINGS, *tile]
+        return lambda: _cuda.launch("pdist_rankeval", *p, device=dev)
 
     call = (lambda: ops.pdist_rankeval(*pargs, n_rings=N_RINGS))
     out["pdist_rankeval_wrapper_ms"] = time_ms(call, 1000)

@@ -8,13 +8,16 @@ on ``sys.path`` and prints the worker's JSON dict, so every turn imports
 and builds its own tree's kernels.  The parent prints each turn's dict,
 the card's name and power limit, each ``*_ms`` / ``*_us`` key's mean over
 the A and the B turns with B / A, and whether every ``*_hash`` key is
-equal across the turns.  It exits 2 without a card, 1 if a turn fails or
-the outputs differ.
+equal across the turns.  ``--autotune`` sets every turn's
+``REPRO_AUTOTUNE`` (default ``off``; ``on`` is the port's default, under
+which a tree with a tuning table reads it on every launch).  It exits 2
+without a card, 1 if a turn fails or the outputs differ.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +31,8 @@ def main(worker, doc: str, script: str, argv=None) -> int:
     ap.add_argument("--a", type=Path, required=True, help="tree A")
     ap.add_argument("--b", type=Path, default=ROOT, help="tree B")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--autotune", choices=("off", "on"), default="off",
+                    help="REPRO_AUTOTUNE of every turn (default off)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -49,7 +54,8 @@ def main(worker, doc: str, script: str, argv=None) -> int:
         res = subprocess.run(
             [sys.executable, script, "--a", str(args.a), "--seed",
              str(args.seed), "--worker", str(tree)],
-            capture_output=True, text=True)
+            capture_output=True, text=True,
+            env=dict(os.environ, REPRO_AUTOTUNE=args.autotune))
         if res.returncode != 0:
             print(f"{tool}: turn {side} ({tree}) failed:\n"
                   f"{res.stdout}{res.stderr}", file=sys.stderr)
@@ -57,7 +63,7 @@ def main(worker, doc: str, script: str, argv=None) -> int:
         row = json.loads(res.stdout.strip().splitlines()[-1])
         print(f"{side} {json.dumps(row)}", flush=True)
         turns[side].append(row)
-    print(f"card: {smi}")
+    print(f"card: {smi}; REPRO_AUTOTUNE={args.autotune}")
     first, rows = turns["A"][0], turns["A"] + turns["B"]
     same = all(r[k] == first[k] for r in rows for k in first
                if k.endswith("_hash"))
