@@ -4,11 +4,12 @@ loop, index builder, serving lifecycle, paged storage tier,
 cluster-sharded executor, replica-set serving frontend and LM serving
 path (dense, then the moe, ssm, hybrid, vlm and encdec families), the
 paper's baselines beside the executor, and LM training on one CUDA card
-(or more, for the sharded phase's mesh and the frontend's replicas).
+(or more, for the sharded phase's mesh, the frontend's replicas and the
+data-parallel training step's ranks).
 
     python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only |
-                          --families-only | --train-only]
+                          --families-only | --train-only | --dp-only]
 
 Phases, each printing lines that start with its name:
 
@@ -384,6 +385,40 @@ Phases, each printing lines that start with its name:
             injected at step 6: it ends at step 12 with one restart, and
             its losses, first pass and replay, equal (a)'s within
             2**-7; (c) 3 steps each of Adafactor and 8-bit Adam.
+17. dp      (after train; --dp-only runs phases 1, 2 and this one) the
+            training step data-parallel over processes (launch.ranks,
+            one rank a card).  At count >= 2: count NCCL ranks at
+            train:'s width and depth, a global batch of 4 x count rows
+            (TokenPipeline's DataShard draws) in 4 microbatches; every
+            rank first takes the one-card step on that batch in 4 x
+            count microbatches of one row (each row's bf16 gradient
+            rounded as on the ranks), keeping its state after
+            DP_EQUAL_STEPS steps on the host, and rank 0 the one-card
+            step at 4 rows; then DP_STEPS timed
+            AdamW steps of plain DP and of ZeRO-1 on every rank: every
+            step's loss within 2**-7 of the one-card step's, the grad
+            norms of the first DP_EQUAL_STEPS steps within 2**-8 and
+            later ones within DP_LATE_NORM_REL, and after those steps
+            the parameters', mu's and nu's L2 distance from the
+            one-card state within DP_STATE_REL,
+            flash_attention 2 x layers x microbatches a step on each
+            rank, optimizer state and accumulator bytes equal to
+            abstract_state's and the gradient shardings'; ms a
+            step, tokens/s, the scaling against count x the one-card
+            rate at 4 rows, and per rank one step under torch.profiler
+            (NCCL kernel ms, flash ms a launch, device time, peak beside
+            the dry-run's memory model).  At one card (NCCL takes one
+            card a rank; the CUT line says so): (a) a NCCL group of one
+            in this process on train:'s state and batch, bit-equal to
+            the plain step, and one step of it profiled; (b) two gloo
+            ranks on the card at the reduced f32 config (matrices x
+            DP_GLOO_SCALE; started before (a), in a thread, so their
+            start-up overlaps it, and ended before (a)'s profiled step
+            runs, alone on the card), plain DP and ZeRO-1 within
+            DP_GLOO_REL of the one-process step, beside that step's
+            distance from the same step on the CPU at the fan_in
+            weights and at DP_GLOO_SCALE; a collective gloo lacks for
+            CUDA tensors cuts its mode on a CUT line.
 
 The whole run, the build included, must end within 1,200 s; the
 ``total:`` line prints its seconds.  Before the last line it prints the
@@ -513,6 +548,34 @@ TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = 4_096, 8, 4, 1e-2
 TRAIN_STEPS, FAULT_STEPS, FAULT_EVERY, FAULT_AT, OTHER_STEPS = 8, 12, 4, 6, 3
 TRAIN_REPLAY_REL, TRAIN_GRAD_REL, TRAIN_F32_REL = 2.0 ** -7, 2.0 ** -8, 2e-3
+# dp: DP_STEPS timed steps of each mode (plus one profiled); (b)'s bar
+# on two gloo ranks against the one-process step, f32, over DP_GLOO_STEPS
+# steps (the warm-up's lr is 0 at step 0: both steps' metrics read the
+# initial parameters, the second's update shows in the parameters; a
+# third step's metrics would read Adam's first, sign-like update, where
+# f32 rounding flips near-zero gradient elements by +-lr, and the
+# reduced model's sharpness parts them by ~1 relative)
+DP_STEPS, DP_GLOO_STEPS, DP_GLOO_REL = 3, 2, 1e-5
+# over cards the one-card step takes the global batch one row a
+# microbatch, so each row's bf16 gradient rounds as on the ranks and only
+# the order of the f32 sums differs.  Every step's loss is held to
+# train:'s bar, and so are the grad norms of the first DP_EQUAL_STEPS
+# steps, whose metrics read the initial weights (lr 0 at step 0).  The
+# state after them (Adam's first update) is held by L2 distance to the
+# one-card state: the parameters over that state's own move from the
+# initial ones, mu and nu over their norm, within DP_STATE_REL (a wrong
+# chunk or moment update reads ~1).  A later step's grad norm reads the
+# weights after that sign-like update of bf16 weights, where a 1e-5
+# difference in the gradient parted it by 1.01% (PERF.md): held
+# within DP_LATE_NORM_REL, above the 0.94-3.40% readings
+DP_EQUAL_STEPS, DP_STATE_REL, DP_LATE_NORM_REL = 2, 2.0 ** -5, 2.0 ** -4
+# (b)'s matrices (every leaf of 2 or more dims) scaled by DP_GLOO_SCALE:
+# at the fan_in weights the reduced model's gradient norm is ~1,172 and
+# f32 arithmetic alone moves it by 4.2e-4 (the one-process step on the
+# card against the same step on the CPU), past any 1e-5 comparison; at
+# half the scale it is ~15.7 and the two agree within 6.1e-8 (PERF.md).
+# The phase prints that reading beside its own.
+DP_GLOO_SCALE = 0.5
 
 LM_ARCH = "llama3-8b"
 # (a)'s cut depth, and its bar on max |diff| relative to the compared
@@ -5344,6 +5407,566 @@ def phase_train(seed: int) -> dict:
     return row
 
 
+# ----------------------------------------------------------------------- dp
+def moments_fingerprint(tree) -> list:
+    """One int64 a leaf: the sum of its elements' 32-bit patterns (equal
+    bits give equal sums) -- a comparison of f32 moments without a host
+    copy of them."""
+    from repro_torch.train import optim
+    return [int(t.detach().contiguous().view(torch.int32).to(torch.int64)
+                .sum()) for t in optim.tree_leaves(tree)]
+
+
+def dp_group_of_one(seed: int, before_profile) -> None:
+    """(a) at one card: train:'s full-width step in a NCCL group of one
+    process (the data-parallel path, its collectives over one rank)
+    bit-equal to the plain step from the same state and batch; then
+    ``before_profile()`` (which ends every other process on the card)
+    and one more step under torch.profiler."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import process_group
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                    microbatches=TRAIN_MICRO)
+    batch = train_batches(cfg)(1)
+    t0 = time.perf_counter()
+    state = train_state(cfg, run, seed)
+    state["step"].fill_(1)                    # lr 1e-4: the update shows
+    state, m = build_train_step(cfg, run, total_steps=FAULT_STEPS)(state,
+                                                                   batch)
+    want_m = {k: float(v) for k, v in m.items()}
+    want_p = [p.detach().cpu() for p in optim.tree_leaves(state["params"])]
+    want_o = moments_fingerprint(state["opt"])
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d, \
+            process_group("nccl", 1, 0, os.path.join(d, "rendezvous"),
+                          device=DEVICE + ":0"):
+        mesh = make_host_mesh()
+        state = train_state(cfg, run, seed)
+        state["step"].fill_(1)
+        step = build_train_step(cfg, run, total_steps=FAULT_STEPS, mesh=mesh)
+        _cuda.reset_launches()
+        state, m = step(state, batch)
+        sync()
+        launches = dict(_cuda.LAUNCHES)
+        got_m = {k: float(v) for k, v in m.items()}
+        same_p = all(torch.equal(a.detach().cpu(), b) for a, b in
+                     zip(optim.tree_leaves(state["params"]), want_p))
+        same_o = moments_fingerprint(state["opt"]) == want_o
+        before_profile()
+        wall, busy, top = device_busy(lambda: step(state, batch), n_top=None)
+        del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = 2 * TRAIN_LAYERS * TRAIN_MICRO
+    check(launches.get("flash_attention", 0) == per_step,
+          f"dp: (a) flash_attention launched {launches} in the group's "
+          f"step, not {per_step}")
+    check(got_m == want_m and same_p and same_o,
+          f"dp: (a) the NCCL group of one's step differs from the plain "
+          f"step: metrics {got_m} / {want_m}, params equal {same_p}, "
+          f"moments equal {same_o}")
+    print(f"dp: (a) a NCCL group of one process (file:// rendezvous, "
+          f"make_host_mesh over its ranks) on {TRAIN_ARCH} at full width, "
+          f"{TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{TRAIN_MICRO} microbatches, AdamW: the data-parallel step (batch "
+          f"gathered, loss sums and one f32 accumulator all-reduce over the "
+          f"group) bit-equal to the plain step: loss {got_m['loss']!r}, "
+          f"grad_norm {got_m['grad_norm']!r}, every parameter and AdamW "
+          f"moment equal; flash_attention {launches['flash_attention']} "
+          f"launches (2 x {TRAIN_LAYERS} layers x {TRAIN_MICRO} "
+          f"microbatches); {time.perf_counter() - t0:.1f} s", flush=True)
+    flash = sum(t for n, t in top if "flash" in n.lower())
+    nccl = sum(t for n, t in top if "nccl" in n.lower())
+    print(f"dp: (a) one more step of the group under torch.profiler: "
+          f"device kernel time {busy:.1f} ms of {wall:.1f} ms wall "
+          f"({100 * busy / wall:.2f}%), NCCL kernels {nccl:.3f} ms; "
+          f"flash_attention at ({TRAIN_BATCH // TRAIN_MICRO}, "
+          f"{cfg.n_q_heads}, {TRAIN_SEQ}, {cfg.hd}) {flash:.3f} ms over its "
+          f"{per_step} launches, {flash / per_step:.4f} ms a launch (row "
+          f"5-train's shape)", flush=True)
+
+
+DP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "broadcast")
+DP_NEEDS = {"plain": ("all_reduce", "all_gather_into_tensor"),
+            "zero1": ("all_reduce", "all_gather_into_tensor",
+                      "reduce_scatter_tensor")}
+
+
+def dp_reduced_cfg():
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(TRAIN_ARCH).reduced(),
+                               dtype="float32", remat="selective")
+
+
+def dp_gloo_rank(rank, device, params, batch, modes):
+    """(b)'s rank body: gloo's collectives probed on CUDA tensors, then
+    DP_STEPS steps of each mode whose collectives gloo has."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data.pipeline import DataShard, shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    missing = {}
+    for name in DP_COLLECTIVES:
+        x = torch.ones(4, device=device)
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x)
+            elif name == "broadcast":
+                dist.broadcast(x, 0)
+            elif name == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(torch.empty(8, device=device), x)
+            else:
+                dist.reduce_scatter_tensor(torch.empty(2, device=device), x)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            missing[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    cfg = dp_reduced_cfg()
+    mesh = make_host_mesh(device=device)
+    local = {k: v.to(device) for k, v in
+             shard_rows(batch, DataShard(rank, 2)).items()}
+    out = {"missing": missing}
+    for mode in modes:
+        if any(n in missing for n in DP_NEEDS[mode]):
+            continue
+        run = RunConfig(learning_rate=1e-3, microbatches=2,
+                        zero1=mode == "zero1")
+        state = init_state(cfg, run, params_from_reference(params,
+                                                           device=device),
+                           mesh=mesh)
+        step = build_train_step(cfg, run, mesh=mesh)
+        _cuda.reset_launches()
+        ms = []
+        for _ in range(DP_GLOO_STEPS):
+            state, m = step(state, local)
+            ms.append({k: float(v) for k, v in m.items()})
+        out[mode] = (ms, [p.detach().cpu() for p in
+                          optim.tree_leaves(state["params"])],
+                     dict(_cuda.LAUNCHES))
+    return out
+
+
+def dp_reduced_inputs(seed: int, scale: float):
+    """(b)'s parameters (every matrix x ``scale``) and batch, on the
+    host."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim
+    cfg = dp_reduced_cfg()
+    params = optim.tree_map(
+        lambda p: p * scale if p.dim() >= 2 else p,
+        init_params(zoo.model_specs(cfg), torch.Generator().manual_seed(seed),
+                    "float32", device="cpu"))
+    batch = zoo.make_batch(cfg, ShapeCell("t", 64, 4, "train"), seed,
+                           device="cpu")
+    batch["labels"][0, :40] = -1          # the ranks' label counts differ
+    return params, batch
+
+
+def dp_gloo_start(seed: int):
+    """(b) at one card, started: two gloo ranks on the card (NCCL refuses
+    two ranks on one device) in a thread of this process, so their
+    start-up overlaps (a); ``dp_gloo_join`` ends them before (a)'s
+    profiled step."""
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.train import optim
+    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
+    host = optim.tree_map(lambda p: p.numpy().copy(), params)
+    out = {}
+
+    def work():
+        try:
+            out["got"] = run_ranks(dp_gloo_rank, 2,
+                                   (host, batch, ("plain", "zero1")),
+                                   backend="gloo",
+                                   devices=[DEVICE + ":0"] * 2,
+                                   timeout_s=600)
+        except BaseException as e:      # re-raised by dp_gloo_finish
+            out["error"] = e
+    thread = threading.Thread(target=work, name="dp-gloo", daemon=True)
+    thread.start()
+    return thread, out, time.perf_counter()
+
+
+def dp_gloo_join(pending) -> None:
+    """Wait for (b)'s gloo ranks to end (and their processes with
+    them)."""
+    thread, out, _ = pending
+    thread.join(timeout=660)
+    check(not thread.is_alive(), "dp: (b) the gloo ranks did not end")
+    if "error" in out:
+        raise out["error"]
+
+
+def dp_gloo_finish(seed: int, pending) -> None:
+    """(b), finished: plain DP and ZeRO-1 on the two gloo ranks held to
+    the one-process step on the card at DP_GLOO_REL, beside a reading
+    of the f32 conditioning (the one-process step on the card against
+    the same step on the CPU, at the fan_in weights and at
+    DP_GLOO_SCALE)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    _, out, t0 = pending
+    cfg = dp_reduced_cfg()
+    run = RunConfig(learning_rate=1e-3, microbatches=2)
+    step = build_train_step(cfg, run)
+    one, spread = {}, {}
+    for scale in (1.0, DP_GLOO_SCALE):
+        params, batch = dp_reduced_inputs(seed, scale)
+        for dev in (DEVICE, "cpu"):
+            state = init_state(cfg, run, optim.tree_map(
+                lambda p: p.to(dev, copy=True), params))
+            ms = []
+            for _ in range(DP_GLOO_STEPS):
+                state, m = step(state, {k: v.to(dev)
+                                        for k, v in batch.items()})
+                ms.append({k: float(v) for k, v in m.items()})
+            one[scale, dev] = (ms, [p.detach().cpu() for p in
+                                    optim.tree_leaves(state["params"])])
+            del state
+        card, cpu = one[scale, DEVICE][0][0], one[scale, "cpu"][0][0]
+        spread[scale] = (card["grad_norm"], abs(
+            card["grad_norm"] - cpu["grad_norm"]) / card["grad_norm"])
+    want, want_p = one[DP_GLOO_SCALE, DEVICE]
+    print(f"dp: (b) the one-process step at the reduced {TRAIN_ARCH}: grad "
+          f"norm on the card, and its distance from the same step on the "
+          f"CPU (a reading of the f32 conditioning, not a check): "
+          + "; ".join(f"matrices x {sc}: {g:.4f}, {d:.3g}"
+                      for sc, (g, d) in spread.items()), flush=True)
+    dp_gloo_join(pending)
+    got = out["got"]
+    missing = got[0]["missing"]
+    if missing:
+        print("dp: CUT: (b) gloo lacks on CUDA tensors: " + "; ".join(
+            f"{n} ({why})" for n, why in missing.items()), flush=True)
+    ran = [mode for mode in ("plain", "zero1") if mode in got[0]]
+    for mode in ("plain", "zero1"):
+        if mode not in ran:
+            print(f"dp: CUT: (b) {mode} not run on two gloo ranks on the "
+                  f"card: it needs "
+                  f"{', '.join(n for n in DP_NEEDS[mode] if n in missing)}",
+                  flush=True)
+    for mode in ran:
+        worst_m = worst_p = 0.0
+        for r in got:
+            ms, ps, launches = r[mode]
+            check(launches.get("flash_attention", 0) > 0,
+                  f"dp: (b) {mode}: no flash_attention launch on a rank "
+                  f"({launches})")
+            for g, w in zip(ms, want):
+                worst_m = max([worst_m] + [abs(g[k] - w[k]) / max(abs(w[k]),
+                                                                  1e-30)
+                                           for k in w])
+            worst_p = max([worst_p] + [
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(ps, want_p)])
+        check(worst_m <= DP_GLOO_REL and worst_p <= DP_GLOO_REL,
+              f"dp: (b) {mode} on two gloo ranks differs from the "
+              f"one-process step: metrics {worst_m:.3g}, params "
+              f"{worst_p:.3g} (bar {DP_GLOO_REL:g})")
+        print(f"dp: (b) {mode} on two gloo ranks on the card (reduced "
+              f"{TRAIN_ARCH}, f32, matrices x {DP_GLOO_SCALE}, 4 x 64 tokens "
+              f"in 2 microbatches, labels "
+              f"masked unevenly, {DP_GLOO_STEPS} steps): metrics within "
+              f"{worst_m:.3g} and parameters within {worst_p:.3g} of their "
+              f"scale of the one-process step on the card (bar "
+              f"{DP_GLOO_REL:g}); flash_attention launches per rank "
+              f"{[r[mode][2].get('flash_attention', 0) for r in got]}",
+              flush=True)
+    print(f"dp: (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def dp_nccl_rank(rank, device, seed, world, cfg, seq):
+    """The W-card rank body (``cfg`` at ``seq`` tokens a row): every rank
+    first takes the one-card step on the global batch (one row a
+    microbatch) and keeps its state on the host, rank 0 also the
+    one-card step at the per-card rows; then every rank runs DP_STEPS
+    timed steps of plain DP and of ZeRO-1, measures its state's distance
+    from the one-card state, and runs one more step under
+    torch.profiler."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.data.pipeline import DataShard, _batch_for_step
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import collective
+    from repro_torch.sharding.logical import LogicalMesh, default_rules
+    from repro_torch.train import optim
+    from repro_torch.train.step import (abstract_state, build_train_step,
+                                        init_state, zero1_grad_shardings)
+    rows = TRAIN_MICRO * world                  # one row a microbatch a card
+    on_card = device.type == "cuda"
+
+    def draw(s, shard):
+        return {k: torch.from_numpy(v).to(device) for k, v in
+                _batch_for_step(s, shard, cfg.vocab, rows, seq).items()}
+
+    def wait():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def initial():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_params(zoo.model_specs(cfg), gen, cfg.dtype,
+                           device=device)
+
+    def fresh(run, mesh=None):
+        return init_state(cfg, run, initial(), mesh=mesh)
+
+    def timed(step, state, batches):
+        losses, norms, times = [], [], []
+        for b in batches:
+            wait()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        return state, losses, norms, times
+
+    def leaves(state):
+        return [optim.tree_leaves(state["params"]),
+                optim.tree_leaves(state["opt"]["mu"]),
+                optim.tree_leaves(state["opt"]["nu"])]
+
+    def distances(state, one):
+        """Relative L2 distances of this mode's parameters (over the
+        one-card step's own move from the initial parameters), mu and nu
+        (over the one-card moments' norm) from the one-card state; a
+        ZeRO-1 chunk against its chunk of the one-card leaf, a whole
+        leaf counted on rank 0, summed over the ranks."""
+        sums = torch.zeros(3, 2, dtype=torch.float64, device=device)
+        base = [optim.tree_leaves(initial()), None, None]
+        for i, (mine, theirs) in enumerate(zip(leaves(state), one)):
+            for j, (a, b) in enumerate(zip(mine, theirs)):
+                sh = collective.shard_of(a)
+                if sh is None and rank != 0:
+                    continue
+                b = b.to(device)
+                ref = (b if base[i] is None else base[i][j]).to(torch.float32)
+                b = b.to(torch.float32)
+                if sh is not None:
+                    b, ref = sh.of(b), sh.of(ref)
+                sums[i, 0] += torch.sum((a.detach().float() - b) ** 2)
+                sums[i, 1] += torch.sum((b - ref) ** 2 if base[i] is not None
+                                        else b ** 2)
+                del b, ref
+        del base
+        dist.all_reduce(sums)
+        return [float(x) for x in torch.sqrt(sums[:, 0] / sums[:, 1])]
+
+    out = {"device": str(device)}
+    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                    microbatches=TRAIN_MICRO)
+    # the one-card step on the global batch, one row a microbatch: each
+    # row's bf16 gradient is then rounded as on the ranks, and only the
+    # order of the f32 sums differs (on every rank, which keeps its state
+    # on the host to hold its own against it)
+    glob = [{k: torch.cat([draw(s, DataShard(r, world))[k]
+                           for r in range(world)])
+             for k in ("tokens", "labels")} for s in range(DP_STEPS)]
+    run_one = dataclasses.replace(run, microbatches=rows)
+    step = build_train_step(cfg, run_one, total_steps=FAULT_STEPS)
+    state, *first = timed(step, fresh(run_one), glob[:DP_EQUAL_STEPS])
+    one = [[t.detach().to("cpu", copy=True) for t in part]
+           for part in leaves(state)]             # the step updates in place
+    state, *rest = timed(step, state, glob[DP_EQUAL_STEPS:])
+    out["one_loss"], out["one_norm"], out["one_times"] = (
+        a + b for a, b in zip(first, rest))
+    del glob, state, step
+    gc.collect()
+    if rank == 0:
+        step = build_train_step(cfg, run, total_steps=FAULT_STEPS)
+        per = [draw(s, DataShard(0, world)) for s in range(DP_STEPS)]
+        _, _, _, out["per_card_times"] = timed(step, fresh(run), per)
+        del step, per
+        gc.collect()
+    dist.barrier()
+    mesh = make_host_mesh(device=device)
+    local = [draw(s, DataShard(rank, world)) for s in range(DP_STEPS + 1)]
+    desc = LogicalMesh(("data", "model"), (world, 1))
+    for mode in ("plain", "zero1"):
+        run_m = dataclasses.replace(run, zero1=mode == "zero1")
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        state = fresh(run_m, mesh)
+        step = build_train_step(cfg, run_m, total_steps=FAULT_STEPS,
+                                mesh=mesh)
+        _cuda.reset_launches()
+        state, *first = timed(step, state, local[:DP_EQUAL_STEPS])
+        dists = distances(state, one)
+        state, *rest = timed(step, state, local[DP_EQUAL_STEPS:DP_STEPS])
+        losses, norms, times = (a + b for a, b in zip(first, rest))
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for t in optim.tree_leaves(state["opt"]))
+        acc_bytes = step.held["grad_acc_bytes"]
+        wall, busy, top = device_busy(
+            lambda: step(state, local[DP_STEPS]), n_top=None) if on_card \
+            else (1.0, 0.0, [])                 # no device time to read
+        nccl = sum(t for n, t in top if "nccl" in n.lower())
+        flash = sum(t for n, t in top if "flash" in n.lower())
+        specs = zoo.model_specs(cfg)
+        ab = abstract_state(cfg, run_m, specs, desc, default_rules())
+        want_opt = sum(int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
+                       * t.element_size() for t in
+                       optim.tree_leaves(ab["opt"]))
+        shardings = optim.tree_leaves(zero1_grad_shardings(cfg, run_m, desc))
+        want_acc = sum(int(np.prod(s.shard_shape(tuple(p.shape)))) * 4
+                       if mode == "zero1" else p.numel() * 4
+                       for p, s in zip(optim.tree_leaves(ab["params"]),
+                                       shardings))
+        rec = analyze_cell(cfg.name, "train_4k", False, cfg=cfg, run=run_m,
+                           cell=ShapeCell("train_4k", seq, rows, "train"),
+                           mesh=desc)
+        out[mode] = dict(loss=losses, norm=norms, times=times, dists=dists,
+                         launches=launches, peak=peak, opt_bytes=opt_bytes,
+                         acc_bytes=acc_bytes, want_opt=want_opt,
+                         want_acc=want_acc, wall_ms=wall, busy_ms=busy,
+                         nccl_ms=nccl, flash_ms=flash,
+                         model_bytes=rec["mem"]["bytes"]["total"],
+                         top=[(n, round(t, 3)) for n, t in top[:6]])
+        del state, step
+        gc.collect()
+    return out
+
+
+def dp_over_cards(seed: int, world: int) -> None:
+    """At count >= 2: W NCCL ranks, one card each, at train:'s full
+    width and depth, plain DP and ZeRO-1 against the one-card step on
+    the same global batch."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    rows = TRAIN_MICRO * world
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    got = run_ranks(dp_nccl_rank, world, (seed, world, cfg, TRAIN_SEQ),
+                    timeout_s=900)
+    one = got[0]
+    tokens = rows * TRAIN_SEQ
+    one_rate = TRAIN_MICRO * TRAIN_SEQ / float(np.median(
+        one["per_card_times"]))
+    print(f"dp: {world} NCCL ranks, one card each; {TRAIN_ARCH} at full "
+          f"width, {TRAIN_LAYERS} layers, a global batch of {rows} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches ({TRAIN_MICRO} "
+          f"rows a card); the one-card step on that batch in {rows} "
+          f"microbatches of one row (each row's bf16 gradient rounded as on "
+          f"the ranks): losses {one['one_loss']}, grad norms "
+          f"{one['one_norm']}, ms a step "
+          f"{[round(t * 1e3, 1) for t in one['one_times']]}; at "
+          f"{TRAIN_MICRO} rows on one card: ms a step "
+          f"{[round(t * 1e3, 1) for t in one['per_card_times']]}, "
+          f"{one_rate:.1f} tokens/s", flush=True)
+    per_step = 2 * TRAIN_LAYERS * TRAIN_MICRO
+    for mode in ("plain", "zero1"):
+        rel_l = rel_g = rel_late = 0.0
+        for r, res in enumerate(got):
+            m = res[mode]
+            check(m["launches"].get("flash_attention", 0)
+                  == DP_STEPS * per_step,
+                  f"dp: {mode} rank {r}: launches {m['launches']}, not "
+                  f"{DP_STEPS} x {per_step} flash_attention")
+            rel_l = max([rel_l] + [abs(a - b) / abs(b) for a, b in
+                                   zip(m["loss"], res["one_loss"])])
+            norm_rel = [abs(a - b) / abs(b) for a, b in
+                        zip(m["norm"], res["one_norm"])]
+            rel_g = max([rel_g] + norm_rel[:DP_EQUAL_STEPS])
+            rel_late = max([rel_late] + norm_rel[DP_EQUAL_STEPS:])
+            check(rel_l <= TRAIN_REPLAY_REL and rel_g <= TRAIN_GRAD_REL
+                  and rel_late <= DP_LATE_NORM_REL,
+                  f"dp: {mode} rank {r}: losses {m['loss']} / grad norms "
+                  f"{m['norm']} part from the one-card step's by "
+                  f"{rel_l:.3g} / {rel_g:.3g} (the first {DP_EQUAL_STEPS} "
+                  f"steps), {rel_late:.3g} (later) (bars "
+                  f"{TRAIN_REPLAY_REL:g}, {TRAIN_GRAD_REL:g}, "
+                  f"{DP_LATE_NORM_REL:g})")
+            check(max(m["dists"]) <= DP_STATE_REL,
+                  f"dp: {mode} rank {r}: parameters / mu / nu after "
+                  f"{DP_EQUAL_STEPS} steps part from the one-card step's by "
+                  f"{m['dists']} (bar {DP_STATE_REL:g})")
+            check(m["opt_bytes"] == m["want_opt"]
+                  and m["acc_bytes"] == m["want_acc"],
+                  f"dp: {mode} rank {r}: optimizer state {m['opt_bytes']} "
+                  f"B and accumulators {m['acc_bytes']} B, not the "
+                  f"described {m['want_opt']} and {m['want_acc']}")
+        print(f"dp: {mode}: after {DP_EQUAL_STEPS} steps (Adam's first "
+              f"update) the state's L2 distance from the one-card step's: "
+              f"parameters (over the one-card step's move from the initial "
+              f"ones), mu, nu (over their norm) "
+              f"{[r[mode]['dists'] for r in got]} by rank (bar "
+              f"{DP_STATE_REL:g}); losses by step {got[0][mode]['loss']}, "
+              f"grad norms {got[0][mode]['norm']}: within {rel_l:.3g}, "
+              f"{rel_g:.3g} (the first {DP_EQUAL_STEPS} steps) and "
+              f"{rel_late:.3g} (later) of the one-card step's", flush=True)
+        med = float(np.median(got[0][mode]["times"]))
+        rate = tokens / med
+        print(f"dp: {mode}: ms a step "
+              f"{[[round(t * 1e3, 1) for t in res[mode]['times']] for res in got]}"
+              f" (per rank; median {med * 1e3:.1f} on rank 0), "
+              f"{rate:.1f} tokens/s, {rate / (world * one_rate):.4f} of "
+              f"{world} x the one-card rate at {TRAIN_MICRO} rows; "
+              f"flash_attention "
+              f"{[res[mode]['launches'].get('flash_attention', 0) for res in got]}"
+              f" launches per rank ({DP_STEPS} steps x 2 x {TRAIN_LAYERS} "
+              f"layers x {TRAIN_MICRO} microbatches)", flush=True)
+        for r, res in enumerate(got):
+            m = res[mode]
+            print(f"dp: {mode} rank {r} ({res['device']}): one step under "
+                  f"torch.profiler: NCCL kernels {m['nccl_ms']:.3f} ms, "
+                  f"flash_attention {m['flash_ms'] / per_step:.4f} ms a "
+                  f"launch at (1, {cfg.n_q_heads}, {TRAIN_SEQ}, {cfg.hd}); "
+                  f"device kernel time {m['busy_ms']:.1f} of "
+                  f"{m['wall_ms']:.1f} ms wall "
+                  f"({100 * m['busy_ms'] / m['wall_ms']:.2f}%: summed over "
+                  f"streams, so NCCL's overlap with compute can pass 100%); "
+                  f"peak "
+                  f"{m['peak']:,} B beside the dry-run's memory model "
+                  f"{m['model_bytes']:,} B (a ({world}, 1) mesh); optimizer "
+                  f"state {m['opt_bytes']:,} B and f32 accumulators "
+                  f"{m['acc_bytes']:,} B, as abstract_state and the "
+                  f"gradient shardings describe; top {m['top']}",
+                  flush=True)
+    print(f"dp: over {world} cards in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_dp(seed: int, count: int) -> None:
+    """The training step data-parallel over processes (one NCCL rank a
+    card): over every card where there are several; at one card a NCCL
+    group of one and two gloo ranks on the card."""
+    t_phase = time.perf_counter()
+    if count >= 2:
+        dp_over_cards(seed, count)
+    else:
+        print("dp: CUT: one card: NCCL takes one card a rank, so the "
+              "phase runs (a) a NCCL group of one and (b) two gloo ranks "
+              "on the card, not W ranks over W cards", flush=True)
+        pending = dp_gloo_start(seed)
+        dp_group_of_one(seed, lambda: dp_gloo_join(pending))
+        dp_gloo_finish(seed, pending)
+    print(f"dp: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # --------------------------------------------------------------- retrieval
 def phase_retrieval(seed: int):
     """The port's twin of examples/retrieval_serving.py steps 1-4."""
@@ -5472,6 +6095,8 @@ def main() -> int:
                     help="run only the device, build and families phases")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the device, build and train phases")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="run only the device, build and dp phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5502,6 +6127,10 @@ def main() -> int:
         return 0
     if args.train_only:
         finish([phase_train(args.seed)], t_start, smi, name, count)
+        return 0
+    if args.dp_only:
+        phase_dp(args.seed, count)
+        finish([], t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -5597,6 +6226,7 @@ def main() -> int:
           flush=True)
     kernels += phase_families(args.seed)
     kernels.append(phase_train(args.seed))
+    phase_dp(args.seed, count)
     finish(kernels, t_start, smi, name, count)
     return 0
 

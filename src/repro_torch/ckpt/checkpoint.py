@@ -10,6 +10,14 @@ checkpoint written by either package restores in the other.
 
 ``restore`` loads each tensor on the host and places it on the device
 (and in the dtype) of the template's leaf.
+
+Over a ``torch.distributed`` group (the data-parallel step,
+``train/step.py``) every rank calls ``save`` with the ``group``: a ZeRO-1
+chunk (a tensor marked with its ``sharding.collective.Shard``) is
+all-gathered first, so the checkpoint holds the reference's one-device
+layout, and the group's rank 0 alone writes.  ``restore`` cuts a marked
+template leaf's chunk out of the whole tensor on disk, so a state moves
+between W processes and one.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..sharding import collective
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -65,26 +75,48 @@ def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
     return np.array(leaf) if copy else np.asarray(leaf)
 
 
-def save(state, directory: str, step: int, keep: int = 3) -> str:
-    """Atomic synchronous save. Returns the checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+def _whole(leaf):
+    """A ZeRO-1 chunk all-gathered into its whole tensor (every rank of
+    its line calls this together); any other leaf as it is."""
+    sh = collective.shard_of(leaf) if isinstance(leaf, torch.Tensor) \
+        else None
+    return leaf if sh is None else collective.all_gather(leaf.detach(), sh)
+
+
+def _writes(group) -> bool:
+    import torch.distributed as dist
+    return group is None or dist.get_rank(group) == 0
+
+
+def save(state, directory: str, step: int, keep: int = 3,
+         group=None) -> str:
+    """Atomic synchronous save. Returns the checkpoint path.  With
+    ``group`` every rank of it calls this: chunks are gathered, rank 0
+    writes, and all return once the checkpoint is in place."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    writer = _writes(group)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     flat = _flatten(state)
     manifest = {"step": int(step), "keys": sorted(flat),
                 "time": time.time()}
     for key, leaf in flat.items():
-        np.save(os.path.join(tmp, key.replace("/", "__") + ".npy"),
-                _to_numpy(leaf))
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _gc(directory, keep)
+        whole = _whole(leaf)          # collective: every rank gathers
+        if writer:                    # the host copy: the writer's alone
+            np.save(os.path.join(tmp, key.replace("/", "__") + ".npy"),
+                    _to_numpy(whole))
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(directory, keep)
+    collective.barrier(group)
     return final
 
 
@@ -106,10 +138,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _like(arr: np.ndarray, leaf):
     """``arr`` in the template leaf's form: a tensor on its device and
-    in its dtype, or a numpy array of its dtype."""
+    in its dtype (a marked ZeRO-1 chunk: its chunk of ``arr``, marked
+    alike), or a numpy array of its dtype."""
     if isinstance(leaf, torch.Tensor):
+        sh = collective.shard_of(leaf)
+        if sh is not None:
+            arr = np.take(arr, range(sh.index * sh.size,
+                                     (sh.index + 1) * sh.size), axis=sh.dim)
         t = torch.from_numpy(np.array(arr, order="C"))   # 0-d stays 0-d
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        return collective.tag(t.to(device=leaf.device, dtype=leaf.dtype), sh)
     return arr.astype(np.asarray(leaf).dtype)
 
 
@@ -132,19 +169,33 @@ def restore(template, directory: str, step: Optional[int] = None):
 class AsyncCheckpointer:
     """Fire-and-forget saves on a worker thread; at most one in flight.
     The state is copied to the host before ``maybe_save`` returns, so
-    the caller may go on updating it in place."""
+    the caller may go on updating it in place.  With ``group`` every
+    rank calls ``maybe_save`` at the same steps: the chunks are gathered
+    on each call, rank 0 holds the host copy and writes it, and it waits
+    for its previous save rather than skip one (a skip on rank 0 alone
+    would leave the others' gathers unmatched)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, group=None):
         self.directory = directory
         self.keep = keep
+        self.group = group
         self._thread: Optional[threading.Thread] = None
         self.last_saved: Optional[int] = None
 
     def maybe_save(self, state, step: int) -> bool:
         if self._thread is not None and self._thread.is_alive():
-            return False                   # previous save still running
-        host = {k: _to_numpy(v, copy=True)
-                for k, v in _flatten(state).items()}
+            if self.group is None:
+                return False               # previous save still running
+            self._thread.join()
+        writer = _writes(self.group)
+        host = {}
+        for k, v in _flatten(state).items():
+            whole = _whole(v)
+            if writer:
+                host[k] = _to_numpy(whole, copy=whole is v)
+        if not writer:
+            self.last_saved = step
+            return True
         host_state = _unflatten_like(state, host)
 
         def work():

@@ -10,6 +10,14 @@ sequences, with enough structure for a small model to show a learning
 curve.  ``TokenPipeline`` yields tensors on its ``device`` (default
 ``cuda``); the batches themselves are drawn in numpy, bit for bit the
 reference's.
+
+Data parallelism: ``DataShard(r, W)`` draws rank r's contiguous block of
+the global batch (the concatenation of the W shards' draws in shard
+order is the global batch; the vlm / encdec embeddings are drawn whole
+and cut to the same block, :func:`shard_rows`).  The reference's step
+holds its microbatch i's rows split over the data axis
+(:func:`microbatch_rows`), a different grouping: the port's step gathers
+the shards' blocks and takes its own rows (``train/step.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +37,36 @@ from ..kernels.dispatch import resolve_device
 class DataShard:
     shard_id: int
     n_shards: int
+
+
+def shard_rows(batch: dict, shard: DataShard) -> dict:
+    """``shard``'s contiguous block of a global batch's rows (numpy
+    arrays or tensors); ``ValueError`` where the rows do not divide."""
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % shard.n_shards:
+            raise ValueError(f"{k}: {n} rows do not divide into "
+                             f"{shard.n_shards} shards")
+        b = n // shard.n_shards
+        out[k] = v[shard.shard_id * b:(shard.shard_id + 1) * b]
+    return out
+
+
+def microbatch_rows(global_batch: int, microbatches: int,
+                    shard: DataShard) -> list:
+    """The global rows ``shard`` holds in each microbatch of the
+    reference's data-parallel step, ``[(start, stop), ...]``: microbatch
+    i is rows i*B/mb .. (i+1)*B/mb - 1, split over the shards in order
+    (the layout ``P(None, dp_axes)`` gives after the step's reshape).
+    ``ValueError`` unless B divides by mb * W."""
+    mb, w = max(1, microbatches), shard.n_shards
+    if global_batch % (mb * w):
+        raise ValueError(f"a global batch of {global_batch} does not "
+                         f"divide into {mb} microbatches x {w} ranks")
+    per, b = global_batch // mb, global_batch // (mb * w)
+    return [(i * per + shard.shard_id * b, i * per + (shard.shard_id + 1) * b)
+            for i in range(mb)]
 
 
 def _batch_for_step(step: int, shard: DataShard, vocab: int, batch: int,
@@ -75,7 +113,7 @@ class TokenPipeline:
                                 self.cell.global_batch, self.cell.seq_len,
                                 self.seed)
             extra = _extra_inputs(self.cfg, self.cell, step, self.seed)
-            b.update(extra)
+            b.update(shard_rows(extra, self.shard))
             try:
                 self._q.put((step, b), timeout=0.5)
                 step += 1

@@ -168,7 +168,9 @@ def decode_train(params, memory, tokens, cfg: ModelConfig):
 def encdec_loss(params, batch: dict, cfg: ModelConfig):
     """batch: src_embeds (B, S_src, D), tokens and labels (B, S) (-1 =
     masked).  The masked mean NLL of the teacher-forced decoder's f32
-    logits (ref ``encdec.py:130-140``).  Returns (nll, {"nll"})."""
+    logits (ref ``encdec.py:130-140``; under data parallelism the mean
+    over the whole microbatch, ``transformer._nll_loss``).  Returns
+    (nll, {"nll"})."""
     memory = encode(params, batch["src_embeds"], cfg)
     logits = decode_train(params, memory, batch["tokens"], cfg)
     return _nll_loss(logits, batch["labels"], cfg, None)

@@ -17,6 +17,14 @@ one slot the last in sorted order stays, as the reference's sequential
 scatter leaves it on the CPU.  So when E * cap > a and an assignment is
 dropped from an expert at or after slot ``a``'s, the token in slot
 ``a`` loses that expert (ROADMAP Queue C); the port keeps that result.
+
+Under the training step's data parallelism over processes
+(``sharding.collective``) a rank holds a contiguous block of the
+microbatch's tokens.  The router's ``me``, ``ce`` and z-loss are means
+over the microbatch's tokens on every rank (one sum over the group a
+layer), and the dispatch groups partition the global token order as the
+reference's do, so each rank routes its G / W of them; a group count
+that is not a multiple of W after the reference's halving is refused.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..sharding import collective
 from ..sharding.logical import maybe_constrain
 from .params import ParamSpec
 
@@ -117,15 +126,27 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
     # ---- aux losses (f32, global) -------------------------------------
     _, expert_idx_all = torch.topk(logits, m.top_k, dim=-1)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(expert_idx_all[:, 0], m.n_experts).to(F32).mean(dim=0)
+    top1 = F.one_hot(expert_idx_all[:, 0], m.n_experts).to(F32)
+    dp = collective.active()
+    w = 1 if dp is None else dp.size
+    e = m.n_experts
+    sums = collective.global_sum(torch.cat([
+        probs.sum(dim=0), top1.sum(dim=0),
+        torch.sum(torch.logsumexp(logits, dim=-1) ** 2)[None]]))
+    me, ce, router_z = (sums[:e] / (t * w), sums[e:2 * e] / (t * w),
+                        sums[2 * e] / (t * w))
     load_balance = m.n_experts * torch.sum(me * ce)
-    router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     # ---- grouped dispatch ---------------------------------------------
     groups = max(1, getattr(cfg, "moe_dispatch_groups", 1) or 1)
-    while t % groups:
+    while (t * w) % groups:
         groups //= 2
+    if groups % w:
+        raise ValueError(f"{groups} MoE dispatch groups (after halving "
+                         f"over {t * w} tokens) do not split over {w} "
+                         "data-parallel ranks: set moe_dispatch_groups to "
+                         "a multiple of the ranks")
+    groups //= w
     tg = t // groups
     a_g = tg * m.top_k
     cap = int(max(min(tg, 16), round(a_g / m.n_experts * m.capacity_factor)))

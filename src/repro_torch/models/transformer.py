@@ -25,6 +25,13 @@ and the SSD scan are plain torch on both, as the reference computes
 them in jnp.  A sliding-window cache is a ring of min(cache_len,
 window) slots: prefill keeps the last slots rolled so slot = pos % t,
 and decode writes slot pos % t.
+
+Under the training step's data parallelism over processes
+(``sharding.collective.data_parallel``) each rank holds a block of the
+microbatch's rows: the NLL's sum and its count of unmasked labels are
+summed over the ranks before the division (the reference's mean is over
+the whole microbatch), and :func:`_remat` re-enters the same group when
+the backward pass recomputes a layer.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..kernels.dispatch import resolve_device
+from ..sharding import collective
 from .layers import (F32, apply_rope, attention_specs, chunked_attention,
                      decode_attention, dense_attention, flash_attention,
                      mlp_specs, rmsnorm, rope_tables, swiglu)
@@ -143,7 +151,10 @@ def _remat(fn, cfg: ModelConfig):
     backward pass); otherwise the selective policy :func:`_save_dots`.
     Non-reentrant ``torch.utils.checkpoint``; a call that records no
     gradient (grad mode off, or no tensor argument requiring grad) runs
-    ``fn`` as it is."""
+    ``fn`` as it is.  The recompute runs in the data-parallel group
+    active at the forward call: the backward pass may run it on another
+    thread (the autograd engine's, on a card), where that context is
+    not set."""
     if cfg.remat == "none":
         return fn
     kw = {} if cfg.remat == "full" else {"context_fn": _SELECTIVE}
@@ -151,7 +162,12 @@ def _remat(fn, cfg: ModelConfig):
     def run(*args):
         if not (torch.is_grad_enabled() and _needs_grad(args)):
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        dp = collective.active()
+
+        def in_group(*a):
+            with collective.data_parallel(dp):
+                return fn(*a)
+        return checkpoint(in_group, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -341,15 +357,19 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
 
 def _nll_loss(logits, labels, cfg: ModelConfig, aux: dict | None):
     """The masked mean NLL of f32 ``logits`` against ``labels`` (-1 =
-    masked), plus the MoE terms of ``aux`` when ``cfg.moe`` is set."""
+    masked), plus the MoE terms of ``aux`` when ``cfg.moe`` is set.
+    Under data parallelism the sum and the count are the group's
+    (``collective.global_sum``): every rank's value is the microbatch's,
+    its gradient the part through its own rows."""
     logits = logits.to(F32)
     labels = labels.long()
     mask = (labels >= 0).to(F32)
     safe = torch.clamp(labels, min=0)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask),
-                                                     min=1.0)
+    total, count = collective.global_sum(
+        torch.stack([torch.sum((lse - ll) * mask), torch.sum(mask)]))
+    nll = total / torch.clamp(count, min=1.0)
     if aux is None:
         return nll, {"nll": nll}
     loss = nll

@@ -9,6 +9,15 @@ host onto the new mesh with its sharding description (the checkpoint
 restore, ``ckpt/checkpoint.py``, is mesh-agnostic already).  One
 process holds a leaf whole: the description says how the mesh would
 split it, and the leaf lands on the mesh's first device.
+
+Over processes (a mesh with a ``group``, ``launch.ranks``) a leaf is
+this rank's chunk of every dim its description puts on the mesh's pod /
+data axes, marked with its ``sharding.collective.Shard`` as the ZeRO-1
+state's chunks are.  A state moves from W ranks to W' in two halves:
+the W ranks gather their chunks (:func:`gather_state`, every rank
+together), and the W' ranks (or one process) cut theirs from the whole
+state (:func:`reshard_state`); between processes that are not the same
+ones, the checkpoint carries the whole state.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ from typing import Sequence
 
 import torch
 
+from ..sharding import collective
 from ..sharding.logical import LogicalMesh, sharding_for
 from ..train.optim import tree_map
 
@@ -35,21 +45,42 @@ def make_mesh_from(devices: Sequence, model_parallel: int) -> LogicalMesh:
     return LogicalMesh(names, shape, tuple(devices[:shape[0] * shape[1]]))
 
 
+def gather_state(state):
+    """``state`` with every ZeRO-1 chunk all-gathered into its whole
+    tensor (every rank of its line calls this together); other leaves
+    as they are."""
+    def one(leaf):
+        sh = collective.shard_of(leaf)
+        return leaf if sh is None else collective.all_gather(
+            leaf.detach(), sh)
+    return tree_map(one, state)
+
+
 def reshard_state(state, specs_axes, mesh: LogicalMesh, rules: dict):
     """Every leaf of ``state`` (nested dicts of tensors) through the host
     onto ``mesh``'s first device (the CPU for a mesh without devices),
     with ``sharding`` set to its description under ``rules``;
-    ``specs_axes`` holds each leaf's logical axes at the same keys."""
-    dev = torch.device("cpu") if not mesh.devices else mesh.devices[0]
+    ``specs_axes`` holds each leaf's logical axes at the same keys.
+    Over processes: onto this rank's device, cut to its chunk; a state
+    of chunks is gathered first (:func:`gather_state`)."""
+    if mesh.group is not None:
+        dev = mesh.device
+    else:
+        dev = torch.device("cpu") if not mesh.devices else mesh.devices[0]
+    state = gather_state(state)
 
     def one(leaf, axes):
         sh = sharding_for(axes, rules, mesh)
         sh.shard_shape(tuple(leaf.shape))       # a spec that fits
         out = leaf.detach().to("cpu", copy=True).to(dev)
+        if mesh.group is not None:
+            part = collective.shard_for(sh.spec, tuple(out.shape), mesh)
+            if part is not None:
+                out = collective.tag(part.of(out).contiguous(), part)
         out.sharding = sh
         return out
 
     return tree_map(one, state, specs_axes)
 
 
-__all__ = ["plan_mesh", "make_mesh_from", "reshard_state"]
+__all__ = ["plan_mesh", "make_mesh_from", "gather_state", "reshard_state"]

@@ -22,6 +22,15 @@ a description, :class:`NamedSharding` (a mesh and a spec, with
 identity too; over several devices it changes the layout, never the
 values).  Training over a data axis of several distinct cards in one
 process (GSPMD in the reference) is not ported (ROADMAP).
+
+A :class:`LogicalMesh` with a ``group`` spans the processes of an
+initialized ``torch.distributed`` group instead, one card each: its
+positions are the group's ranks in row-major order (so a rank's
+coordinate on ``("pod", "data")`` is pod-major), and ``device`` is this
+process's card.  Placement is by process, not by layout: the training
+step (``train/step.py``) reads the mesh to split the batch over the
+ranks and to reduce or shard the gradients, while :func:`constrain`
+stays the identity.
 """
 from __future__ import annotations
 
@@ -170,6 +179,10 @@ class LogicalMesh:
     axis_names: tuple
     axis_sizes: tuple
     devices: Optional[tuple] = None
+    # over processes: the torch.distributed group whose ranks are the
+    # mesh's positions, and this process's device
+    group: Optional[object] = None
+    device: Optional[torch.device] = None
 
     def __post_init__(self):
         names, sizes = tuple(self.axis_names), tuple(self.axis_sizes)
@@ -186,6 +199,19 @@ class LogicalMesh:
                 raise ValueError(f"{len(devs)} devices for a mesh of "
                                  f"{self.size}")
             object.__setattr__(self, "devices", devs)
+        if self.group is not None:
+            import torch.distributed as dist
+            if self.devices is not None:
+                raise ValueError("a mesh over processes names one device, "
+                                 "this process's: pass device=, not "
+                                 "devices=")
+            world = dist.get_world_size(self.group)
+            if world != self.size:
+                raise ValueError(f"a mesh of {self.size} over a group of "
+                                 f"{world} processes")
+            object.__setattr__(self, "device", torch.device(
+                self.device if self.device is not None else "cpu"))
+        object.__setattr__(self, "_lines", {})
 
     @property
     def shape(self) -> dict:
@@ -205,8 +231,10 @@ class LogicalMesh:
 
     def distinct_devices(self, axis: str) -> int:
         """How many distinct devices one line along ``axis`` holds (the
-        first line; 1 for a mesh without devices, which places
-        nothing)."""
+        first line; 1 for a mesh without devices, which places nothing;
+        the axis's extent over processes, one card a rank)."""
+        if self.group is not None:
+            return self.shape[axis]
         if self.devices is None:
             return 1
         i = self.axis_names.index(axis)
@@ -215,6 +243,66 @@ class LogicalMesh:
             stride *= s
         return len({self.devices[k * stride]
                     for k in range(self.axis_sizes[i])})
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the mesh's group (0 in one process)."""
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    def coords(self, rank: Optional[int] = None) -> dict:
+        """{axis: coordinate} of ``rank`` (default this process's),
+        row-major."""
+        r = self.rank if rank is None else rank
+        out = {}
+        for name, n in reversed(list(zip(self.axis_names, self.axis_sizes))):
+            out[name] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def line(self, axes) -> tuple:
+        """(group, size, index) of this rank's line along ``axes`` (the
+        ranks that differ from it only there; ``index`` row-major over
+        ``axes``).  Over processes the sub-groups are made on the first
+        call for ``axes``, which every rank of the group must make
+        together (``torch.distributed.new_group``); a line that spans
+        the whole mesh is its group.  ``(None, 1, 0)`` in one process."""
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
+        if self.group is None:
+            return None, 1, 0
+        size = 1
+        for a in axes:
+            size *= self.shape[a]
+        c = self.coords()
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + c[a]
+        if size == self.size:
+            return self.group, size, index
+        if axes not in self._lines:
+            import itertools
+            import torch.distributed as dist
+            others = [a for a in self.axis_names if a not in axes]
+            mine = None
+            for fixed in itertools.product(*(range(self.shape[a])
+                                             for a in others)):
+                ranks = []
+                for inner in itertools.product(*(range(self.shape[a])
+                                                 for a in axes)):
+                    pos = dict(zip(others, fixed)) | dict(zip(axes, inner))
+                    r = 0
+                    for a in self.axis_names:
+                        r = r * self.shape[a] + pos[a]
+                    ranks.append(dist.get_global_rank(self.group, r)
+                                 if self.group is not dist.group.WORLD
+                                 else r)
+                g = dist.new_group(ranks)
+                if all(pos_c == c[a] for a, pos_c in zip(others, fixed)):
+                    mine = g
+            self._lines[axes] = mine
+        return self._lines[axes], size, index
 
 
 @dataclass(frozen=True)

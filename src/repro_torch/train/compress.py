@@ -14,11 +14,15 @@ from __future__ import annotations
 import torch
 
 
-
-def compress_leaf(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """One leaf: ``u`` holds f32 uniforms in [0, 1) of ``g``'s shape."""
+def compress_leaf(g: torch.Tensor, u: torch.Tensor,
+                  amax: torch.Tensor | None = None) -> torch.Tensor:
+    """One leaf: ``u`` holds f32 uniforms in [0, 1) of ``g``'s shape.
+    ``amax``: the whole leaf's max |g| where ``g`` is one rank's shard
+    of it (ZeRO-1), else ``g``'s own."""
     gf = g.to(torch.float32)
-    scale = torch.amax(torch.abs(gf)) / 127.0 + 1e-20
+    if amax is None:
+        amax = torch.amax(torch.abs(gf))
+    scale = amax / 127.0 + 1e-20
     x = gf / scale
     lo = torch.floor(x)
     frac = x - lo

@@ -13,15 +13,44 @@ reference's split key does.  Microbatch gradients accumulate in f32.
 
 The step updates the state's tensors in place (parameters, moments)
 and returns the state: at full width a second copy of either would not
-fit beside the first.  ``dp_axes`` (the mesh axes of data parallelism:
-each microbatch is constrained to them) and ``grad_shardings`` (a
-sharding description per gradient accumulator, ZeRO-1's) are applied
-through ``sharding.logical.constrain``, which places nothing in one
-process: over a mesh with one card on its data axes they leave every
-value as the step without them gives it.  A data axis over several
-distinct cards (GSPMD in the reference) is not ported: the step raises
-``NotImplementedError`` for it.  ``abstract_state`` (the dry-run's
-input) describes the state on the ``meta`` device.
+fit beside the first.  ``abstract_state`` (the dry-run's input)
+describes the state on the ``meta`` device.
+
+Data parallelism.  Over a mesh of one process, ``dp_axes`` and
+``grad_shardings`` are descriptions that place nothing: they leave
+every value as the step without them gives it, and a data (or model)
+axis over several distinct cards in one process is refused.  Over a
+mesh whose positions are the processes of a ``torch.distributed``
+group (``LogicalMesh(group=...)``, one card a rank; ``launch.ranks``)
+the step is the reference's GSPMD step on the global batch:
+
+* each rank passes its ``DataShard`` block of the global batch (B / W
+  rows; ``data.pipeline.shard_rows``); microbatch i is global rows
+  i*B/mb .. (i+1)*B/mb - 1 split over the ranks in order, so with
+  several microbatches the ranks all-gather the batch's inputs and each
+  takes its rows (``data.pipeline.microbatch_rows``);
+* the loss's global terms (the NLL's count, the MoE router's means)
+  are summed over the ranks inside the loss
+  (``sharding.collective.data_parallel``);
+* plain DP: each rank accumulates its rows' gradients in f32 and the
+  accumulators are summed by one f32 all-reduce a step (a flat buffer
+  they are views of); then the norm, clip, int8, schedule and update
+  run replicated on equal gradients and equal uniforms;
+* ZeRO-1 (``grad_shardings`` naming a data axis on a leaf's dim, or
+  ``run.zero1`` with no ``grad_shardings``: the dry-run's
+  ``embed -> data``): that leaf's f32 accumulator is the rank's chunk
+  of the dim, each microbatch's gradient reduce-scattered into it;
+  leaves the divisibility guard leaves whole are accumulated whole and
+  all-reduced once.  AdamW's moments are held per chunk, the update
+  runs on the chunk and the parameter is all-gathered (bf16 bits equal
+  to a replicated update's); 8-bit Adam's state is whole (its blocks
+  are replicated in ``abstract_state``), so its update runs on the
+  all-gathered gradient; Adafactor under ZeRO-1 raises
+  ``NotImplementedError`` (ROADMAP).  The bytes a rank holds are the
+  shard bytes ``abstract_state`` and the gradient shardings describe.
+
+FSDP and a model axis over several ranks are not ported and raise
+``NotImplementedError`` (ROADMAP Queue A items 7 and 8).
 """
 from __future__ import annotations
 
@@ -29,24 +58,34 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig, RunConfig
 from ..models import zoo
 from ..models.params import ParamSpec, abstract, abstract_params, map_specs
-from ..sharding.logical import constrain, guarded_sharding
-from .compress import int8_compress_decompress
-from .optim import (OPTIMIZERS, Q_BLOCK, lr_schedule, tree_leaves,
-                    tree_map)
+from ..data.pipeline import DataShard, microbatch_rows
+from ..sharding import collective
+from ..sharding.collective import DP_AXES
+from ..sharding.logical import default_rules, guarded_sharding
+from .compress import compress_leaf
+from .optim import OPTIMIZERS, Q_BLOCK, lr_schedule, tree_leaves, tree_map
 
 F32 = torch.float32
 
 
-def init_state(cfg: ModelConfig, run: RunConfig, params):
+def init_state(cfg: ModelConfig, run: RunConfig, params, mesh=None,
+               grad_shardings=None, dp_axes=None):
+    """The step's state.  Over a mesh of processes under ZeRO-1 (the
+    layout ``build_train_step`` reads from the same arguments) AdamW's
+    moments are the rank's chunks, each marked with its ``Shard``."""
     opt_init, _ = OPTIMIZERS[run.optimizer]
     some = tree_leaves(params)[0]
+    layout = _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings)
+    opt = opt_init(params) if layout is None else \
+        _sharded_opt_init(run, params, layout)
     return {
         "params": params,
-        "opt": opt_init(params),
+        "opt": opt,
         "step": torch.zeros((), dtype=torch.int32, device=some.device),
         "rng": torch.zeros(2, dtype=torch.int64),   # seed 0, counter 0
     }
@@ -103,12 +142,93 @@ def abstract_state(cfg: ModelConfig, run: RunConfig, specs, mesh=None,
             "rng": sds((2,), torch.int64, (None,))}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    total = 0
-    for leaf in tree_leaves(tree):
+def zero1_grad_shardings(cfg: ModelConfig, run: RunConfig, mesh,
+                         rules=None):
+    """The f32 accumulators' shardings under ZeRO-1 as the reference's
+    dry-run builds them (``dryrun.py:107-116``): each parameter's
+    logical axes under ``rules`` (default the run's) with ``embed`` on
+    ``data``, guarded for divisibility."""
+    rules = dict(rules if rules is not None else
+                 default_rules(fsdp=run.fsdp,
+                               seq_shard=run.seq_shard_activations))
+    if rules.get("embed") is None:
+        rules["embed"] = "data"
+    return map_specs(lambda s: guarded_sharding(s.shape, s.axes, rules,
+                                                mesh), zoo.model_specs(cfg))
+
+
+def _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings):
+    """Per parameter leaf (sorted-key order) its ``Shard`` under ZeRO-1
+    over a mesh of processes, or None where it stays whole; None for the
+    whole tree where no leaf is sharded (plain DP, or one process)."""
+    if mesh is None or mesh.group is None:
+        return None
+    if grad_shardings is None:
+        if not run.zero1:
+            return None
+        grad_shardings = zero1_grad_shardings(cfg, run, mesh)
+    dp = tuple(a for a in (dp_axes or DP_AXES) if a in mesh.axis_names)
+    shapes = [s.shape for s in tree_leaves(zoo.model_specs(cfg))]
+    shardings = tree_leaves(grad_shardings)
+    if len(shardings) != len(shapes):
+        raise ValueError(f"{len(shardings)} gradient shardings for "
+                         f"{len(shapes)} parameters")
+    layout = [None if sh is None else
+              collective.shard_for(sh.spec, shape, mesh, dp)
+              for shape, sh in zip(shapes, shardings)]
+    if not any(layout):
+        return None
+    if run.optimizer == "adafactor":
+        raise NotImplementedError(
+            "Adafactor under ZeRO-1 is not ported (ROADMAP Queue A item "
+            "9): its factored means and update RMS span the whole leaf")
+    return layout
+
+
+def _sharded_opt_init(run: RunConfig, params, layout):
+    """The optimizer's initial state under ZeRO-1: AdamW's moments as
+    each leaf's chunk (marked), 8-bit Adam's whole."""
+    opt_init, _ = OPTIMIZERS[run.optimizer]
+    if run.optimizer != "adamw":
+        return opt_init(params)
+    it = iter(layout)
+
+    def zeros(p):
+        sh = next(it)
+        shape = p.shape if sh is None else sh.shape(p.shape)
+        return collective.tag(torch.zeros(shape, dtype=F32,
+                                          device=p.device), sh)
+    mu = tree_map(zeros, _sorted(params))
+    it = iter(layout)
+    nu = tree_map(zeros, _sorted(params))
+    return {"mu": mu, "nu": nu,
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(params)[0].device)}
+
+
+def global_norm(tree, layout=None, ranks=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  Under ZeRO-1
+    (``layout``: each leaf's ``Shard`` or None, over the step's
+    ``ranks``) the leaves are this rank's: a chunk's squares count on
+    one rank of its replicas, a whole leaf's on the data line's first
+    rank, and the sum is all-reduced."""
+    leaves = tree_leaves(tree)
+    total = torch.zeros((), dtype=F32, device=leaves[0].device)
+    for i, leaf in enumerate(leaves):
+        if layout is not None and not _owns(layout[i], ranks):
+            continue
         total = total + torch.sum(leaf.to(F32) ** 2)
+    if layout is not None:
+        dist.all_reduce(total, group=ranks[0].group)
     return torch.sqrt(total)
+
+
+def _owns(sh, ranks) -> bool:
+    """Whether this rank counts a ZeRO-1 leaf (its ``Shard``, or None
+    for a whole one) in a sum over the data line."""
+    if sh is None:
+        return ranks[1] == 0
+    return sh.rest is None or dist.get_rank(sh.rest) == 0
 
 
 def step_generator(rng: torch.Tensor, device) -> torch.Generator:
@@ -119,45 +239,100 @@ def step_generator(rng: torch.Tensor, device) -> torch.Generator:
     return gen
 
 
-def _split(batch: dict, mb: int, i: int, dp_axes=None, mesh=None) -> dict:
-    """Microbatch ``i`` of ``mb``: rows i*B/mb .. (i+1)*B/mb - 1; with
-    ``dp_axes``, the split constrained to them on its batch axis."""
-    out = {}
-    for k, x in batch.items():
-        y = x.reshape((mb, x.shape[0] // mb) + x.shape[1:])
-        if dp_axes:
-            y = constrain(y, (None, "batch") + (None,) * (y.dim() - 2),
-                          {"batch": tuple(dp_axes)}, mesh)
-        out[k] = y[i]
-    return out
-
-
-def _constrain_to(x: torch.Tensor, sharding) -> torch.Tensor:
-    """``x`` under a sharding description, through ``constrain`` (the
-    spec's entries as their own logical axes)."""
-    if sharding is None:
-        return x
-    spec = sharding.spec
-    return constrain(x, spec, {e: e for e in spec if e is not None},
-                     sharding.mesh)
-
-
-def _data_mesh(dp_axes, grad_shardings, mesh):
+def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
     """The mesh the data-parallel constraints name (``mesh``, else the
-    gradient shardings'), checked to hold one card on each data axis."""
+    gradient shardings'), checked for what is ported: over processes,
+    data parallelism on the pod / data axes (no model axis, no FSDP); in
+    one process, one card on each axis."""
     if mesh is None and grad_shardings is not None:
         mesh = next((s.mesh for s in tree_leaves(grad_shardings)
                      if s is not None), None)
     if dp_axes and mesh is None:
         raise ValueError("dp_axes name mesh axes: pass the mesh")
-    if mesh is not None and getattr(mesh, "devices", None) is not None:
-        for ax in set(dp_axes or ()) | {"pod", "data"}:
+    if mesh is None:
+        return mesh
+    dp = set(dp_axes or ()) | set(DP_AXES)
+    model = [a for a in mesh.axis_names if a not in dp]
+    if getattr(mesh, "group", None) is not None:
+        for ax in model:
+            if mesh.shape[ax] > 1:
+                raise NotImplementedError(
+                    f"training over a model axis {ax!r} of several ranks "
+                    "(tensor parallelism) is not ported (ROADMAP Queue A "
+                    "item 8)")
+        ranked = {a for a in DP_AXES
+                  if a in mesh.axis_names and mesh.shape[a] > 1}
+        if dp_axes is not None and not ranked <= set(dp_axes):
+            raise ValueError(f"dp_axes {dp_axes} leave out the mesh's "
+                             f"ranked axes {sorted(ranked)}")
+        if run.fsdp and ranked:
+            raise NotImplementedError(
+                "FSDP (weights sharded over the data axis) over several "
+                "ranks is not ported (ROADMAP Queue A item 7)")
+    elif getattr(mesh, "devices", None) is not None:
+        for ax in dp:
             if ax in mesh.axis_names and mesh.distinct_devices(ax) > 1:
                 raise NotImplementedError(
                     f"training over a data axis {ax!r} of several distinct "
                     "devices in one process (GSPMD in the reference) is not "
-                    "ported")
+                    "ported: run one process a card (launch.ranks)")
+        for ax in model:
+            if mesh.distinct_devices(ax) > 1:
+                raise NotImplementedError(
+                    f"training over a model axis {ax!r} of several distinct "
+                    "devices (tensor parallelism) is not ported (ROADMAP "
+                    "Queue A item 8)")
     return mesh
+
+
+class _GradAcc:
+    """The step's f32 gradient accumulators: whole leaves as views of one
+    flat buffer (over ranks all-reduced once a step), ZeRO-1's chunks as
+    tensors of their own (reduce-scattered into each microbatch).  With
+    no ``group`` (one process) no collective runs."""
+
+    def __init__(self, leaves, layout, group):
+        layout = layout or [None] * len(leaves)
+        self.layout, self.group, self.leaves = layout, group, leaves
+        whole = [p for p, sh in zip(leaves, layout) if sh is None]
+        self.flat = torch.zeros(sum(p.numel() for p in whole), dtype=F32,
+                                device=leaves[0].device)
+        self.acc, o = [], 0
+        for p, sh in zip(leaves, layout):
+            if sh is None:
+                self.acc.append(self.flat[o:o + p.numel()].view(p.shape))
+                o += p.numel()
+            else:
+                self.acc.append(collective.tag(torch.zeros(
+                    sh.shape(p.shape), dtype=F32, device=p.device), sh))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self.acc)
+
+    def add(self, grads) -> None:
+        for a, g, sh in zip(self.acc, grads, self.layout):
+            if sh is None:
+                a.add_(g.to(F32))
+                continue
+            part = collective.reduce_scatter(g, sh)
+            if sh.rest is not None:
+                dist.all_reduce(part, group=sh.rest)
+            a.add_(part)
+
+    def finish(self, mb: int) -> list:
+        """The summed gradients: the whole leaves all-reduced over the
+        group, the sums over ``mb`` microbatches averaged, or with one
+        microbatch rounded to each parameter's dtype as the one-device
+        step's gradient is."""
+        if self.group is not None and self.flat.numel():
+            dist.all_reduce(self.flat, group=self.group)
+        for a, p in zip(self.acc, self.leaves):
+            if mb > 1:
+                a.mul_(1.0 / mb)
+            elif p.dtype != F32:
+                a.copy_(a.to(p.dtype))
+        return self.acc
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig,
@@ -168,78 +343,145 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
     0-d tensors ``loss``, ``grad_norm``, ``lr`` and the loss's own
     (``nll``, and ``load_balance`` / ``router_z`` for the LM families).
 
-    ``dp_axes``: mesh axis names carrying data parallelism, each
-    microbatch constrained to them (the reference's re-constraint at
-    the microbatch reshape).  ``grad_shardings``: a tree of sharding
-    descriptions for the f32 gradient accumulators (ZeRO-1).  ``mesh``
-    (a ``sharding.logical.LogicalMesh``) is the mesh ``dp_axes`` name,
-    the reference's ambient ``with mesh:``; without it, the gradient
-    shardings' mesh."""
-    mesh = _data_mesh(dp_axes, grad_shardings, mesh)
+    ``dp_axes``: mesh axis names carrying data parallelism (the
+    microbatch's rows split over them).  ``grad_shardings``: a tree of
+    sharding descriptions for the f32 gradient accumulators (ZeRO-1).
+    ``mesh`` (a ``sharding.logical.LogicalMesh``) is the mesh
+    ``dp_axes`` name, the reference's ambient ``with mesh:``; without
+    it, the gradient shardings' mesh.  Over a mesh of processes the
+    step is data-parallel (the module docstring).  The returned
+    function's ``held`` dict records ``grad_acc_bytes``, the f32
+    accumulators' bytes on this rank, once a step has made them."""
+    mesh = _data_mesh(dp_axes, grad_shardings, mesh, run)
     loss_fn = zoo.loss_fn(cfg)
     _, opt_update = OPTIMIZERS[run.optimizer]
     sched = lr_schedule(run.learning_rate, total=total_steps)
+    ranks = None
+    if mesh is not None and mesh.group is not None:
+        dp = tuple(a for a in mesh.axis_names if a in (dp_axes or DP_AXES))
+        group, size, index = mesh.line(dp)
+        ranks = (collective.DataParallel(group, size), index)
+    layout = _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings)
+    held: dict = {}
 
     def grads_of(params, batch):
-        """(loss, metrics, grads in the leaves' sorted-key order)."""
+        """(loss, metrics, gradients in the leaves' sorted-key order) of
+        the batch, or over ranks of the global batch whose ``DataShard``
+        block ``batch`` is: f32 sums over the microbatches, except that
+        one microbatch in one process returns the loss's own gradients
+        (no accumulator: the one-process step's memory)."""
         leaves = tree_leaves(params)
-        shards = [None] * len(leaves) if grad_shardings is None \
-            else tree_leaves(grad_shardings)
         for p in leaves:
             p.requires_grad_(True)
-        if run.microbatches <= 1:
+        mb = max(1, run.microbatches)
+        if ranks is None and mb == 1:
             loss, metrics = loss_fn(params, batch)
             return (loss.detach(), {k: v.detach() for k, v in
                                     metrics.items()},
                     torch.autograd.grad(loss, leaves))
-        # gradient accumulation: activation memory / microbatches; the
-        # f32 accumulator is params-shaped
-        mb = run.microbatches
-        g_acc = [_constrain_to(torch.zeros(p.shape, dtype=F32,
-                                           device=p.device), s)
-                 for p, s in zip(leaves, shards)]
-        l_acc, m_acc = torch.zeros((), dtype=F32, device=leaves[0].device), {}
-        for i in range(mb):
-            loss, metrics = loss_fn(params, _split(batch, mb, i, dp_axes,
-                                                   mesh))
-            for a, g, s in zip(g_acc, torch.autograd.grad(loss, leaves),
-                               shards):
-                _constrain_to(a.add_(g.to(F32)), s)
-            l_acc = l_acc + loss.detach()
-            for k, v in metrics.items():
-                m_acc[k] = m_acc.get(k, 0.0) + v.detach()
+        dp, index = ranks or (None, 0)
+        rows = next(iter(batch.values())).shape[0]
+        if mb == 1:
+            whole, spans = batch, [(0, rows)]
+        else:
+            w = 1 if dp is None else dp.size
+            spans = microbatch_rows(rows * w, mb, DataShard(index, w))
+            whole = batch if dp is None else {
+                k: collective.gather_rows(v, dp.group, dp.size)
+                for k, v in batch.items()}
+        acc = _GradAcc(leaves, layout, None if dp is None else dp.group)
+        held["grad_acc_bytes"] = acc.nbytes
+        l_acc = torch.zeros((), dtype=F32, device=leaves[0].device)
+        m_acc = {}
+        with collective.data_parallel(dp):
+            for lo, hi in spans:
+                loss, metrics = loss_fn(params, {k: v[lo:hi] for k, v in
+                                                 whole.items()})
+                acc.add(torch.autograd.grad(loss, leaves))
+                l_acc = l_acc + loss.detach()
+                for k, v in metrics.items():
+                    m_acc[k] = m_acc.get(k, 0.0) + v.detach()
         inv = 1.0 / mb
-        for a in g_acc:
-            a.mul_(inv)
-        return l_acc * inv, {k: v * inv for k, v in m_acc.items()}, g_acc
+        return l_acc * inv, {k: v * inv for k, v in m_acc.items()}, \
+            acc.finish(mb)
 
     def train_step(state, batch):
         params = state["params"]
         loss, metrics, grads = grads_of(params, batch)
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, layout, ranks)
             scale = torch.clamp(run.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = [g.mul_(scale) if g.dtype == F32 else g.to(F32) * scale
                      for g in grads]
-            it = iter(grads)
-            grads = tree_map(lambda _: next(it), _sorted(params))
+            lay = layout or [None] * len(grads)
             if run.grad_compression == "int8":
-                int8_compress_decompress(
-                    grads, step_generator(state["rng"], gnorm.device))
+                _int8(grads, lay, step_generator(state["rng"],
+                                                 gnorm.device))
             lr = sched(state["step"])
             kw = {}
             if run.optimizer in ("adamw", "adamw8bit"):
                 kw["weight_decay"] = run.weight_decay
-            _, opt = opt_update(grads, state["opt"], params, lr, apply=True,
-                                **kw)
+            # leaf by leaf: a ZeRO-1 chunk updates its slice of the
+            # parameter (8-bit Adam's whole state, the gathered
+            # gradient), which is then all-gathered
+            opt = state["opt"]
+            parts = [k for k in opt if k != "count"]
+            count = opt["count"]
+            for path, g, sh in zip(_paths(params), grads, lay):
+                p = _at(params, path)
+                one = {k: {"x": _at(opt[k], path)} for k in parts}
+                one["count"] = opt["count"]
+                if sh is not None and run.optimizer == "adamw8bit":
+                    g, sh = collective.all_gather(g, sh), None
+                target = p if sh is None else sh.of(p)
+                _, new = opt_update({"x": g}, one, {"x": target}, lr,
+                                    apply=True, **kw)
+                count = new["count"]
+                if sh is not None:
+                    p.copy_(collective.all_gather(target, sh))
+            opt = dict(opt, count=count)
         rng = state["rng"].clone()
         rng[1] += 1
         new_state = {"params": params, "opt": opt,
                      "step": state["step"] + 1, "rng": rng}
-        out = {"loss": loss, "grad_norm": gnorm, "lr": lr, **metrics}
-        return new_state, out
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                           **metrics}
 
+    train_step.held = held
     return train_step
+
+
+def _int8(grads, layout, generator) -> None:
+    """int8 compression of the gradients in place: each leaf's uniforms
+    drawn whole in sorted-key order (as ``int8_compress_decompress``
+    draws them; a ZeRO-1 chunk keeps its slice of them and takes its
+    scale from the whole leaf's max |g|)."""
+    for g, sh in zip(grads, layout):
+        shape = list(g.shape)
+        if sh is not None:
+            shape[sh.dim] = sh.full
+        u = torch.rand(shape, generator=generator, dtype=F32,
+                       device=g.device)
+        if sh is None:
+            g.copy_(compress_leaf(g, u))
+            continue
+        amax = torch.amax(torch.abs(g))
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=sh.group)
+        g.copy_(compress_leaf(g, sh.of(u), amax))
+
+
+def _paths(tree, prefix=()) -> list:
+    """The key paths of ``tree``'s leaves in sorted-key order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k],
+                                                        prefix + (k,))]
+    return [prefix]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _sorted(tree):

@@ -514,6 +514,20 @@ def test_step_rejects_sharding_arguments():
         build_train_step(cfg, RunConfig(), dp_axes=("data",))
 
 
+def test_step_rejects_a_model_axis_over_several_cards():
+    """A model axis over several distinct devices in one process (tensor
+    parallelism) is refused, naming its ROADMAP item; the same device
+    named twice on it is one card and runs."""
+    from repro_torch.sharding.logical import LogicalMesh
+    cfg = get_arch("llama3-8b").reduced()
+    two = LogicalMesh(("data", "model"), (1, 2),
+                      (torch.device("cpu"), torch.device("cuda", 0)))
+    with pytest.raises(NotImplementedError, match="model axis.*item 8"):
+        build_train_step(cfg, RunConfig(), dp_axes=("data",), mesh=two)
+    twice = LogicalMesh(("data", "model"), (1, 2), (torch.device("cpu"),) * 2)
+    build_train_step(cfg, RunConfig(), dp_axes=("data",), mesh=twice)
+
+
 def test_int8_step_replays_from_its_counter():
     """With grad_compression="int8" the step draws its uniforms from
     (seed, counter): two runs from equal states give bit-equal params,
