@@ -7,7 +7,7 @@ paper's baselines beside the executor, and LM training on one CUDA card
 (or more, for the sharded phase's mesh, the frontend's replicas and the
 data-parallel training step's ranks).
 
-    python3 chip_smoke.py [--n 1000000] [--batches 8] [--linf-n 200000]
+    python3 chip_smoke.py [--n 1000000] [--batches 3] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only |
                           --families-only | --train-only | --dp-only]
 
@@ -21,11 +21,16 @@ Phases, each printing lines that start with its name:
             loop's graph functions) from the seven sources in
             src/repro_torch/kernels/csrc (one process each, in parallel),
             and prints each entry function's registers, shared memory
-            and spills (ptxas -v, in the same build's log);
+            and spills (ptxas -v, in the same build's log); in the whole
+            run the build runs in a thread beside main's host work (the
+            rows, the host index, the queries and the host index's
+            answers, none of which launches a kernel), and main's
+            snapshot waits for it;
 3. main     GaussMix (n rows, d = 8, seed 0) -> host LIMSIndex(K=64, m=3,
             N=20, degree 8) -> LIMSSnapshot.build on the card ->
             range (0.01% selectivity) and kNN (k = 10) batches of 64
-            queries, with REPRO_COMPACT on and off, the kNN batches by
+            queries (--batches of each kind, default 3), with
+            REPRO_COMPACT on and off, the kNN batches by
             the device-resident loop (REPRO_KNN_DRIVER's auto on a card;
             every kNN line prints its driver).  Every result must
             equal the host index's, ids and f64 distances; one batch of
@@ -54,8 +59,8 @@ Phases, each printing lines that start with its name:
             then f16: the snapshot built on the card under the knob
             (lp_eps, the plane's bytes; the plane equal to the host's
             rounding of the rows and lp_eps to lp_quant_eps recomputed
-            on the host), main's 8 range batches with REPRO_COMPACT on
-            and off and 8 kNN batches, every id and f64 distance equal
+            on the host), main's 3 range batches with REPRO_COMPACT on
+            and off and 3 kNN batches, every id and f64 distance equal
             to the host index's; q/s and ball-filter candidates per
             query beside main's f32 ones from the same run; the launch
             counters zeroed before the build and read after the
@@ -69,7 +74,7 @@ Phases, each printing lines that start with its name:
 6b. knn_loop the device-resident kNN loop (REPRO_KNN_DRIVER=loop: one
             CUDA graph a batch, a WHILE conditional node over one
             captured round, built by csrc/graph_loop.cu) on main's
-            snapshot: (a) main's 8 kNN batches through a fresh
+            snapshot: (a) main's 3 kNN batches through a fresh
             QueryExecutor a turn, turns loop, rounds, loop, rounds, each
             from an empty cache: answers equal to the host index's; q/s,
             rounds and host_syncs a batch, graph captures and their ms,
@@ -78,11 +83,14 @@ Phases, each printing lines that start with its name:
             rounds), memory_allocated / memory_reserved after each
             batch; peak reserved under the loop at most rounds' + 4 GB,
             the loop's second turn within 64 MB of its first, reserved
-            back to its start once the executor is dropped; (b) 16
+            back to its start once the executor is dropped; (b) 4
             queries with the snapshot's filter margin widened to 8 (the
             largest k-th distance + BALL_ABS), a looser certified bound
-            that forces >= 3 rounds, beside a 1-round batch: equal
-            device-to-host copies (torch.profiler); (c) batch sizes 64
+            that forces >= 3 rounds (4 at these queries; the margin
+            makes nearly every row a candidate, so the batch's host
+            refinement takes ~0.3 s a query), beside a 1-round batch:
+            equal device-to-host copies (torch.profiler), the answers
+            checked from the last profiled call; (c) batch sizes 64
             down to 1 on one executor: 7 graph keys, 4 kept, reserved
             no higher after the first four; pdist_rankeval (64, G) and
             pdist (64, P) bit for bit against their plain versions on
@@ -117,7 +125,8 @@ Phases, each printing lines that start with its name:
             snapshot of it); (b) Skewed L1 and (c) Skewed L-infinity,
             each against a host build of its own (structures, 64 range
             and 64 kNN queries, query 0 against an f64 brute-force
-            scan; the queries in spawned worker processes, two a
+            scan; the host builds in spawned worker processes, all four
+            started before (a), and the queries too, two a
             part); structure differences pass only at ties within one
             ulp of the host's f64 distances.  The launch counters are
             zeroed before each build: pdist_l1 and pdist_linf must have
@@ -138,7 +147,7 @@ Phases, each printing lines that start with its name:
 8. serving  the serving lifecycle (repro_torch.serving) on main's host
             index as the builder leaves it, counters zeroed before and
             read after (each query-path kernel must run): (a)
-            ServingEngine(refresh_every=2,000) on the card, 4 rounds of
+            ServingEngine(refresh_every=2,000) on the card, 2 rounds of
             1,000 inserts (data rows + N(0, 0.003), seed 5) and 1,000
             deletes of stored rows, each round's refresh followed by a
             range and a kNN batch equal to the host index's answers and
@@ -152,7 +161,7 @@ Phases, each printing lines that start with its name:
             async_refresh=True: a query thread runs 8 range and 8 kNN
             batches, each grabbing engine.executor once and held to an
             f64 brute-force scan of that executor's snapshot's live
-            rows, while the main thread applies 4 x 2,000 mutations;
+            rows, while the main thread applies 2 x 2,000 mutations;
             batch p50/p99 with a refresh in flight (the traced
             engine.snapshot_build spans) and with none, and the kernel
             table, emptied first, loaded once; (d) Monitor (manual
@@ -206,7 +215,7 @@ Phases, each printing lines that start with its name:
             range_filter at (64, P/4), pdist_rankeval and the pivot
             pdist at (64, G/4); (a) turns sharded,
             single-device, single-device, sharded (REPRO_COMPACT=off:
-            the sharded path does not compact) over main's 8 range and 8
+            the sharded path does not compact) over main's 3 range and 3
             kNN batches (turns 3 and 4 a CUT of 2), every id and f64
             distance equal to main's host answers, q/s of each turn; the
             counters zeroed before turns 1 and 2 and read after: each of
@@ -368,7 +377,7 @@ Phases, each printing lines that start with its name:
             gradient (each layer's slice) finite and nonzero on one
             microbatch, wq / wk / wv included (the autograd Function
             gives the flash kernel the plain attention's gradient);
-            (a) 8 steps on TokenPipeline's batches: the loss falls,
+            (a) 5 steps on TokenPipeline's batches: the loss falls,
             flash_attention launches 2 x layers x microbatches a step
             and no other kernel runs, ms a step (median, min, max),
             tokens/s, peak memory, the device-busy share and top device
@@ -380,11 +389,16 @@ Phases, each printing lines that start with its name:
             SDPA and flash_work's bound); the dry-run's memory model
             (launch.dryrun.analyze_cell at this configuration on a mesh
             of one card) printed beside (a)'s measured peak, with their
-            ratio (a reading, not a check); (b) run_training over 12
-            steps, a checkpoint every 4 in TMPDIR (keep 1), a failure
-            injected at step 6: it ends at step 12 with one restart, and
-            its losses, first pass and replay, equal (a)'s within
-            2**-7; (c) 3 steps each of Adafactor and 8-bit Adam.
+            ratio (a reading, not a check); (b) run_training over 5
+            steps, a checkpoint every 3 in TMPDIR (keep 1), a failure
+            injected at step 4: it ends at step 5 with one restart (the
+            replay of step 3 from the step-3 checkpoint; three saves:
+            steps 0, 3 and 5), and its losses, first pass and replay,
+            equal (a)'s within 2**-7;
+            (c) 3 steps each of Adafactor and 8-bit Adam (the last step's
+            loss reads step 1's update), then every parameter and
+            optimizer-state leaf finite and every parameter leaf drawn
+            at random moved.
 17. dp      (after train; --dp-only runs phases 1, 2 and this one) the
             training step data-parallel over processes (launch.ranks,
             one rank a card).  At count >= 2: count NCCL ranks at
@@ -412,13 +426,56 @@ Phases, each printing lines that start with its name:
             in this process on train:'s state and batch, bit-equal to
             the plain step, and one step of it profiled; (b) two gloo
             ranks on the card at the reduced f32 config (matrices x
-            DP_GLOO_SCALE; started before (a), in a thread, so their
-            start-up overlaps it, and ended before (a)'s profiled step
-            runs, alone on the card), plain DP and ZeRO-1 within
+            DP_GLOO_SCALE; in the whole run started in a thread before
+            train: (b), beside its checkpoint IO, with --dp-only before
+            (a), beside it; ended before (a)'s profiled step runs,
+            alone on the card), plain DP and ZeRO-1 within
             DP_GLOO_REL of the one-process step, beside that step's
             distance from the same step on the CPU at the fan_in
             weights and at DP_GLOO_SCALE; a collective gloo lacks for
             CUDA tensors cuts its mode on a CUT line.
+18. fsdp    (after dp; --fsdp-only runs phases 1, 2 and this one) FSDP
+            (the parameters held as each rank's chunk of their embed
+            dim, a layer's chunks gathered inside its remat'd function,
+            each gradient reduce-scattered in f32 into the rank's
+            accumulator chunk) and Adafactor on shards.  At count >= 2:
+            count NCCL ranks, (a) internlm2-20b at full width cut to 8
+            of 48 layers (the CUT line prints parameters and bytes), its
+            run config (FSDP, remat full, AdamW) in 8 microbatches of
+            one row a card at train_4k's seq, and (b) kimi-k2's FSDP +
+            Adafactor pairing at the families' cut (1 layer, 64
+            experts) in 4 microbatches; each FSDP_STEPS timed steps of
+            FSDP and of ZeRO-1 on the same ranks, batches and initial
+            parameters (FSDP drawn leaf by leaf, each cut to its chunk
+            as it is drawn) and one more step of each under
+            torch.profiler: FSDP held to ZeRO-1 (every loss and grad
+            norm, and after the steps each rank's parameter chunk and
+            optimizer-state chunks; the line says whether they are
+            bit-equal, else prints the largest differences; the checks
+            are dp:'s bars), the parameter, optimizer-state and
+            accumulator bytes of each rank equal to abstract_state's
+            and the gradient shardings' shard bytes, flash_attention 2
+            x layers x microbatches a step; ms a step, tokens/s, NCCL
+            ms, busy share and peak a card beside estimate_memory's
+            FSDP and ZeRO-1 totals; row 5-train-i2 (the kernel at
+            internlm2's (1, 48, 4096, 128) x (1, 8, 4096, 128), a GQA
+            group of 6, on (a)'s first operands, held to its plain
+            version and the f64 answer, beside SDPA and flash_work's
+            bound).  At one card (the CUT line says why): (c)
+            internlm2-20b at full width, 4 of 48 layers, its first run
+            on a card: every parameter's gradient finite and nonzero on
+            one microbatch, 2 AdamW steps (remat full, 8 microbatches of
+            one row), the second profiled, row 5-train-i2 at its
+            operands; (d) two gloo ranks on the card (started in a
+            thread before train: (b) with dp: (b)'s, or with --fsdp-only
+            before (c); ended before dp: (a)'s profiled step and before
+            (c)'s steps) at the reduced f32 configs (matrices
+            x DP_GLOO_SCALE): FSDP x {AdamW, Adafactor, 8-bit Adam} on
+            dense llama, FSDP + Adafactor on a reduced MoE with drops and
+            ZeRO-1 + Adafactor on llama, each within DP_GLOO_REL of the
+            one-process step on the card (8-bit Adam's parameters at
+            FSDP_8BIT_REL), FSDP + Adafactor bit-equal to ZeRO-1 +
+            Adafactor on the same ranks.
 
 The whole run, the build included, must end within 1,200 s; the
 ``total:`` line prints its seconds.  Before the last line it prints the
@@ -469,18 +526,22 @@ WIDE_D, WIDE_N = 256, 20_000
 # (b), (c) and (e)'s query checks: BUILDER_SLICES slices of a part's
 # queries, one spawned worker a slice, running beside the builder's
 # later parts; a slice's answer waited for at most BUILDER_QUERY_WAIT_S
+# (4 slices a part took 35-52 s longer than 2: each slice's task pickles
+# the part's rows and both indexes; tools/ab_builder_slices.py, PERF.md)
 BUILDER_SLICES, BUILDER_WORKERS, BUILDER_QUERY_WAIT_S = 2, 8, 600.0
 # serving: rounds of SERVE_ROWS inserts + SERVE_ROWS deletes, a refresh
 # every SERVE_REFRESH mutations; (c)'s query thread runs
 # SERVE_ASYNC_BATCHES batches of each kind; (a) sends FOUND_SAMPLE of a
 # round's inserted and of its deleted rows through r = 1e-9 queries
-SERVE_ROUNDS, SERVE_ROWS, SERVE_REFRESH = 4, 1_000, 2_000
+# (2 rounds, each with every check of a round: the whole run keeps
+# within its limit)
+SERVE_ROUNDS, SERVE_ROWS, SERVE_REFRESH = 2, 1_000, 2_000
 SERVE_ASYNC_BATCHES = 8
 FOUND_SAMPLE = 64
 # paged: main's snapshot spilled at PAGE_BYTES pages, served behind a
 # CACHE_PAGES page cache (16 MB, far under the store); (b) runs the first
 # PAGED_BATCHES of main's batches of each kind in each prefetch mode (a
-# CUT of main's 8: a cold paged batch takes 2-4 s at n = 1M, and 8 of
+# CUT of main's 3: a cold paged batch takes 2-4 s at n = 1M, and 3 of
 # each in both modes would double the phase, PERF.md); (c)'s engine
 # takes one round of SERVE_ROWS inserts and SERVE_ROWS deletes
 PAGE_BYTES, CACHE_PAGES, PAGED_BATCHES = 4096, 4096, 1
@@ -503,7 +564,7 @@ FRONTEND_JOIN_S = 300.0
 # against the 4 an executor keeps), and (d)'s cut of main's batches
 LOOP_MEMORY_SLACK = 4 << 30
 LOOP_TURN_SLACK = 64 << 20      # allocator rounding between equal turns
-LOOP_FORCED_B = 16
+LOOP_FORCED_B = 4
 D2H_WINDOWS = 3                 # profiler windows a copy count reads
 LOOP_KEYS = (64, 32, 16, 8, 4, 2, 1)
 LOOP_SHARDED_CUT = 2
@@ -546,7 +607,7 @@ BASELINE_N, BASELINE_BATCHES = 200_000, 1
 # step on the card against the CPU port's (as the CPU tests' SCALED)
 TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = 4_096, 8, 4, 1e-2
-TRAIN_STEPS, FAULT_STEPS, FAULT_EVERY, FAULT_AT, OTHER_STEPS = 8, 12, 4, 6, 3
+TRAIN_STEPS, FAULT_STEPS, FAULT_EVERY, FAULT_AT, OTHER_STEPS = 5, 5, 3, 4, 3
 TRAIN_REPLAY_REL, TRAIN_GRAD_REL, TRAIN_F32_REL = 2.0 ** -7, 2.0 ** -8, 2e-3
 # dp: DP_STEPS timed steps of each mode (plus one profiled); (b)'s bar
 # on two gloo ranks against the one-process step, f32, over DP_GLOO_STEPS
@@ -576,6 +637,29 @@ DP_EQUAL_STEPS, DP_STATE_REL, DP_LATE_NORM_REL = 2, 2.0 ** -5, 2.0 ** -4
 # half the scale it is ~15.7 and the two agree within 6.1e-8 (PERF.md).
 # The phase prints that reading beside its own.
 DP_GLOO_SCALE = 0.5
+# fsdp: at count >= 2, (a) FSDP_ARCH at full width cut to FSDP_LAYERS
+# layers in its run config (FSDP, remat "full", AdamW, FSDP_MICRO
+# microbatches, here of one row a card) and (b) KIMI_ARCH's FSDP +
+# Adafactor pairing at the families' cut (KIMI_LAYERS layers,
+# KIMI_EXPERTS experts) in KIMI_MICRO microbatches (of its 16); each
+# mode FSDP_STEPS timed steps and one profiled.  At one card (c)
+# FSDP_ARCH at FSDP_ONE_LAYERS and (d) FSDP_GLOO_RUNS ((MoE?,
+# optimizer, mode)) on two gloo ranks at dp:'s bar, FSDP + Adafactor held
+# to ZeRO-1 + Adafactor bit for bit.  8-bit Adam's parameters are held at
+# FSDP_8BIT_REL of their scale, the CPU tests' bar for the same
+# comparison (PORT_PARAM_REL in tests/test_torch_train_dp.py): its int8
+# moments round x / scale to a code, so where the ranks' f32 gradient
+# sums part from the one-process sum in the last bit a code can flip and
+# move that element's update by a step of its block's scale (1.24e-5 of
+# the scale read on an H100, PERF.md)
+FSDP_ARCH, FSDP_LAYERS, FSDP_ONE_LAYERS = "internlm2-20b", 8, 4
+FSDP_MICRO, FSDP_STEPS = 8, 2
+KIMI_ARCH, KIMI_LAYERS, KIMI_EXPERTS, KIMI_MICRO = \
+    "kimi-k2-1t-a32b", 1, 64, 4
+FSDP_GLOO_RUNS = ((False, "adamw", "fsdp"), (False, "adafactor", "fsdp"),
+                  (False, "adamw8bit", "fsdp"), (True, "adafactor", "fsdp"),
+                  (False, "adafactor", "zero1"))
+FSDP_8BIT_REL = 2e-5
 
 LM_ARCH = "llama3-8b"
 # (a)'s cut depth, and its bar on max |diff| relative to the compared
@@ -790,12 +874,9 @@ def shape_spy(names=("pdist", "range_filter")):
                                        add_launches=add_spy)
 
 
-def phase_main(X, ix, batches, snap_cls, executor_cls):
-    """The counted main path.  Returns the launch counts and the
-    snapshot (reused by the later phases)."""
-    from repro_torch.core.metrics import dist_one_to_many
-    from repro_torch.kernels import _cuda
-
+def host_answers(ix, batches, show: bool = True) -> tuple:
+    """The host index's answers to every range and every kNN batch
+    (ids and f64 distances), with ``show`` its q/s printed."""
     t0 = time.perf_counter()
     host_range = [[ix.range_query(q, r)[:2] for q, r in zip(Q, rs)]
                   for Q, rs in batches]
@@ -803,8 +884,18 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     host_knn = [[ix.knn_query(q, K_NN)[:2] for q in Q] for Q, _ in batches]
     t2 = time.perf_counter()
     nq = len(batches) * B
-    print(f"main: host LIMSIndex range {nq / (t1 - t0):.2f} q/s, "
-          f"kNN {nq / (t2 - t1):.2f} q/s (one CPU thread)", flush=True)
+    if show:
+        print(f"main: host LIMSIndex range {nq / (t1 - t0):.2f} q/s, "
+              f"kNN {nq / (t2 - t1):.2f} q/s (one CPU thread)", flush=True)
+    return host_range, host_knn
+
+
+def phase_main(X, ix, batches, host_range, host_knn, snap_cls,
+               executor_cls):
+    """The counted main path.  Returns the launch counts and the
+    snapshot (reused by the later phases)."""
+    from repro_torch.core.metrics import dist_one_to_many
+    from repro_torch.kernels import _cuda
 
     # the (nq, np) of each pdist and range_filter launch of the counted run
     shapes, spying = shape_spy()
@@ -872,7 +963,7 @@ def phase_main(X, ix, batches, snap_cls, executor_cls):
     print(f"main: batch 0 equals the f64 brute-force scan "
           f"(range hits/query={np.mean([len(g[0]) for g in got_r]):.1f})",
           flush=True)
-    return counts, shapes, snap, host_range, host_knn, rates
+    return counts, shapes, snap, rates
 
 
 def query_batches(ex, batches, host_range, host_knn, tag: str) -> dict:
@@ -1478,10 +1569,12 @@ def forced_rounds_batch(snap, batches, host_knn) -> None:
                     ("forced", QueryExecutor(wide))):
         ex.knn_query_batch(Q, K_NN)             # the capture
         t0 = time.perf_counter()
-        windows = d2h_copies(lambda: ex.knn_query_batch(Q, K_NN))
+        last = {}                   # the last profiled call's answers
+        windows = d2h_copies(lambda: last.update(
+            zip(("ids", "ds"), ex.knn_query_batch(Q, K_NN))))
         copies = max(windows)
         secs = (time.perf_counter() - t0) / D2H_WINDOWS
-        ids, ds = ex.knn_query_batch(Q, K_NN)
+        ids, ds = last["ids"], last["ds"]
         for b in range(len(Q)):
             check(same_knn((ids[b], ds[b]), want[b]),
                   f"knn_loop: (b) {tag} query {b} differs from the host")
@@ -2014,11 +2107,11 @@ def compare_structures(tag, X, metric, host, dev) -> None:
           flush=True)
 
 
-def print_build(tag, dev, t_dev, t_host, counts) -> None:
+def print_build(tag, dev, t_dev, t_host, counts, where="") -> None:
     t = {k: round(v, 4) for k, v in dev.device_build_timings.items()}
     print(f"builder: {tag} device build stages_s={json.dumps(t)} "
           f"LIMSIndex(backend='device') total_s={t_dev:.3f} (stages + host "
-          f"f64 materialization); host build total_s={t_host:.3f}; "
+          f"f64 materialization); host build total_s={t_host:.3f}{where}; "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()}; "
           f"launches {json.dumps(counts)}", flush=True)
 
@@ -2101,27 +2194,42 @@ def builder_query_results(pending) -> None:
               f"{len(results)} worker processes)", flush=True)
 
 
-def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
+def builder_data(n: int, d: int, data: str):
+    """(b), (c) or (e)'s rows: Skewed (the paper's L1 data set) or
+    GaussMix, seed 0."""
+    from repro_torch.data.datasets import gauss_mix, skewed
+    return (skewed if data == "skewed" else gauss_mix)(n, d, seed=0)
+
+
+def builder_host(metric, n, data, d):
+    """(b), (c) or (e)'s host build, in a worker process (the four run
+    beside each other and beside the builder's (a)): the index and its
+    build seconds."""
+    X = builder_data(n, d, data)
+    t0 = time.perf_counter()
+    host = lims_index(X, metric)
+    return host, time.perf_counter() - t0
+
+
+def phase_builder_lp(metric, n, pool, host, data="skewed", d=D, rows=True):
     """(b), (c) or (e): ``data`` (Skewed, the paper's L1 data set, or
-    GaussMix) at width ``d`` with ``metric``: a host and a device build,
-    their structures, 64 range and 64 kNN queries through both (handed
-    to ``pool``: builder_queries), query 0 against brute force; the
-    kernel launched once in the build; then the kernel against its plain
+    GaussMix) at width ``d`` with ``metric``: a host build (``host``:
+    builder_host's pending result) and a device build, their
+    structures, 64 range and 64 kNN queries through both (handed to
+    ``pool``: builder_queries), query 0 against brute force; the kernel
+    launched once in the build; then the kernel against its plain
     version at pivot_columns' grouped launch shape and, with ``rows``,
     its row there and a printed line at the reference's chunked launch
     shape.  Returns (the row or None, (tag, the pending queries))."""
     from repro_torch.build import cluster_major
-    from repro_torch.data.datasets import gauss_mix, skewed
     from repro_torch.roofline import analysis as ra
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.pdist import METRICS
     name, plain = METRICS[metric]
-    X = (skewed if data == "skewed" else gauss_mix)(n, d, seed=0)
+    X = builder_data(n, d, data)
     tag = f"{metric} {'Skewed' if data == 'skewed' else 'GaussMix'} n={n}" \
           + ("" if d == D else f" d={d}")
-    t0 = time.perf_counter()
-    host = lims_index(X, metric)
-    t_host = time.perf_counter() - t0
+    host, t_host = host.get(timeout=BUILDER_QUERY_WAIT_S)
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     t0 = time.perf_counter()
@@ -2130,7 +2238,8 @@ def phase_builder_lp(metric, n, pool, data="skewed", d=D, rows=True):
     counts = dict(_cuda.LAUNCHES)
     check(counts[name] == 1, f"builder: the {tag} build launched {name} "
           f"{counts[name]} times, not once")
-    print_build(tag, dev, t_dev, t_host, counts)
+    print_build(tag, dev, t_dev, t_host, counts,
+                " (in a worker process, beside the other parts' builds)")
     compare_structures(tag, X, metric, host, dev)
 
     (Q, rs), = make_queries(X, np.random.default_rng(2), 1, metric)
@@ -5230,11 +5339,13 @@ def train_row(qkv, launches: int, per_step: int) -> dict:
              f"{TRAIN_MICRO} microbatches: selective remat relaunches it)")
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int, before_fault=None) -> dict:
     """The twin of examples/train_lm.py at llama3-8b's full width in
     bf16 (depth cut): (a) TRAIN_STEPS AdamW steps on the pipeline's
-    batches, (b) run_training with an injected failure, (c) Adafactor
-    and 8-bit Adam.  Returns the 5-train kernel row."""
+    batches, (b) run_training with an injected failure (after
+    ``before_fault()``, where given: work that runs beside (b)'s
+    checkpoint IO), (c) Adafactor and 8-bit Adam.  Returns the 5-train
+    kernel row."""
     from repro_torch.configs.base import RunConfig, ShapeCell
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import TokenPipeline
@@ -5339,6 +5450,8 @@ def phase_train(seed: int) -> dict:
     torch.cuda.empty_cache()
 
     # (b) the fault-tolerant loop: one injected failure, restore, replay
+    if before_fault is not None:
+        before_fault()
     state = train_state(cfg, run, seed)
     with tempfile.TemporaryDirectory() as d:
         free = shutil.disk_usage(d).free
@@ -5366,7 +5479,7 @@ def phase_train(seed: int) -> dict:
           f"every {FAULT_EVERY} (keep 1), failure injected at step "
           f"{FAULT_AT}: ended at step {int(state['step'])}, restarts "
           f"{stats.restarts}, steps run {stats.steps_run} (steps "
-          f"{FAULT_EVERY}-{FAULT_AT - 1} replayed from the step-"
+          f"{list(range(FAULT_EVERY, FAULT_AT))} replayed from the step-"
           f"{FAULT_EVERY} checkpoint) in {secs:.1f} s, of which ~"
           f"{secs - stats.steps_run * med:.1f} s not in steps (the "
           f"checkpoints' IO, the restore; (a)'s median step "
@@ -5387,6 +5500,9 @@ def phase_train(seed: int) -> dict:
         state = train_state(cfg, run_o, seed)
         opt_bytes = sum(t.numel() * t.element_size() for t in
                         optim.tree_leaves(state["opt"]))
+        first = moments_fingerprint(state["params"])
+        drawn = [bool(p.min() != p.max())
+                 for p in optim.tree_leaves(state["params"])]
         got, times = [], []
         for s in range(OTHER_STEPS):
             sync()
@@ -5395,8 +5511,24 @@ def phase_train(seed: int) -> dict:
             got.append(float(m["loss"]))
             times.append(time.perf_counter() - t0)
         check(all(np.isfinite(got)), f"train: (c) {opt} losses {got}")
+        bad = [i for i, t in enumerate(optim.tree_leaves(
+            (state["params"], state["opt"]))) if not bool(
+                torch.isfinite(t).all())]
+        check(not bad, f"train: (c) {opt}: leaves {bad} of the parameters "
+              f"and optimizer state are not finite after the last step")
+        moved = [a != b for a, b in zip(first,
+                                        moments_fingerprint(state["params"]))]
+        still = [i for i, (d, mv) in enumerate(zip(drawn, moved))
+                 if d and not mv]
+        check(not still, f"train: (c) {opt}: parameter leaves {still}, "
+              f"drawn at random, did not move over {OTHER_STEPS} steps")
         print(f"train: (c) {opt}: {OTHER_STEPS} steps, losses "
-              f"{[round(x, 4) for x in got]}, ms a step "
+              f"{[round(x, 4) for x in got]} (the last reads step 1's "
+              f"update), every parameter and optimizer-state leaf finite, "
+              f"{sum(moved)} of {len(moved)} parameter leaves moved (every "
+              f"one drawn at random; a constant leaf, a norm's 1.0, may "
+              f"not: the first updates fall under half its bf16 ulp), "
+              f"ms a step "
               f"{[round(t * 1e3, 1) for t in times]}; optimizer state "
               f"{opt_bytes:,} bytes; max_memory_allocated "
               f"{torch.cuda.max_memory_allocated()}", flush=True)
@@ -5409,12 +5541,13 @@ def phase_train(seed: int) -> dict:
 
 # ----------------------------------------------------------------------- dp
 def moments_fingerprint(tree) -> list:
-    """One int64 a leaf: the sum of its elements' 32-bit patterns (equal
-    bits give equal sums) -- a comparison of f32 moments without a host
-    copy of them."""
+    """One int64 a leaf: the sum of its elements' bit patterns (equal
+    bits give equal sums) -- a comparison of moments or parameters
+    without a host copy of them."""
     from repro_torch.train import optim
-    return [int(t.detach().contiguous().view(torch.int32).to(torch.int64)
-                .sum()) for t in optim.tree_leaves(tree)]
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [int(t.detach().contiguous().view(bits[t.element_size()])
+                .to(torch.int64).sum()) for t in optim.tree_leaves(tree)]
 
 
 def dp_group_of_one(seed: int, before_profile) -> None:
@@ -5577,39 +5710,46 @@ def dp_reduced_inputs(seed: int, scale: float):
     return params, batch
 
 
-def dp_gloo_start(seed: int):
-    """(b) at one card, started: two gloo ranks on the card (NCCL refuses
-    two ranks on one device) in a thread of this process, so their
-    start-up overlaps (a); ``dp_gloo_join`` ends them before (a)'s
-    profiled step."""
+def gloo_start(rank_body, args: tuple, tag: str):
+    """Two gloo ranks on the card (NCCL refuses two ranks on one device)
+    running ``rank_body`` in a thread of this process, so their start-up
+    overlaps the caller's work on the card; ``gloo_join`` ends them.
+    ``tag`` names them in a failure; the last item is when they
+    started."""
     from repro_torch.launch.ranks import run_ranks
-    from repro_torch.train import optim
-    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
-    host = optim.tree_map(lambda p: p.numpy().copy(), params)
     out = {}
 
     def work():
         try:
-            out["got"] = run_ranks(dp_gloo_rank, 2,
-                                   (host, batch, ("plain", "zero1")),
-                                   backend="gloo",
+            out["got"] = run_ranks(rank_body, 2, args, backend="gloo",
                                    devices=[DEVICE + ":0"] * 2,
                                    timeout_s=600)
-        except BaseException as e:      # re-raised by dp_gloo_finish
+        except BaseException as e:      # re-raised by gloo_join
             out["error"] = e
-    thread = threading.Thread(target=work, name="dp-gloo", daemon=True)
+    thread = threading.Thread(target=work, name=f"{tag} gloo", daemon=True)
     thread.start()
-    return thread, out, time.perf_counter()
+    return thread, out, tag, time.perf_counter()
 
 
-def dp_gloo_join(pending) -> None:
-    """Wait for (b)'s gloo ranks to end (and their processes with
-    them)."""
-    thread, out, _ = pending
+def gloo_join(pending) -> dict:
+    """Wait for ``gloo_start``'s ranks to end (and their processes with
+    them); returns what they returned, re-raising what they raised."""
+    thread, out, tag, _ = pending
     thread.join(timeout=660)
-    check(not thread.is_alive(), "dp: (b) the gloo ranks did not end")
+    check(not thread.is_alive(), f"{tag} the gloo ranks did not end")
     if "error" in out:
         raise out["error"]
+    return out["got"]
+
+
+def dp_gloo_start(seed: int):
+    """(b) at one card, started: its gloo ranks overlap (a); (a)'s
+    profiled step joins them."""
+    from repro_torch.train import optim
+    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
+    host = optim.tree_map(lambda p: p.numpy().copy(), params)
+    return gloo_start(dp_gloo_rank, (host, batch, ("plain", "zero1")),
+                      "dp: (b)")
 
 
 def dp_gloo_finish(seed: int, pending) -> None:
@@ -5621,7 +5761,7 @@ def dp_gloo_finish(seed: int, pending) -> None:
     from repro_torch.configs.base import RunConfig
     from repro_torch.train import optim
     from repro_torch.train.step import build_train_step, init_state
-    _, out, t0 = pending
+    t0 = pending[-1]
     cfg = dp_reduced_cfg()
     run = RunConfig(learning_rate=1e-3, microbatches=2)
     step = build_train_step(cfg, run)
@@ -5648,8 +5788,7 @@ def dp_gloo_finish(seed: int, pending) -> None:
           f"CPU (a reading of the f32 conditioning, not a check): "
           + "; ".join(f"matrices x {sc}: {g:.4f}, {d:.3g}"
                       for sc, (g, d) in spread.items()), flush=True)
-    dp_gloo_join(pending)
-    got = out["got"]
+    got = gloo_join(pending)
     missing = got[0]["missing"]
     if missing:
         print("dp: CUT: (b) gloo lacks on CUDA tensors: " + "; ".join(
@@ -5950,10 +6089,13 @@ def dp_over_cards(seed: int, world: int) -> None:
           flush=True)
 
 
-def phase_dp(seed: int, count: int) -> None:
+def phase_dp(seed: int, count: int, pending=None, running=()) -> None:
     """The training step data-parallel over processes (one NCCL rank a
     card): over every card where there are several; at one card a NCCL
-    group of one and two gloo ranks on the card."""
+    group of one and two gloo ranks on the card (``pending``: (b)'s
+    ranks where the caller started them, else started here).
+    ``running``: other ``gloo_start`` ranks on the card that (a)'s
+    profiled step waits for too, so it runs alone on the card."""
     t_phase = time.perf_counter()
     if count >= 2:
         dp_over_cards(seed, count)
@@ -5961,10 +6103,661 @@ def phase_dp(seed: int, count: int) -> None:
         print("dp: CUT: one card: NCCL takes one card a rank, so the "
               "phase runs (a) a NCCL group of one and (b) two gloo ranks "
               "on the card, not W ranks over W cards", flush=True)
-        pending = dp_gloo_start(seed)
-        dp_group_of_one(seed, lambda: dp_gloo_join(pending))
+        pending = pending or dp_gloo_start(seed)
+        dp_group_of_one(seed, lambda: [gloo_join(p) for p in
+                                       (pending, *running)])
         dp_gloo_finish(seed, pending)
     print(f"dp: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------------- fsdp
+def fsdp_cfg(world: int, kimi: bool, layers: int):
+    """(a)'s internlm2-20b or (b)'s kimi-k2 at full width in bf16, cut
+    to ``layers`` layers (kimi also to KIMI_EXPERTS experts, its MoE
+    dispatch one group a rank), remat "full" (their run configs')."""
+    from repro_torch.configs.registry import get_arch
+    if not kimi:
+        return dataclasses.replace(get_arch(FSDP_ARCH), n_layers=layers,
+                                   remat="full")
+    cfg = get_arch(KIMI_ARCH)
+    return dataclasses.replace(
+        cfg, n_layers=layers, remat="full", moe_dispatch_groups=world,
+        moe=dataclasses.replace(cfg.moe, n_experts=KIMI_EXPERTS))
+
+
+def fsdp_params(cfg, seed: int, device, lazy: bool):
+    """``cfg``'s parameters drawn on ``device`` from ``seed``: the whole
+    tree, or with ``lazy`` the same tree as callables that each draw
+    their leaf (``train.step.shard_params`` cuts each as it is drawn, so
+    a rank holds one whole leaf beside its chunks); the same values
+    either way (one generator, the specs' order)."""
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = zoo.model_specs(cfg)
+    if not lazy:
+        return init_params(specs, gen, cfg.dtype, device=device)
+
+    def lazy_tree(tree):
+        if isinstance(tree, dict):
+            return {k: lazy_tree(v) for k, v in tree.items()}
+        return lambda: init_params({"x": tree}, gen, cfg.dtype,
+                                   device=device)["x"]
+    return lazy_tree(specs)
+
+
+def shard_bytes(tree) -> int:
+    """The bytes one device holds of a tree of ``abstract_state``'s
+    ``meta`` tensors (each by its sharding description)."""
+    from repro_torch.train import optim
+    return sum(int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
+               * t.element_size() if t.dim() else t.element_size()
+               for t in optim.tree_leaves(tree))
+
+
+def state_parts(state) -> tuple:
+    """(names, leaf lists) of a train state: the parameters, then each
+    optimizer-state tree (AdamW's mu and nu, Adafactor's v)."""
+    from repro_torch.train import optim
+    names = ["params"] + [k for k in sorted(state["opt"]) if k != "count"]
+    return names, [optim.tree_leaves(state["params"] if k == "params"
+                                     else state["opt"][k]) for k in names]
+
+
+def fsdp_state_versus(state, kept, initial) -> dict:
+    """ZeRO-1's ``state`` on this rank against FSDP's (``kept``: each
+    part's (host copy, Shard or None) pairs): bit-equal or not, each
+    part's largest |difference|, and its L2 distance summed over the
+    ranks as dp: measures it (the parameters over ZeRO-1's move from
+    ``initial``, the optimizer state over its norm; a chunk on every
+    rank, a whole leaf on rank 0)."""
+    import torch.distributed as dist
+    _, mine = state_parts(state)
+    dev = mine[0][0].device
+    sums = torch.zeros(len(mine), 2, dtype=torch.float64, device=dev)
+    equal, worst = True, [0.0] * len(mine)
+    rank = dist.get_rank()
+    for i, (zs, fs) in enumerate(zip(mine, kept)):
+        for j, (z, (f, sh)) in enumerate(zip(zs, fs)):
+            z, f = z.detach(), f.to(dev)
+            base = initial[j] if i == 0 else None
+            if i == 0 and sh is not None:
+                z, base = sh.of(z), sh.of(base)   # ZeRO-1's whole leaf
+            if not torch.equal(z, f):
+                equal = False
+                worst[i] = max(worst[i], float((z.float() - f.float())
+                                               .abs().max()))
+            if sh is None and rank != 0:
+                continue
+            z = z.float()
+            sums[i, 0] += torch.sum((f.float() - z) ** 2)
+            sums[i, 1] += torch.sum((z - base.float()) ** 2 if i == 0
+                                    else z ** 2)
+    dist.all_reduce(sums)
+    return {"equal": equal, "worst": worst,
+            "dists": [float(x) for x in torch.sqrt(sums[:, 0] /
+                                                   sums[:, 1])]}
+
+
+def fsdp_nccl_job(rank, device, seed, world, kimi, layers, optimizer,
+                  micro, steps, seq):
+    """One configuration on the W ranks: ``steps`` timed steps of FSDP,
+    then of ZeRO-1, from the same initial parameters on the same batches
+    (one more step of each under torch.profiler); FSDP's state is kept
+    on the host and held to ZeRO-1's after; rank 0 keeps FSDP's first
+    flash operands for the kernel row."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.data.pipeline import DataShard, _batch_for_step
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import zoo
+    from repro_torch.sharding import collective
+    from repro_torch.sharding.logical import LogicalMesh, default_rules
+    from repro_torch.train import optim
+    from repro_torch.train.step import (abstract_state, build_train_step,
+                                        init_state, zero1_grad_shardings)
+    cfg = fsdp_cfg(world, kimi, layers)
+    rows = micro * world                       # one row a microbatch a card
+    mesh = make_host_mesh(device=device)
+    desc = LogicalMesh(("data", "model"), (world, 1))
+    local = [{k: torch.from_numpy(v).to(device) for k, v in _batch_for_step(
+        s, DataShard(rank, world), cfg.vocab, rows, seq).items()}
+        for s in range(steps + 1)]
+    out, kept, qkv = {"config": cfg.name}, None, None
+    for mode in ("fsdp", "zero1"):
+        run = RunConfig(optimizer=optimizer, learning_rate=TRAIN_LR,
+                        microbatches=micro, fsdp=mode == "fsdp",
+                        zero1=mode == "zero1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state = init_state(cfg, run, fsdp_params(cfg, seed, device,
+                                                 lazy=mode == "fsdp"),
+                           mesh=mesh)
+        torch.cuda.synchronize(device)
+        init_s = time.perf_counter() - t0
+        step = build_train_step(cfg, run, total_steps=FAULT_STEPS, mesh=mesh)
+        (_, first), spying = family_flash_spy()
+        _cuda.reset_launches()
+        losses, norms, times = [], [], []
+        with spying if rank == 0 and mode == "fsdp" and not kimi \
+                else contextlib.nullcontext():
+            for s in range(steps):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                state, m = step(state, local[s])
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                times.append(time.perf_counter() - t0)
+        launches = dict(_cuda.LAUNCHES)
+        if first:
+            qkv = tuple(t.detach().cpu() for t in next(iter(first.values())))
+        got = {}
+        wall, busy, top = device_busy(
+            lambda: got.setdefault("m", step(state, local[steps])),
+            n_top=None)
+        losses.append(float(got["m"][1]["loss"]))
+        norms.append(float(got["m"][1]["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated(device)
+        ab = abstract_state(cfg, run, zoo.model_specs(cfg), desc,
+                            default_rules(fsdp=run.fsdp))
+        want_acc = sum(int(np.prod(s.shard_shape(tuple(p.shape)))) * 4
+                       for p, s in zip(optim.tree_leaves(ab["params"]),
+                                       optim.tree_leaves(zero1_grad_shardings(
+                                           cfg, run, desc))))
+        rec = analyze_cell(cfg.name, "train_4k", False, cfg=cfg, run=run,
+                           cell=ShapeCell("train_4k", seq, rows, "train"),
+                           mesh=desc)
+        out[mode] = dict(
+            loss=losses, norm=norms, times=times, init_s=init_s,
+            launches=launches, peak=peak, wall_ms=wall, busy_ms=busy,
+            nccl_ms=sum(t for n, t in top if "nccl" in n.lower()),
+            flash_ms=sum(t for n, t in top if "flash" in n.lower()),
+            param_bytes=step.held["param_bytes"],
+            opt_bytes=sum(t.numel() * t.element_size()
+                          for t in optim.tree_leaves(state["opt"])),
+            acc_bytes=step.held["grad_acc_bytes"],
+            want=(shard_bytes(ab["params"]), shard_bytes(ab["opt"]),
+                  want_acc),
+            model_bytes=rec["mem"]["bytes"]["total"],
+            top=[(n, round(t, 3)) for n, t in top[:5]])
+        if mode == "fsdp":
+            out["parts"], leaves = state_parts(state)
+            kept = [[(t.detach().to("cpu", copy=True),
+                      collective.shard_of(t)) for t in part]
+                    for part in leaves]
+            del leaves
+        else:
+            initial = optim.tree_leaves(fsdp_params(cfg, seed, device,
+                                                    lazy=False))
+            out["versus"] = fsdp_state_versus(state, kept, initial)
+            del initial
+        del state, step, got
+    del kept
+    out["qkv"] = qkv
+    return out
+
+
+def fsdp_nccl_rank(rank, device, seed, world, jobs):
+    """The W-card rank body: each of ``jobs`` (``fsdp_nccl_job``'s
+    arguments after ``world``) in turn."""
+    return [fsdp_nccl_job(rank, device, seed, world, *job) for job in jobs]
+
+
+def fsdp_report(tag, got, world, layers, micro, steps, seq) -> None:
+    """(a) / (b)'s checks and lines: FSDP held to ZeRO-1 on the same
+    ranks, bit for bit where it is (else at dp:'s bars, the largest
+    difference printed), the bytes each rank holds against
+    abstract_state's, the flash launches, the times."""
+    per_step = 2 * layers * micro
+    for r, res in enumerate(got):
+        f, z, vs = res["fsdp"], res["zero1"], res["versus"]
+        for mode, m in (("fsdp", f), ("zero1", z)):
+            check(m["launches"].get("flash_attention", 0) == steps * per_step,
+                  f"fsdp: {tag} {mode} rank {r}: launches {m['launches']}, "
+                  f"not {steps} x {per_step} flash_attention (2 x {layers} "
+                  f"layers x {micro} microbatches, remat full)")
+            check((m["param_bytes"], m["opt_bytes"], m["acc_bytes"])
+                  == tuple(m["want"]),
+                  f"fsdp: {tag} {mode} rank {r}: parameters, optimizer state "
+                  f"and accumulators hold {m['param_bytes']}, "
+                  f"{m['opt_bytes']}, {m['acc_bytes']} B, not the described "
+                  f"{m['want']}")
+        check(f["param_bytes"] < z["param_bytes"],
+              f"fsdp: {tag} rank {r}: FSDP holds {f['param_bytes']} B of "
+              f"parameters, not fewer than ZeRO-1's {z['param_bytes']}")
+        rel_l = max(abs(a - b) / abs(b) for a, b in zip(f["loss"], z["loss"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(f["norm"], z["norm"])]
+        check(rel_l <= TRAIN_REPLAY_REL
+              and max(rel[:DP_EQUAL_STEPS]) <= TRAIN_GRAD_REL
+              and max(rel[DP_EQUAL_STEPS:] + [0.0]) <= DP_LATE_NORM_REL
+              and max(vs["dists"]) <= DP_STATE_REL,
+              f"fsdp: {tag} rank {r}: FSDP against ZeRO-1: losses "
+              f"{f['loss']} / {z['loss']}, grad norms {f['norm']} / "
+              f"{z['norm']}, state distances {vs['dists']} (bars "
+              f"{TRAIN_REPLAY_REL:g}, {TRAIN_GRAD_REL:g} / "
+              f"{DP_LATE_NORM_REL:g}, {DP_STATE_REL:g})")
+    f0, z0 = got[0]["fsdp"], got[0]["zero1"]
+    bits = all(r["versus"]["equal"] and r["fsdp"]["loss"] == r["zero1"]["loss"]
+               and r["fsdp"]["norm"] == r["zero1"]["norm"] for r in got)
+    print(f"fsdp: {tag} FSDP against ZeRO-1 on the same {world} ranks, "
+          f"batches and initial parameters, {steps + 1} steps: "
+          + ("bit-equal (every loss, grad norm, parameter chunk and "
+             "optimizer-state chunk on every rank)" if bits else
+             f"not bit-equal: losses {f0['loss']} / {z0['loss']}, grad norms "
+             f"{f0['norm']} / {z0['norm']}; largest |difference| of "
+             f"{', '.join(got[0]['parts'])} by rank "
+             f"{[r['versus']['worst'] for r in got]}; L2 distances "
+             f"{[r['versus']['dists'] for r in got]} (held at dp:'s bars "
+             f"{TRAIN_REPLAY_REL:g}, {TRAIN_GRAD_REL:g} / "
+             f"{DP_LATE_NORM_REL:g}, {DP_STATE_REL:g})"), flush=True)
+    tokens = micro * world * seq
+    # the first step pays its warm-up (NCCL's sub-group communicators,
+    # cuBLAS handles): the rate is the later steps'
+    steady = {mode: float(np.median(got[0][mode]["times"][1:]))
+              for mode in ("fsdp", "zero1")}
+    print(f"fsdp: {tag} FSDP / ZeRO-1 steady step on rank 0: "
+          f"{steady['fsdp'] * 1e3:.1f} / {steady['zero1'] * 1e3:.1f} ms = "
+          f"{steady['fsdp'] / steady['zero1']:.4f}", flush=True)
+    for mode in ("fsdp", "zero1"):
+        m = f0 if mode == "fsdp" else z0
+        med = steady[mode]
+        print(f"fsdp: {tag} {mode}: losses {m['loss']}, grad norms "
+              f"{m['norm']}; ms a step "
+              f"{[[round(t * 1e3, 1) for t in r[mode]['times']] for r in got]}"
+              f" (per rank, the first with its warm-up; {med * 1e3:.1f} "
+              f"after it on rank 0), "
+              f"{tokens / med:.1f} tokens/s ({micro * world} x {seq} tokens "
+              f"a step); init {m['init_s']:.1f} s; flash_attention "
+              f"{[r[mode]['launches'].get('flash_attention', 0) for r in got]}"
+              f" launches per rank ({steps} steps x {per_step}); parameters "
+              f"{m['param_bytes']:,} B, optimizer state {m['opt_bytes']:,} B, "
+              f"f32 accumulators {m['acc_bytes']:,} B a rank (abstract_state's"
+              f" and the gradient shardings' shard bytes)", flush=True)
+        for r, res in enumerate(got):
+            x = res[mode]
+            print(f"fsdp: {tag} {mode} rank {r}: one step under "
+                  f"torch.profiler: NCCL kernels {x['nccl_ms']:.3f} ms, flash "
+                  f"{x['flash_ms'] / per_step:.4f} ms a launch; device kernel "
+                  f"time {x['busy_ms']:.1f} of {x['wall_ms']:.1f} ms wall "
+                  f"({100 * x['busy_ms'] / x['wall_ms']:.2f}%, summed over "
+                  f"streams); peak {x['peak']:,} B beside estimate_memory's "
+                  f"{x['model_bytes']:,} B ({mode}, a ({world}, 1) mesh); top "
+                  f"{x['top']}", flush=True)
+
+
+def fsdp_over_cards(seed: int, world: int) -> dict:
+    """At count >= 2: (a) internlm2-20b and (b) kimi's FSDP + Adafactor
+    pairing over ``world`` NCCL ranks, each held to ZeRO-1 on the same
+    ranks; returns the 5-train-i2 row from (a)'s operands."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import zoo
+    from repro_torch.models.params import count_params
+    t0 = time.perf_counter()
+    full = get_arch(FSDP_ARCH)
+    cfg = fsdp_cfg(world, False, FSDP_LAYERS)
+    n = count_params(zoo.model_specs(cfg))
+    print(f"fsdp: CUT: (a) {FSDP_ARCH} runs {FSDP_LAYERS} of {full.n_layers} "
+          f"layers at full width (d_model {cfg.d_model}, {cfg.n_q_heads} q / "
+          f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}), bf16: {n:,} parameters, {2 * n:,} bytes; its run "
+          f"config (FSDP, remat full, AdamW, {FSDP_MICRO} microbatches) at "
+          f"one row a microbatch a card, a global batch of {FSDP_MICRO} x "
+          f"{world} (not 256), train_4k's seq {TRAIN_SEQ}", flush=True)
+    kfull = get_arch(KIMI_ARCH)
+    kcfg = fsdp_cfg(world, True, KIMI_LAYERS)
+    kn = count_params(zoo.model_specs(kcfg))
+    print(f"fsdp: CUT: (b) {KIMI_ARCH} runs {KIMI_LAYERS} of "
+          f"{kfull.n_layers} layers and {KIMI_EXPERTS} of "
+          f"{kfull.moe.n_experts} experts at full width (the families' cut; "
+          f"d_model {kcfg.d_model}, hd {kcfg.hd}, vocab {kcfg.vocab}): "
+          f"{kn:,} parameters, {2 * kn:,} bytes; FSDP + Adafactor, remat "
+          f"full, {KIMI_MICRO} microbatches of one row a card (not 16), seq "
+          f"{TRAIN_SEQ}", flush=True)
+    jobs = [(False, FSDP_LAYERS, "adamw", FSDP_MICRO, FSDP_STEPS, TRAIN_SEQ),
+            (True, KIMI_LAYERS, "adafactor", KIMI_MICRO, FSDP_STEPS,
+             TRAIN_SEQ)]
+    got = run_ranks(fsdp_nccl_rank, world, (seed, world, jobs),
+                    timeout_s=1500)
+    fsdp_report("(a)", [r[0] for r in got], world, FSDP_LAYERS, FSDP_MICRO,
+                FSDP_STEPS, TRAIN_SEQ)
+    fsdp_report("(b)", [r[1] for r in got], world, KIMI_LAYERS, KIMI_MICRO,
+                FSDP_STEPS, TRAIN_SEQ)
+    print(f"fsdp: over {world} cards in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    a = [r[0] for r in got]
+    qkv = tuple(t.to(DEVICE) for t in a[0]["qkv"])
+    launches = a[0]["fsdp"]["launches"]["flash_attention"]
+    return fsdp_row(qkv, launches, 2 * FSDP_LAYERS * FSDP_MICRO, FSDP_LAYERS,
+                    FSDP_MICRO)
+
+
+def fsdp_row(qkv, launches: int, per_step: int, layers: int,
+             micro: int) -> dict:
+    """Row 5-train-i2: the flash kernel at internlm2's training shape (a
+    GQA group of 6), on the first operands its training gave it, held to
+    its plain version and the f64 answer (check_flash_bf16's strict
+    bar), timed beside SDPA and flash_work's bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
+    q, k, v = qkv
+    b, hq, s, d = q.shape
+    hk = k.shape[1]
+    err, readings = check_flash_bf16(
+        fa.flash_attention(q, k, v, causal=True, kv_len=s), q, k, v, s,
+        "fsdp: flash_attention at internlm2's training shape")
+    live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    print(f"fsdp: flash_attention at ({b}, {hq}, {s}, {d}) x ({b}, {hk}, "
+          f"{s}, {d}) bf16 causal (GQA group {hq // hk}): {per_step} "
+          f"launches a step, {launches} on the main path; against "
+          f"flash_attention_ref and the f64 answer: {readings}", flush=True)
+    return kernel_row(
+        "flash_attention train-i2", launches, err,
+        lambda: fa.flash_attention(q, k, v, causal=True, kv_len=s), 10,
+        lambda: flash_attention_ref(q, k, v, causal=True, kv_len=s), 2,
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_BF16,
+        kernel="flash_attention",
+        note=f"{per_step} launches a step (2 x {layers} layers x {micro} "
+             f"microbatches: remat full relaunches it)")
+
+
+def fsdp_gloo_cfg(moe: bool):
+    """(d)'s reduced f32 configs: llama (dp:'s), or the MoE with drops
+    (mixtral, dispatch groups 2, capacity factor 1.25)."""
+    from repro_torch.configs.registry import get_arch
+    if not moe:
+        return dp_reduced_cfg()
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").reduced(),
+                              dtype="float32", remat="selective",
+                              moe_dispatch_groups=2)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+
+
+def fsdp_gloo_inputs(seed: int, moe: bool):
+    """(d)'s parameters (matrices x DP_GLOO_SCALE) and batch, on the
+    host."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim
+    cfg = fsdp_gloo_cfg(moe)
+    params = optim.tree_map(
+        lambda p: p * DP_GLOO_SCALE if p.dim() >= 2 else p,
+        init_params(zoo.model_specs(cfg), torch.Generator().manual_seed(seed),
+                    "float32", device="cpu"))
+    batch = zoo.make_batch(cfg, ShapeCell("t", 64, 4, "train"), seed,
+                           device="cpu")
+    batch["labels"][0, :40] = -1          # the ranks' label counts differ
+    return params, batch
+
+
+def fsdp_gloo_rank(rank, device, seed):
+    """(d)'s rank body: each FSDP_GLOO_RUNS entry, two steps from the
+    same state; the gathered parameters, and FSDP + Adafactor's chunks
+    and optimizer state against ZeRO-1 + Adafactor's bit for bit.  Two
+    threads a rank: the ranks may share the host with dp:'s."""
+    torch.set_num_threads(2)
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data.pipeline import DataShard, shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import collective
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    mesh = make_host_mesh(device=device)
+    out, states = {}, {}
+    for moe, optimizer, mode in FSDP_GLOO_RUNS:
+        t0 = time.perf_counter()
+        cfg = fsdp_gloo_cfg(moe)
+        params, batch = fsdp_gloo_inputs(seed, moe)
+        host = optim.tree_map(lambda p: p.numpy(), params)
+        local = {k: v.to(device) for k, v in
+                 shard_rows(batch, DataShard(rank, 2)).items()}
+        run = RunConfig(optimizer=optimizer, learning_rate=1e-3,
+                        microbatches=2, fsdp=mode == "fsdp",
+                        zero1=mode == "zero1")
+        state = init_state(cfg, run, params_from_reference(
+            host, device=device), mesh=mesh)
+        step = build_train_step(cfg, run, mesh=mesh)
+        _cuda.reset_launches()
+        ms = []
+        for _ in range(DP_GLOO_STEPS):
+            state, m = step(state, local)
+            ms.append({k: float(v) for k, v in m.items()})
+        whole = elastic.gather_state(state["params"])
+        if (moe, optimizer) == (False, "adafactor"):
+            states[mode] = state
+        out[moe, optimizer, mode] = (
+            ms, [p.detach().cpu() for p in optim.tree_leaves(whole)],
+            dict(_cuda.LAUNCHES), time.perf_counter() - t0)
+    f, z = states["fsdp"], states["zero1"]
+    pairs = [(p, w if collective.shard_of(p) is None
+              else collective.shard_of(p).of(w))
+             for p, w in zip(optim.tree_leaves(f["params"]),
+                             optim.tree_leaves(z["params"]))]
+    pairs += list(zip(optim.tree_leaves(f["opt"]),
+                      optim.tree_leaves(z["opt"])))
+    out["equal"] = all(torch.equal(a.detach(), b.detach()) for a, b in pairs)
+    return out
+
+
+def fsdp_gloo_start(seed: int):
+    """(d) started: its gloo ranks overlap what runs before (c)'s timed
+    steps, which join them."""
+    return gloo_start(fsdp_gloo_rank, (seed,), "fsdp: (d)")
+
+
+def fsdp_gloo_finish(seed: int, pending) -> None:
+    """(d), finished: every run on the two gloo ranks held to the
+    one-process step on the card at DP_GLOO_REL (8-bit Adam's
+    parameters at FSDP_8BIT_REL), and FSDP + Adafactor to ZeRO-1 +
+    Adafactor on the same ranks bit for bit."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    t0 = pending[-1]
+    got = gloo_join(pending)
+    pair = (False, "adafactor")
+    check(all(r["equal"] and r[pair + ("fsdp",)][0] == r[pair + ("zero1",)][0]
+              for r in got),
+          f"fsdp: (d) FSDP + Adafactor differs from ZeRO-1 + Adafactor on "
+          f"the same gloo ranks")
+    one = {}
+    for moe, optimizer, mode in FSDP_GLOO_RUNS:
+        if (moe, optimizer) not in one:
+            cfg = fsdp_gloo_cfg(moe)
+            params, batch = fsdp_gloo_inputs(seed, moe)
+            run = RunConfig(optimizer=optimizer, learning_rate=1e-3,
+                            microbatches=2)
+            step = build_train_step(cfg, run)
+            state = init_state(cfg, run, optim.tree_map(
+                lambda p: p.to(DEVICE, copy=True), params))
+            want = []
+            for _ in range(DP_GLOO_STEPS):
+                state, m = step(state, {k: v.to(DEVICE) for k, v in
+                                        batch.items()})
+                want.append({k: float(v) for k, v in m.items()})
+            one[moe, optimizer] = (want, [p.detach().cpu() for p in
+                                          optim.tree_leaves(state["params"])])
+            del state
+        want, want_p = one[moe, optimizer]
+        name = f"{'MoE' if moe else TRAIN_ARCH} {optimizer} {mode}"
+        bar_p = FSDP_8BIT_REL if optimizer == "adamw8bit" else DP_GLOO_REL
+        worst_m = worst_p = 0.0
+        for r in got:
+            ms, ps, launches, _ = r[moe, optimizer, mode]
+            check(launches.get("flash_attention", 0) > 0,
+                  f"fsdp: (d) {name}: no flash_attention launch on a rank "
+                  f"({launches})")
+            for g, w in zip(ms, want):
+                worst_m = max([worst_m] + [
+                    abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w])
+            worst_p = max([worst_p] + [
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(ps, want_p)])
+        check(worst_m <= DP_GLOO_REL and worst_p <= bar_p,
+              f"fsdp: (d) {name} on two gloo ranks differs from the "
+              f"one-process step: metrics {worst_m:.3g}, params "
+              f"{worst_p:.3g} (bars {DP_GLOO_REL:g}, {bar_p:g})")
+        print(f"fsdp: (d) {name} on two gloo ranks on the card (reduced "
+              f"f32, matrices x {DP_GLOO_SCALE}, 4 x 64 tokens in 2 "
+              f"microbatches, {DP_GLOO_STEPS} steps): metrics within "
+              f"{worst_m:.3g} and gathered parameters within {worst_p:.3g} "
+              f"of their scale of the one-process step on the card (bars "
+              f"{DP_GLOO_REL:g}, {bar_p:g}); flash_attention launches per "
+              f"rank {[r[moe, optimizer, mode][2].get('flash_attention', 0) for r in got]}; "
+              f"{max(r[moe, optimizer, mode][3] for r in got):.1f} s on the "
+              f"ranks", flush=True)
+    print(f"fsdp: (d) FSDP + Adafactor bit-equal to ZeRO-1 + Adafactor on "
+          f"the same ranks (losses, grad norms, parameter chunks, factors); "
+          f"(d) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def fsdp_one_card(seed: int, before_steps) -> dict:
+    """(c) at one card: internlm2-20b at full width, FSDP_ONE_LAYERS
+    layers, its first run on a card: every parameter's gradient finite
+    and nonzero on one microbatch, ``before_steps()`` (which ends every
+    other process on the card), then two AdamW steps in FSDP_MICRO
+    microbatches, the first timed and the second profiled; returns row
+    5-train-i2."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataShard, _batch_for_step
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import zoo
+    from repro_torch.models.params import count_params
+    from repro_torch.train.step import build_train_step, init_state
+    t0 = time.perf_counter()
+    full = get_arch(FSDP_ARCH)
+    cfg = fsdp_cfg(1, False, FSDP_ONE_LAYERS)
+    n = count_params(zoo.model_specs(cfg))
+    print(f"fsdp: CUT: (c) {FSDP_ARCH} runs {FSDP_ONE_LAYERS} of "
+          f"{full.n_layers} layers at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_q_heads} q / {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), bf16: {n:,} parameters, "
+          f"{2 * n:,} bytes; remat full, AdamW, {FSDP_MICRO} microbatches of "
+          f"one row, seq {TRAIN_SEQ}", flush=True)
+    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                    microbatches=FSDP_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, run, fsdp_params(cfg, seed, DEVICE, lazy=False))
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in
+                _batch_for_step(s, DataShard(0, 1), cfg.vocab, FSDP_MICRO,
+                                TRAIN_SEQ).items()}
+               for s in range(2)]
+    (tally, first), spying = family_flash_spy()
+    with spying:
+        fsdp_grads_check(cfg, state, batches[0])
+    t1 = time.perf_counter()
+    before_steps()
+    print(f"fsdp: (c) waited {time.perf_counter() - t1:.1f} s for (d)'s "
+          f"ranks to end before its steps ({t1 - t0:.1f} s in)", flush=True)
+    step = build_train_step(cfg, run, total_steps=FAULT_STEPS)
+    _cuda.reset_launches()
+    # step 0 timed, step 1 under torch.profiler (its wall beside)
+    sync()
+    t1 = time.perf_counter()
+    state, m = step(state, batches[0])
+    ms0 = (time.perf_counter() - t1) * 1e3
+    got = {}
+    wall, busy, top = device_busy(
+        lambda: got.setdefault("m", step(state, batches[1])), n_top=5)
+    launches = dict(_cuda.LAUNCHES)
+    losses = [float(m["loss"]), float(got["m"][1]["loss"])]
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * FSDP_ONE_LAYERS * FSDP_MICRO
+    check(all(np.isfinite(losses))
+          and launches["flash_attention"] == 2 * per_step
+          and sum(launches.values()) == launches["flash_attention"],
+          f"fsdp: (c) losses {losses}, launches {launches}: flash_attention "
+          f"must launch {per_step} times a step (2 x {FSDP_ONE_LAYERS} "
+          f"layers x {FSDP_MICRO} microbatches, remat full) and nothing else")
+    print(f"fsdp: (c) 2 AdamW steps: losses "
+          f"{[round(x, 4) for x in losses]}; step 0 {ms0:.1f} ms, "
+          f"{FSDP_MICRO * TRAIN_SEQ / ms0 * 1e3:.1f} tokens/s; step 1 under "
+          f"torch.profiler: device busy {busy:.1f} of {wall:.1f} ms wall "
+          f"({100 * busy / wall:.2f}%), top "
+          + "; ".join(f"{n_} {t:.1f} ms" for n_, t in top)
+          + f"; max_memory_allocated {peak:,}; flash_attention "
+          f"{launches['flash_attention']} launches; (c) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del state, m, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    key = next(iter(tally))
+    return fsdp_row(first[key], launches["flash_attention"], per_step,
+                    FSDP_ONE_LAYERS, FSDP_MICRO)
+
+
+def fsdp_grads_check(cfg, state, batch) -> None:
+    """(c): every parameter leaf's gradient on one microbatch (one row)
+    finite and nonzero, each layer's slice of a stacked leaf; the flash
+    kernel launched twice a layer (the recompute relaunches it)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import zoo
+    micro = {k: v[:1] for k, v in batch.items()}
+    flat = _flatten(state["params"])
+    leaves = list(flat.values())
+    for p in leaves:
+        p.requires_grad_(True)
+    _cuda.reset_launches()
+    loss, _ = zoo.loss_fn(cfg)(state["params"], micro)
+    grads = torch.autograd.grad(loss, leaves)
+    sync()
+    launches = _cuda.LAUNCHES["flash_attention"]
+    smallest = []
+    for name, g in zip(flat, grads):
+        parts = g if name.startswith("layers/") else g[None]
+        for i, part in enumerate(parts):
+            big = float(part.float().abs().max())
+            check(bool(torch.isfinite(part).all()) and big > 0,
+                  f"fsdp: (c) the gradient of {name}[{i}] is not finite and "
+                  f"nonzero (max |g| {big})")
+            smallest.append((big, f"{name}[{i}]" if parts is g else name))
+    del grads
+    check(launches == 2 * cfg.n_layers,
+          f"fsdp: (c) flash_attention launched {launches} times in one "
+          f"microbatch's forward and backward, not 2 x {cfg.n_layers}")
+    smallest.sort()
+    print(f"fsdp: (c) every parameter's gradient on one microbatch is "
+          f"finite and nonzero ({len(smallest)} leaves and layer slices; "
+          f"smallest max |g|: " + ", ".join(f"{n} {v:.3g}" for v, n in
+                                            smallest[:4])
+          + f"); loss {float(loss.detach()):.4f}; flash_attention launched {launches} "
+          f"times (2 x {cfg.n_layers} layers)", flush=True)
+
+
+def phase_fsdp(seed: int, count: int, pending=None) -> dict:
+    """FSDP and Adafactor on shards (ROADMAP Queue A items 7 and 9) over
+    NCCL ranks, one card each, where there are several; at one card
+    internlm2's first run and two gloo ranks on the card (``pending``:
+    (d)'s ranks where the caller started them, else started here).
+    Returns row 5-train-i2."""
+    t_phase = time.perf_counter()
+    if count >= 2:
+        row = fsdp_over_cards(seed, count)
+    else:
+        print("fsdp: CUT: one card: NCCL takes one card a rank, so the "
+              "phase runs (c) internlm2-20b on the card alone and (d) two "
+              "gloo ranks on the card, not (a) and (b) over several cards",
+              flush=True)
+        pending = pending or fsdp_gloo_start(seed)
+        row = fsdp_one_card(seed, lambda: gloo_join(pending))
+        fsdp_gloo_finish(seed, pending)
+    print(f"fsdp: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
 
 
 # --------------------------------------------------------------- retrieval
@@ -6078,8 +6871,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="GaussMix rows (default 1,000,000)")
-    ap.add_argument("--batches", type=int, default=8,
-                    help="query batches of 64 per kind (default 8)")
+    ap.add_argument("--batches", type=int, default=3,
+                    help="query batches of 64 per kind (default 3)")
     ap.add_argument("--profile", action="store_true",
                     help="also print where one batch's time goes")
     ap.add_argument("--linf-n", type=int, default=LINF_N,
@@ -6097,6 +6890,8 @@ def main() -> int:
                     help="run only the device, build and train phases")
     ap.add_argument("--dp-only", action="store_true",
                     help="run only the device, build and dp phases")
+    ap.add_argument("--fsdp-only", action="store_true",
+                    help="run only the device, build and fsdp phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6120,7 +6915,11 @@ def main() -> int:
     from repro_torch import env
     for line in env.describe().splitlines():
         print(f"env: {line}", flush=True)
-    phase_build()
+    only = (args.families_only or args.train_only or args.dp_only
+            or args.fsdp_only or args.sharded_only or args.frontend_only)
+    built = in_background(phase_build)
+    if only:
+        built()
     if args.families_only:
         kernels = phase_families(args.seed)
         finish(kernels, t_start, smi, name, count)
@@ -6131,6 +6930,9 @@ def main() -> int:
     if args.dp_only:
         phase_dp(args.seed, count)
         finish([], t_start, smi, name, count)
+        return 0
+    if args.fsdp_only:
+        finish([phase_fsdp(args.seed, count)], t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -6144,11 +6946,8 @@ def main() -> int:
           f"cluster rows max={max(sizes)} mean={np.mean(sizes):.1f}",
           flush=True)
     batches = make_queries(X, np.random.default_rng(1), args.batches)
+    host_range, host_knn = host_answers(ix, batches, show=not only)
     if args.sharded_only or args.frontend_only:
-        host_range = [[ix.range_query(q, r)[:2] for q, r in zip(Q, rs)]
-                      for Q, rs in batches]
-        host_knn = [[ix.knn_query(q, K_NN)[:2] for q in Q]
-                    for Q, _ in batches]
         spilled = spill_main(LIMSSnapshot.build(ix, device=DEVICE))
         try:
             if args.sharded_only:
@@ -6165,47 +6964,62 @@ def main() -> int:
             "platform": "gpu", "kind": name, "count": count}}))
         return 0
 
-    counts, shapes, snap, host_range, host_knn, rates = phase_main(
-        X, ix, batches, LIMSSnapshot, QueryExecutor)
+    built()
+    mark("main", t_start)
+    counts, shapes, snap, rates = phase_main(
+        X, ix, batches, host_range, host_knn, LIMSSnapshot, QueryExecutor)
     # main's host index as main served it, for the frontend phase (the
     # builder's retrain and the serving phases change ``ix``)
     ix_main = copy.deepcopy(ix)
+    mark("E", t_start)
     phase_error_bound(ix, snap)
+    mark("kernels", t_start)
     kernels = phase_kernels(ix, snap, batches, counts, shapes)
+    mark("lp", t_start)
     kernels += phase_lp(ix, batches, host_range, host_knn, rates)
+    mark("knn_loop", t_start)
     kernels.append(phase_knn_loop(snap, batches, host_knn, counts))
+    mark("tune", t_start)
     phase_tune(ix, snap, batches, host_range, host_knn)
     phase_roof(snap, batches[0])
     if args.profile:
         phase_profile(QueryExecutor(snap), batches)
     spilled = spill_main(snap)
     del snap
-    # the builder parts' host query checks run in worker processes
+    # the builder parts' host builds and host query checks run in worker
+    # processes, the host builds all started first
+    mark("builder", t_start)
     pool = multiprocessing.get_context("spawn").Pool(BUILDER_WORKERS)
     try:
         t0 = time.perf_counter()
+        parts = (("l1", args.n, "skewed", D, True),
+                 ("linf", args.linf_n, "skewed", D, True),
+                 ("l1", WIDE_N, "gaussmix", WIDE_D, False),
+                 ("linf", WIDE_N, "gaussmix", WIDE_D, False))
+        hosts = [pool.apply_async(builder_host, part[:4]) for part in parts]
         ixd = phase_builder_l2(X, ix, t_host, batches, host_range, host_knn)
-        row, pending = phase_builder_lp("l1", args.n, pool)
-        kernels.append(row)
-        pending = [pending]
         if args.linf_n != args.n:
             print(f"builder: CUT: the L-infinity part (c) runs at "
                   f"n={args.linf_n}, not {args.n}", flush=True)
-        row, queries = phase_builder_lp("linf", args.linf_n, pool)
-        kernels.append(row)
-        pending.append(queries)
-        for metric in ("l1", "linf"):
-            pending.append(phase_builder_lp(
-                metric, WIDE_N, pool, data="gaussmix", d=WIDE_D,
-                rows=False)[1])
+        pending = []
+        for (metric, n, data, d, rows), host in zip(parts, hosts):
+            row, queries = phase_builder_lp(metric, n, pool, host,
+                                            data=data, d=d, rows=rows)
+            if rows:
+                kernels.append(row)
+            pending.append(queries)
         phase_retrain(X, ix, ixd, batches)
         builder_query_results(pending)
         pool.close()
         print(f"builder: all parts in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        mark("serving", t_start)
         phase_serving(X, ix, batches)
+        mark("paged", t_start)
         phase_paged(X, ix, batches, host_range, host_knn, spilled)
+        mark("sharded", t_start)
         phase_sharded(X, ix, batches, host_range, host_knn, spilled, count)
+        mark("frontend", t_start)
         phase_frontend(X, ix_main, batches, host_range, host_knn, spilled)
     finally:
         pool.terminate()
@@ -6214,8 +7028,10 @@ def main() -> int:
         shutil.rmtree(spilled["path"], ignore_errors=True)
     del X, ix, ix_main, ixd, batches, host_range, host_knn
     torch.cuda.empty_cache()
+    mark("baselines", t_start)
     phase_baselines(args.n)
 
+    mark("lm", t_start)
     t0 = time.perf_counter()
     phase_lm_consistency(args.seed)
     launches, qkv = phase_lm_serving(args.seed)
@@ -6224,9 +7040,25 @@ def main() -> int:
     phase_retrieval(args.seed)
     print(f"lm: and retrieval: in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    mark("families", t_start)
     kernels += phase_families(args.seed)
-    kernels.append(phase_train(args.seed))
-    phase_dp(args.seed, count)
+    # at one card the gloo ranks of dp: (b) and fsdp: (d) start before
+    # train: (b) and run beside its checkpoint IO (the card idles
+    # between its steps); dp: (a)'s profiled step and fsdp: (c)'s steps
+    # wait for them
+    mark("train", t_start)
+    ranks = {}
+
+    def start_ranks():
+        ranks["dp"] = dp_gloo_start(args.seed)
+        ranks["fsdp"] = fsdp_gloo_start(args.seed)
+    kernels.append(phase_train(args.seed, start_ranks if count < 2
+                               else None))
+    mark("dp", t_start)
+    phase_dp(args.seed, count, ranks.get("dp"),
+             (ranks["fsdp"],) if ranks else ())
+    mark("fsdp", t_start)
+    kernels.append(phase_fsdp(args.seed, count, ranks.get("fsdp")))
     finish(kernels, t_start, smi, name, count)
     return 0
 
@@ -6242,6 +7074,33 @@ def finish(kernels, t_start, smi, name, count) -> None:
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
+
+
+def mark(phase: str, t_start: float) -> None:
+    """A line that says when ``phase`` starts, in seconds since the
+    script's start (the whole run's breakdown by phase)."""
+    print(f"time: {phase} starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+def in_background(fn):
+    """Start ``fn()`` in a thread.  Returns a function that waits for it
+    and raises what it raised (a failed check too)."""
+    out = {}
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+            out["error"] = e
+    t = threading.Thread(target=run, name=fn.__name__, daemon=True)
+    t.start()
+
+    def wait():
+        t.join()
+        if "error" in out:
+            raise out["error"]
+    return wait
 
 
 if __name__ == "__main__":

@@ -13,11 +13,12 @@ checkpoint written by either package restores in the other.
 
 Over a ``torch.distributed`` group (the data-parallel step,
 ``train/step.py``) every rank calls ``save`` with the ``group``: a ZeRO-1
-chunk (a tensor marked with its ``sharding.collective.Shard``) is
-all-gathered first, so the checkpoint holds the reference's one-device
-layout, and the group's rank 0 alone writes.  ``restore`` cuts a marked
-template leaf's chunk out of the whole tensor on disk, so a state moves
-between W processes and one.
+or FSDP chunk (a moment, a factor or, under FSDP, a parameter: a tensor
+marked with its ``sharding.collective.Shard``) is all-gathered first, so
+the checkpoint holds the reference's one-device layout, and the group's
+rank 0 alone copies it to the host and writes.  ``restore`` cuts a
+marked template leaf's chunk out of the whole tensor on disk, so a state
+moves between W processes and one.
 """
 from __future__ import annotations
 
@@ -76,8 +77,8 @@ def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
 
 
 def _whole(leaf):
-    """A ZeRO-1 chunk all-gathered into its whole tensor (every rank of
-    its line calls this together); any other leaf as it is."""
+    """A ZeRO-1 or FSDP chunk all-gathered into its whole tensor (every
+    rank of its line calls this together); any other leaf as it is."""
     sh = collective.shard_of(leaf) if isinstance(leaf, torch.Tensor) \
         else None
     return leaf if sh is None else collective.all_gather(leaf.detach(), sh)

@@ -82,7 +82,11 @@
 //   plain version where the two part by more than 2^-7 (an emulation of the
 //   truncation gave the kernel's value there exactly; with two chains it
 //   gave 0 such outputs and 0.50 of the bar at most, against 0.91; PERF.md).
-//   D 64 and 128 keep the single chain, bit for bit.  P V keeps the m64n128
+//   D 128 takes the two chains too (since it is two boxes): over one
+//   8-step chain the same bias left 2 outputs of internlm2-20b's training
+//   shape (1, 48, 4096, 128) no nearer the f64 answer than the plain
+//   version where they part by more than 2^-7 (PERF.md).  D 64 is
+//   one box and one chain.  P V keeps the m64n128
 //   chain over DP, whose accumulators for columns D..127 multiply V's zeros,
 //   stay 0 and are never stored.  That spends 128 / 80 = 1.6x (D 80) and
 //   128 / 112 = 1.14x (D 112) of P V's work on padding; the epilogue writes
@@ -528,9 +532,9 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap tq,
     constexpr int KS = D / 16;          // k steps of Q K^T: real columns only
     constexpr int KV = BK / 16;         // k steps of P V
     constexpr int NO = DP / 2;          // output accumulators per thread
-    // Q K^T as one wgmma chain per box (padded widths) or one chain (D 64,
-    // 128: PR 14's body, kept bit for bit); see the header
-    constexpr bool BOX_CHAINS = D != DP;
+    // Q K^T as one wgmma chain per box (D 80, 112, 128) or one chain (D
+    // 64, one box); see the header
+    constexpr bool BOX_CHAINS = D > BOX_COLS;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;

@@ -15,7 +15,9 @@ cross-attention), differentiable through ``layers.flash_attention``
 with the gradient of :func:`plain_attention`; on the CPU it is
 :func:`plain_attention`, ``dense_attention`` or ``chunked_attention``
 picked as ``encdec.py:67`` picks them.  Decode attention is plain
-torch.
+torch.  Under FSDP each layer gathers its chunks inside the remat'd
+layer function and the loss gathers ``embed`` and ``lm_head`` once, as
+``transformer`` does.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ from .layers import (F32, apply_rope, attention_specs, chunked_attention,
                      decode_attention, dense_attention, flash_attention,
                      mlp_specs, rmsnorm, rope_tables, swiglu)
 from .params import ParamSpec, torch_dtype
+from ..sharding import collective
 from .transformer import (_nll_loss, _qkv, _remat, _rope, _stack,
-                          layer_params, zeros_cache)
+                          gather_outside, layer_params, zeros_cache)
 
 
 def enc_block_specs(cfg: ModelConfig) -> dict:
@@ -117,6 +120,7 @@ def encode(params, src_embeds, cfg: ModelConfig):
 
 
 def _enc_layer(lp, x, cfg: ModelConfig, cos, sin):
+    lp = collective.gathered(lp)
     xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     a, _ = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
                    causal=False)
@@ -127,6 +131,7 @@ def _enc_layer(lp, x, cfg: ModelConfig, cos, sin):
 
 def _dec_layer(lp, x, memory, cfg: ModelConfig, cos, sin):
     """One decoder layer; returns (hidden, its self-attention (k, v))."""
+    lp = collective.gathered(lp)
     xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     a, kv = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
                     causal=True)
@@ -171,6 +176,7 @@ def encdec_loss(params, batch: dict, cfg: ModelConfig):
     logits (ref ``encdec.py:130-140``; under data parallelism the mean
     over the whole microbatch, ``transformer._nll_loss``).  Returns
     (nll, {"nll"})."""
+    params = gather_outside(params, ("enc_layers", "dec_layers"))
     memory = encode(params, batch["src_embeds"], cfg)
     logits = decode_train(params, memory, batch["tokens"], cfg)
     return _nll_loss(logits, batch["labels"], cfg, None)

@@ -32,6 +32,22 @@ microbatch's rows: the NLL's sum and its count of unmasked labels are
 summed over the ranks before the division (the reference's mean is over
 the whole microbatch), and :func:`_remat` re-enters the same group when
 the backward pass recomputes a layer.
+
+Under FSDP (the training step over ranks with ``run.fsdp``) the
+parameters are each rank's chunks of their ``embed`` dim, tagged with
+their ``Shard``.  :func:`layer_params` gives layer i's chunks, and the
+layer function (:func:`transformer_layer`, :func:`_mamba_layer`), the
+one :func:`_remat` checkpoints, gathers them first
+(``collective.gathered``): the gathered weights are then the
+checkpoint's own intermediates, not its inputs, so under ``remat=
+"full"`` they are dropped after the layer and gathered again when the
+backward pass recomputes it.  Under ``remat="none"`` autograd keeps
+every gathered weight for the backward pass, so FSDP saves no
+parameter memory there (as in the reference, whose GSPMD keeps them
+too).  The leaves outside the layer stacks (``embed``, ``lm_head``,
+the hybrid's ``shared`` block and ``shared_proj``) are gathered once
+where the loss begins, so a tied ``embed`` has one gather, one
+gradient and one reduce-scatter.  The norms are never sharded.
 """
 from __future__ import annotations
 
@@ -110,9 +126,17 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+    """Layer ``i``'s parameters: views into the stacked tensors (of an
+    FSDP chunk, a tagged chunk of the layer, ``collective.layer``)."""
+    return {k: layer_params(v, i) if isinstance(v, dict)
+            else collective.layer(v, i) for k, v in layers.items()}
+
+
+def gather_outside(params: dict, stacks: tuple) -> dict:
+    """``params`` with every FSDP chunk outside the layer stacks
+    ``stacks`` gathered (once a microbatch, where the loss begins)."""
+    return {k: v if k in stacks else collective.gathered(v)
+            for k, v in params.items()}
 
 
 # --------------------------------------------------------------- blocks
@@ -226,6 +250,7 @@ def ffn_block(p: dict, x, cfg: ModelConfig):
 
 
 def transformer_layer(p, x, cfg: ModelConfig, cos, sin):
+    p = collective.gathered(p)
     a, kv = attn_block(p, x, cfg, cos, sin)
     x = x + a
     f, aux = ffn_block(p, x, cfg)
@@ -233,6 +258,7 @@ def transformer_layer(p, x, cfg: ModelConfig, cos, sin):
 
 
 def _mamba_layer(lp: dict, h, cfg: ModelConfig, cache=None):
+    lp = collective.gathered(lp)
     y, nc = mamba_forward(lp["mixer"], rmsnorm(h, lp["norm"], cfg.norm_eps),
                           cfg, cache=cache)
     return (h + y).to(h.dtype), nc
@@ -348,6 +374,7 @@ def lm_loss(params, batch: dict, cfg: ModelConfig):
     ``router_aux_weight`` and ``router_z_weight`` (ref
     ``transformer.py:235-253``).  Returns (loss, {"nll", "load_balance",
     "router_z"})."""
+    params = gather_outside(params, ("layers",))
     prefix = batch.get("prefix_embeds")
     x, aux, _ = forward_seq(params, batch["tokens"], cfg, prefix)
     if prefix is not None:

@@ -13,7 +13,8 @@ split it, and the leaf lands on the mesh's first device.
 Over processes (a mesh with a ``group``, ``launch.ranks``) a leaf is
 this rank's chunk of every dim its description puts on the mesh's pod /
 data axes, marked with its ``sharding.collective.Shard`` as the ZeRO-1
-state's chunks are.  A state moves from W ranks to W' in two halves:
+and FSDP state's chunks are (an FSDP state's parameters: their axes
+under ``default_rules(fsdp=True)``).  A state moves from W ranks to W' in two halves:
 the W ranks gather their chunks (:func:`gather_state`, every rank
 together), and the W' ranks (or one process) cut theirs from the whole
 state (:func:`reshard_state`); between processes that are not the same
@@ -46,8 +47,8 @@ def make_mesh_from(devices: Sequence, model_parallel: int) -> LogicalMesh:
 
 
 def gather_state(state):
-    """``state`` with every ZeRO-1 chunk all-gathered into its whole
-    tensor (every rank of its line calls this together); other leaves
+    """``state`` with every ZeRO-1 or FSDP chunk all-gathered into its
+    whole tensor (every rank of its line calls this together); other leaves
     as they are."""
     def one(leaf):
         sh = collective.shard_of(leaf)

@@ -12,18 +12,26 @@ processes of a ``torch.distributed`` group (one card each) and enters
 the group with :func:`global_sum`.
 
 A :class:`Shard` describes the slice of one tensor a rank holds under
-ZeRO-1: ``count`` equal chunks of dim ``dim``, this rank's chunk
+ZeRO-1 or FSDP: ``count`` equal chunks of dim ``dim``, this rank's chunk
 ``index``, over the process group ``group`` (the line of ranks that
 share the tensor); ``rest`` is the group over which the shards are
 replicated (the "pod" axis when the tensor shards over "data" only), or
 None.
+
+Under FSDP a parameter is held as its chunk, tagged with its ``Shard``
+(:func:`tag`), and the model gathers it where it is used
+(:func:`gathered`, the reference's GSPMD-inserted all-gather); a stacked
+leaf's layer ``i`` is :func:`layer` of it, a chunk tagged alike.  The
+gather's backward pass reduce-scatters the whole weight's gradient in
+f32 into the step's accumulator chunk (:class:`_Gather`).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -33,10 +41,14 @@ F32 = torch.float32
 
 @dataclass(frozen=True)
 class DataParallel:
-    """The group a microbatch's rows are split over, and its size."""
+    """The group a microbatch's rows are split over, and its size; under
+    FSDP ``grads(x)`` gives the f32 accumulator chunk into which the
+    gradient of the chunk ``x`` (a parameter, or a layer of one) is
+    reduce-scattered, or None."""
 
     group: object
     size: int
+    grads: Optional[Callable] = None
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_dp",
@@ -201,6 +213,78 @@ def all_gather(x: torch.Tensor, sh: Shard) -> torch.Tensor:
     return out.movedim(0, sh.dim).flatten(sh.dim, sh.dim + 1)
 
 
+class _Gather(torch.autograd.Function):
+    """Forward: the whole weight from every rank's chunk (:func:`all_gather`
+    over ``sh.group``).  Backward: the whole weight's gradient cast to f32
+    and reduce-scattered over ``sh.group`` (:func:`reduce_scatter`), then
+    all-reduced over ``sh.rest`` where the chunk is replicated there.
+
+    Autograd casts a backward's output to its input's dtype, so the f32
+    sum returned as a bf16 chunk's gradient would be rounded before it
+    reached the f32 accumulator (ZeRO-1 adds the unrounded sum).  So the
+    backward adds the f32 sum into the accumulator chunk ``acc`` that the
+    training step gave (``DataParallel.grads``) and returns no gradient
+    for the chunk.  A chunk gathered outside a step has no accumulator:
+    its forward runs, its backward raises (before any collective, so no
+    rank waits on another).
+
+    The Function carries its groups (in ``sh``) and its accumulator
+    (captured in the forward): on a card the backward pass runs on the
+    autograd engine's thread, where :func:`active`'s context is not
+    set.  Every rank builds the same graph, so the gathers (the forward
+    pass and the remat recompute) and the reduce-scatters (the backward
+    pass) run in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, chunk, sh, acc):
+        ctx.sh, ctx.acc = sh, acc
+        return all_gather(chunk.detach(), sh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.acc is None:
+            raise RuntimeError(
+                "an FSDP chunk gathered outside a training step has no "
+                "f32 accumulator for its gradient (build_train_step)")
+        part = reduce_scatter(grad, ctx.sh)
+        if ctx.sh.rest is not None:
+            dist.all_reduce(part, group=ctx.sh.rest)
+        ctx.acc.add_(part)
+        return None, None, None
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a tagged chunk ``x`` (an FSDP parameter, or a
+    layer of one), differentiable (:class:`_Gather`); ``x`` itself where
+    it is not tagged."""
+    sh = shard_of(x)
+    if sh is None:
+        return x
+    dp = active()
+    acc = None if dp is None or dp.grads is None else dp.grads(x)
+    return _Gather.apply(x, sh, acc)
+
+
+def gathered(tree):
+    """``tree`` (nested dicts) with every tagged chunk gathered
+    (:func:`gather`)."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    return gather(tree)
+
+
+def layer(x: torch.Tensor, i: int) -> torch.Tensor:
+    """``x[i]``, layer ``i`` of a stacked leaf (a view); of a tagged
+    chunk, tagged with the layer's ``Shard`` (one dim fewer) and with
+    ``(x, i)``, by which the step finds the layer's accumulator."""
+    y = x[i]
+    sh = shard_of(x)
+    if sh is not None:                  # the stacked dim is never sharded
+        tag(y, dataclasses.replace(sh, dim=sh.dim - 1))
+        y._stack = (x, i)
+    return y
+
+
 def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
     """The ranks' row blocks of ``x`` concatenated in rank order."""
     out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
@@ -211,4 +295,5 @@ def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
 
 __all__ = ["DataParallel", "data_parallel", "active", "global_sum", "Shard",
            "DP_AXES", "shard_for", "barrier", "tag", "shard_of",
-           "reduce_scatter", "all_gather", "gather_rows"]
+           "reduce_scatter", "all_gather", "gather", "gathered", "layer",
+           "gather_rows"]

@@ -12,6 +12,16 @@ new moments into the state's own tensors, so a full-width state never
 holds two f32 copies of the model; ``apply=True`` also adds each leaf's
 update to its parameter in place, ``(p.float() + u).to(p.dtype)``, and
 returns no update tree.
+
+Adafactor also updates a chunk of a leaf (ZeRO-1 and FSDP over ranks,
+``train/step.py``): with ``shards`` (each leaf's
+``sharding.collective.Shard``, or None) a mean over the sharded dim is
+the chunk's sum all-reduced over the shard's group and divided by the
+whole extent, a mean over any other dim stays local, and the update's
+RMS is always the whole leaf's.  The factors a rank keeps are those
+``abstract_state`` describes: a chunk where the factor keeps the
+sharded dim, whole (the same on every rank) where it was averaged
+away.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 Q_BLOCK = 256
 F32 = torch.float32
@@ -117,34 +128,54 @@ def adafactor_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=some.device)}
 
 
+def _mean(x, dim: int, sh, at: int, keepdim: bool = False):
+    """``torch.mean`` of ``x`` over ``dim``, the leaf's dim ``at``; where
+    the shard ``sh`` splits that dim, the chunk's sum all-reduced over
+    the shard's group over the whole extent."""
+    if sh is None or sh.dim != at:
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+    total = torch.sum(x, dim=dim, keepdim=keepdim)
+    dist.all_reduce(total, group=sh.group)
+    return total / sh.full
+
+
 @torch.no_grad()
 def adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
-                     clip=1.0, weight_decay=0.0, apply: bool = False):
+                     clip=1.0, weight_decay=0.0, apply: bool = False,
+                     shards=None):
     count, cf = _count(state)
     beta = 1.0 - cf ** (-decay)
 
-    def upd(g, v, p):
+    def upd(g, v, p, sh=None):
         g = g.to(F32)
         g2 = g * g + eps
-        if g.dim() >= 2:
+        n = g.dim()
+        if n >= 2:
             vr, vc = v["vr"], v["vc"]
-            vr.copy_(beta * vr + (1 - beta) * torch.mean(g2, dim=-1))
-            vc.copy_(beta * vc + (1 - beta) * torch.mean(g2, dim=-2))
+            vr.copy_(beta * vr + (1 - beta) * _mean(g2, -1, sh, n - 1))
+            vc.copy_(beta * vc + (1 - beta) * _mean(g2, -2, sh, n - 2))
             denom = torch.sqrt(
                 vr[..., None] * vc[..., None, :] /
-                torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
+                torch.clamp(_mean(vr, -1, sh, n - 2, keepdim=True)[..., None],
                             min=eps))
         else:
             v["v"].copy_(beta * v["v"] + (1 - beta) * g2)
             denom = torch.sqrt(v["v"])
         u = g / torch.clamp(denom, min=eps)
-        # update clipping by RMS
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        # update clipping by RMS (over the whole leaf)
+        if sh is None:
+            ms = torch.mean(u * u)
+        else:
+            ms = torch.sum(u * u)
+            dist.all_reduce(ms, group=sh.group)
+            ms = ms / (u.numel() * sh.count)
+        rms = torch.sqrt(ms + eps)
         u = u / torch.clamp(rms / clip, min=1.0)
         u = u + weight_decay * p.to(F32)
         return _finish(-lr * u, p, apply)
 
-    updates = tree_map(upd, grads, state["v"], params)
+    rest = () if shards is None else (shards,)
+    updates = tree_map(upd, grads, state["v"], params, *rest)
     return (None if apply else updates), {"v": state["v"], "count": count}
 
 

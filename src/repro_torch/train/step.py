@@ -41,19 +41,34 @@ the step is the reference's GSPMD step on the global batch:
   ``embed -> data``): that leaf's f32 accumulator is the rank's chunk
   of the dim, each microbatch's gradient reduce-scattered into it;
   leaves the divisibility guard leaves whole are accumulated whole and
-  all-reduced once.  AdamW's moments are held per chunk, the update
-  runs on the chunk and the parameter is all-gathered (bf16 bits equal
-  to a replicated update's); 8-bit Adam's state is whole (its blocks
-  are replicated in ``abstract_state``), so its update runs on the
-  all-gathered gradient; Adafactor under ZeRO-1 raises
-  ``NotImplementedError`` (ROADMAP).  The bytes a rank holds are the
-  shard bytes ``abstract_state`` and the gradient shardings describe.
+  all-reduced once.  AdamW's moments and Adafactor's factors are held
+  per chunk (a factor whose mean ran over the sharded dim is whole,
+  ``optim.adafactor_update``), the update runs on the chunk and the
+  parameter is all-gathered (bf16 bits equal to a replicated
+  update's); 8-bit Adam's state is whole (its blocks are replicated in
+  ``abstract_state``), so its update runs on the all-gathered
+  gradient;
+* FSDP (``run.fsdp``: ``default_rules(fsdp=True)`` maps ``embed`` to
+  ``data``): the layout is ZeRO-1's, and the parameters are held as
+  the same chunks too (``init_state`` / :func:`shard_params`, tagged
+  with their ``Shard``).  The model gathers each layer's chunks where
+  the layer runs (``collective.gathered``, inside the remat'd layer
+  function) and the leaves outside the stacks once a microbatch; each
+  gather's backward pass reduce-scatters the weight's gradient in f32
+  straight into the rank's accumulator chunk.  An FSDP leaf updates
+  its chunk in place and is not gathered afterwards (8-bit Adam
+  gathers the parameter and the gradient, updates the whole leaf as
+  every rank does alike, and keeps its chunk).
 
-FSDP and a model axis over several ranks are not ported and raise
-``NotImplementedError`` (ROADMAP Queue A items 7 and 8).
+The bytes a rank holds (parameters, optimizer state, accumulators) are
+the shard bytes ``abstract_state`` and the gradient shardings describe.
+A model axis over several ranks (tensor parallelism, ROADMAP Queue A
+item 8) and FSDP over several distinct cards in one process raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -75,12 +90,17 @@ F32 = torch.float32
 
 def init_state(cfg: ModelConfig, run: RunConfig, params, mesh=None,
                grad_shardings=None, dp_axes=None):
-    """The step's state.  Over a mesh of processes under ZeRO-1 (the
-    layout ``build_train_step`` reads from the same arguments) AdamW's
-    moments are the rank's chunks, each marked with its ``Shard``."""
+    """The step's state.  Over a mesh of processes under ZeRO-1 or FSDP
+    (the layout ``build_train_step`` reads from the same arguments)
+    AdamW's moments and Adafactor's factors are the rank's chunks, each
+    marked with its ``Shard``; under FSDP the parameters are too
+    (:func:`shard_params` of ``params``, the whole tree or its
+    chunks)."""
     opt_init, _ = OPTIMIZERS[run.optimizer]
+    layout = _layout(cfg, run, mesh, dp_axes, grad_shardings)
+    if layout is not None and run.fsdp:
+        params = shard_params(cfg, run, params, mesh, dp_axes)
     some = tree_leaves(params)[0]
-    layout = _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings)
     opt = opt_init(params) if layout is None else \
         _sharded_opt_init(run, params, layout)
     return {
@@ -157,12 +177,22 @@ def zero1_grad_shardings(cfg: ModelConfig, run: RunConfig, mesh,
                                                 mesh), zoo.model_specs(cfg))
 
 
-def _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings):
+def _layout(cfg, run, mesh, dp_axes, grad_shardings):
     """Per parameter leaf (sorted-key order) its ``Shard`` under ZeRO-1
-    over a mesh of processes, or None where it stays whole; None for the
-    whole tree where no leaf is sharded (plain DP, or one process)."""
+    or FSDP over a mesh of processes, or None where it stays whole; None
+    for the whole tree where no leaf is sharded (plain DP, or one
+    process).  FSDP's is each parameter's guarded sharding under
+    ``default_rules(fsdp=True)``, which is ZeRO-1's
+    (:func:`zero1_grad_shardings`); its accumulators shard as its
+    parameters, so it takes no gradient shardings."""
     if mesh is None or mesh.group is None:
         return None
+    if run.fsdp:
+        if grad_shardings is not None:
+            raise ValueError("FSDP's accumulators shard as its parameters "
+                             "(embed -> data): pass no grad_shardings")
+        return _layout(cfg, dataclasses.replace(run, fsdp=False, zero1=True),
+                       mesh, dp_axes, None)
     if grad_shardings is None:
         if not run.zero1:
             return None
@@ -178,37 +208,94 @@ def _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings):
               for shape, sh in zip(shapes, shardings)]
     if not any(layout):
         return None
-    if run.optimizer == "adafactor":
-        raise NotImplementedError(
-            "Adafactor under ZeRO-1 is not ported (ROADMAP Queue A item "
-            "9): its factored means and update RMS span the whole leaf")
     return layout
 
 
-def _sharded_opt_init(run: RunConfig, params, layout):
-    """The optimizer's initial state under ZeRO-1: AdamW's moments as
-    each leaf's chunk (marked), 8-bit Adam's whole."""
-    opt_init, _ = OPTIMIZERS[run.optimizer]
-    if run.optimizer != "adamw":
-        return opt_init(params)
-    it = iter(layout)
+def shard_params(cfg: ModelConfig, run: RunConfig, params, mesh,
+                 dp_axes=None):
+    """``params`` as FSDP holds them on this rank: every leaf that the
+    layout shards over the data axes cut to the rank's chunk (a copy,
+    tagged with its ``Shard``), the others as they are.  ``params`` is
+    the whole tree (``init_params``, ``convert.params_from_reference``);
+    a leaf may also be a zero-argument callable that returns the whole
+    leaf: the callables are called in the tree's order and each whole
+    leaf is dropped once cut, so a full-width draw holds one whole leaf
+    beside the chunks.  A leaf that is already a tagged chunk stays.
+    Without FSDP over ranks nothing is cut."""
+    layout = _layout(cfg, run, mesh, dp_axes, None) if run.fsdp else None
+    by_path = dict(zip(_paths(zoo.model_specs(cfg)), layout or []))
 
-    def zeros(p):
-        sh = next(it)
-        shape = p.shape if sh is None else sh.shape(p.shape)
-        return collective.tag(torch.zeros(shape, dtype=F32,
-                                          device=p.device), sh)
-    mu = tree_map(zeros, _sorted(params))
+    def cut(tree, path):
+        if isinstance(tree, dict):
+            return {k: cut(v, path + (k,)) for k, v in tree.items()}
+        leaf = tree() if callable(tree) else tree
+        sh = by_path.get(path)
+        if sh is None or collective.shard_of(leaf) is not None:
+            return leaf
+        return collective.tag(
+            sh.of(leaf.detach()).clone(memory_format=torch.contiguous_format),
+            sh)
+    return cut(params, ())
+
+
+def _over_layout(fn, params, layout):
+    """``fn(leaf, its Shard or None)`` over the leaves in sorted-key
+    order (the layout's)."""
     it = iter(layout)
-    nu = tree_map(zeros, _sorted(params))
-    return {"mu": mu, "nu": nu,
-            "count": torch.zeros((), dtype=torch.int32,
-                                 device=tree_leaves(params)[0].device)}
+    return tree_map(lambda p: fn(p, next(it)), _sorted(params))
+
+
+def _sharded_opt_init(run: RunConfig, params, layout):
+    """The optimizer's initial state under ZeRO-1 or FSDP (``params``
+    whole or the rank's chunks): AdamW's moments and Adafactor's factors
+    as ``abstract_state`` shards them (each chunk marked), 8-bit Adam's
+    blocks of the whole leaf."""
+    dev = tree_leaves(params)[0].device
+
+    def zeros(shape, sh, dtype=F32):
+        return collective.tag(torch.zeros(shape, dtype=dtype, device=dev),
+                              sh)
+
+    def chunk(p, sh):
+        return tuple(p.shape) if sh is None else sh.shape(p.shape)
+
+    def factors(p, sh):
+        cs = chunk(p, sh)
+        n, k = len(cs), None if sh is None else sh.dim
+        if n < 2:
+            return {"v": zeros(cs, sh)}
+        # vr averages dim n-1 away, vc dim n-2; past the sharded dim a
+        # factor's dims shift down by one
+        vr = None if k is None or k == n - 1 else sh
+        vc = None if k is None or k == n - 2 else \
+            (sh if k < n - 2 else dataclasses.replace(sh, dim=n - 2))
+        return {"vr": zeros(cs[:-1], vr), "vc": zeros(cs[:-2] + cs[-1:], vc)}
+
+    def blocks(p, sh):
+        whole = list(p.shape)
+        if sh is not None:
+            whole[sh.dim] = sh.full
+        nb = -(-int(np.prod(whole)) // Q_BLOCK)
+        return {"mu_q": zeros((nb, Q_BLOCK), None, torch.int8),
+                "mu_s": zeros((nb,), None),
+                "nu_q": zeros((nb, Q_BLOCK), None, torch.int8),
+                "nu_s": zeros((nb,), None)}
+
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    if run.optimizer == "adamw":
+        moment = lambda p, sh: zeros(chunk(p, sh), sh)
+        return {"mu": _over_layout(moment, params, layout),
+                "nu": _over_layout(moment, params, layout), "count": count}
+    if run.optimizer == "adafactor":
+        return {"v": _over_layout(factors, params, layout), "count": count}
+    if run.optimizer == "adamw8bit":
+        return {"q": _over_layout(blocks, params, layout), "count": count}
+    raise ValueError(run.optimizer)
 
 
 def global_norm(tree, layout=None, ranks=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32.  Under ZeRO-1
-    (``layout``: each leaf's ``Shard`` or None, over the step's
+    or FSDP (``layout``: each leaf's ``Shard`` or None, over the step's
     ``ranks``) the leaves are this rank's: a chunk's squares count on
     one rank of its replicas, a whole leaf's on the data line's first
     rank, and the sum is all-reduced."""
@@ -224,8 +311,8 @@ def global_norm(tree, layout=None, ranks=None) -> torch.Tensor:
 
 
 def _owns(sh, ranks) -> bool:
-    """Whether this rank counts a ZeRO-1 leaf (its ``Shard``, or None
-    for a whole one) in a sum over the data line."""
+    """Whether this rank counts a ZeRO-1 or FSDP leaf (its ``Shard``, or
+    None for a whole one) in a sum over the data line."""
     if sh is None:
         return ranks[1] == 0
     return sh.rest is None or dist.get_rank(sh.rest) == 0
@@ -242,8 +329,8 @@ def step_generator(rng: torch.Tensor, device) -> torch.Generator:
 def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
     """The mesh the data-parallel constraints name (``mesh``, else the
     gradient shardings'), checked for what is ported: over processes,
-    data parallelism on the pod / data axes (no model axis, no FSDP); in
-    one process, one card on each axis."""
+    data parallelism on the pod / data axes (plain, ZeRO-1, FSDP; no
+    model axis); in one process, one card on each axis."""
     if mesh is None and grad_shardings is not None:
         mesh = next((s.mesh for s in tree_leaves(grad_shardings)
                      if s is not None), None)
@@ -265,15 +352,12 @@ def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
         if dp_axes is not None and not ranked <= set(dp_axes):
             raise ValueError(f"dp_axes {dp_axes} leave out the mesh's "
                              f"ranked axes {sorted(ranked)}")
-        if run.fsdp and ranked:
-            raise NotImplementedError(
-                "FSDP (weights sharded over the data axis) over several "
-                "ranks is not ported (ROADMAP Queue A item 7)")
     elif getattr(mesh, "devices", None) is not None:
+        what = "FSDP" if run.fsdp else "training"
         for ax in dp:
             if ax in mesh.axis_names and mesh.distinct_devices(ax) > 1:
                 raise NotImplementedError(
-                    f"training over a data axis {ax!r} of several distinct "
+                    f"{what} over a data axis {ax!r} of several distinct "
                     "devices in one process (GSPMD in the reference) is not "
                     "ported: run one process a card (launch.ranks)")
         for ax in model:
@@ -287,11 +371,13 @@ def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
 
 class _GradAcc:
     """The step's f32 gradient accumulators: whole leaves as views of one
-    flat buffer (over ranks all-reduced once a step), ZeRO-1's chunks as
-    tensors of their own (reduce-scattered into each microbatch).  With
-    no ``group`` (one process) no collective runs."""
+    flat buffer (over ranks all-reduced once a step), ZeRO-1's and
+    FSDP's chunks as tensors of their own (reduce-scattered into each
+    microbatch: ZeRO-1's by :meth:`add`, FSDP's by the gathers' backward
+    pass, which finds them through :meth:`chunk_for`).  With no
+    ``group`` (one process) no collective runs."""
 
-    def __init__(self, leaves, layout, group):
+    def __init__(self, leaves, layout, group, fsdp: bool = False):
         layout = layout or [None] * len(leaves)
         self.layout, self.group, self.leaves = layout, group, leaves
         whole = [p for p, sh in zip(leaves, layout) if sh is None]
@@ -305,13 +391,28 @@ class _GradAcc:
             else:
                 self.acc.append(collective.tag(torch.zeros(
                     sh.shape(p.shape), dtype=F32, device=p.device), sh))
+        self.fsdp = {id(p): a for p, a, sh in zip(leaves, self.acc, layout)
+                     if fsdp and sh is not None}
+
+    def chunk_for(self, x):
+        """The accumulator chunk of the FSDP chunk ``x`` (a parameter, or
+        layer i of one: ``collective.layer``), or None."""
+        base, i = getattr(x, "_stack", (x, None))
+        a = self.fsdp.get(id(base))
+        return a if a is None or i is None else a[i]
 
     @property
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size() for a in self.acc)
 
     def add(self, grads) -> None:
-        for a, g, sh in zip(self.acc, grads, self.layout):
+        for p, a, g, sh in zip(self.leaves, self.acc, grads, self.layout):
+            if id(p) in self.fsdp:
+                if g is not None:
+                    raise RuntimeError(
+                        f"an FSDP chunk of shape {tuple(p.shape)} was used "
+                        "without its gather (collective.gathered)")
+                continue              # its gathers' backward added it
             if sh is None:
                 a.add_(g.to(F32))
                 continue
@@ -350,8 +451,11 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
     ``dp_axes`` name, the reference's ambient ``with mesh:``; without
     it, the gradient shardings' mesh.  Over a mesh of processes the
     step is data-parallel (the module docstring).  The returned
-    function's ``held`` dict records ``grad_acc_bytes``, the f32
-    accumulators' bytes on this rank, once a step has made them."""
+    function's ``held`` dict records ``grad_acc_bytes`` and
+    ``param_bytes``, the f32 accumulators' and the parameters' bytes on
+    this rank, once a step has made them.  Under FSDP the state's
+    parameters must be the rank's chunks (``init_state``), else the step
+    raises: no rank keeps whole weights where FSDP was asked for."""
     mesh = _data_mesh(dp_axes, grad_shardings, mesh, run)
     loss_fn = zoo.loss_fn(cfg)
     _, opt_update = OPTIMIZERS[run.optimizer]
@@ -361,7 +465,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         dp = tuple(a for a in mesh.axis_names if a in (dp_axes or DP_AXES))
         group, size, index = mesh.line(dp)
         ranks = (collective.DataParallel(group, size), index)
-    layout = _zero1_layout(cfg, run, mesh, dp_axes, grad_shardings)
+    layout = _layout(cfg, run, mesh, dp_axes, grad_shardings)
+    fsdp = layout is not None and run.fsdp
+    shapes = [s.shape for s in tree_leaves(zoo.model_specs(cfg))]
     held: dict = {}
 
     def grads_of(params, batch):
@@ -371,6 +477,10 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         one microbatch in one process returns the loss's own gradients
         (no accumulator: the one-process step's memory)."""
         leaves = tree_leaves(params)
+        if fsdp:
+            _check_chunks(leaves, layout, shapes)
+        held["param_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in leaves)
         for p in leaves:
             p.requires_grad_(True)
         mb = max(1, run.microbatches)
@@ -389,15 +499,19 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
             whole = batch if dp is None else {
                 k: collective.gather_rows(v, dp.group, dp.size)
                 for k, v in batch.items()}
-        acc = _GradAcc(leaves, layout, None if dp is None else dp.group)
+        acc = _GradAcc(leaves, layout, None if dp is None else dp.group,
+                       fsdp)
         held["grad_acc_bytes"] = acc.nbytes
         l_acc = torch.zeros((), dtype=F32, device=leaves[0].device)
         m_acc = {}
+        if fsdp:
+            dp = dataclasses.replace(dp, grads=acc.chunk_for)
         with collective.data_parallel(dp):
             for lo, hi in spans:
                 loss, metrics = loss_fn(params, {k: v[lo:hi] for k, v in
                                                  whole.items()})
-                acc.add(torch.autograd.grad(loss, leaves))
+                acc.add(torch.autograd.grad(loss, leaves,
+                                            allow_unused=fsdp))
                 l_acc = l_acc + loss.detach()
                 for k, v in metrics.items():
                     m_acc[k] = m_acc.get(k, 0.0) + v.detach()
@@ -422,8 +536,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
             if run.optimizer in ("adamw", "adamw8bit"):
                 kw["weight_decay"] = run.weight_decay
             # leaf by leaf: a ZeRO-1 chunk updates its slice of the
-            # parameter (8-bit Adam's whole state, the gathered
-            # gradient), which is then all-gathered
+            # parameter, which is then all-gathered; an FSDP chunk is
+            # the parameter; 8-bit Adam's whole state updates the
+            # gathered leaf from the gathered gradient
             opt = state["opt"]
             parts = [k for k in opt if k != "count"]
             count = opt["count"]
@@ -431,14 +546,22 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
                 p = _at(params, path)
                 one = {k: {"x": _at(opt[k], path)} for k in parts}
                 one["count"] = opt["count"]
+                if run.optimizer == "adafactor":
+                    kw["shards"] = {"x": sh}
                 if sh is not None and run.optimizer == "adamw8bit":
-                    g, sh = collective.all_gather(g, sh), None
-                target = p if sh is None else sh.of(p)
+                    g = collective.all_gather(g, sh)
+                    target = collective.all_gather(p, sh) if fsdp else p
+                else:
+                    target = p if sh is None or fsdp else sh.of(p)
                 _, new = opt_update({"x": g}, one, {"x": target}, lr,
                                     apply=True, **kw)
                 count = new["count"]
-                if sh is not None:
-                    p.copy_(collective.all_gather(target, sh))
+                if target is p:
+                    continue                    # updated in place
+                # ZeRO-1's chunk gathered into the parameter, or 8-bit
+                # Adam's whole leaf cut to FSDP's chunk
+                p.copy_(sh.of(target) if fsdp else
+                        collective.all_gather(target, sh))
             opt = dict(opt, count=count)
         rng = state["rng"].clone()
         rng[1] += 1
@@ -449,6 +572,21 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
 
     train_step.held = held
     return train_step
+
+
+def _check_chunks(leaves, layout, shapes) -> None:
+    """Under FSDP every sharded parameter must be this rank's tagged
+    chunk: a whole leaf would run (and be updated) unsharded."""
+    for i, (p, sh, shape) in enumerate(zip(leaves, layout, shapes)):
+        if sh is None:
+            continue
+        want = sh.shape(shape)
+        if tuple(p.shape) != want or collective.shard_of(p) is None:
+            raise ValueError(
+                f"FSDP: parameter {i} is {tuple(p.shape)}"
+                f"{'' if collective.shard_of(p) else ' untagged'}, not "
+                f"this rank's chunk {want}: pass init_state's (or "
+                "shard_params') chunks")
 
 
 def _int8(grads, layout, generator) -> None:

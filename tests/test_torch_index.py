@@ -215,6 +215,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.runtime.fault, repro_torch.models.encdec\n"
         "import repro_torch.launch.ranks, repro_torch.launch.mesh\n"
         "import repro_torch.sharding.collective, repro_torch.runtime.elastic\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+        "import repro_torch.launch.dryrun, repro_torch.roofline.analysis\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert bad == ['jax'], bad\n"

@@ -95,7 +95,7 @@ def _cfg(arch):
 
 def _run(mode, optimizer, mb, int8):
     return RunConfig(optimizer=optimizer, learning_rate=LR, microbatches=mb,
-                     zero1=mode == "zero1",
+                     zero1=mode == "zero1", fsdp=mode == "fsdp",
                      grad_compression="int8" if int8 else None)
 
 
@@ -297,9 +297,10 @@ def _fault_loop(rank, mesh, ref_params, tmp):
 
 
 def _refusals(rank, mesh, ref_params, batch):
-    """What raises: Adafactor under ZeRO-1, a batch that does not divide
-    into microbatches x ranks, MoE groups not a multiple of the ranks,
-    FSDP and a model axis over ranks."""
+    """What raises: FSDP over a data axis of distinct cards in one
+    process, FSDP with a model axis over ranks (the step and the state),
+    a batch that does not divide into microbatches x ranks, MoE groups
+    not a multiple of the ranks, and a model axis over ranks."""
     out = {}
     cfg = _cfg("llama3-8b")
     params = params_from_reference(ref_params["llama3-8b"], device="cpu")
@@ -311,12 +312,15 @@ def _refusals(rank, mesh, ref_params, batch):
         except kind as e:
             return str(e)
         return None
-    run = _run("zero1", "adafactor", 1, False)
-    out["adafactor"] = raises(NotImplementedError, lambda: init_state(
-        cfg, run, params, mesh=mesh))
-    out["adafactor_step"] = raises(NotImplementedError,
-                                   lambda: build_train_step(cfg, run,
-                                                            mesh=mesh))
+    run = _run("fsdp", "adafactor", 1, False)
+    cards = LogicalMesh(("data", "model"), (2, 1),
+                        devices=("cuda:0", "cuda:1"))
+    out["fsdp_cards"] = raises(NotImplementedError, lambda: build_train_step(
+        cfg, run, mesh=cards))
+    model = LogicalMesh(("data", "model"), (1, W), group=dist.group.WORLD,
+                        device="cpu")
+    out["fsdp_model_state"] = raises(NotImplementedError, lambda: init_state(
+        cfg, run, params, mesh=model))
     run = _run("plain", "adamw", 4, False)
     out["batch"] = raises(ValueError, lambda: build_train_step(
         cfg, run, mesh=mesh)(init_state(cfg, run, params), local))
@@ -326,10 +330,8 @@ def _refusals(rank, mesh, ref_params, batch):
     out["groups"] = raises(ValueError, lambda: build_train_step(
         moe, run, mesh=mesh)(init_state(moe, run, mp), shard_rows(
             _tensors(batch["mixtral-8x7b"]), DataShard(rank, W))))
-    out["fsdp"] = raises(NotImplementedError, lambda: build_train_step(
-        cfg, RunConfig(fsdp=True), mesh=mesh))
-    model = LogicalMesh(("data", "model"), (1, W), group=dist.group.WORLD,
-                        device="cpu")
+    out["fsdp_model"] = raises(NotImplementedError, lambda: build_train_step(
+        cfg, RunConfig(fsdp=True), mesh=model))
     out["model"] = raises(NotImplementedError, lambda: build_train_step(
         cfg, RunConfig(), mesh=model))
     return out
@@ -353,13 +355,14 @@ def _rank_body(rank, device, ref_params, batches, tmp):
 
 def _pod_body(rank, device, ref_params, batch):
     """Four ranks on a ("pod", "data", "model") mesh of (2, 2, 1): the
-    batch over pod x data, ZeRO-1's chunks over data within each pod
-    (the moments replicated over pod)."""
+    batch over pod x data, ZeRO-1's and FSDP's chunks over data within
+    each pod (replicated over pod: FSDP's gradients reduce-scatter over
+    data, then all-reduce over pod)."""
     torch.set_num_threads(1)
     mesh = LogicalMesh(("pod", "data", "model"), (2, 2, 1),
                        group=dist.group.WORLD, device=device)
     out = {}
-    for mode in ("plain", "zero1"):
+    for mode in ("plain", "zero1", "fsdp"):
         cfg, run = _cfg("llama3-8b"), _run(mode, "adamw", 2, False)
         state = init_state(cfg, run, params_from_reference(ref_params,
                                                            device="cpu"),
@@ -368,10 +371,12 @@ def _pod_body(rank, device, ref_params, batch):
                                 dp_axes=("pod", "data"), mesh=mesh)
         state, ms = _steps(step, state, shard_rows(_tensors(batch),
                                                    DataShard(rank, 4)))
+        whole = elastic.gather_state(state["params"])
         out[mode] = {"metrics": ms, "same": _same_on_ranks(
-            optim.tree_leaves(state["params"])),
-            "params": {k: _np(v) for k, v in _flat(state["params"]).items()},
-            "opt_bytes": _nbytes(state["opt"])}
+            optim.tree_leaves(whole)),
+            "params": {k: _np(v) for k, v in _flat(whole).items()},
+            "opt_bytes": _nbytes(state["opt"]),
+            "param_bytes": _nbytes(state["params"])}
     return out
 
 
@@ -423,7 +428,7 @@ def ranks(inputs):
 
 @pytest.fixture(scope="module")
 def pod_ranks(inputs):
-    """Plain DP and ZeRO-1 on four gloo ranks over pod x data, the
+    """Plain DP, ZeRO-1 and FSDP on four gloo ranks over pod x data, the
     global batch of 8 rows (one spawn)."""
     ref_params, _ = inputs
     batch = _batch(_cfg("llama3-8b"))
@@ -635,23 +640,25 @@ def test_fault_loop_restores_every_rank(ranks):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("adafactor", "Adafactor under ZeRO-1"),
-    ("adafactor_step", "Adafactor under ZeRO-1"),
+    ("fsdp_cards", "FSDP over a data axis 'data' of several distinct "
+                   "devices in one process"),
+    ("fsdp_model_state", "only the data axes"),
     ("batch", "does not divide"), ("groups", "multiple of the ranks"),
-    ("fsdp", "item 7"), ("model", "item 8")])
+    ("fsdp_model", "tensor parallelism"), ("model", "item 8")])
 def test_refusals(ranks, what, match):
     for r in ranks:
         assert r["refuse"][what] is not None and match in r["refuse"][what], \
             r["refuse"][what]
 
 
-@pytest.mark.parametrize("mode", ["plain", "zero1"])
+@pytest.mark.parametrize("mode", ["plain", "zero1", "fsdp"])
 def test_pod_by_data_ranks_match_one_process(pod_ranks, inputs, mode):
     """Over a (2, 2, 1) pod x data x model mesh of four ranks: every
-    rank's parameters bit-equal, metrics and parameters at the port
-    bars of the one-process step on the global batch, and under ZeRO-1
-    the moments chunked over data only (abstract_state's shard bytes on
-    that mesh)."""
+    rank's (gathered) parameters bit-equal, metrics and parameters at
+    the port bars of the one-process step on the global batch, and
+    under ZeRO-1 and FSDP the moments (FSDP: the parameters too)
+    chunked over data only (abstract_state's shard bytes on that
+    mesh)."""
     batch, got = pod_ranks
     ref_params, _ = inputs
     cfg, run = _cfg("llama3-8b"), _run(mode, "adamw", 2, False)
@@ -667,10 +674,14 @@ def test_pod_by_data_ranks_match_one_process(pod_ranks, inputs, mode):
                   PORT_PARAM_REL)
     mesh = LogicalMesh(("pod", "data", "model"), (2, 2, 1))
     ab = abstract_state(cfg, run, zoo.model_specs(cfg), mesh,
-                        default_rules())
-    want_opt = sum(int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
-                   * t.element_size() for t in optim.tree_leaves(ab["opt"]))
-    assert all(r[mode]["opt_bytes"] == want_opt for r in got)
+                        default_rules(fsdp=run.fsdp))
+
+    def shard_bytes(tree):
+        return sum(int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
+                   * t.element_size() for t in optim.tree_leaves(tree))
+    assert all(r[mode]["opt_bytes"] == shard_bytes(ab["opt"]) for r in got)
+    assert all(r[mode]["param_bytes"] == shard_bytes(ab["params"])
+               for r in got)
 
 
 def test_microbatch_rows_are_the_reference_layout():
