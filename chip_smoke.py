@@ -9,7 +9,8 @@ data-parallel training step's ranks).
 
     python3 chip_smoke.py [--n 1000000] [--batches 3] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only |
-                          --families-only | --train-only | --dp-only]
+                          --families-only | --train-only | --dp-only |
+                          --fsdp-only | --tp-only]
 
 Phases, each printing lines that start with its name:
 
@@ -476,6 +477,47 @@ Phases, each printing lines that start with its name:
             one-process step on the card (8-bit Adam's parameters at
             FSDP_8BIT_REL), FSDP + Adafactor bit-equal to ZeRO-1 +
             Adafactor on the same ranks.
+19. tp      (after fsdp; --tp-only runs phases 1, 2 and this one) the
+            dense training step tensor-parallel over the model axis of
+            NCCL ranks, one card each (ROADMAP Queue A item 8(a): the
+            projections split by column and by row, the embedding, head
+            and NLL by vocabulary), composed with plain DP, ZeRO-1 and
+            FSDP over the data axis.  At count >= 2: train:'s llama3-8b
+            at full width, 4 of 32 layers (a CUT line), its global
+            batch of 8 x 4,096 tokens in 4 microbatches, on (data 1,
+            model count) plain, and at count 4 also on (2, 2) plain,
+            ZeRO-1 and FSDP; every rank first takes the one-card step on
+            the global batch (in 4 microbatches, and in 8 of one row for
+            the (2, 2) modes, whose data ranks take one row a
+            microbatch), and again with its attention forward rounded
+            another way (a chunked plain attention for the kernel: the
+            noise floor of bf16 rounding); TP_STEPS timed steps of each
+            mode and one more under torch.profiler, held at dp:'s bars
+            to the one-card step: every loss within 2**-7, the first
+            DP_EQUAL_STEPS grad norms within 2**-8 and later ones within
+            DP_LATE_NORM_REL, the state's L2 distance after
+            DP_EQUAL_STEPS steps within DP_STATE_REL, each of the last
+            three or within TP_FLOOR_X x the noise floor's; each rank's parameter, optimizer-state and
+            accumulator bytes equal to abstract_state's shard bytes on
+            that mesh; flash_attention 2 x layers x microbatches a step
+            a rank; ms a step, tokens/s, NCCL ms, busy share and peak a
+            card beside estimate_memory at that mesh; (c) the same
+            comparison in f32 (the matrices x DP_GLOO_SCALE, one row a
+            step, on (1, count) plain), where the noise floor stays
+            small and the bars bite; row
+            5-train-tp (the kernel at a (1, 4) rank's (2, 8, 4096, 128)
+            x (2, 2, 4096, 128) on its first operands, held to its
+            plain version and the f64 answer, beside SDPA and
+            flash_work's bound).  At
+            one card (the CUT line says why): four gloo ranks on the
+            card (started in a thread before train: (b) with dp: (b)'s
+            and fsdp: (d)'s, ended before dp: (a)'s profiled step; with
+            --tp-only started at the phase's start) at dp:'s reduced f32
+            llama (matrices x DP_GLOO_SCALE) on (1, 4) plain and on
+            (2, 2) plain, ZeRO-1 and FSDP, each within DP_GLOO_REL of
+            the one-process step on the card; a mode needing a
+            collective that gloo lacks on CUDA tensors is cut on a CUT
+            line.
 
 The whole run, the build included, must end within 1,200 s; the
 ``total:`` line prints its seconds.  Before the last line it prints the
@@ -660,6 +702,33 @@ FSDP_GLOO_RUNS = ((False, "adamw", "fsdp"), (False, "adafactor", "fsdp"),
                   (False, "adamw8bit", "fsdp"), (True, "adafactor", "fsdp"),
                   (False, "adafactor", "zero1"))
 FSDP_8BIT_REL = 2e-5
+# tp: at count >= 2 train:'s TRAIN_ARCH at full width and TRAIN_LAYERS,
+# its global batch in TRAIN_MICRO microbatches, on TP_MESHES[count]
+# ((data, model, modes) a mesh), TP_STEPS timed steps a mode and one
+# profiled, at dp:'s bars; at one card TP_GLOO_MESHES on four gloo ranks
+# at DP_GLOO_REL
+TP_STEPS = DP_STEPS
+# dp:'s bars on the grad norms and the state assume the ranks compute
+# each row's bf16 forward and backward as one card does; tensor
+# parallelism adds bf16 roundings (each rank's partial sums), and at
+# random fan_in weights near-tied attention scores turn any such rounding
+# into O(1) changes of single gradient elements (the reduced and d 2048
+# models' bf16 gradients lie 111-131% from their f32 ones on the CPU,
+# PERF.md).  So a grad norm or state distance also passes within
+# TP_FLOOR_X x the same distance between two one-card steps that differ
+# only in such a rounding: the attention forward by a chunked plain
+# attention (TP_FLOOR_CHUNK) in place of the flash kernel -- the
+# repo's "no further than 4 x" rule (tests/test_torch_train.py)
+TP_FLOOR_X, TP_FLOOR_CHUNK = 4.0, 1024
+TP_MESHES = {2: ((1, 2, ("plain",)),),
+             4: ((1, 4, ("plain",)), (2, 2, ("plain", "zero1", "fsdp")))}
+TP_GLOO_MESHES = ((1, 4, ("plain",)), (2, 2, ("plain", "zero1", "fsdp")))
+TP_NEEDS = {"plain": ("all_reduce", "all_reduce_max",
+                      "all_gather_into_tensor"),
+            "zero1": ("all_reduce", "all_reduce_max",
+                      "all_gather_into_tensor", "reduce_scatter_tensor"),
+            "fsdp": ("all_reduce", "all_reduce_max",
+                     "all_gather_into_tensor", "reduce_scatter_tensor")}
 
 LM_ARCH = "llama3-8b"
 # (a)'s cut depth, and its bar on max |diff| relative to the compared
@@ -5710,19 +5779,19 @@ def dp_reduced_inputs(seed: int, scale: float):
     return params, batch
 
 
-def gloo_start(rank_body, args: tuple, tag: str):
-    """Two gloo ranks on the card (NCCL refuses two ranks on one device)
-    running ``rank_body`` in a thread of this process, so their start-up
-    overlaps the caller's work on the card; ``gloo_join`` ends them.
-    ``tag`` names them in a failure; the last item is when they
+def gloo_start(rank_body, args: tuple, tag: str, world: int = 2):
+    """``world`` gloo ranks on the card (NCCL refuses two ranks on one
+    device) running ``rank_body`` in a thread of this process, so their
+    start-up overlaps the caller's work on the card; ``gloo_join`` ends
+    them.  ``tag`` names them in a failure; the last item is when they
     started."""
     from repro_torch.launch.ranks import run_ranks
     out = {}
 
     def work():
         try:
-            out["got"] = run_ranks(rank_body, 2, args, backend="gloo",
-                                   devices=[DEVICE + ":0"] * 2,
+            out["got"] = run_ranks(rank_body, world, args, backend="gloo",
+                                   devices=[DEVICE + ":0"] * world,
                                    timeout_s=600)
         except BaseException as e:      # re-raised by gloo_join
             out["error"] = e
@@ -6760,6 +6829,599 @@ def phase_fsdp(seed: int, count: int, pending=None) -> dict:
     return row
 
 
+# ----------------------------------------------------------------------- tp
+def tp_owns(t, coords) -> bool:
+    """Whether this rank counts leaf ``t`` in a sum over every rank: a
+    chunk of a data or model split on every rank of that line, a leaf
+    whole on a line on the line's first rank."""
+    from repro_torch.sharding import collective
+    return ((collective.shard_of(t) is not None or coords["data"] == 0)
+            and (collective.model_of(t) is not None
+                 or coords["model"] == 0))
+
+
+def tp_distances(state, one, initial, coords, device) -> list:
+    """Relative L2 distances of a TP state's parameters (over the
+    one-card step's move from ``initial``'s), mu and nu (over the
+    one-card moments' norm) from the one-card state ``one`` (host copies
+    of its parameter, mu and nu leaves): each chunk against its chunk of
+    the one-card leaf (``collective.cut``), each element counted on one
+    rank (:func:`tp_owns`), summed over the ranks."""
+    import torch.distributed as dist
+    from repro_torch.sharding import collective
+    from repro_torch.train import optim
+    mine = [optim.tree_leaves(state["params"]),
+            optim.tree_leaves(state["opt"]["mu"]),
+            optim.tree_leaves(state["opt"]["nu"])]
+    base = optim.tree_leaves(initial())
+    sums = torch.zeros(3, 2, dtype=torch.float64, device=device)
+    for i, (leaves, theirs) in enumerate(zip(mine, one)):
+        for j, (a, b) in enumerate(zip(leaves, theirs)):
+            if not tp_owns(a, coords):
+                continue
+            m, sh = collective.model_of(a), collective.shard_of(a)
+            b = collective.cut(b.to(device), m, sh).float()
+            ref = collective.cut(base[j], m, sh).float() if i == 0 else 0.0
+            sums[i, 0] += torch.sum((a.detach().float() - b) ** 2)
+            sums[i, 1] += torch.sum((b - ref) ** 2)
+            del b, ref
+    del base
+    dist.all_reduce(sums)
+    return [float(x) for x in torch.sqrt(sums[:, 0] / sums[:, 1])]
+
+
+def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
+    """The W-card rank body (``cfg`` at ``seq`` tokens a row, train:'s
+    global batch of TRAIN_BATCH rows): every rank first takes the
+    one-card step on the global batch in TRAIN_MICRO microbatches and,
+    where a mesh has a data axis, in one-row microbatches (keeping each
+    state after DP_EQUAL_STEPS steps on the host), each also with its
+    attention forward rounded another way (the noise floor: its
+    distances from the one-card step); then on each of ``meshes``
+    ((data, model, modes)) TP_STEPS timed steps of each mode, the
+    state's distance from the one-card state, the bytes against
+    abstract_state's, and one more step under torch.profiler; rank 0
+    keeps the first flash operands of the first mesh's first mode.
+    Last, (c): the same comparison in f32 (``cfg`` in f32, its matrices
+    x DP_GLOO_SCALE, one row a step, (1, W) plain)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.data.pipeline import DataShard, _batch_for_step, \
+        shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer, zoo
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding.logical import LogicalMesh, default_rules
+    from repro_torch.train import optim
+    from repro_torch.train.step import (abstract_state, build_train_step,
+                                        init_state, zero1_grad_shardings)
+    rows, on_card = TRAIN_BATCH, device.type == "cuda"
+    glob = [{k: torch.from_numpy(v).to(device) for k, v in _batch_for_step(
+        s, DataShard(0, 1), cfg.vocab, rows, seq).items()}
+        for s in range(TP_STEPS + 1)]
+
+    def wait():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def initial(c, scale=1.0):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(zoo.model_specs(c), gen, c.dtype, device=device)
+        if scale != 1.0:
+            for p in optim.tree_leaves(params):
+                if p.dim() >= 2:
+                    p.mul_(scale)
+        return params
+
+    def timed(step, state, batches):
+        losses, norms, times = [], [], []
+        for b in batches:
+            wait()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        return state, losses, norms, times
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def floor_attention(q, k, v, cfg):
+        ck = min(TP_FLOOR_CHUNK, max(1, q.shape[1] // 4))
+        return chunked_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window, chunk_q=ck,
+                                 chunk_k=ck)
+
+    def reference(c, run_one, batches, scale=1.0):
+        """The one-card step on ``batches`` from the initial parameters
+        (matrices x ``scale``; its state after DP_EQUAL_STEPS steps kept
+        on the host), then the noise floor."""
+        out = {}
+        for floor in (False, True):
+            with mock.patch.object(transformer, "attention",
+                                   floor_attention) if floor \
+                    else contextlib.nullcontext():
+                step = build_train_step(c, run_one, total_steps=FAULT_STEPS)
+                state, *first = timed(step, init_state(c, run_one,
+                                                       initial(c, scale)),
+                                      batches[:DP_EQUAL_STEPS])
+                if floor:
+                    dists = tp_distances(state, out["one"]["kept"],
+                                         lambda: initial(c, scale),
+                                         {"data": 0, "model": 0}, device)
+                else:
+                    kept = [[t.detach().to("cpu", copy=True) for t in
+                             optim.tree_leaves(x)] for x in
+                            (state["params"], state["opt"]["mu"],
+                             state["opt"]["nu"])]
+                state, *rest = timed(step, state,
+                                     batches[DP_EQUAL_STEPS:TP_STEPS])
+            loss, norm, times = (a + b for a, b in zip(first, rest))
+            out["floor" if floor else "one"] = dict(
+                loss=loss, norm=norm, times=times,
+                **({"dists": dists} if floor else {"kept": kept}))
+            del state, step
+            free()
+        return out
+
+    def mode(c, run_m, mesh, d, m, local, one, watch, scale=1.0):
+        """TP_STEPS timed steps of one mode on ``mesh`` and one profiled,
+        from the initial parameters (matrices x ``scale``); (its record,
+        the first flash operands where ``watch``)."""
+        coords = mesh.coords()
+        desc = LogicalMesh(("data", "model"), (d, m))
+        free()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        state = init_state(c, run_m, initial(c, scale), mesh=mesh)
+        step = build_train_step(c, run_m, total_steps=FAULT_STEPS,
+                                mesh=mesh)
+        (_, spied), spying = family_flash_spy()
+        _cuda.reset_launches()
+        with spying if watch else contextlib.nullcontext():
+            state, *first = timed(step, state, local[:DP_EQUAL_STEPS])
+        ops = tuple(t.detach().cpu() for t in next(iter(spied.values()))) \
+            if watch and spied else None
+        dists = tp_distances(state, one["kept"], lambda: initial(c, scale),
+                             coords, device)
+        state, *rest = timed(step, state, local[DP_EQUAL_STEPS:TP_STEPS])
+        losses, norms, times = (a + b for a, b in zip(first, rest))
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        held = (step.held["param_bytes"],
+                sum(t.numel() * t.element_size()
+                    for t in optim.tree_leaves(state["opt"])),
+                step.held["grad_acc_bytes"])
+        wall, busy, top = device_busy(
+            lambda: step(state, local[TP_STEPS]), n_top=None) \
+            if on_card else (1.0, 0.0, [])
+        ab = abstract_state(c, run_m, zoo.model_specs(c), desc,
+                            default_rules(fsdp=run_m.fsdp))
+        accs = optim.tree_leaves(zero1_grad_shardings(c, run_m, desc)) \
+            if run_m.zero1 or run_m.fsdp else \
+            [t.sharding for t in optim.tree_leaves(ab["params"])]
+        want = (shard_bytes(ab["params"]), shard_bytes(ab["opt"]),
+                sum(int(np.prod(s.shard_shape(tuple(t.shape)))) * 4
+                    for t, s in zip(optim.tree_leaves(ab["params"]), accs)))
+        rec = analyze_cell(c.name, "train_4k", False, cfg=c, run=run_m,
+                           cell=ShapeCell("train_4k", seq,
+                                          local[0]["tokens"].shape[0] * d,
+                                          "train"), mesh=desc)
+        del state, step
+        return dict(
+            loss=losses, norm=norms, times=times, dists=dists,
+            launches=launches, peak=peak, held=held, want=want,
+            wall_ms=wall, busy_ms=busy,
+            nccl_ms=sum(t for n, t in top if "nccl" in n.lower()),
+            flash_ms=sum(t for n, t in top if "flash" in n.lower()),
+            model_bytes=rec["mem"]["bytes"]["total"],
+            top=[(n, round(t, 3)) for n, t in top[:5]]), ops
+
+    out = {"device": str(device)}
+    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                    microbatches=TRAIN_MICRO)
+    refs = {micro: reference(cfg, dataclasses.replace(
+        run, microbatches=micro), glob)
+        for micro in sorted({TRAIN_MICRO if d == 1 else rows
+                             for d, _, _ in meshes})}
+    out["one"] = {k: {n: v for n, v in r["one"].items() if n != "kept"}
+                  for k, r in refs.items()}
+    out["floor"] = {k: r["floor"] for k, r in refs.items()}
+    dist.barrier()
+    out["qkv"] = None
+    for d, m, modes in meshes:
+        mesh = make_host_mesh(model_parallel=m, device=device)
+        local = [shard_rows(b, DataShard(mesh.coords()["data"], d))
+                 for b in glob]
+        for name in modes:
+            run_m = dataclasses.replace(run, zero1=name == "zero1",
+                                        fsdp=name == "fsdp")
+            watch = rank == 0 and on_card and out["qkv"] is None
+            out[d, m, name], ops = mode(
+                cfg, run_m, mesh, d, m, local,
+                refs[TRAIN_MICRO if d == 1 else rows]["one"], watch)
+            if ops is not None:
+                out["qkv"] = ops
+    del refs
+    free()
+    # (c) f32, one row a step, on (1, W), the matrices x DP_GLOO_SCALE
+    # (at the fan_in weights f32 rounding alone moves the gradient by
+    # ~1%, PERF.md): the floor stays small and the comparison bites
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    run32 = dataclasses.replace(run, microbatches=1)
+    one_row = [{k: v[:1] for k, v in b.items()} for b in glob]
+    ref32 = reference(cfg32, run32, one_row, DP_GLOO_SCALE)
+    out["f32"] = {"one": {n: v for n, v in ref32["one"].items()
+                          if n != "kept"}, "floor": ref32["floor"]}
+    world = dist.get_world_size()
+    mesh = make_host_mesh(model_parallel=world, device=device)
+    out["f32"]["tp"], _ = mode(cfg32, run32, mesh, 1, world, one_row,
+                               ref32["one"], False, DP_GLOO_SCALE)
+    return out
+
+
+def tp_bars(one, floor) -> tuple:
+    """(first grad norms, later grad norms, [parameters, mu, nu]) bars
+    of a comparison with the one-card step ``one``: dp:'s, or within
+    TP_FLOOR_X x the noise floor's reading where that is wider."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(floor["norm"], one["norm"])]
+    return (max(TRAIN_GRAD_REL, TP_FLOOR_X * max(rel[:DP_EQUAL_STEPS])),
+            max(DP_LATE_NORM_REL, TP_FLOOR_X * max(rel[DP_EQUAL_STEPS:]
+                                                   + [0.0])),
+            [max(DP_STATE_REL, TP_FLOOR_X * x) for x in floor["dists"]])
+
+
+def tp_check(tag, got, key, one_of, bars) -> tuple:
+    """Every rank's record ``res[key]`` against the one-card step
+    ``one_of(res)`` at ``bars`` (:func:`tp_bars`) and its bytes against
+    abstract_state's; returns the largest relative loss, first and later
+    grad-norm differences."""
+    rel_l = rel_g = rel_late = 0.0
+    bar_g, bar_late, bar_s = bars
+    for r, res in enumerate(got):
+        x, one = key(res), one_of(res)
+        rel_l = max([rel_l] + [abs(a - b) / abs(b) for a, b in
+                               zip(x["loss"], one["loss"])])
+        rel = [abs(a - b) / abs(b) for a, b in zip(x["norm"], one["norm"])]
+        rel_g = max([rel_g] + rel[:DP_EQUAL_STEPS])
+        rel_late = max([rel_late] + rel[DP_EQUAL_STEPS:])
+        check(rel_l <= TRAIN_REPLAY_REL and rel_g <= bar_g
+              and rel_late <= bar_late,
+              f"{tag} rank {r}: losses {x['loss']} / grad norms "
+              f"{x['norm']} part from the one-card step's by {rel_l:.3g} / "
+              f"{rel_g:.3g} (the first {DP_EQUAL_STEPS} steps), "
+              f"{rel_late:.3g} (later) (bars {TRAIN_REPLAY_REL:g}, "
+              f"{bar_g:.3g}, {bar_late:.3g})")
+        check(all(a <= b for a, b in zip(x["dists"], bar_s)),
+              f"{tag} rank {r}: parameters / mu / nu after {DP_EQUAL_STEPS} "
+              f"steps part from the one-card step's by {x['dists']} (bars "
+              f"{bar_s})")
+        check(tuple(x["held"]) == tuple(x["want"]),
+              f"{tag} rank {r}: parameters, optimizer state and accumulators "
+              f"hold {x['held']} B, not the described {x['want']}")
+    return rel_l, rel_g, rel_late
+
+
+def tp_reference_line(tag, one, floor, bars) -> None:
+    rel = [abs(a - b) / abs(b) for a, b in zip(floor["norm"], one["norm"])]
+    print(f"{tag}: losses {one['loss']}, grad norms {one['norm']}, ms a "
+          f"step {[round(t * 1e3, 1) for t in one['times']]}; with its "
+          f"attention forward rounded another way (chunked plain attention, "
+          f"not the flash kernel): losses {floor['loss']}, grad norms "
+          f"{floor['norm']} ({[round(x, 6) for x in rel]} apart), "
+          f"parameters / mu / nu at L2 distances {floor['dists']} after "
+          f"{DP_EQUAL_STEPS} steps: the noise floor; bars: grad norms "
+          f"{bars[0]:.3g} / {bars[1]:.3g}, state "
+          f"{[round(x, 5) for x in bars[2]]}", flush=True)
+
+
+def tp_report(got, world, cfg, meshes) -> None:
+    """The W-card checks and lines: each mode against the one-card step
+    on the same global batch at dp:'s bars (the grad norms and the state
+    within TP_FLOOR_X x the noise floor where that is wider), the bytes,
+    the launches, the times; then (c), the f32 comparison."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = 2 * cfg.n_layers * TRAIN_MICRO
+    bars = {}
+    for micro, o in got[0]["one"].items():
+        bars[micro] = tp_bars(o, got[0]["floor"][micro])
+        tp_reference_line(f"tp: the one-card step on the global batch "
+                          f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens) in {micro} "
+                          f"microbatches", o, got[0]["floor"][micro],
+                          bars[micro])
+    one_rate = tokens / float(np.median(
+        got[0]["one"][TRAIN_MICRO]["times"][1:]))
+    for d, m, modes in meshes:
+        for mode in modes:
+            micro = TRAIN_MICRO if d == 1 else TRAIN_BATCH
+            tag = f"tp: ({d}, {m}) {mode}"
+            for r, res in enumerate(got):
+                check(res[d, m, mode]["launches"].get("flash_attention", 0)
+                      == TP_STEPS * per_step,
+                      f"{tag} rank {r}: launches "
+                      f"{res[d, m, mode]['launches']}, not {TP_STEPS} x "
+                      f"{per_step} flash_attention")
+            rel_l, rel_g, rel_late = tp_check(
+                tag, got, lambda res: res[d, m, mode],
+                lambda res: res["one"][micro], bars[micro])
+            x0 = got[0][d, m, mode]
+            print(f"{tag}: against the one-card step in {micro} "
+                  f"microbatches: losses {x0['loss']}, grad norms "
+                  f"{x0['norm']}: within {rel_l:.3g}, {rel_g:.3g} (the "
+                  f"first {DP_EQUAL_STEPS} steps) and {rel_late:.3g} "
+                  f"(later); after {DP_EQUAL_STEPS} steps the L2 distance "
+                  f"of parameters / mu / nu by rank "
+                  f"{[res[d, m, mode]['dists'] for res in got]} (bars "
+                  f"{[round(b, 5) for b in bars[micro][2]]}); parameters, "
+                  f"optimizer state, f32 accumulators {x0['held']} B on "
+                  f"rank 0, as abstract_state describes", flush=True)
+            med = float(np.median(x0["times"][1:]))
+            print(f"{tag}: ms a step "
+                  f"{[[round(t * 1e3, 1) for t in res[d, m, mode]['times']] for res in got]}"
+                  f" (per rank, the first with its warm-up; median after "
+                  f"it on rank 0 {med * 1e3:.1f}), {tokens / med:.1f} "
+                  f"tokens/s, {tokens / med / (world * one_rate):.4f} of "
+                  f"{world} x the one-card rate; flash_attention "
+                  f"{[res[d, m, mode]['launches'].get('flash_attention', 0) for res in got]}"
+                  f" launches per rank ({TP_STEPS} steps x {per_step})",
+                  flush=True)
+            for r, res in enumerate(got):
+                tp_profile_line(f"{tag} rank {r} ({res['device']})",
+                                res[d, m, mode], per_step, d, m)
+    f32 = got[0]["f32"]
+    for r, res in enumerate(got):
+        n = res["f32"]["tp"]["launches"].get("flash_attention", 0)
+        check(n == TP_STEPS * 2 * cfg.n_layers,
+              f"tp: (c) f32 rank {r}: {n} flash_attention launches, not "
+              f"{TP_STEPS} x 2 x {cfg.n_layers}")
+    b32 = tp_bars(f32["one"], f32["floor"])
+    tp_reference_line(f"tp: (c) f32, matrices x {DP_GLOO_SCALE}, the "
+                      f"one-card step on one row of {TRAIN_SEQ} tokens",
+                      f32["one"], f32["floor"], b32)
+    rel_l, rel_g, rel_late = tp_check(
+        f"tp: (c) f32 (1, {world}) plain", got,
+        lambda res: res["f32"]["tp"], lambda res: res["f32"]["one"], b32)
+    x0 = f32["tp"]
+    print(f"tp: (c) f32 (1, {world}) plain against the one-card step: "
+          f"losses {x0['loss']}, grad norms {x0['norm']}: within "
+          f"{rel_l:.3g}, {rel_g:.3g} (the first {DP_EQUAL_STEPS} steps) and "
+          f"{rel_late:.3g} (later); parameters / mu / nu at "
+          f"{[res['f32']['tp']['dists'] for res in got]} by rank (bars "
+          f"{[round(b, 5) for b in b32[2]]}); ms a step "
+          f"{[round(t * 1e3, 1) for t in x0['times']]} on rank 0",
+          flush=True)
+    tp_profile_line(f"tp: (c) f32 rank 0 ({got[0]['device']})", x0,
+                    2 * cfg.n_layers, 1, world)
+
+
+def tp_profile_line(tag, x, per_step, d, m) -> None:
+    print(f"{tag}: one step under torch.profiler: NCCL kernels "
+          f"{x['nccl_ms']:.3f} ms, flash_attention "
+          f"{x['flash_ms'] / per_step:.4f} ms a launch; device kernel time "
+          f"{x['busy_ms']:.1f} of {x['wall_ms']:.1f} ms wall "
+          f"({100 * x['busy_ms'] / x['wall_ms']:.2f}%, summed over "
+          f"streams); peak {x['peak']:,} B beside estimate_memory's "
+          f"{x['model_bytes']:,} B (a ({d}, {m}) mesh); top {x['top']}",
+          flush=True)
+
+
+def tp_over_cards(seed: int, world: int) -> dict:
+    """At count >= 2: W NCCL ranks, one card each, on TP_MESHES[W] at
+    train:'s width and depth against the one-card step; returns row
+    5-train-tp."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    meshes = TP_MESHES.get(world, ((1, world, ("plain",)),))
+    print(f"tp: CUT: {TRAIN_ARCH} runs {TRAIN_LAYERS} of {full.n_layers} "
+          f"layers at full width (d_model {cfg.d_model}, {cfg.n_q_heads} q / "
+          f"{cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"train:'s global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{TRAIN_MICRO} microbatches (not 256 rows); meshes (data, "
+          f"model, modes) {meshes}", flush=True)
+    got = run_ranks(tp_nccl_rank, world, (seed, cfg, TRAIN_SEQ, meshes),
+                    timeout_s=1500)
+    tp_report(got, world, cfg, meshes)
+    print(f"tp: over {world} cards in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    qkv = tuple(t.to(DEVICE) for t in got[0]["qkv"])
+    d, m, modes = meshes[0]
+    launches = got[0][d, m, modes[0]]["launches"]["flash_attention"]
+    return tp_row(qkv, launches, 2 * TRAIN_LAYERS * TRAIN_MICRO)
+
+
+def tp_row(qkv, launches: int, per_step: int) -> dict:
+    """Row 5-train-tp: the flash kernel at a model rank's shape (its
+    share of the q and kv heads), on the first operands its TP step gave
+    it, held to its plain version and the f64 answer (check_flash_bf16's
+    strict bar), timed beside SDPA and flash_work's bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
+    q, k, v = qkv
+    b, hq, s, d = q.shape
+    hk = k.shape[1]
+    err, readings = check_flash_bf16(
+        fa.flash_attention(q, k, v, causal=True, kv_len=s), q, k, v, s,
+        "tp: flash_attention at a model rank's training shape")
+    live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    print(f"tp: flash_attention at ({b}, {hq}, {s}, {d}) x ({b}, {hk}, {s}, "
+          f"{d}) bf16 causal: {per_step} launches a step a rank, {launches} "
+          f"on rank 0's path; against flash_attention_ref and the f64 "
+          f"answer: {readings}", flush=True)
+    return kernel_row(
+        "flash_attention train-tp", launches, err,
+        lambda: fa.flash_attention(q, k, v, causal=True, kv_len=s), 10,
+        lambda: flash_attention_ref(q, k, v, causal=True, kv_len=s), 2,
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_BF16,
+        kernel="flash_attention",
+        note=f"{per_step} launches a step a rank (2 x {TRAIN_LAYERS} layers "
+             f"x {TRAIN_MICRO} microbatches: selective remat relaunches it)")
+
+
+def tp_gloo_rank(rank, device, params, batch):
+    """The one-card rank body: gloo's collectives probed on CUDA tensors
+    (an all-reduce's max too, the vocabulary split's), then
+    DP_GLOO_STEPS steps of each TP_GLOO_MESHES mode whose collectives
+    gloo has; the gathered parameters.  One thread a rank: four ranks
+    share the host with dp:'s and fsdp:'s."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data.pipeline import DataShard, shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    missing = {}
+    for name in DP_COLLECTIVES + ("all_reduce_max",):
+        x = torch.ones(4, device=device)
+        try:
+            if name in ("all_reduce", "all_reduce_max"):
+                dist.all_reduce(x, op=dist.ReduceOp.MAX
+                                if name == "all_reduce_max"
+                                else dist.ReduceOp.SUM)
+            elif name == "broadcast":
+                dist.broadcast(x, 0)
+            elif name == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(torch.empty(16, device=device),
+                                            x)
+            else:
+                dist.reduce_scatter_tensor(torch.empty(1, device=device), x)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            missing[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    cfg = dp_reduced_cfg()
+    out = {"missing": missing}
+    for d, m, modes in TP_GLOO_MESHES:
+        mesh = make_host_mesh(model_parallel=m, device=device)
+        local = {k: v.to(device) for k, v in shard_rows(
+            batch, DataShard(mesh.coords()["data"], d)).items()}
+        for mode in modes:
+            if any(n in missing for n in TP_NEEDS[mode]):
+                continue
+            t0 = time.perf_counter()
+            run = RunConfig(learning_rate=1e-3, microbatches=2,
+                            zero1=mode == "zero1", fsdp=mode == "fsdp")
+            state = init_state(cfg, run, params_from_reference(
+                params, device=device), mesh=mesh)
+            step = build_train_step(cfg, run, mesh=mesh)
+            _cuda.reset_launches()
+            ms = []
+            for _ in range(DP_GLOO_STEPS):
+                state, met = step(state, local)
+                ms.append({k: float(v) for k, v in met.items()})
+            out[d, m, mode] = (ms, [p.detach().cpu() for p in
+                                    optim.tree_leaves(elastic.gather_state(
+                                        state["params"]))],
+                               dict(_cuda.LAUNCHES),
+                               time.perf_counter() - t0)
+    return out
+
+
+def tp_gloo_start(seed: int):
+    """The one-card check started: four gloo ranks on the card."""
+    from repro_torch.train import optim
+    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
+    host = optim.tree_map(lambda p: p.numpy().copy(), params)
+    return gloo_start(tp_gloo_rank, (host, batch), "tp:", world=4)
+
+
+def tp_gloo_finish(seed: int, pending) -> None:
+    """The one-card check finished: each mode on the four gloo ranks
+    held within DP_GLOO_REL of the one-process step on the card."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step, init_state
+    t0 = pending[-1]
+    got = gloo_join(pending)
+    cfg = dp_reduced_cfg()
+    run = RunConfig(learning_rate=1e-3, microbatches=2)
+    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
+    state = init_state(cfg, run, optim.tree_map(
+        lambda p: p.to(DEVICE, copy=True), params))
+    step = build_train_step(cfg, run)
+    want = []
+    for _ in range(DP_GLOO_STEPS):
+        state, m = step(state, {k: v.to(DEVICE) for k, v in batch.items()})
+        want.append({k: float(v) for k, v in m.items()})
+    want_p = [p.detach().cpu() for p in optim.tree_leaves(state["params"])]
+    del state
+    missing = got[0]["missing"]
+    if missing:
+        print("tp: CUT: gloo lacks on CUDA tensors: " + "; ".join(
+            f"{n} ({why})" for n, why in missing.items()), flush=True)
+    for d, m, modes in TP_GLOO_MESHES:
+        for mode in modes:
+            if (d, m, mode) not in got[0]:
+                print(f"tp: CUT: ({d}, {m}) {mode} not run on four gloo "
+                      f"ranks on the card: it needs "
+                      f"{', '.join(n for n in TP_NEEDS[mode] if n in missing)}",
+                      flush=True)
+                continue
+            worst_m = worst_p = 0.0
+            for r in got:
+                ms, ps, launches, _ = r[d, m, mode]
+                check(launches.get("flash_attention", 0) > 0,
+                      f"tp: ({d}, {m}) {mode}: no flash_attention launch on "
+                      f"a rank ({launches})")
+                for g, w in zip(ms, want):
+                    worst_m = max([worst_m] + [
+                        abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w])
+                worst_p = max([worst_p] + [
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(ps, want_p)])
+            check(worst_m <= DP_GLOO_REL and worst_p <= DP_GLOO_REL,
+                  f"tp: ({d}, {m}) {mode} on four gloo ranks differs from "
+                  f"the one-process step: metrics {worst_m:.3g}, params "
+                  f"{worst_p:.3g} (bar {DP_GLOO_REL:g})")
+            print(f"tp: ({d}, {m}) {mode} on four gloo ranks on the card "
+                  f"(reduced {TRAIN_ARCH}, f32, matrices x {DP_GLOO_SCALE}, "
+                  f"4 x 64 tokens in 2 microbatches, {DP_GLOO_STEPS} "
+                  f"steps): metrics within {worst_m:.3g} and gathered "
+                  f"parameters within {worst_p:.3g} of their scale of the "
+                  f"one-process step on the card (bar {DP_GLOO_REL:g}); "
+                  f"flash_attention launches per rank "
+                  f"{[r[d, m, mode][2].get('flash_attention', 0) for r in got]}; "
+                  f"{max(r[d, m, mode][3] for r in got):.1f} s on the ranks",
+                  flush=True)
+    print(f"tp: the gloo ranks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_tp(seed: int, count: int, pending=None):
+    """The dense training step tensor-parallel over processes (ROADMAP
+    Queue A item 8(a)): over every card where there are several
+    (returns row 5-train-tp); at one card four gloo ranks on the card
+    (``pending``: their ``gloo_start`` where the caller started them,
+    else started here; returns None)."""
+    t_phase = time.perf_counter()
+    row = None
+    if count >= 2:
+        row = tp_over_cards(seed, count)
+    else:
+        print("tp: CUT: one card: NCCL takes one card a rank, so the phase "
+              "runs four gloo ranks on the card at the reduced f32 llama, "
+              "not train:'s width over several cards", flush=True)
+        tp_gloo_finish(seed, pending or tp_gloo_start(seed))
+    print(f"tp: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
+
 # --------------------------------------------------------------- retrieval
 def phase_retrieval(seed: int):
     """The port's twin of examples/retrieval_serving.py steps 1-4."""
@@ -6892,6 +7554,8 @@ def main() -> int:
                     help="run only the device, build and dp phases")
     ap.add_argument("--fsdp-only", action="store_true",
                     help="run only the device, build and fsdp phases")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run only the device, build and tp phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6916,7 +7580,8 @@ def main() -> int:
     for line in env.describe().splitlines():
         print(f"env: {line}", flush=True)
     only = (args.families_only or args.train_only or args.dp_only
-            or args.fsdp_only or args.sharded_only or args.frontend_only)
+            or args.fsdp_only or args.tp_only or args.sharded_only
+            or args.frontend_only)
     built = in_background(phase_build)
     if only:
         built()
@@ -6933,6 +7598,10 @@ def main() -> int:
         return 0
     if args.fsdp_only:
         finish([phase_fsdp(args.seed, count)], t_start, smi, name, count)
+        return 0
+    if args.tp_only:
+        row = phase_tp(args.seed, count)
+        finish([row] if row else [], t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -7052,13 +7721,18 @@ def main() -> int:
     def start_ranks():
         ranks["dp"] = dp_gloo_start(args.seed)
         ranks["fsdp"] = fsdp_gloo_start(args.seed)
+        ranks["tp"] = tp_gloo_start(args.seed)
     kernels.append(phase_train(args.seed, start_ranks if count < 2
                                else None))
     mark("dp", t_start)
     phase_dp(args.seed, count, ranks.get("dp"),
-             (ranks["fsdp"],) if ranks else ())
+             (ranks["fsdp"], ranks["tp"]) if ranks else ())
     mark("fsdp", t_start)
     kernels.append(phase_fsdp(args.seed, count, ranks.get("fsdp")))
+    mark("tp", t_start)
+    row = phase_tp(args.seed, count, ranks.get("tp"))
+    if row:
+        kernels.append(row)
     finish(kernels, t_start, smi, name, count)
     return 0
 

@@ -16,9 +16,14 @@ Over a ``torch.distributed`` group (the data-parallel step,
 or FSDP chunk (a moment, a factor or, under FSDP, a parameter: a tensor
 marked with its ``sharding.collective.Shard``) is all-gathered first, so
 the checkpoint holds the reference's one-device layout, and the group's
-rank 0 alone copies it to the host and writes.  ``restore`` cuts a
-marked template leaf's chunk out of the whole tensor on disk, so a state
-moves between W processes and one.
+rank 0 alone copies it to the host and writes.  Under tensor
+parallelism a parameter or a piece of optimizer state is the rank's
+model chunk (marked with its model split, ``collective.tag_model``), or
+a ZeRO-1 / FSDP chunk of that: it is gathered over the data line, then
+over the model line (``collective.whole``).  ``restore`` cuts a marked
+template leaf's chunk out of the whole tensor on disk (its model chunk,
+then the data chunk of that), so a state moves between W processes and
+one.
 """
 from __future__ import annotations
 
@@ -77,11 +82,11 @@ def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
 
 
 def _whole(leaf):
-    """A ZeRO-1 or FSDP chunk all-gathered into its whole tensor (every
-    rank of its line calls this together); any other leaf as it is."""
-    sh = collective.shard_of(leaf) if isinstance(leaf, torch.Tensor) \
-        else None
-    return leaf if sh is None else collective.all_gather(leaf.detach(), sh)
+    """A ZeRO-1, FSDP or model chunk all-gathered into its whole tensor
+    (every rank of its lines calls this together); any other leaf as it
+    is."""
+    return collective.whole(leaf) if isinstance(leaf, torch.Tensor) \
+        else leaf
 
 
 def _writes(group) -> bool:
@@ -139,15 +144,19 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _like(arr: np.ndarray, leaf):
     """``arr`` in the template leaf's form: a tensor on its device and
-    in its dtype (a marked ZeRO-1 chunk: its chunk of ``arr``, marked
-    alike), or a numpy array of its dtype."""
+    in its dtype (a marked chunk: its chunk of ``arr``, the model
+    split's then the data split's, marked alike), or a numpy array of
+    its dtype."""
     if isinstance(leaf, torch.Tensor):
-        sh = collective.shard_of(leaf)
-        if sh is not None:
-            arr = np.take(arr, range(sh.index * sh.size,
-                                     (sh.index + 1) * sh.size), axis=sh.dim)
+        sh, m = collective.shard_of(leaf), collective.model_of(leaf)
+        for split in (m, sh):
+            if split is not None:
+                arr = np.take(arr, range(split.index * split.size,
+                                         (split.index + 1) * split.size),
+                              axis=split.dim)
         t = torch.from_numpy(np.array(arr, order="C"))   # 0-d stays 0-d
-        return collective.tag(t.to(device=leaf.device, dtype=leaf.dtype), sh)
+        return collective.tag_model(collective.tag(
+            t.to(device=leaf.device, dtype=leaf.dtype), sh), m)
     return arr.astype(np.asarray(leaf).dtype)
 
 

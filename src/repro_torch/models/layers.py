@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding import collective
 from .params import ParamSpec
 
 _NEG = -1e30
@@ -252,6 +253,17 @@ def mlp_specs(d_model: int, d_ff: int) -> dict:
     }
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, d_ff: int | None = None
+           ) -> torch.Tensor:
+    """SwiGLU.  Under tensor parallelism (an active model line, and
+    ``w1`` holding fewer than ``d_ff`` columns: the rank's chunk of
+    ``mlp``) ``w1`` / ``w3`` are split by column and ``w2`` by row: ``x``
+    enters through ``collective.to_model`` and the partial sums leave
+    through ``collective.from_model``."""
+    split = d_ff is not None and p["w1"].shape[-1] < d_ff \
+        and collective.model_line() is not None
+    if split:
+        x = collective.to_model(x)
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    out = h @ p["w2"]
+    return collective.from_model(out) if split else out

@@ -48,6 +48,20 @@ too).  The leaves outside the layer stacks (``embed``, ``lm_head``,
 the hybrid's ``shared`` block and ``shared_proj``) are gathered once
 where the loss begins, so a tied ``embed`` has one gather, one
 gradient and one reduce-scatter.  The norms are never sharded.
+
+Under tensor parallelism (the dense family, the training step over a
+``model`` axis of several ranks: ``collective.model_line()``) each rank
+holds its chunks of the weights the guard puts on ``model`` and the
+model reads the split from their shapes: attention runs the rank's
+q heads (``wq`` by column, ``wo`` by row, then
+``collective.from_model``) against its kv heads (split alike, or,
+where the guard left ``wk`` / ``wv`` whole, the kv heads of its own q
+heads, their gradient summed over the line by ``collective.to_model``
+on the weights); the MLP is ``swiglu``'s split; the embedding looks up
+the rank's vocabulary rows (other tokens give zeros) and sums over the
+line; the head gives the rank's vocabulary columns in f32, and the NLL
+takes its logsumexp and the label's logit over the line
+(``collective.model_max`` / ``from_model``).
 """
 from __future__ import annotations
 
@@ -228,13 +242,46 @@ def _qkv(p: dict, xn, cfg: ModelConfig, cos, sin):
     return apply_rope(q, cos, sin, rot), apply_rope(k, cos, sin, rot), v
 
 
+def _rank_heads(p: dict, cfg: ModelConfig) -> tuple:
+    """(the attention weights this rank runs, whether its heads are a
+    split of them).  Under tensor parallelism with ``wq`` holding the
+    rank's q heads and ``wk`` / ``wv`` left whole by the guard, the kv
+    heads of those q heads: a slice where they group evenly (as GQA
+    groups them), else one kv head a q head; the whole weight passes
+    ``collective.to_model`` first, so its gradient, a part on each
+    rank, is summed over the line."""
+    mp = collective.model_line()
+    h = p["wq"].shape[-2]
+    if mp is None or h == cfg.n_q_heads:
+        return p, False
+    if p["wk"].shape[-2] < cfg.n_kv_heads:
+        return p, True                     # the kv heads split alike
+    g = cfg.n_q_heads // cfg.n_kv_heads
+    first = mp.index * h
+    kv = [(first + i) // g for i in range(h)]
+    lo, used = kv[0], kv[-1] - kv[0] + 1
+    if h % used == 0 and all(j - lo == i // (h // used)
+                             for i, j in enumerate(kv)):
+        pick = slice(lo, lo + used)
+    else:
+        pick = torch.tensor(kv, device=p["wk"].device)
+    return dict(p, wk=collective.to_model(p["wk"])[..., pick, :],
+                wv=collective.to_model(p["wv"])[..., pick, :]), True
+
+
 def attn_block(p: dict, x, cfg: ModelConfig, cos, sin):
     """Full-sequence attention sub-block (pre-norm, residual outside).
-    Returns (output, (k, v))."""
+    Returns (output, (k, v)).  Under tensor parallelism the rank's heads
+    (:func:`_rank_heads`), the output's partial sums summed over the
+    model line."""
     xn = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(p["attn"], xn, cfg, cos, sin)
+    attn, split = _rank_heads(p["attn"], cfg)
+    if split:
+        xn = collective.to_model(xn)
+    q, k, v = _qkv(attn, xn, cfg, cos, sin)
     o = attention(q, k, v, cfg)
-    return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"]), (k, v)
+    out = torch.einsum("bshk,hkd->bsd", o, attn["wo"])
+    return (collective.from_model(out) if split else out), (k, v)
 
 
 def _zero_aux(device) -> dict:
@@ -246,7 +293,7 @@ def ffn_block(p: dict, x, cfg: ModelConfig):
     xn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     if cfg.moe is not None:
         return moe_ffn(p["moe"], xn, cfg)
-    return swiglu(p["mlp"], xn), _zero_aux(x.device)
+    return swiglu(p["mlp"], xn, cfg.d_ff), _zero_aux(x.device)
 
 
 def transformer_layer(p, x, cfg: ModelConfig, cos, sin):
@@ -265,8 +312,29 @@ def _mamba_layer(lp: dict, h, cfg: ModelConfig, cache=None):
 
 
 # --------------------------------------------- full-sequence forward pass
-def _embed(params, tokens, prefix_embeds=None):
-    x = params["embed"][tokens.long()]
+def _vocab_split(w: torch.Tensor, dim: int, vocab: int | None):
+    """The active model line where ``w``'s ``dim`` holds the rank's chunk
+    of the vocabulary (fewer than ``vocab`` entries), else None."""
+    mp = collective.model_line()
+    if mp is None or vocab is None or w.shape[dim] == vocab:
+        return None
+    return mp
+
+
+def _embed(params, tokens, prefix_embeds=None, vocab: int | None = None):
+    """The token embeddings.  Under tensor parallelism with ``embed``
+    holding the rank's rows of the ``vocab``: those tokens' rows, zeros
+    for the others, summed over the model line."""
+    emb = params["embed"]
+    mp = _vocab_split(emb, 0, vocab)
+    if mp is None:
+        x = emb[tokens.long()]
+    else:
+        n = emb.shape[0]
+        t = tokens.long() - mp.index * n
+        mine = (t >= 0) & (t < n)
+        x = collective.from_model(torch.where(
+            mine[..., None], emb[t.clamp(0, n - 1)], 0))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -274,11 +342,17 @@ def _embed(params, tokens, prefix_embeds=None):
 
 def _unembed(params, x, cfg: ModelConfig):
     """Logits in f32: the operands are cast to f32 first, as the
-    reference's ``preferred_element_type=float32`` keeps them."""
-    xn = rmsnorm(x, params["final_norm"], cfg.norm_eps).to(F32)
+    reference's ``preferred_element_type=float32`` keeps them.  Under
+    tensor parallelism with the head split by vocabulary: the rank's
+    columns (the normed input through ``collective.to_model``)."""
+    xn = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if _vocab_split(w, 0 if cfg.tie_embeddings else 1, cfg.vocab):
+        xn = collective.to_model(xn)
+    xn = xn.to(F32)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", xn, params["embed"].to(F32))
-    return xn @ params["lm_head"].to(F32)
+        return torch.einsum("bsd,vd->bsv", xn, w.to(F32))
+    return xn @ w.to(F32)
 
 
 def _rope(s: int, cfg: ModelConfig, device):
@@ -344,7 +418,7 @@ def forward_seq(params, tokens, cfg: ModelConfig, prefix_embeds=None,
     """Full-sequence forward.  Returns (hidden, aux, (k, v) stacked
     (L, B, S, Hk, hd) with ``collect_cache`` for the attention families,
     else None)."""
-    x = _embed(params, tokens, prefix_embeds)
+    x = _embed(params, tokens, prefix_embeds, cfg.vocab)
     if cfg.family in ATTN_FAMILIES:
         kvs: list = []
         x, aux = _run_layers(params, x, cfg,
@@ -387,13 +461,28 @@ def _nll_loss(logits, labels, cfg: ModelConfig, aux: dict | None):
     masked), plus the MoE terms of ``aux`` when ``cfg.moe`` is set.
     Under data parallelism the sum and the count are the group's
     (``collective.global_sum``): every rank's value is the microbatch's,
-    its gradient the part through its own rows."""
+    its gradient the part through its own rows.  Under tensor
+    parallelism with ``logits`` the rank's vocabulary columns the
+    logsumexp shifts by the line's max and sums over it, and the label's
+    logit comes from the rank that holds it."""
     logits = logits.to(F32)
     labels = labels.long()
     mask = (labels >= 0).to(F32)
     safe = torch.clamp(labels, min=0)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    mp = _vocab_split(logits, -1, cfg.vocab)
+    if mp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = collective.model_max(torch.amax(logits.detach(), dim=-1))
+        lse = m + torch.log(collective.from_model(
+            torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+        t = safe - mp.index * n
+        mine = (t >= 0) & (t < n)
+        ll = collective.from_model(torch.where(
+            mine, torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])
+            [..., 0], 0.0))
     total, count = collective.global_sum(
         torch.stack([torch.sum((lse - ll) * mask), torch.sum(mask)]))
     nll = total / torch.clamp(count, min=1.0)

@@ -11,10 +11,11 @@ process holds a leaf whole: the description says how the mesh would
 split it, and the leaf lands on the mesh's first device.
 
 Over processes (a mesh with a ``group``, ``launch.ranks``) a leaf is
-this rank's chunk of every dim its description puts on the mesh's pod /
-data axes, marked with its ``sharding.collective.Shard`` as the ZeRO-1
-and FSDP state's chunks are (an FSDP state's parameters: their axes
-under ``default_rules(fsdp=True)``).  A state moves from W ranks to W' in two halves:
+this rank's chunk of the dim its description puts on the ``model``
+axis (tensor parallelism), then of the dim it puts on the mesh's pod /
+data axes, marked with its ``sharding.collective.Shard``s as the
+state's chunks are (an FSDP state's parameters: their axes under
+``default_rules(fsdp=True)``).  A state moves from W ranks to W' in two halves:
 the W ranks gather their chunks (:func:`gather_state`, every rank
 together), and the W' ranks (or one process) cut theirs from the whole
 state (:func:`reshard_state`); between processes that are not the same
@@ -47,14 +48,10 @@ def make_mesh_from(devices: Sequence, model_parallel: int) -> LogicalMesh:
 
 
 def gather_state(state):
-    """``state`` with every ZeRO-1 or FSDP chunk all-gathered into its
-    whole tensor (every rank of its line calls this together); other leaves
-    as they are."""
-    def one(leaf):
-        sh = collective.shard_of(leaf)
-        return leaf if sh is None else collective.all_gather(
-            leaf.detach(), sh)
-    return tree_map(one, state)
+    """``state`` with every ZeRO-1, FSDP or model chunk all-gathered into
+    its whole tensor (every rank of its lines calls this together);
+    other leaves as they are."""
+    return tree_map(collective.whole, state)
 
 
 def reshard_state(state, specs_axes, mesh: LogicalMesh, rules: dict):
@@ -75,9 +72,13 @@ def reshard_state(state, specs_axes, mesh: LogicalMesh, rules: dict):
         sh.shard_shape(tuple(leaf.shape))       # a spec that fits
         out = leaf.detach().to("cpu", copy=True).to(dev)
         if mesh.group is not None:
+            m = collective.model_split(sh.spec, tuple(out.shape), mesh)
+            if m is not None:
+                out = collective.tag_model(m.of(out).contiguous(), m)
             part = collective.shard_for(sh.spec, tuple(out.shape), mesh)
             if part is not None:
-                out = collective.tag(part.of(out).contiguous(), part)
+                out = collective.tag_model(collective.tag(
+                    part.of(out).contiguous(), part), m)
         out.sharding = sh
         return out
 

@@ -24,6 +24,23 @@ Under FSDP a parameter is held as its chunk, tagged with its ``Shard``
 leaf's layer ``i`` is :func:`layer` of it, a chunk tagged alike.  The
 gather's backward pass reduce-scatters the whole weight's gradient in
 f32 into the step's accumulator chunk (:class:`_Gather`).
+
+Tensor parallelism over processes (the ``model`` axis over ranks):
+the ranks of a :class:`ModelLine` share a microbatch's rows and each
+holds its chunk of every weight that ``default_rules`` puts on
+``model`` (heads, kv heads, mlp, vocab), split by
+:func:`model_split` and tagged with that ``Shard`` (:func:`tag_model`);
+the model code runs on those chunks as they are.  Two operators join
+the ranks' parts, Megatron's ``f`` and ``g``: :func:`to_model`
+(identity forward; the gradient all-reduced over the line, where each
+rank's part of it came through its own chunk) ahead of a column split,
+and :func:`from_model` (the partial sums all-reduced forward; the
+gradient as it is, every rank's downstream being the same) after a row
+split, and the vocabulary split's sums.  :func:`model_max` is that
+split's max.  The active line is :class:`DataParallel`'s
+``model`` (:func:`model_line`).  A chunk under FSDP or ZeRO-1 over
+TP is the data split of the model chunk: :func:`whole` gathers both,
+:func:`cut` cuts both.
 """
 from __future__ import annotations
 
@@ -40,15 +57,30 @@ F32 = torch.float32
 
 
 @dataclass(frozen=True)
+class ModelLine:
+    """The ranks that split the weights over the ``model`` axis: their
+    ``group``, its ``size``, this rank's ``index`` on it, and ``span``,
+    the group of this rank's data and model lines together (a sum of
+    every rank's part of a norm)."""
+
+    group: object
+    size: int
+    index: int
+    span: object = None
+
+
+@dataclass(frozen=True)
 class DataParallel:
     """The group a microbatch's rows are split over, and its size; under
     FSDP ``grads(x)`` gives the f32 accumulator chunk into which the
     gradient of the chunk ``x`` (a parameter, or a layer of one) is
-    reduce-scattered, or None."""
+    reduce-scattered, or None; under tensor parallelism ``model`` is
+    the rank's :class:`ModelLine`."""
 
     group: object
     size: int
     grads: Optional[Callable] = None
+    model: Optional[ModelLine] = None
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_dp",
@@ -104,6 +136,77 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return _GlobalSum.apply(x, dp.group)
 
 
+# ------------------------------------------------------------ model line
+def model_line() -> Optional[ModelLine]:
+    """The active model line (tensor parallelism), or None."""
+    dp = active()
+    return None if dp is None else dp.model
+
+
+def _f32_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in f32 (or ``x``'s wider dtype), back
+    in ``x``'s dtype (a bf16 tensor's parts are rounded once, after the
+    sum)."""
+    y = x.detach().to(torch.promote_types(x.dtype, F32), copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: ``x`` as it is (every rank of the line holds it whole).
+    Backward: the gradient summed over the line: each rank's is the part
+    that came through its own chunks of the weights that follow."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _f32_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the ranks' partial sums summed over the line (in f32).
+    Backward: the gradient as it is: what follows runs alike on every
+    rank of the line, so each holds the whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _f32_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``f`` over the active model line (:class:`_CopyToModel`):
+    ahead of a column split, or on a weight every rank uses a part of;
+    ``x`` itself with no line."""
+    mp = model_line()
+    return x if mp is None else _CopyToModel.apply(x, mp.group)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``g`` over the active model line
+    (:class:`_ReduceFromModel`): after a row split, and the vocabulary
+    split's sums; ``x`` itself with no line."""
+    mp = model_line()
+    return x if mp is None else _ReduceFromModel.apply(x, mp.group)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the active model line, outside
+    autograd (a logsumexp's shift, whose gradient cancels)."""
+    mp = model_line()
+    y = x.detach().clone()
+    if mp is not None:
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mp.group)
+    return y
+
+
 # ------------------------------------------------------------------ shards
 @dataclass(frozen=True, eq=False)
 class Shard:
@@ -134,26 +237,59 @@ class Shard:
 
 
 DP_AXES = ("pod", "data")
+MODEL_AXIS = "model"
+
+
+def _ranked(spec: tuple, shape: tuple, mesh, dp_axes: tuple):
+    """(dim, ranked axes of its entry) for each dim of ``spec``; an entry
+    that names an axis of extent > 1 that is neither a data axis nor
+    the model axis, or names both, raises ``NotImplementedError``."""
+    out = []
+    for dim, e in enumerate(spec):
+        names = () if e is None else ((e,) if isinstance(e, str)
+                                      else tuple(e))
+        big = tuple(n for n in names if mesh.shape[n] > 1)
+        data = tuple(n for n in big if n in dp_axes)
+        if big and data != big and big != (MODEL_AXIS,):
+            raise NotImplementedError(
+                f"dim {dim} of {shape} split over {names}: only the data "
+                f"axes {dp_axes} and the model axis span ranks, one kind "
+                "a dim")
+        out.append((dim, big))
+    return out
+
+
+def model_split(spec: tuple, shape: tuple, mesh,
+                dp_axes: tuple = DP_AXES) -> Optional[Shard]:
+    """This rank's ``Shard`` of the whole tensor (``shape``) over the
+    model line: the dim whose ``spec`` entry names the model axis of
+    extent > 1 (tensor parallelism); None where none does.  A dim that
+    does not divide raises ``ValueError``."""
+    for dim, big in _ranked(spec, shape, mesh, dp_axes):
+        if big != (MODEL_AXIS,):
+            continue
+        group, count, index = mesh.line((MODEL_AXIS,))
+        if shape[dim] % count:
+            raise ValueError(f"dim {dim} of {shape} does not divide over "
+                             f"{MODEL_AXIS!r}")
+        return Shard(dim, shape[dim], index, count, group)
+    return None
 
 
 def shard_for(spec: tuple, shape: tuple, mesh,
               dp_axes: tuple = DP_AXES) -> Optional[Shard]:
-    """This rank's ``Shard`` of a tensor of ``shape`` under ``spec`` (one
-    entry per dim) over a mesh of processes: the first dim whose entry
-    names ``dp_axes`` of extent > 1 splits over their line (row-major),
-    replicated over the other data axes; None where no dim does.  An
-    entry that also names another axis of extent > 1 raises
-    ``NotImplementedError`` (only the data axes span ranks); a dim that
-    does not divide raises ``ValueError``."""
-    for dim, e in enumerate(spec):
-        names = () if e is None else ((e,) if isinstance(e, str)
-                                      else tuple(e))
-        big = [n for n in names if mesh.shape[n] > 1]
+    """This rank's data ``Shard`` of a tensor of ``shape`` under ``spec``
+    (one entry per dim) over a mesh of processes: the first dim whose
+    entry names ``dp_axes`` of extent > 1 splits over their line
+    (row-major), replicated over the other data axes; None where no dim
+    does.  Under tensor parallelism ``shape`` is the model chunk's
+    (:func:`model_split` of the same spec gives the model split, on
+    another dim).  An entry that names any other axis of extent > 1, or
+    a data axis and the model axis together, raises
+    ``NotImplementedError``; a dim that does not divide raises
+    ``ValueError``."""
+    for dim, big in _ranked(spec, shape, mesh, dp_axes):
         axes = tuple(n for n in big if n in dp_axes)
-        if len(axes) != len(big):
-            raise NotImplementedError(
-                f"dim {dim} of {shape} split over {names}: only the data "
-                f"axes {dp_axes} span ranks")
         if not axes:
             continue
         group, count, index = mesh.line(axes)
@@ -183,6 +319,39 @@ def tag(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
 
 def shard_of(x: torch.Tensor) -> Optional[Shard]:
     return getattr(x, "_shard", None)
+
+
+def tag_model(x: torch.Tensor, split: Optional[Shard]) -> torch.Tensor:
+    """``x`` marked as the model chunk ``split`` of its whole tensor (a
+    data chunk of that chunk keeps both marks); returns ``x``."""
+    if split is not None:
+        x._model = split
+    return x
+
+
+def model_of(x: torch.Tensor) -> Optional[Shard]:
+    return getattr(x, "_model", None)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a marked chunk: its data split all-gathered,
+    then its model split (every rank of both lines calls this together);
+    an unmarked tensor as it is."""
+    sh, m = shard_of(x), model_of(x)
+    if sh is not None:
+        x = all_gather(x.detach(), sh)
+    if m is not None:
+        x = all_gather(x.detach(), m)
+    return x
+
+
+def cut(x: torch.Tensor, split: Optional[Shard],
+        sh: Optional[Shard]) -> torch.Tensor:
+    """This rank's chunk (a view) of the whole ``x``: the model
+    ``split``'s chunk, then the data split ``sh``'s of it."""
+    if split is not None:
+        x = split.of(x)
+    return x if sh is None else sh.of(x)
 
 
 def _chunks_first(x: torch.Tensor, sh: Shard, dtype) -> torch.Tensor:
@@ -293,7 +462,9 @@ def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
     return out
 
 
-__all__ = ["DataParallel", "data_parallel", "active", "global_sum", "Shard",
-           "DP_AXES", "shard_for", "barrier", "tag", "shard_of",
-           "reduce_scatter", "all_gather", "gather", "gathered", "layer",
-           "gather_rows"]
+__all__ = ["ModelLine", "DataParallel", "data_parallel", "active",
+           "global_sum", "model_line", "to_model", "from_model",
+           "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
+           "model_split", "shard_for", "barrier", "tag", "shard_of",
+           "tag_model", "model_of", "whole", "cut", "reduce_scatter",
+           "all_gather", "gather", "gathered", "layer", "gather_rows"]

@@ -13,15 +13,16 @@ holds two f32 copies of the model; ``apply=True`` also adds each leaf's
 update to its parameter in place, ``(p.float() + u).to(p.dtype)``, and
 returns no update tree.
 
-Adafactor also updates a chunk of a leaf (ZeRO-1 and FSDP over ranks,
-``train/step.py``): with ``shards`` (each leaf's
-``sharding.collective.Shard``, or None) a mean over the sharded dim is
-the chunk's sum all-reduced over the shard's group and divided by the
+Adafactor also updates a chunk of a leaf (ZeRO-1, FSDP and tensor
+parallelism over ranks, ``train/step.py``): with ``shards`` (each
+leaf's ``sharding.collective.Shard``, or a tuple of its data and model
+splits, on different dims; None for whole) a mean over a split dim is
+the chunk's sum all-reduced over that split's group and divided by the
 whole extent, a mean over any other dim stays local, and the update's
 RMS is always the whole leaf's.  The factors a rank keeps are those
-``abstract_state`` describes: a chunk where the factor keeps the
-sharded dim, whole (the same on every rank) where it was averaged
-away.
+``abstract_state`` describes: a chunk where the factor keeps the split
+dim, whole on that line (the same on its every rank) where it was
+averaged away.
 """
 from __future__ import annotations
 
@@ -128,15 +129,25 @@ def adafactor_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=some.device)}
 
 
+def _splits(sh) -> tuple:
+    """A leaf's splits as a tuple of ``Shard``s (from one, a tuple of
+    them or None)."""
+    if sh is None:
+        return ()
+    return tuple(x for x in (sh if isinstance(sh, tuple) else (sh,))
+                 if x is not None)
+
+
 def _mean(x, dim: int, sh, at: int, keepdim: bool = False):
     """``torch.mean`` of ``x`` over ``dim``, the leaf's dim ``at``; where
-    the shard ``sh`` splits that dim, the chunk's sum all-reduced over
-    the shard's group over the whole extent."""
-    if sh is None or sh.dim != at:
+    a split of ``sh`` (:func:`_splits`) splits that dim, the chunk's sum
+    all-reduced over the split's group over the whole extent."""
+    split = next((x for x in _splits(sh) if x.dim == at), None)
+    if split is None:
         return torch.mean(x, dim=dim, keepdim=keepdim)
     total = torch.sum(x, dim=dim, keepdim=keepdim)
-    dist.all_reduce(total, group=sh.group)
-    return total / sh.full
+    dist.all_reduce(total, group=split.group)
+    return total / split.full
 
 
 @torch.no_grad()
@@ -163,12 +174,15 @@ def adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
             denom = torch.sqrt(v["v"])
         u = g / torch.clamp(denom, min=eps)
         # update clipping by RMS (over the whole leaf)
-        if sh is None:
+        splits = _splits(sh)
+        if not splits:
             ms = torch.mean(u * u)
         else:
-            ms = torch.sum(u * u)
-            dist.all_reduce(ms, group=sh.group)
-            ms = ms / (u.numel() * sh.count)
+            ms, n = torch.sum(u * u), u.numel()
+            for split in splits:
+                dist.all_reduce(ms, group=split.group)
+                n *= split.count
+            ms = ms / n
         rms = torch.sqrt(ms + eps)
         u = u / torch.clamp(rms / clip, min=1.0)
         u = u + weight_decay * p.to(F32)

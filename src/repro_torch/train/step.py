@@ -60,10 +60,29 @@ the step is the reference's GSPMD step on the global batch:
   gathers the parameter and the gradient, updates the whole leaf as
   every rank does alike, and keeps its chunk).
 
+Tensor parallelism (a ``model`` axis of several ranks; the dense
+family): the ranks of a model line take the same rows, and each holds
+its chunk of every parameter whose ``default_rules`` axis (heads, kv
+heads, mlp, vocab) the divisibility guard leaves on ``model``
+(``init_state`` / :func:`shard_params` cut them from the whole tree,
+tagged with their model ``Shard``).  The model runs on the chunks,
+joined by ``collective.to_model`` / ``from_model`` (Megatron's column
+and row splits, the vocabulary-split embedding, head and NLL); a kv
+head replicated by the guard carries its gradient summed over the line
+out of the model, so every gradient leaves the loss whole for its
+chunk.  Plain DP, ZeRO-1 and FSDP then run as above on the model
+chunks, over the data line: a data split is a split of the model chunk.
+The grad norm counts each model chunk once and each replicated leaf
+once; the int8 uniforms are drawn whole and cut, and the scale's max
+runs over both lines; Adafactor's means and RMS over a model-split dim
+are the line's; 8-bit Adam updates the whole leaf, gathered over both
+lines, and keeps its chunk.
+
 The bytes a rank holds (parameters, optimizer state, accumulators) are
 the shard bytes ``abstract_state`` and the gradient shardings describe.
-A model axis over several ranks (tensor parallelism, ROADMAP Queue A
-item 8) and FSDP over several distinct cards in one process raise
+A model axis over several ranks for the moe, ssm, hybrid, vlm and
+encdec families (ROADMAP Queue A item 8(b)), and a data or model axis
+over several distinct cards in one process, raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -80,7 +99,7 @@ from ..models import zoo
 from ..models.params import ParamSpec, abstract, abstract_params, map_specs
 from ..data.pipeline import DataShard, microbatch_rows
 from ..sharding import collective
-from ..sharding.collective import DP_AXES
+from ..sharding.collective import DP_AXES, MODEL_AXIS
 from ..sharding.logical import default_rules, guarded_sharding
 from .compress import compress_leaf
 from .optim import OPTIMIZERS, Q_BLOCK, lr_schedule, tree_leaves, tree_map
@@ -93,16 +112,18 @@ def init_state(cfg: ModelConfig, run: RunConfig, params, mesh=None,
     """The step's state.  Over a mesh of processes under ZeRO-1 or FSDP
     (the layout ``build_train_step`` reads from the same arguments)
     AdamW's moments and Adafactor's factors are the rank's chunks, each
-    marked with its ``Shard``; under FSDP the parameters are too
-    (:func:`shard_params` of ``params``, the whole tree or its
-    chunks)."""
+    marked with its ``Shard``; under FSDP the parameters are too, and
+    under tensor parallelism the parameters and the state are the
+    rank's model chunks (:func:`shard_params` of ``params``, the whole
+    tree or its chunks)."""
     opt_init, _ = OPTIMIZERS[run.optimizer]
     layout = _layout(cfg, run, mesh, dp_axes, grad_shardings)
-    if layout is not None and run.fsdp:
+    mlay = _model_layout(cfg, run, mesh, dp_axes)
+    if mlay is not None or (layout is not None and run.fsdp):
         params = shard_params(cfg, run, params, mesh, dp_axes)
     some = tree_leaves(params)[0]
-    opt = opt_init(params) if layout is None else \
-        _sharded_opt_init(run, params, layout)
+    opt = opt_init(params) if layout is None and mlay is None else \
+        _sharded_opt_init(run, params, layout, mlay)
     return {
         "params": params,
         "opt": opt,
@@ -177,6 +198,37 @@ def zero1_grad_shardings(cfg: ModelConfig, run: RunConfig, mesh,
                                                 mesh), zoo.model_specs(cfg))
 
 
+def _model_layout(cfg, run, mesh, dp_axes=None):
+    """Per parameter leaf (sorted-key order) its model ``Shard`` under
+    tensor parallelism over a mesh of processes (the ``model`` entry of
+    its guarded sharding under ``default_rules(fsdp=run.fsdp)``), or
+    None where the guard leaves it whole on the line; None for the whole
+    tree with no model axis of several ranks, or none split.  The
+    families other than the dense one raise ``NotImplementedError``
+    (ROADMAP Queue A item 8(b))."""
+    if mesh is None or getattr(mesh, "group", None) is None \
+            or mesh.shape.get(MODEL_AXIS, 1) == 1:
+        return None
+    n = mesh.shape[MODEL_AXIS]
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family} family over a model axis of {n} "
+            "ranks (tensor parallelism) is not ported: only the data axes "
+            "span ranks for it (ROADMAP Queue A item 8(b))")
+    rules = default_rules(fsdp=run.fsdp, seq_shard=run.seq_shard_activations)
+    dp = tuple(a for a in (dp_axes or DP_AXES) if a in mesh.axis_names)
+    mlay = [collective.model_split(
+        guarded_sharding(s.shape, s.axes, rules, mesh).spec, s.shape, mesh,
+        dp) for s in tree_leaves(zoo.model_specs(cfg))]
+    return mlay if any(mlay) else None
+
+
+def _local_shape(shape: tuple, split) -> tuple:
+    """A leaf's shape as the rank holds it before any data split: its
+    model chunk's, or the whole shape."""
+    return tuple(shape) if split is None else split.shape(shape)
+
+
 def _layout(cfg, run, mesh, dp_axes, grad_shardings):
     """Per parameter leaf (sorted-key order) its ``Shard`` under ZeRO-1
     or FSDP over a mesh of processes, or None where it stays whole; None
@@ -184,7 +236,9 @@ def _layout(cfg, run, mesh, dp_axes, grad_shardings):
     process).  FSDP's is each parameter's guarded sharding under
     ``default_rules(fsdp=True)``, which is ZeRO-1's
     (:func:`zero1_grad_shardings`); its accumulators shard as its
-    parameters, so it takes no gradient shardings."""
+    parameters, so it takes no gradient shardings.  Under tensor
+    parallelism a data split is one of the rank's model chunk, and the
+    gradient shardings' model entries must be the model layout's."""
     if mesh is None or mesh.group is None:
         return None
     if run.fsdp:
@@ -203,9 +257,18 @@ def _layout(cfg, run, mesh, dp_axes, grad_shardings):
     if len(shardings) != len(shapes):
         raise ValueError(f"{len(shardings)} gradient shardings for "
                          f"{len(shapes)} parameters")
-    layout = [None if sh is None else
-              collective.shard_for(sh.spec, shape, mesh, dp)
-              for shape, sh in zip(shapes, shardings)]
+    mlay = _model_layout(cfg, run, mesh, dp_axes) or [None] * len(shapes)
+    layout = []
+    for shape, sh, m in zip(shapes, shardings, mlay):
+        if sh is None:
+            layout.append(None)
+            continue
+        mine = collective.model_split(sh.spec, shape, mesh, dp)
+        if getattr(mine, "dim", None) != getattr(m, "dim", None):
+            raise ValueError(f"the gradient sharding {sh.spec} of {shape} "
+                             "splits the model axis unlike the parameter")
+        layout.append(collective.shard_for(sh.spec, _local_shape(shape, m),
+                                           mesh, dp))
     if not any(layout):
         return None
     return layout
@@ -213,28 +276,37 @@ def _layout(cfg, run, mesh, dp_axes, grad_shardings):
 
 def shard_params(cfg: ModelConfig, run: RunConfig, params, mesh,
                  dp_axes=None):
-    """``params`` as FSDP holds them on this rank: every leaf that the
-    layout shards over the data axes cut to the rank's chunk (a copy,
-    tagged with its ``Shard``), the others as they are.  ``params`` is
-    the whole tree (``init_params``, ``convert.params_from_reference``);
-    a leaf may also be a zero-argument callable that returns the whole
-    leaf: the callables are called in the tree's order and each whole
-    leaf is dropped once cut, so a full-width draw holds one whole leaf
-    beside the chunks.  A leaf that is already a tagged chunk stays.
-    Without FSDP over ranks nothing is cut."""
+    """``params`` as this rank holds them: under tensor parallelism
+    every leaf the model layout splits cut to the rank's model chunk,
+    then under FSDP every leaf that the layout shards over the data axes
+    cut to its data chunk of that (each a copy, tagged with its
+    ``Shard``s), the others as they are.  ``params`` is the whole tree
+    (``init_params``, ``convert.params_from_reference``); a leaf may
+    also be a zero-argument callable that returns the whole leaf: the
+    callables are called in the tree's order and each whole leaf is
+    dropped once cut, so a full-width draw holds one whole leaf beside
+    the chunks.  A leaf that is already a tagged chunk stays.  Without
+    FSDP or tensor parallelism over ranks nothing is cut."""
+    paths = _paths(zoo.model_specs(cfg))
     layout = _layout(cfg, run, mesh, dp_axes, None) if run.fsdp else None
-    by_path = dict(zip(_paths(zoo.model_specs(cfg)), layout or []))
+    mlay = _model_layout(cfg, run, mesh, dp_axes)
+    by_path = dict(zip(paths, zip(mlay or [None] * len(paths),
+                                  layout or [None] * len(paths))))
+
+    def chunk(x, split, tag):
+        return tag(split.of(x.detach()).clone(
+            memory_format=torch.contiguous_format), split)
 
     def cut(tree, path):
         if isinstance(tree, dict):
             return {k: cut(v, path + (k,)) for k, v in tree.items()}
         leaf = tree() if callable(tree) else tree
-        sh = by_path.get(path)
-        if sh is None or collective.shard_of(leaf) is not None:
-            return leaf
-        return collective.tag(
-            sh.of(leaf.detach()).clone(memory_format=torch.contiguous_format),
-            sh)
+        m, sh = by_path.get(path, (None, None))
+        if m is not None and collective.model_of(leaf) is None:
+            leaf = chunk(leaf, m, collective.tag_model)
+        if sh is not None and collective.shard_of(leaf) is None:
+            leaf = collective.tag_model(chunk(leaf, sh, collective.tag), m)
+        return leaf
     return cut(params, ())
 
 
@@ -245,74 +317,98 @@ def _over_layout(fn, params, layout):
     return tree_map(lambda p: fn(p, next(it)), _sorted(params))
 
 
-def _sharded_opt_init(run: RunConfig, params, layout):
-    """The optimizer's initial state under ZeRO-1 or FSDP (``params``
-    whole or the rank's chunks): AdamW's moments and Adafactor's factors
-    as ``abstract_state`` shards them (each chunk marked), 8-bit Adam's
-    blocks of the whole leaf."""
-    dev = tree_leaves(params)[0].device
+def _factor_splits(split, n: int) -> tuple:
+    """A leaf of ``n`` dims split by ``split`` (or None): the splits of
+    Adafactor's (vr, vc).  vr averages dim n-1 away, vc dim n-2; past
+    the split dim a factor's dims shift down by one."""
+    k = None if split is None else split.dim
+    vr = None if k is None or k == n - 1 else split
+    vc = None if k is None or k == n - 2 else \
+        (split if k < n - 2 else dataclasses.replace(split, dim=n - 2))
+    return vr, vc
 
-    def zeros(shape, sh, dtype=F32):
-        return collective.tag(torch.zeros(shape, dtype=dtype, device=dev),
-                              sh)
+
+def _sharded_opt_init(run: RunConfig, params, layout, mlay=None):
+    """The optimizer's initial state under ZeRO-1, FSDP or tensor
+    parallelism (``params`` whole or the rank's chunks): AdamW's moments
+    and Adafactor's factors as ``abstract_state`` shards them (each
+    chunk marked with its data and model splits), 8-bit Adam's blocks of
+    the whole leaf."""
+    dev = tree_leaves(params)[0].device
+    n_leaves = len(tree_leaves(params))
+    splits = list(zip(layout or [None] * n_leaves, mlay or [None] * n_leaves))
+
+    def zeros(shape, sh=None, m=None, dtype=F32):
+        return collective.tag_model(collective.tag(
+            torch.zeros(shape, dtype=dtype, device=dev), sh), m)
 
     def chunk(p, sh):
         return tuple(p.shape) if sh is None else sh.shape(p.shape)
 
-    def factors(p, sh):
-        cs = chunk(p, sh)
-        n, k = len(cs), None if sh is None else sh.dim
-        if n < 2:
-            return {"v": zeros(cs, sh)}
-        # vr averages dim n-1 away, vc dim n-2; past the sharded dim a
-        # factor's dims shift down by one
-        vr = None if k is None or k == n - 1 else sh
-        vc = None if k is None or k == n - 2 else \
-            (sh if k < n - 2 else dataclasses.replace(sh, dim=n - 2))
-        return {"vr": zeros(cs[:-1], vr), "vc": zeros(cs[:-2] + cs[-1:], vc)}
+    def moment(p, sm):
+        return zeros(chunk(p, sm[0]), *sm)
 
-    def blocks(p, sh):
+    def factors(p, sm):
+        cs = chunk(p, sm[0])
+        n = len(cs)
+        if n < 2:
+            return {"v": zeros(cs, *sm)}
+        (dr, dc), (mr, mc) = (_factor_splits(x, n) for x in sm)
+        return {"vr": zeros(cs[:-1], dr, mr),
+                "vc": zeros(cs[:-2] + cs[-1:], dc, mc)}
+
+    def blocks(p, sm):
         whole = list(p.shape)
-        if sh is not None:
-            whole[sh.dim] = sh.full
+        for x in sm:
+            if x is not None:
+                whole[x.dim] = x.full
         nb = -(-int(np.prod(whole)) // Q_BLOCK)
-        return {"mu_q": zeros((nb, Q_BLOCK), None, torch.int8),
-                "mu_s": zeros((nb,), None),
-                "nu_q": zeros((nb, Q_BLOCK), None, torch.int8),
-                "nu_s": zeros((nb,), None)}
+        return {"mu_q": zeros((nb, Q_BLOCK), dtype=torch.int8),
+                "mu_s": zeros((nb,)),
+                "nu_q": zeros((nb, Q_BLOCK), dtype=torch.int8),
+                "nu_s": zeros((nb,))}
 
     count = torch.zeros((), dtype=torch.int32, device=dev)
     if run.optimizer == "adamw":
-        moment = lambda p, sh: zeros(chunk(p, sh), sh)
-        return {"mu": _over_layout(moment, params, layout),
-                "nu": _over_layout(moment, params, layout), "count": count}
+        return {"mu": _over_layout(moment, params, splits),
+                "nu": _over_layout(moment, params, splits), "count": count}
     if run.optimizer == "adafactor":
-        return {"v": _over_layout(factors, params, layout), "count": count}
+        return {"v": _over_layout(factors, params, splits), "count": count}
     if run.optimizer == "adamw8bit":
-        return {"q": _over_layout(blocks, params, layout), "count": count}
+        return {"q": _over_layout(blocks, params, splits), "count": count}
     raise ValueError(run.optimizer)
 
 
-def global_norm(tree, layout=None, ranks=None) -> torch.Tensor:
+def global_norm(tree, layout=None, ranks=None, mlay=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32.  Under ZeRO-1
     or FSDP (``layout``: each leaf's ``Shard`` or None, over the step's
-    ``ranks``) the leaves are this rank's: a chunk's squares count on
-    one rank of its replicas, a whole leaf's on the data line's first
-    rank, and the sum is all-reduced."""
+    ``ranks``) or tensor parallelism (``mlay``: each leaf's model split
+    or None) the leaves are this rank's: a chunk's squares count on one
+    rank of its replicas, a whole leaf's on the data line's first rank
+    (and a leaf whole on the model line on its first rank), and the sum
+    is all-reduced over the data line (and the model line)."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=F32, device=leaves[0].device)
+    spread = layout is not None or mlay is not None
     for i, leaf in enumerate(leaves):
-        if layout is not None and not _owns(layout[i], ranks):
+        if spread and not _owns(None if layout is None else layout[i],
+                                None if mlay is None else mlay[i], ranks):
             continue
         total = total + torch.sum(leaf.to(F32) ** 2)
-    if layout is not None:
-        dist.all_reduce(total, group=ranks[0].group)
+    if spread:
+        mp = ranks[0].model
+        dist.all_reduce(total, group=ranks[0].group if mp is None
+                        else mp.span)
     return torch.sqrt(total)
 
 
-def _owns(sh, ranks) -> bool:
-    """Whether this rank counts a ZeRO-1 or FSDP leaf (its ``Shard``, or
-    None for a whole one) in a sum over the data line."""
+def _owns(sh, m, ranks) -> bool:
+    """Whether this rank counts a leaf (its data ``Shard``, or None for a
+    whole one; its model split, or None for one whole on the model line)
+    in a sum over the data and model lines."""
+    mp = ranks[0].model
+    if m is None and mp is not None and mp.index != 0:
+        return False
     if sh is None:
         return ranks[1] == 0
     return sh.rest is None or dist.get_rank(sh.rest) == 0
@@ -329,8 +425,9 @@ def step_generator(rng: torch.Tensor, device) -> torch.Generator:
 def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
     """The mesh the data-parallel constraints name (``mesh``, else the
     gradient shardings'), checked for what is ported: over processes,
-    data parallelism on the pod / data axes (plain, ZeRO-1, FSDP; no
-    model axis); in one process, one card on each axis."""
+    data parallelism on the pod / data axes (plain, ZeRO-1, FSDP) and
+    tensor parallelism on the model axis (the families,
+    :func:`_model_layout`); in one process, one card on each axis."""
     if mesh is None and grad_shardings is not None:
         mesh = next((s.mesh for s in tree_leaves(grad_shardings)
                      if s is not None), None)
@@ -342,11 +439,10 @@ def _data_mesh(dp_axes, grad_shardings, mesh, run: RunConfig):
     model = [a for a in mesh.axis_names if a not in dp]
     if getattr(mesh, "group", None) is not None:
         for ax in model:
-            if mesh.shape[ax] > 1:
+            if ax != MODEL_AXIS and mesh.shape[ax] > 1:
                 raise NotImplementedError(
-                    f"training over a model axis {ax!r} of several ranks "
-                    "(tensor parallelism) is not ported (ROADMAP Queue A "
-                    "item 8)")
+                    f"training over an axis {ax!r} of several ranks is not "
+                    "ported: the data axes and the model axis span ranks")
         ranked = {a for a in DP_AXES
                   if a in mesh.axis_names and mesh.shape[a] > 1}
         if dp_axes is not None and not ranked <= set(dp_axes):
@@ -453,21 +549,29 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
     step is data-parallel (the module docstring).  The returned
     function's ``held`` dict records ``grad_acc_bytes`` and
     ``param_bytes``, the f32 accumulators' and the parameters' bytes on
-    this rank, once a step has made them.  Under FSDP the state's
-    parameters must be the rank's chunks (``init_state``), else the step
-    raises: no rank keeps whole weights where FSDP was asked for."""
+    this rank, once a step has made them.  Under FSDP or tensor
+    parallelism the state's parameters must be the rank's chunks
+    (``init_state``), else the step raises: no rank keeps whole weights
+    where they were asked to be split."""
     mesh = _data_mesh(dp_axes, grad_shardings, mesh, run)
     loss_fn = zoo.loss_fn(cfg)
     _, opt_update = OPTIMIZERS[run.optimizer]
     sched = lr_schedule(run.learning_rate, total=total_steps)
     ranks = None
+    mlay = _model_layout(cfg, run, mesh, dp_axes)
     if mesh is not None and mesh.group is not None:
         dp = tuple(a for a in mesh.axis_names if a in (dp_axes or DP_AXES))
         group, size, index = mesh.line(dp)
-        ranks = (collective.DataParallel(group, size), index)
+        model = None
+        if mlay is not None:
+            model = collective.ModelLine(*mesh.line((MODEL_AXIS,)),
+                                         span=mesh.line(dp + (MODEL_AXIS,))[0])
+        ranks = (collective.DataParallel(group, size, model=model), index)
     layout = _layout(cfg, run, mesh, dp_axes, grad_shardings)
     fsdp = layout is not None and run.fsdp
-    shapes = [s.shape for s in tree_leaves(zoo.model_specs(cfg))]
+    specs = tree_leaves(zoo.model_specs(cfg))
+    shapes = [_local_shape(s.shape, m)
+              for s, m in zip(specs, mlay or [None] * len(specs))]
     held: dict = {}
 
     def grads_of(params, batch):
@@ -477,8 +581,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         one microbatch in one process returns the loss's own gradients
         (no accumulator: the one-process step's memory)."""
         leaves = tree_leaves(params)
-        if fsdp:
-            _check_chunks(leaves, layout, shapes)
+        if fsdp or mlay is not None:
+            _check_chunks(leaves, layout if fsdp else None, shapes, mlay)
         held["param_bytes"] = sum(p.numel() * p.element_size()
                                   for p in leaves)
         for p in leaves:
@@ -523,14 +627,15 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         params = state["params"]
         loss, metrics, grads = grads_of(params, batch)
         with torch.no_grad():
-            gnorm = global_norm(grads, layout, ranks)
+            gnorm = global_norm(grads, layout, ranks, mlay)
             scale = torch.clamp(run.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = [g.mul_(scale) if g.dtype == F32 else g.to(F32) * scale
                      for g in grads]
             lay = layout or [None] * len(grads)
+            mls = mlay or [None] * len(grads)
             if run.grad_compression == "int8":
-                _int8(grads, lay, step_generator(state["rng"],
-                                                 gnorm.device))
+                _int8(grads, lay, mls, step_generator(state["rng"],
+                                                      gnorm.device))
             lr = sched(state["step"])
             kw = {}
             if run.optimizer in ("adamw", "adamw8bit"):
@@ -542,15 +647,22 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
             opt = state["opt"]
             parts = [k for k in opt if k != "count"]
             count = opt["count"]
-            for path, g, sh in zip(_paths(params), grads, lay):
+            for path, g, sh, m in zip(_paths(params), grads, lay, mls):
                 p = _at(params, path)
                 one = {k: {"x": _at(opt[k], path)} for k in parts}
                 one["count"] = opt["count"]
                 if run.optimizer == "adafactor":
-                    kw["shards"] = {"x": sh}
-                if sh is not None and run.optimizer == "adamw8bit":
-                    g = collective.all_gather(g, sh)
-                    target = collective.all_gather(p, sh) if fsdp else p
+                    kw["shards"] = {"x": (sh, m)}
+                eight = run.optimizer == "adamw8bit" and (
+                    sh is not None or m is not None)
+                if eight:
+                    # the whole leaf: the gradient gathered over the data
+                    # line, then the model line (as collective.whole)
+                    if sh is not None:
+                        g = collective.all_gather(g, sh)
+                    if m is not None:
+                        g = collective.all_gather(g, m)
+                    target = collective.whole(p) if fsdp or m else p
                 else:
                     target = p if sh is None or fsdp else sh.of(p)
                 _, new = opt_update({"x": g}, one, {"x": target}, lr,
@@ -559,9 +671,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
                 if target is p:
                     continue                    # updated in place
                 # ZeRO-1's chunk gathered into the parameter, or 8-bit
-                # Adam's whole leaf cut to FSDP's chunk
-                p.copy_(sh.of(target) if fsdp else
-                        collective.all_gather(target, sh))
+                # Adam's whole leaf cut to the rank's chunk
+                p.copy_(collective.cut(target, m, sh if fsdp else None)
+                        if eight else collective.all_gather(target, sh))
             opt = dict(opt, count=count)
         rng = state["rng"].clone()
         rng[1] += 1
@@ -574,38 +686,47 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
     return train_step
 
 
-def _check_chunks(leaves, layout, shapes) -> None:
-    """Under FSDP every sharded parameter must be this rank's tagged
-    chunk: a whole leaf would run (and be updated) unsharded."""
-    for i, (p, sh, shape) in enumerate(zip(leaves, layout, shapes)):
-        if sh is None:
+def _check_chunks(leaves, layout, shapes, mlay=None) -> None:
+    """Under FSDP (``layout``) or tensor parallelism (``mlay``) every
+    split parameter must be this rank's tagged chunk (``shapes``: each
+    leaf's model chunk's shape): a whole leaf would run (and be
+    updated) unsplit."""
+    n = len(leaves)
+    for i, (p, sh, m, shape) in enumerate(zip(
+            leaves, layout or [None] * n, mlay or [None] * n, shapes)):
+        if sh is None and m is None:
             continue
-        want = sh.shape(shape)
-        if tuple(p.shape) != want or collective.shard_of(p) is None:
+        want = tuple(shape) if sh is None else sh.shape(shape)
+        marked = (sh is None or collective.shard_of(p) is not None) and \
+            (m is None or collective.model_of(p) is not None)
+        if tuple(p.shape) != want or not marked:
+            what = "FSDP" if sh is not None else "tensor parallelism"
             raise ValueError(
-                f"FSDP: parameter {i} is {tuple(p.shape)}"
-                f"{'' if collective.shard_of(p) else ' untagged'}, not "
-                f"this rank's chunk {want}: pass init_state's (or "
-                "shard_params') chunks")
+                f"{what}: parameter {i} is {tuple(p.shape)}"
+                f"{'' if marked else ' untagged'}, not this rank's chunk "
+                f"{want}: pass init_state's (or shard_params') chunks")
 
 
-def _int8(grads, layout, generator) -> None:
+def _int8(grads, layout, mlay, generator) -> None:
     """int8 compression of the gradients in place: each leaf's uniforms
     drawn whole in sorted-key order (as ``int8_compress_decompress``
-    draws them; a ZeRO-1 chunk keeps its slice of them and takes its
-    scale from the whole leaf's max |g|)."""
-    for g, sh in zip(grads, layout):
+    draws them; a ZeRO-1 chunk, or a model chunk, keeps its slice of
+    them and takes its scale from the whole leaf's max |g|)."""
+    for g, sh, m in zip(grads, layout, mlay):
         shape = list(g.shape)
-        if sh is not None:
-            shape[sh.dim] = sh.full
+        for x in (sh, m):
+            if x is not None:
+                shape[x.dim] = x.full
         u = torch.rand(shape, generator=generator, dtype=F32,
                        device=g.device)
-        if sh is None:
+        if sh is None and m is None:
             g.copy_(compress_leaf(g, u))
             continue
         amax = torch.amax(torch.abs(g))
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=sh.group)
-        g.copy_(compress_leaf(g, sh.of(u), amax))
+        for x in (sh, m):
+            if x is not None:
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=x.group)
+        g.copy_(compress_leaf(g, collective.cut(u, m, sh), amax))
 
 
 def _paths(tree, prefix=()) -> list:

@@ -298,9 +298,12 @@ def _fault_loop(rank, mesh, ref_params, tmp):
 
 def _refusals(rank, mesh, ref_params, batch):
     """What raises: FSDP over a data axis of distinct cards in one
-    process, FSDP with a model axis over ranks (the step and the state),
-    a batch that does not divide into microbatches x ranks, MoE groups
-    not a multiple of the ranks, and a model axis over ranks."""
+    process, FSDP with a model axis over ranks for a family tensor
+    parallelism does not run yet (the MoE: the step and the state), a
+    batch that does not divide into microbatches x ranks, MoE groups
+    not a multiple of the ranks, and a model axis over ranks for that
+    family (ROADMAP Queue A item 8(b); the dense family's is
+    tests/test_torch_train_tp.py's)."""
     out = {}
     cfg = _cfg("llama3-8b")
     params = params_from_reference(ref_params["llama3-8b"], device="cpu")
@@ -319,21 +322,22 @@ def _refusals(rank, mesh, ref_params, batch):
         cfg, run, mesh=cards))
     model = LogicalMesh(("data", "model"), (1, W), group=dist.group.WORLD,
                         device="cpu")
+    moe = _cfg("mixtral-8x7b")
+    mp = params_from_reference(ref_params["mixtral-8x7b"], device="cpu")
     out["fsdp_model_state"] = raises(NotImplementedError, lambda: init_state(
-        cfg, run, params, mesh=model))
+        moe, run, mp, mesh=model))
     run = _run("plain", "adamw", 4, False)
     out["batch"] = raises(ValueError, lambda: build_train_step(
         cfg, run, mesh=mesh)(init_state(cfg, run, params), local))
-    moe = dataclasses.replace(_cfg("mixtral-8x7b"), moe_dispatch_groups=1)
+    one_group = dataclasses.replace(moe, moe_dispatch_groups=1)
     run = _run("plain", "adamw", 1, False)
-    mp = params_from_reference(ref_params["mixtral-8x7b"], device="cpu")
     out["groups"] = raises(ValueError, lambda: build_train_step(
-        moe, run, mesh=mesh)(init_state(moe, run, mp), shard_rows(
+        one_group, run, mesh=mesh)(init_state(one_group, run, mp), shard_rows(
             _tensors(batch["mixtral-8x7b"]), DataShard(rank, W))))
     out["fsdp_model"] = raises(NotImplementedError, lambda: build_train_step(
-        cfg, RunConfig(fsdp=True), mesh=model))
+        moe, RunConfig(fsdp=True), mesh=model))
     out["model"] = raises(NotImplementedError, lambda: build_train_step(
-        cfg, RunConfig(), mesh=model))
+        moe, RunConfig(), mesh=model))
     return out
 
 
