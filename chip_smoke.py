@@ -478,10 +478,13 @@ Phases, each printing lines that start with its name:
             FSDP_8BIT_REL), FSDP + Adafactor bit-equal to ZeRO-1 +
             Adafactor on the same ranks.
 19. tp      (after fsdp; --tp-only runs phases 1, 2 and this one) the
-            dense training step tensor-parallel over the model axis of
-            NCCL ranks, one card each (ROADMAP Queue A item 8(a): the
-            projections split by column and by row, the embedding, head
-            and NLL by vocabulary), composed with plain DP, ZeRO-1 and
+            training step tensor-parallel over the model axis of NCCL
+            ranks, one card each (ROADMAP Queue A item 8(a), the dense
+            family: the projections split by column and by row, the
+            embedding, head and NLL by vocabulary; item 8(b) part 1,
+            the moe, vlm and encdec families: experts or expert_mlp,
+            the router's gathered logits, the vlm prefix, the encoder
+            and cross-attention), composed with plain DP, ZeRO-1 and
             FSDP over the data axis.  At count >= 2: train:'s llama3-8b
             at full width, 4 of 32 layers (a CUT line), its global
             batch of 8 x 4,096 tokens in 4 microbatches, on (data 1,
@@ -508,16 +511,30 @@ Phases, each printing lines that start with its name:
             5-train-tp (the kernel at a (1, 4) rank's (2, 8, 4096, 128)
             x (2, 2, 4096, 128) on its first operands, held to its
             plain version and the f64 answer, beside SDPA and
-            flash_work's bound).  At
+            flash_work's bound); (d) TP_FAMILY_RUNS in f32 at full
+            width and a cut depth (CUT lines; the matrices x
+            DP_GLOO_SCALE, remat full, TP_FAMILY_ROWS rows a step):
+            mixtral (2 layers), kimi (1 layer, 64 experts, Adafactor),
+            llava (2 layers, its prefix) and seamless (2 + 2 layers,
+            more source frames than tokens) on (1, count) plain and at
+            count 4 on (2, 2) under ZeRO-1 or FSDP, each against its
+            one-card f32 step at (c)'s bars, with its bytes, exact
+            flash launches, ms a step, tokens/s, NCCL ms, busy share and
+            peak beside estimate_memory, and a flash row for each shape
+            its (1, count) steps gave rank 0's kernel (held by
+            flash_verdict, beside SDPA and the f32 bound).  At
             one card (the CUT line says why): four gloo ranks on the
             card (started in a thread before train: (b) with dp: (b)'s
             and fsdp: (d)'s, ended before dp: (a)'s profiled step; with
             --tp-only started at the phase's start) at dp:'s reduced f32
             llama (matrices x DP_GLOO_SCALE) on (1, 4) plain and on
-            (2, 2) plain, ZeRO-1 and FSDP, each within DP_GLOO_REL of
-            the one-process step on the card; a mode needing a
-            collective that gloo lacks on CUDA tensors is cut on a CUT
-            line.
+            (2, 2) plain, ZeRO-1 and FSDP, and TP_GLOO_FAMILIES (the
+            reduced mixtral with its experts split and with
+            expert_mlp split, kimi with its shared expert, llava,
+            seamless on both meshes), each within DP_GLOO_REL of the
+            one-process step on the card (AdamW's sign flips as
+            TP_FLIP_FRAC allows); a mode needing a collective that gloo
+            lacks on CUDA tensors is cut on a CUT line.
 
 The whole run, the build included, must end within 1,200 s; the
 ``total:`` line prints its seconds.  Before the last line it prints the
@@ -702,6 +719,14 @@ FSDP_GLOO_RUNS = ((False, "adamw", "fsdp"), (False, "adafactor", "fsdp"),
                   (False, "adamw8bit", "fsdp"), (True, "adafactor", "fsdp"),
                   (False, "adafactor", "zero1"))
 FSDP_8BIT_REL = 2e-5
+# AdamW's second-step update is lr * sign(g) wherever |g| is far above its
+# eps, so an element whose one-process gradient is itself f32 rounding
+# noise may take the other sign over ranks and part by lr: the gloo
+# checks let fewer than TP_FLIP_FRAC of a leaf's parameters part further
+# than DP_GLOO_REL, each where the one-process first moment is within
+# TP_NOISE_REL of the leaf's largest, with every first moment within
+# DP_GLOO_REL (as tests/test_torch_train_tp_families.py holds them)
+TP_FLIP_FRAC, TP_NOISE_REL = 1e-4, 1e-5
 # tp: at count >= 2 train:'s TRAIN_ARCH at full width and TRAIN_LAYERS,
 # its global batch in TRAIN_MICRO microbatches, on TP_MESHES[count]
 # ((data, model, modes) a mesh), TP_STEPS timed steps a mode and one
@@ -723,6 +748,38 @@ TP_FLOOR_X, TP_FLOOR_CHUNK = 4.0, 1024
 TP_MESHES = {2: ((1, 2, ("plain",)),),
              4: ((1, 4, ("plain",)), (2, 2, ("plain", "zero1", "fsdp")))}
 TP_GLOO_MESHES = ((1, 4, ("plain",)), (2, 2, ("plain", "zero1", "fsdp")))
+# tp: (a) at one card the families on the same four gloo ranks, reduced
+# f32 at DP_GLOO_SCALE: (name, arch, changes to the reduced config, data,
+# model, mode, optimizer); the MoE configs at capacity factor 1.25 in 2
+# dispatch groups.  "mixtral-emlp" has 3 experts, a count that divides
+# neither line, so each expert's expert_mlp dim splits (mixtral's 8 on the
+# production line of 16); seamless's vocabulary is 510, which divides by
+# 2 and not by 4, as its 256,206 does
+TP_GLOO_FAMILIES = (
+    ("mixtral", "mixtral-8x7b", {}, 1, 4, "plain", "adamw"),
+    ("mixtral", "mixtral-8x7b", {}, 2, 2, "zero1", "adamw"),
+    ("mixtral-emlp", "mixtral-8x7b", {"n_experts": 3}, 1, 4, "plain",
+     "adamw"),
+    ("kimi", "kimi-k2-1t-a32b", {}, 2, 2, "fsdp", "adafactor"),
+    ("llava", "llava-next-34b", {}, 1, 4, "plain", "adamw"),
+    ("seamless", "seamless-m4t-large-v2", {"vocab": 510}, 1, 4, "plain",
+     "adamw"),
+    ("seamless", "seamless-m4t-large-v2", {"vocab": 510}, 2, 2, "zero1",
+     "adamw"))
+# tp: (d) at count >= 2 the families at full width in f32 (matrices x
+# DP_GLOO_SCALE, remat full), TP_FAMILY_ROWS rows a step in one
+# microbatch, against the one-card f32 step: (label, arch, layers (a
+# stack's, for encdec), experts (None: all), optimizer, positions a row,
+# source frames a row (encdec), the (2, 2) mode); the MoE configs in
+# TP_FAMILY_ROWS dispatch groups (one a data rank on (2, 2), as the
+# dry-run sets them)
+TP_FAMILY_RUNS = (
+    ("mixtral", "mixtral-8x7b", 2, None, "adamw", 4_096, None, "zero1"),
+    ("kimi", "kimi-k2-1t-a32b", 1, 64, "adafactor", 2_048, None, "fsdp"),
+    ("llava", "llava-next-34b", 2, None, "adamw", 4_096, None, "fsdp"),
+    ("seamless", "seamless-m4t-large-v2", 2, None, "adamw", 2_048, 4_096,
+     "zero1"))
+TP_FAMILY_ROWS = 2
 TP_NEEDS = {"plain": ("all_reduce", "all_reduce_max",
                       "all_gather_into_tensor"),
             "zero1": ("all_reduce", "all_reduce_max",
@@ -5092,7 +5149,7 @@ def score_rounding(q, k, v, kv_len, causal, window) -> tuple[float, str]:
             f"from the scores alone against the bar 2**-7 x (1 + |out|)")
 
 
-def family_flash_row(label, key, qkv, launches, real_len):
+def family_flash_row(label, key, qkv, launches, real_len, tag="families"):
     """One flash_attention row at a family's shape: the kernel on the
     first operands the main path gave it, held to flash_attention_ref
     and the f64 answer (flash_verdict: the f64 bar widened by exactly
@@ -5101,7 +5158,8 @@ def family_flash_row(label, key, qkv, launches, real_len):
     must fail it), timed beside the plain version, its bound (the
     function's own work, flash_work) and scaled_dot_product_attention on
     the unpadded operands (``enable_gqa``; a window as an explicit
-    boolean mask)."""
+    boolean mask).  The bound takes the operands' dtype's peak rate;
+    ``tag`` begins the printed lines."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
     (qs, ks, causal, kv_len, window), (q, k, v) = key, qkv
@@ -5114,7 +5172,7 @@ def family_flash_row(label, key, qkv, launches, real_len):
                              window=window)
     plain, exact = flash_refs(q, k, v, kv_len, causal, window)
     ok, err, readings = flash_verdict(got, plain, exact, shift)
-    check(ok, f"families: flash_attention {label}: {readings}")
+    check(ok, f"{tag}: flash_attention {label}: {readings}")
     # the widened bar must reject the plain version with its scores
     # kept in bf16 (a kernel that stored S in bf16)
     planted = exact_attention(q, k, v, kv_len, causal, window,
@@ -5122,7 +5180,7 @@ def family_flash_row(label, key, qkv, launches, real_len):
     share = float(((planted - exact).abs() / (
         2.0 ** -7 * (1.0 + exact.abs()) + shift)).max())
     check(not flash_verdict(planted, plain, exact, shift)[0],
-          f"families: flash_attention {label}: the widened bar passes the "
+          f"{tag}: flash_attention {label}: the widened bar passes the "
           f"plain version with bf16 scores ({share:.4g} widened bars)")
     readings += (f"; the plain version with bf16 scores reaches {share:.4g} "
                  f"widened bars and fails the check, as it must")
@@ -5146,15 +5204,16 @@ def family_flash_row(label, key, qkv, launches, real_len):
         kr, vr = (t.repeat_interleave(hq // hk, 1) for t in (ku, vu))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             qu, kr, vr, **sdpa_kw)
-    print(f"families: flash_attention {label} at ({b}, {hq}, {sq}, {d}) x "
-          f"({b}, {hk}, {sk}, {d}) bf16 causal={causal} kv_len={kv_len} "
+    print(f"{tag}: flash_attention {label} at ({b}, {hq}, {sq}, {d}) x "
+          f"({b}, {hk}, {sk}, {d}) {str(q.dtype)[6:]} causal={causal} "
+          f"kv_len={kv_len} "
           f"window={window}: {sq_real} real rows, {live:,} live pairs, "
           f"{flops:.4g} flops, {nbytes:.4g} bytes unpadded; against "
           f"flash_attention_ref and the f64 answer: {readings}; {rounding}",
           flush=True)
     body = {1: "tensor cores, P V in two bf16 passes",
             0: "CUDA cores"}[fa.body(q.dtype, d)]
-    if d % 64:
+    if d % 64 and fa.body(q.dtype, d):
         body += f", tiles padded from {d} to 128 columns"
     return kernel_row(
         f"flash_attention {label}", launches, err,
@@ -5163,7 +5222,8 @@ def family_flash_row(label, key, qkv, launches, real_len):
         lambda: flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
                                     window=window), 3,
         nbytes, flops, library=sdpa,
-        flop_per_s=hw.PEAK_FLOPS_BF16, kernel="flash_attention",
+        flop_per_s=hw.PEAK_FLOPS_BF16 if q.dtype == torch.bfloat16
+        else hw.PEAK_FLOPS_F32, kernel="flash_attention",
         note=f"body: {body}; notes: {hw.FLASH_TC_PASSES:g} bf16 passes (the "
              f"tensor-core body's work) "
              f"{hw.FLASH_TC_PASSES * flops / hw.PEAK_FLOPS_BF16 * 1e3:.4f} "
@@ -6840,21 +6900,30 @@ def tp_owns(t, coords) -> bool:
                  or coords["model"] == 0))
 
 
+def tp_parts(state) -> list:
+    """The leaf lists a state is compared by: its parameters, then its
+    optimizer state (AdamW's mu and nu, or Adafactor's factors)."""
+    from repro_torch.train import optim
+    opt = state["opt"]
+    return [optim.tree_leaves(state["params"])] + (
+        [optim.tree_leaves(opt["mu"]), optim.tree_leaves(opt["nu"])]
+        if "mu" in opt else [optim.tree_leaves(opt["v"])])
+
+
 def tp_distances(state, one, initial, coords, device) -> list:
     """Relative L2 distances of a TP state's parameters (over the
-    one-card step's move from ``initial``'s), mu and nu (over the
-    one-card moments' norm) from the one-card state ``one`` (host copies
-    of its parameter, mu and nu leaves): each chunk against its chunk of
-    the one-card leaf (``collective.cut``), each element counted on one
-    rank (:func:`tp_owns`), summed over the ranks."""
+    one-card step's move from ``initial``'s) and optimizer state (over
+    the one-card state's norm; AdamW's mu and nu, or Adafactor's
+    factors) from the one-card state ``one`` (host copies of its
+    :func:`tp_parts`): each chunk against its chunk of the one-card leaf
+    (``collective.cut``), each element counted on one rank
+    (:func:`tp_owns`), summed over the ranks."""
     import torch.distributed as dist
     from repro_torch.sharding import collective
     from repro_torch.train import optim
-    mine = [optim.tree_leaves(state["params"]),
-            optim.tree_leaves(state["opt"]["mu"]),
-            optim.tree_leaves(state["opt"]["nu"])]
+    mine = tp_parts(state)
     base = optim.tree_leaves(initial())
-    sums = torch.zeros(3, 2, dtype=torch.float64, device=device)
+    sums = torch.zeros(len(mine), 2, dtype=torch.float64, device=device)
     for i, (leaves, theirs) in enumerate(zip(mine, one)):
         for j, (a, b) in enumerate(zip(leaves, theirs)):
             if not tp_owns(a, coords):
@@ -6870,10 +6939,11 @@ def tp_distances(state, one, initial, coords, device) -> list:
     return [float(x) for x in torch.sqrt(sums[:, 0] / sums[:, 1])]
 
 
-def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
+def tp_nccl_rank(rank, device, seed, cfg, seq, meshes, families=()):
     """The W-card rank body (``cfg`` at ``seq`` tokens a row, train:'s
-    global batch of TRAIN_BATCH rows): every rank first takes the
-    one-card step on the global batch in TRAIN_MICRO microbatches and,
+    global batch of TRAIN_BATCH rows; None: (d) alone): every rank
+    first takes the one-card step on the global batch in TRAIN_MICRO
+    microbatches and,
     where a mesh has a data axis, in one-row microbatches (keeping each
     state after DP_EQUAL_STEPS steps on the host), each also with its
     attention forward rounded another way (the noise floor: its
@@ -6882,8 +6952,13 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
     state's distance from the one-card state, the bytes against
     abstract_state's, and one more step under torch.profiler; rank 0
     keeps the first flash operands of the first mesh's first mode.
-    Last, (c): the same comparison in f32 (``cfg`` in f32, its matrices
-    x DP_GLOO_SCALE, one row a step, (1, W) plain)."""
+    Then (c): the same comparison in f32 (``cfg`` in f32, its matrices
+    x DP_GLOO_SCALE, one row a step, (1, W) plain).  Last, (d): each of
+    ``families`` ((label, config in f32, optimizer, tokens, source
+    frames, the (2, 2) mode)) the same way in f32 against its one-card
+    step, TP_FAMILY_ROWS rows a step, on (1, W) plain and at W = 4 on
+    (2, 2) in its mode; rank 0 keeps the first flash operands of each
+    shape the (1, W) steps gave the kernel."""
     import torch.distributed as dist
     from repro_torch.configs.base import RunConfig, ShapeCell
     from repro_torch.data.pipeline import DataShard, _batch_for_step, \
@@ -6891,7 +6966,7 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
     from repro_torch.kernels import _cuda
     from repro_torch.launch.dryrun import analyze_cell
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer, zoo
+    from repro_torch.models import encdec, transformer, zoo
     from repro_torch.models.layers import chunked_attention
     from repro_torch.models.params import init_params
     from repro_torch.sharding.logical import LogicalMesh, default_rules
@@ -6899,9 +6974,13 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
     from repro_torch.train.step import (abstract_state, build_train_step,
                                         init_state, zero1_grad_shardings)
     rows, on_card = TRAIN_BATCH, device.type == "cuda"
-    glob = [{k: torch.from_numpy(v).to(device) for k, v in _batch_for_step(
-        s, DataShard(0, 1), cfg.vocab, rows, seq).items()}
-        for s in range(TP_STEPS + 1)]
+    world = dist.get_world_size()
+    meshes_of = {}
+
+    def mesh_of(m):
+        if m not in meshes_of:
+            meshes_of[m] = make_host_mesh(model_parallel=m, device=device)
+        return meshes_of[m]
 
     def wait():
         if on_card:
@@ -6932,11 +7011,19 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
         if on_card:
             torch.cuda.empty_cache()
 
-    def floor_attention(q, k, v, cfg):
+    def floor_attention(q, k, v, cfg, causal=True):
         ck = min(TP_FLOOR_CHUNK, max(1, q.shape[1] // 4))
-        return chunked_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window, chunk_q=ck,
-                                 chunk_k=ck)
+        return chunked_attention(q, k, v, causal=causal,
+                                 window=cfg.sliding_window if causal
+                                 else None, chunk_q=ck, chunk_k=ck)
+
+    def floor_patch():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(transformer, "attention",
+                                              floor_attention))
+        stack.enter_context(mock.patch.object(encdec, "attention",
+                                              floor_attention))
+        return stack
 
     def reference(c, run_one, batches, scale=1.0):
         """The one-card step on ``batches`` from the initial parameters
@@ -6944,9 +7031,7 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
         on the host), then the noise floor."""
         out = {}
         for floor in (False, True):
-            with mock.patch.object(transformer, "attention",
-                                   floor_attention) if floor \
-                    else contextlib.nullcontext():
+            with floor_patch() if floor else contextlib.nullcontext():
                 step = build_train_step(c, run_one, total_steps=FAULT_STEPS)
                 state, *first = timed(step, init_state(c, run_one,
                                                        initial(c, scale)),
@@ -6956,10 +7041,8 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
                                          lambda: initial(c, scale),
                                          {"data": 0, "model": 0}, device)
                 else:
-                    kept = [[t.detach().to("cpu", copy=True) for t in
-                             optim.tree_leaves(x)] for x in
-                            (state["params"], state["opt"]["mu"],
-                             state["opt"]["nu"])]
+                    kept = [[t.detach().to("cpu", copy=True) for t in x]
+                            for x in tp_parts(state)]
                 state, *rest = timed(step, state,
                                      batches[DP_EQUAL_STEPS:TP_STEPS])
             loss, norm, times = (a + b for a, b in zip(first, rest))
@@ -6970,10 +7053,12 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
             free()
         return out
 
-    def mode(c, run_m, mesh, d, m, local, one, watch, scale=1.0):
+    def mode(c, run_m, mesh, d, m, local, one, watch, scale=1.0,
+             cell_seq=seq):
         """TP_STEPS timed steps of one mode on ``mesh`` and one profiled,
         from the initial parameters (matrices x ``scale``); (its record,
-        the first flash operands where ``watch``)."""
+        where ``watch`` the first flash operands of each shape and its
+        launches in the first DP_EQUAL_STEPS steps)."""
         coords = mesh.coords()
         desc = LogicalMesh(("data", "model"), (d, m))
         free()
@@ -6982,12 +7067,12 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
         state = init_state(c, run_m, initial(c, scale), mesh=mesh)
         step = build_train_step(c, run_m, total_steps=FAULT_STEPS,
                                 mesh=mesh)
-        (_, spied), spying = family_flash_spy()
+        (tally, spied), spying = family_flash_spy()
         _cuda.reset_launches()
         with spying if watch else contextlib.nullcontext():
             state, *first = timed(step, state, local[:DP_EQUAL_STEPS])
-        ops = tuple(t.detach().cpu() for t in next(iter(spied.values()))) \
-            if watch and spied else None
+        ops = {key: (tally[key], tuple(t.detach().cpu() for t in qkv))
+               for key, qkv in spied.items()} if watch and spied else None
         dists = tp_distances(state, one["kept"], lambda: initial(c, scale),
                              coords, device)
         state, *rest = timed(step, state, local[DP_EQUAL_STEPS:TP_STEPS])
@@ -7010,7 +7095,7 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
                 sum(int(np.prod(s.shard_shape(tuple(t.shape)))) * 4
                     for t, s in zip(optim.tree_leaves(ab["params"]), accs)))
         rec = analyze_cell(c.name, "train_4k", False, cfg=c, run=run_m,
-                           cell=ShapeCell("train_4k", seq,
+                           cell=ShapeCell("train_4k", cell_seq,
                                           local[0]["tokens"].shape[0] * d,
                                           "train"), mesh=desc)
         del state, step
@@ -7023,46 +7108,93 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes):
             model_bytes=rec["mem"]["bytes"]["total"],
             top=[(n, round(t, 3)) for n, t in top[:5]]), ops
 
-    out = {"device": str(device)}
-    run = RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
-                    microbatches=TRAIN_MICRO)
-    refs = {micro: reference(cfg, dataclasses.replace(
-        run, microbatches=micro), glob)
-        for micro in sorted({TRAIN_MICRO if d == 1 else rows
-                             for d, _, _ in meshes})}
-    out["one"] = {k: {n: v for n, v in r["one"].items() if n != "kept"}
-                  for k, r in refs.items()}
-    out["floor"] = {k: r["floor"] for k, r in refs.items()}
-    dist.barrier()
-    out["qkv"] = None
-    for d, m, modes in meshes:
-        mesh = make_host_mesh(model_parallel=m, device=device)
-        local = [shard_rows(b, DataShard(mesh.coords()["data"], d))
-                 for b in glob]
-        for name in modes:
-            run_m = dataclasses.replace(run, zero1=name == "zero1",
+    def dense(out, run):
+        """(a)-(c): the dense family in bf16 on ``meshes``, then in f32."""
+        glob = [{k: torch.from_numpy(v).to(device) for k, v in
+                 _batch_for_step(s, DataShard(0, 1), cfg.vocab, rows,
+                                 seq).items()}
+                for s in range(TP_STEPS + 1)]
+        refs = {micro: reference(cfg, dataclasses.replace(
+            run, microbatches=micro), glob)
+            for micro in sorted({TRAIN_MICRO if d == 1 else rows
+                                 for d, _, _ in meshes})}
+        out["one"] = {k: {n: v for n, v in r["one"].items() if n != "kept"}
+                      for k, r in refs.items()}
+        out["floor"] = {k: r["floor"] for k, r in refs.items()}
+        dist.barrier()
+        out["qkv"] = None
+        for d, m, modes in meshes:
+            mesh = mesh_of(m)
+            local = [shard_rows(b, DataShard(mesh.coords()["data"], d))
+                     for b in glob]
+            for name in modes:
+                run_m = dataclasses.replace(run, zero1=name == "zero1",
+                                            fsdp=name == "fsdp")
+                watch = rank == 0 and on_card and out["qkv"] is None
+                out[d, m, name], ops = mode(
+                    cfg, run_m, mesh, d, m, local,
+                    refs[TRAIN_MICRO if d == 1 else rows]["one"], watch)
+                if ops is not None:
+                    out["qkv"] = next(iter(ops.values()))[1]
+        del refs
+        free()
+        # (c) f32, one row a step, on (1, W), the matrices x DP_GLOO_SCALE
+        # (at the fan_in weights f32 rounding alone moves the gradient by
+        # ~1%, PERF.md): the floor stays small and the comparison bites
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        run32 = dataclasses.replace(run, microbatches=1)
+        one_row = [{k: v[:1] for k, v in b.items()} for b in glob]
+        ref32 = reference(cfg32, run32, one_row, DP_GLOO_SCALE)
+        out["f32"] = {"one": {n: v for n, v in ref32["one"].items()
+                              if n != "kept"}, "floor": ref32["floor"]}
+        out["f32"]["tp"], _ = mode(cfg32, run32, mesh_of(world), 1, world,
+                                   one_row, ref32["one"], False,
+                                   DP_GLOO_SCALE)
+
+    def family(c, optimizer, tokens, frames, mode22):
+        """(d): one family in f32 (matrices x DP_GLOO_SCALE) on
+        TP_FAMILY_ROWS rows a step against its one-card step, on (1, W)
+        plain and at W = 4 on (2, 2) in ``mode22``."""
+        cell = ShapeCell("train_4k", tokens, TP_FAMILY_ROWS, "train")
+        glob = []
+        for s in range(TP_STEPS + 1):
+            b = zoo.make_batch(c, cell, seed + s, device=device)
+            if frames is not None:
+                b["src_embeds"] = zoo.make_batch(c, ShapeCell(
+                    "train_4k", frames, TP_FAMILY_ROWS, "train"), seed + s,
+                    device=device)["src_embeds"]
+            glob.append(b)
+        run_f = RunConfig(optimizer=optimizer, learning_rate=TRAIN_LR,
+                          microbatches=1)
+        ref = reference(c, run_f, glob, DP_GLOO_SCALE)
+        got = {"one": {n: v for n, v in ref["one"].items() if n != "kept"},
+               "floor": ref["floor"], "qkv": None}
+        dist.barrier()
+        plan = [(1, world, "plain")] + ([(2, 2, mode22)] if world == 4
+                                        else [])
+        for d, m, name in plan:
+            mesh = mesh_of(m)
+            local = [shard_rows(b, DataShard(mesh.coords()["data"], d))
+                     for b in glob]
+            run_m = dataclasses.replace(run_f, zero1=name == "zero1",
                                         fsdp=name == "fsdp")
-            watch = rank == 0 and on_card and out["qkv"] is None
-            out[d, m, name], ops = mode(
-                cfg, run_m, mesh, d, m, local,
-                refs[TRAIN_MICRO if d == 1 else rows]["one"], watch)
+            watch = rank == 0 and on_card and got["qkv"] is None
+            got[d, m, name], ops = mode(c, run_m, mesh, d, m, local,
+                                        ref["one"], watch, DP_GLOO_SCALE,
+                                        cell_seq=tokens)
             if ops is not None:
-                out["qkv"] = ops
-    del refs
-    free()
-    # (c) f32, one row a step, on (1, W), the matrices x DP_GLOO_SCALE
-    # (at the fan_in weights f32 rounding alone moves the gradient by
-    # ~1%, PERF.md): the floor stays small and the comparison bites
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    run32 = dataclasses.replace(run, microbatches=1)
-    one_row = [{k: v[:1] for k, v in b.items()} for b in glob]
-    ref32 = reference(cfg32, run32, one_row, DP_GLOO_SCALE)
-    out["f32"] = {"one": {n: v for n, v in ref32["one"].items()
-                          if n != "kept"}, "floor": ref32["floor"]}
-    world = dist.get_world_size()
-    mesh = make_host_mesh(model_parallel=world, device=device)
-    out["f32"]["tp"], _ = mode(cfg32, run32, mesh, 1, world, one_row,
-                               ref32["one"], False, DP_GLOO_SCALE)
+                got["qkv"] = ops
+        del ref
+        free()
+        return got
+
+    out = {"device": str(device)}
+    if cfg is not None:
+        dense(out, RunConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                             microbatches=TRAIN_MICRO))
+    out["families"] = {label: family(c, optimizer, tokens, frames, mode22)
+                       for label, c, optimizer, tokens, frames, mode22
+                       in families}
     return out
 
 
@@ -7200,6 +7332,67 @@ def tp_report(got, world, cfg, meshes) -> None:
                     2 * cfg.n_layers, 1, world)
 
 
+def tp_attention_calls(cfg) -> int:
+    """Flash launches a step of one microbatch under remat full: each
+    attention twice (the forward and the backward's recompute), an
+    encdec decoder layer's two (self and cross) included."""
+    if cfg.family == "encdec":
+        return 2 * (cfg.n_layers + 2 * cfg.n_dec_layers)
+    return 2 * cfg.n_layers
+
+
+def tp_family_report(got, world, families) -> None:
+    """(d): each family against its one-card f32 step at dp:'s bars (or
+    TP_FLOOR_X x its f32 noise floor where that is wider), its bytes and
+    launches, on (1, W) plain and at W = 4 on (2, 2) in its mode; ms a
+    step, tokens/s against W x one card, NCCL ms, busy share and peak a
+    card beside estimate_memory."""
+    for label, c, _, tokens, frames, mode22 in families:
+        fam = [res["families"][label] for res in got]
+        f0 = fam[0]
+        bars = tp_bars(f0["one"], f0["floor"])
+        what = (f"{TP_FAMILY_ROWS} rows of {tokens} positions"
+                + (f" and {frames} source frames" if frames else ""))
+        tp_reference_line(f"tp: (d) {label} f32, matrices x "
+                          f"{DP_GLOO_SCALE}, the one-card step on {what}",
+                          f0["one"], f0["floor"], bars)
+        per_step = tp_attention_calls(c)
+        n_tok = TP_FAMILY_ROWS * tokens
+        one_rate = n_tok / float(np.median(f0["one"]["times"][1:]))
+        plan = [(1, world, "plain")] + ([(2, 2, mode22)] if world == 4
+                                        else [])
+        for d, m, name in plan:
+            tag = f"tp: (d) {label} ({d}, {m}) {name}"
+            for r, res in enumerate(fam):
+                n = res[d, m, name]["launches"].get("flash_attention", 0)
+                check(n == TP_STEPS * per_step,
+                      f"{tag} rank {r}: {n} flash_attention launches, not "
+                      f"{TP_STEPS} x {per_step}")
+            rel_l, rel_g, rel_late = tp_check(
+                tag, fam, lambda res: res[d, m, name],
+                lambda res: res["one"], bars)
+            x0 = f0[d, m, name]
+            med = float(np.median(x0["times"][1:]))
+            print(f"{tag}: against the one-card f32 step: losses "
+                  f"{x0['loss']}, grad norms {x0['norm']}: within "
+                  f"{rel_l:.3g}, {rel_g:.3g} (the first {DP_EQUAL_STEPS} "
+                  f"steps) and {rel_late:.3g} (later); after "
+                  f"{DP_EQUAL_STEPS} steps the L2 distance of parameters / "
+                  f"optimizer state by rank "
+                  f"{[res[d, m, name]['dists'] for res in fam]} (bars "
+                  f"{[round(b, 5) for b in bars[2]]}); parameters, optimizer "
+                  f"state, f32 accumulators {x0['held']} B on rank 0, as "
+                  f"abstract_state describes; ms a step "
+                  f"{[[round(t * 1e3, 1) for t in res[d, m, name]['times']] for res in fam]}"
+                  f" (per rank; median after the first on rank 0 "
+                  f"{med * 1e3:.1f}), {n_tok / med:.1f} tokens/s, "
+                  f"{n_tok / med / (world * one_rate):.4f} of {world} x the "
+                  f"one-card rate", flush=True)
+            for r, res in enumerate(fam):
+                tp_profile_line(f"{tag} rank {r} ({got[r]['device']})",
+                                res[d, m, name], per_step, d, m)
+
+
 def tp_profile_line(tag, x, per_step, d, m) -> None:
     print(f"{tag}: one step under torch.profiler: NCCL kernels "
           f"{x['nccl_ms']:.3f} ms, flash_attention "
@@ -7211,10 +7404,32 @@ def tp_profile_line(tag, x, per_step, d, m) -> None:
           flush=True)
 
 
-def tp_over_cards(seed: int, world: int) -> dict:
+def tp_family_cfgs() -> list:
+    """TP_FAMILY_RUNS as the rank body takes them: (label, config in f32
+    at full width and the run's depth, optimizer, positions, frames, the
+    (2, 2) mode)."""
+    from repro_torch.configs.registry import get_arch
+    out = []
+    for label, arch, layers, experts, optimizer, tokens, frames, mode22 in \
+            TP_FAMILY_RUNS:
+        full = get_arch(arch)
+        kw = dict(n_layers=layers, dtype="float32", remat="full")
+        if full.n_dec_layers is not None:
+            kw["n_dec_layers"] = layers
+        if full.moe is not None:
+            kw["moe_dispatch_groups"] = TP_FAMILY_ROWS
+            if experts is not None:
+                kw["moe"] = dataclasses.replace(full.moe, n_experts=experts)
+        out.append((label, dataclasses.replace(full, **kw), optimizer, tokens,
+                    frames, mode22))
+    return out
+
+
+def tp_over_cards(seed: int, world: int) -> list:
     """At count >= 2: W NCCL ranks, one card each, on TP_MESHES[W] at
-    train:'s width and depth against the one-card step; returns row
-    5-train-tp."""
+    train:'s width and depth against the one-card step, then (d) the
+    families in f32; returns row 5-train-tp and a row for each flash
+    shape (d)'s (1, W) steps gave rank 0's kernel."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.ranks import run_ranks
     t0 = time.perf_counter()
@@ -7227,15 +7442,45 @@ def tp_over_cards(seed: int, world: int) -> dict:
           f"train:'s global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
           f"{TRAIN_MICRO} microbatches (not 256 rows); meshes (data, "
           f"model, modes) {meshes}", flush=True)
-    got = run_ranks(tp_nccl_rank, world, (seed, cfg, TRAIN_SEQ, meshes),
-                    timeout_s=1500)
+    families = tp_family_cfgs()
+    for (label, c, optimizer, tokens, frames, mode22), run in zip(
+            families, TP_FAMILY_RUNS):
+        full = get_arch(run[1])
+        depth = (f"{c.n_layers} + {c.n_dec_layers} of {full.n_layers} + "
+                 f"{full.n_dec_layers}" if c.n_dec_layers else
+                 f"{c.n_layers} of {full.n_layers}")
+        experts = (f", {c.moe.n_experts} of {full.moe.n_experts} experts "
+                   f"(top {c.moe.top_k}), {TP_FAMILY_ROWS} dispatch groups"
+                   if c.moe else "")
+        print(f"tp: CUT: (d) {label} ({run[1]}) in f32 at full width "
+              f"(d_model {c.d_model}, {c.n_q_heads} q / {c.n_kv_heads} kv "
+              f"heads of {c.hd}, vocab {c.vocab}), {depth} layers{experts}, "
+              f"remat full, {optimizer}, {TP_FAMILY_ROWS} rows of {tokens} "
+              f"positions{f' and {frames} source frames' if frames else ''} "
+              f"a step in one microbatch (not train_4k's 256 rows); (1, "
+              f"{world}) plain{f' and (2, 2) {mode22}' if world == 4 else ''}",
+              flush=True)
+    got = run_ranks(tp_nccl_rank, world, (seed, cfg, TRAIN_SEQ, meshes,
+                                          families), timeout_s=2400)
     tp_report(got, world, cfg, meshes)
+    tp_family_report(got, world, families)
     print(f"tp: over {world} cards in {time.perf_counter() - t0:.1f} s",
           flush=True)
     qkv = tuple(t.to(DEVICE) for t in got[0]["qkv"])
     d, m, modes = meshes[0]
     launches = got[0][d, m, modes[0]]["launches"]["flash_attention"]
-    return tp_row(qkv, launches, 2 * TRAIN_LAYERS * TRAIN_MICRO)
+    rows = [tp_row(qkv, launches, 2 * TRAIN_LAYERS * TRAIN_MICRO)]
+    del qkv
+    for label, c, *_ in families:
+        for key, (n, qkv) in got[0]["families"][label]["qkv"].items():
+            causal, window = key[2], key[4]
+            shape = (f"window {window}" if window else "causal" if causal
+                     else "non-causal" if key[0][2] == key[1][2]
+                     else "cross")
+            rows.append(family_flash_row(
+                f"train-tp {label} ({shape})", key,
+                tuple(t.to(DEVICE) for t in qkv), n, (key[0][2],), tag="tp"))
+    return rows
 
 
 def tp_row(qkv, launches: int, per_step: int) -> dict:
@@ -7270,12 +7515,13 @@ def tp_row(qkv, launches: int, per_step: int) -> dict:
              f"x {TRAIN_MICRO} microbatches: selective remat relaunches it)")
 
 
-def tp_gloo_rank(rank, device, params, batch):
+def tp_gloo_rank(rank, device, params, batch, families):
     """The one-card rank body: gloo's collectives probed on CUDA tensors
     (an all-reduce's max too, the vocabulary split's), then
-    DP_GLOO_STEPS steps of each TP_GLOO_MESHES mode whose collectives
-    gloo has; the gathered parameters.  One thread a rank: four ranks
-    share the host with dp:'s and fsdp:'s."""
+    DP_GLOO_STEPS steps of each TP_GLOO_MESHES mode and each
+    TP_GLOO_FAMILIES run (``families``: each name's host parameters and
+    batch) whose collectives gloo has; the gathered parameters.  One
+    thread a rank: four ranks share the host with dp:'s and fsdp:'s."""
     torch.set_num_threads(1)
     import torch.distributed as dist
     from repro_torch.configs.base import RunConfig
@@ -7305,32 +7551,80 @@ def tp_gloo_rank(rank, device, params, batch):
                 torch.cuda.synchronize(device)
         except (RuntimeError, ValueError, NotImplementedError) as e:
             missing[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
-    cfg = dp_reduced_cfg()
     out = {"missing": missing}
-    for d, m, modes in TP_GLOO_MESHES:
-        mesh = make_host_mesh(model_parallel=m, device=device)
+    meshes = {(d, m): make_host_mesh(model_parallel=m, device=device)
+              for d, m, _ in TP_GLOO_MESHES}
+
+    def run_one(cfg, host, batch, d, m, mode, optimizer):
+        mesh = meshes[d, m]
         local = {k: v.to(device) for k, v in shard_rows(
             batch, DataShard(mesh.coords()["data"], d)).items()}
+        t0 = time.perf_counter()
+        run = RunConfig(optimizer=optimizer, learning_rate=1e-3,
+                        microbatches=2, zero1=mode == "zero1",
+                        fsdp=mode == "fsdp")
+        state = init_state(cfg, run, params_from_reference(
+            host, device=device), mesh=mesh)
+        step = build_train_step(cfg, run, mesh=mesh)
+        _cuda.reset_launches()
+        ms = []
+        for _ in range(DP_GLOO_STEPS):
+            state, met = step(state, local)
+            ms.append({k: float(v) for k, v in met.items()})
+        mu = [t.detach().cpu() for t in optim.tree_leaves(
+            elastic.gather_state(state["opt"]["mu"]))] \
+            if "mu" in state["opt"] else None
+        return (ms, [p.detach().cpu() for p in optim.tree_leaves(
+            elastic.gather_state(state["params"]))],
+            dict(_cuda.LAUNCHES), time.perf_counter() - t0, mu)
+
+    cfg = dp_reduced_cfg()
+    for d, m, modes in TP_GLOO_MESHES:
         for mode in modes:
-            if any(n in missing for n in TP_NEEDS[mode]):
-                continue
-            t0 = time.perf_counter()
-            run = RunConfig(learning_rate=1e-3, microbatches=2,
-                            zero1=mode == "zero1", fsdp=mode == "fsdp")
-            state = init_state(cfg, run, params_from_reference(
-                params, device=device), mesh=mesh)
-            step = build_train_step(cfg, run, mesh=mesh)
-            _cuda.reset_launches()
-            ms = []
-            for _ in range(DP_GLOO_STEPS):
-                state, met = step(state, local)
-                ms.append({k: float(v) for k, v in met.items()})
-            out[d, m, mode] = (ms, [p.detach().cpu() for p in
-                                    optim.tree_leaves(elastic.gather_state(
-                                        state["params"]))],
-                               dict(_cuda.LAUNCHES),
-                               time.perf_counter() - t0)
+            if not any(n in missing for n in TP_NEEDS[mode]):
+                out[d, m, mode] = run_one(cfg, params, batch, d, m, mode,
+                                          "adamw")
+    for name, _, _, d, m, mode, optimizer in TP_GLOO_FAMILIES:
+        if not any(n in missing for n in TP_NEEDS[mode]):
+            out[name, d, m, mode] = run_one(tp_family_cfg(name), *families[
+                name], d, m, mode, optimizer)
     return out
+
+
+def tp_family_cfg(name: str):
+    """A TP_GLOO_FAMILIES config: the arch's reduced config in f32 with
+    selective remat and the entry's changes (the MoE's at capacity
+    factor 1.25 in 2 dispatch groups)."""
+    from repro_torch.configs.registry import get_arch
+    _, arch, changes, *_ = next(f for f in TP_GLOO_FAMILIES if f[0] == name)
+    changes = dict(changes)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                              remat="selective",
+                              vocab=changes.pop("vocab", None)
+                              or get_arch(arch).reduced().vocab)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe_dispatch_groups=2, moe=(
+            dataclasses.replace(cfg.moe, capacity_factor=1.25, **changes)))
+    return cfg
+
+
+def tp_family_inputs(seed: int, name: str):
+    """A TP_GLOO_FAMILIES config's parameters (matrices x DP_GLOO_SCALE)
+    and batch of 4 x 64 positions (a vlm's prefix among them), on the
+    host."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim
+    cfg = tp_family_cfg(name)
+    params = optim.tree_map(
+        lambda p: p * DP_GLOO_SCALE if p.dim() >= 2 else p,
+        init_params(zoo.model_specs(cfg), torch.Generator().manual_seed(seed),
+                    "float32", device="cpu"))
+    batch = zoo.make_batch(cfg, ShapeCell("t", 64, 4, "train"), seed,
+                           device="cpu")
+    batch["labels"][0, :20] = -1          # the ranks' label counts differ
+    return params, batch
 
 
 def tp_gloo_start(seed: int):
@@ -7338,88 +7632,149 @@ def tp_gloo_start(seed: int):
     from repro_torch.train import optim
     params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
     host = optim.tree_map(lambda p: p.numpy().copy(), params)
-    return gloo_start(tp_gloo_rank, (host, batch), "tp:", world=4)
+    families = {}
+    for name, *_ in TP_GLOO_FAMILIES:
+        fp, fb = tp_family_inputs(seed, name)
+        families[name] = (optim.tree_map(lambda p: p.numpy().copy(), fp), fb)
+    return gloo_start(tp_gloo_rank, (host, batch, families), "tp:", world=4)
 
 
 def tp_gloo_finish(seed: int, pending) -> None:
-    """The one-card check finished: each mode on the four gloo ranks
-    held within DP_GLOO_REL of the one-process step on the card."""
+    """The one-card check finished: each mode and each family run on
+    the four gloo ranks held within DP_GLOO_REL of the one-process step
+    on the card."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.train import optim
     from repro_torch.train.step import build_train_step, init_state
     t0 = pending[-1]
     got = gloo_join(pending)
-    cfg = dp_reduced_cfg()
-    run = RunConfig(learning_rate=1e-3, microbatches=2)
-    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
-    state = init_state(cfg, run, optim.tree_map(
-        lambda p: p.to(DEVICE, copy=True), params))
-    step = build_train_step(cfg, run)
-    want = []
-    for _ in range(DP_GLOO_STEPS):
-        state, m = step(state, {k: v.to(DEVICE) for k, v in batch.items()})
-        want.append({k: float(v) for k, v in m.items()})
-    want_p = [p.detach().cpu() for p in optim.tree_leaves(state["params"])]
-    del state
+
+    def one_process(cfg, params, batch, optimizer):
+        run = RunConfig(optimizer=optimizer, learning_rate=1e-3,
+                        microbatches=2)
+        state = init_state(cfg, run, optim.tree_map(
+            lambda p: p.to(DEVICE, copy=True), params))
+        step = build_train_step(cfg, run)
+        want = []
+        for _ in range(DP_GLOO_STEPS):
+            state, m = step(state, {k: v.to(DEVICE) for k, v in
+                                    batch.items()})
+            want.append({k: float(v) for k, v in m.items()})
+        mu = [t.detach().cpu() for t in optim.tree_leaves(
+            state["opt"]["mu"])] if "mu" in state["opt"] else None
+        return want, [p.detach().cpu() for p in
+                      optim.tree_leaves(state["params"])], mu
+
+    def hold(key, what, want, want_p, want_mu):
+        worst_m = worst_p = worst_mu = 0.0
+        flips = 0
+        for r in got:
+            ms, ps, launches, _, mus = r[key]
+            check(launches.get("flash_attention", 0) > 0,
+                  f"tp: {what}: no flash_attention launch on a rank "
+                  f"({launches})")
+            for g, w in zip(ms, want):
+                worst_m = max([worst_m] + [
+                    abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w])
+            for i, (a, b) in enumerate(zip(ps, want_p)):
+                off = (a - b).abs() / b.abs().max()
+                far = off > DP_GLOO_REL
+                if want_mu is not None:
+                    mu = want_mu[i].abs()
+                    worst_mu = max(worst_mu, float(
+                        (mus[i] - want_mu[i]).abs().max() / mu.max()))
+                if want_mu is not None and far.any():
+                    check(float(far.float().mean()) < TP_FLIP_FRAC and bool(
+                        (mu[far] <= TP_NOISE_REL * mu.max()).all()),
+                          f"tp: {what}: {int(far.sum())} of {far.numel()} "
+                          f"elements of parameter {i} part from the "
+                          f"one-process step by up to {float(off.max()):.3g} "
+                          f"of its scale, not all where its first moment is "
+                          f"within {TP_NOISE_REL:g} of the largest")
+                    flips += int(far.sum())
+                    off = off[~far]
+                worst_p = max(worst_p, float(off.max()) if off.numel()
+                              else 0.0)
+        check(worst_m <= DP_GLOO_REL and worst_p <= DP_GLOO_REL
+              and worst_mu <= DP_GLOO_REL,
+              f"tp: {what} on four gloo ranks differs from the one-process "
+              f"step: metrics {worst_m:.3g}, params {worst_p:.3g}, first "
+              f"moments {worst_mu:.3g} (bar {DP_GLOO_REL:g})")
+        print(f"tp: {what} on four gloo ranks on the card (f32, matrices x "
+              f"{DP_GLOO_SCALE}, 4 x 64 positions in 2 microbatches, "
+              f"{DP_GLOO_STEPS} steps): metrics within {worst_m:.3g} and "
+              f"gathered parameters within {worst_p:.3g} of their scale of "
+              f"the one-process step on the card (bar {DP_GLOO_REL:g}; "
+              f"{flips} elements past it by rank, each where AdamW's first "
+              f"moment is rounding noise, the first moments then within "
+              f"{worst_mu:.3g}); "
+              f"flash_attention launches per rank "
+              f"{[r[key][2].get('flash_attention', 0) for r in got]}; "
+              f"{max(r[key][3] for r in got):.1f} s on the ranks",
+              flush=True)
+
+    def cut(key, what, mode):
+        if key in got[0]:
+            return False
+        print(f"tp: CUT: {what} not run on four gloo ranks on the card: it "
+              f"needs {', '.join(n for n in TP_NEEDS[mode] if n in missing)}",
+              flush=True)
+        return True
+
     missing = got[0]["missing"]
     if missing:
         print("tp: CUT: gloo lacks on CUDA tensors: " + "; ".join(
             f"{n} ({why})" for n, why in missing.items()), flush=True)
+    params, batch = dp_reduced_inputs(seed, DP_GLOO_SCALE)
+    want = one_process(dp_reduced_cfg(), params, batch, "adamw")
     for d, m, modes in TP_GLOO_MESHES:
         for mode in modes:
-            if (d, m, mode) not in got[0]:
-                print(f"tp: CUT: ({d}, {m}) {mode} not run on four gloo "
-                      f"ranks on the card: it needs "
-                      f"{', '.join(n for n in TP_NEEDS[mode] if n in missing)}",
-                      flush=True)
-                continue
-            worst_m = worst_p = 0.0
-            for r in got:
-                ms, ps, launches, _ = r[d, m, mode]
-                check(launches.get("flash_attention", 0) > 0,
-                      f"tp: ({d}, {m}) {mode}: no flash_attention launch on "
-                      f"a rank ({launches})")
-                for g, w in zip(ms, want):
-                    worst_m = max([worst_m] + [
-                        abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w])
-                worst_p = max([worst_p] + [
-                    float((a - b).abs().max() / b.abs().max())
-                    for a, b in zip(ps, want_p)])
-            check(worst_m <= DP_GLOO_REL and worst_p <= DP_GLOO_REL,
-                  f"tp: ({d}, {m}) {mode} on four gloo ranks differs from "
-                  f"the one-process step: metrics {worst_m:.3g}, params "
-                  f"{worst_p:.3g} (bar {DP_GLOO_REL:g})")
-            print(f"tp: ({d}, {m}) {mode} on four gloo ranks on the card "
-                  f"(reduced {TRAIN_ARCH}, f32, matrices x {DP_GLOO_SCALE}, "
-                  f"4 x 64 tokens in 2 microbatches, {DP_GLOO_STEPS} "
-                  f"steps): metrics within {worst_m:.3g} and gathered "
-                  f"parameters within {worst_p:.3g} of their scale of the "
-                  f"one-process step on the card (bar {DP_GLOO_REL:g}); "
-                  f"flash_attention launches per rank "
-                  f"{[r[d, m, mode][2].get('flash_attention', 0) for r in got]}; "
-                  f"{max(r[d, m, mode][3] for r in got):.1f} s on the ranks",
-                  flush=True)
+            what = f"({d}, {m}) {mode} (reduced {TRAIN_ARCH}, AdamW)"
+            if not cut((d, m, mode), what, mode):
+                hold((d, m, mode), what, *want)
+    print("tp: CUT: the families run reduced (d_model 128, 4 q heads, "
+          "vocab 512, 4 experts of d 64): mixtral-emlp is reduced mixtral "
+          "at 3 experts, a count that divides neither line, so each "
+          "expert's expert_mlp dim splits (mixtral's 8 on the production "
+          "line of 16); seamless runs at a vocabulary of 510, which "
+          "divides by 2 and not by 4, as its 256,206 does", flush=True)
+    wants = {}
+    for name, arch, _, d, m, mode, optimizer in TP_GLOO_FAMILIES:
+        cfg = tp_family_cfg(name)
+        what = (f"({d}, {m}) {mode} reduced {name} ({arch}, {optimizer}; "
+                f"experts split {cfg.moe.n_experts % m == 0}"
+                if cfg.moe else f"({d}, {m}) {mode} reduced {name} "
+                f"({arch}, {optimizer}; vocabulary split "
+                f"{cfg.vocab % m == 0}") + ")"
+        if cut((name, d, m, mode), what, mode):
+            continue
+        if (name, optimizer) not in wants:
+            wants[name, optimizer] = one_process(
+                cfg, *tp_family_inputs(seed, name), optimizer)
+        hold((name, d, m, mode), what, *wants[name, optimizer])
     print(f"tp: the gloo ranks in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
-def phase_tp(seed: int, count: int, pending=None):
-    """The dense training step tensor-parallel over processes (ROADMAP
-    Queue A item 8(a)): over every card where there are several
-    (returns row 5-train-tp); at one card four gloo ranks on the card
-    (``pending``: their ``gloo_start`` where the caller started them,
-    else started here; returns None)."""
+def phase_tp(seed: int, count: int, pending=None) -> list:
+    """The training step tensor-parallel over processes (ROADMAP Queue A
+    items 8(a) and 8(b) part 1: the dense, moe, vlm and encdec
+    families): over every card where there are several (returns row
+    5-train-tp and the families' flash rows); at one card four gloo
+    ranks on the card (``pending``: their ``gloo_start`` where the
+    caller started them, else started here; returns no row)."""
     t_phase = time.perf_counter()
-    row = None
+    rows = []
     if count >= 2:
-        row = tp_over_cards(seed, count)
+        rows = tp_over_cards(seed, count)
     else:
         print("tp: CUT: one card: NCCL takes one card a rank, so the phase "
-              "runs four gloo ranks on the card at the reduced f32 llama, "
-              "not train:'s width over several cards", flush=True)
+              "runs four gloo ranks on the card at the reduced f32 llama "
+              "and families, not train:'s width over several cards",
+              flush=True)
         tp_gloo_finish(seed, pending or tp_gloo_start(seed))
     print(f"tp: all in {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return row
+    return rows
 
 
 # --------------------------------------------------------------- retrieval
@@ -7600,8 +7955,7 @@ def main() -> int:
         finish([phase_fsdp(args.seed, count)], t_start, smi, name, count)
         return 0
     if args.tp_only:
-        row = phase_tp(args.seed, count)
-        finish([row] if row else [], t_start, smi, name, count)
+        finish(phase_tp(args.seed, count), t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -7730,9 +8084,7 @@ def main() -> int:
     mark("fsdp", t_start)
     kernels.append(phase_fsdp(args.seed, count, ranks.get("fsdp")))
     mark("tp", t_start)
-    row = phase_tp(args.seed, count, ranks.get("tp"))
-    if row:
-        kernels.append(row)
+    kernels += phase_tp(args.seed, count, ranks.get("tp"))
     finish(kernels, t_start, smi, name, count)
     return 0
 

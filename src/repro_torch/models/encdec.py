@@ -17,7 +17,10 @@ with the gradient of :func:`plain_attention`; on the CPU it is
 picked as ``encdec.py:67`` picks them.  Decode attention is plain
 torch.  Under FSDP each layer gathers its chunks inside the remat'd
 layer function and the loss gathers ``embed`` and ``lm_head`` once, as
-``transformer`` does.
+``transformer`` does.  Under tensor parallelism (a ``model`` axis over
+ranks) every attention runs the rank's heads and the MLP its columns,
+as ``transformer`` splits them; the embedding, head and NLL are the
+vocabulary-split ones where the guard splits the vocabulary.
 """
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ import functools
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import (F32, apply_rope, attention_specs, chunked_attention,
+from .layers import (apply_rope, attention_specs, chunked_attention,
                      decode_attention, dense_attention, flash_attention,
                      mlp_specs, rmsnorm, rope_tables, swiglu)
 from .params import ParamSpec, torch_dtype
 from ..sharding import collective
-from .transformer import (_nll_loss, _qkv, _remat, _rope, _stack,
-                          gather_outside, layer_params, zeros_cache)
+from .transformer import (_embed, _nll_loss, _qkv, _rank_heads, _remat,
+                          _rope, _stack, _unembed, gather_outside,
+                          layer_params, zeros_cache)
 
 
 def enc_block_specs(cfg: ModelConfig) -> dict:
@@ -97,6 +101,17 @@ def plain_attention(q, k, v, cfg: ModelConfig, causal: bool):
 
 def _attend(p, xq, xkv, cfg, cos_q, sin_q, cos_k, sin_k, causal,
             rope: bool = True):
+    """Attention of ``xq``'s queries against ``xkv``'s keys and values
+    (the same tensor for self-attention).  Under tensor parallelism the
+    rank's heads (``transformer._rank_heads``): both inputs enter through
+    ``collective.to_model`` (so the cross-attention's ``memory`` carries
+    its gradient summed over the line out of every decoder layer) and
+    the row-split ``wo``'s partial sums leave through ``from_model``."""
+    p, split = _rank_heads(p, cfg)
+    if split:
+        same = xkv is xq
+        xq = collective.to_model(xq)
+        xkv = xq if same else collective.to_model(xkv)
     q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"])
@@ -105,7 +120,8 @@ def _attend(p, xq, xkv, cfg, cos_q, sin_q, cos_k, sin_k, causal,
         q = apply_rope(q, cos_q, sin_q, rot)
         k = apply_rope(k, cos_k, sin_k, rot)
     o = attention(q, k, v, cfg, causal)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return (collective.from_model(out) if split else out), (k, v)
 
 
 def encode(params, src_embeds, cfg: ModelConfig):
@@ -125,7 +141,8 @@ def _enc_layer(lp, x, cfg: ModelConfig, cos, sin):
     a, _ = _attend(lp["attn"], xn, xn, cfg, cos, sin, cos, sin,
                    causal=False)
     x = x + a
-    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
+    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps),
+               cfg.d_ff)
     return (x + f).to(x.dtype)
 
 
@@ -140,7 +157,8 @@ def _dec_layer(lp, x, memory, cfg: ModelConfig, cos, sin):
     c, _ = _attend(lp["cross"], xn, memory, cfg, None, None, None, None,
                    causal=False, rope=False)
     x = x + c
-    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
+    f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps),
+               cfg.d_ff)
     return (x + f).to(x.dtype), kv
 
 
@@ -148,7 +166,7 @@ def _decoder(params, memory, tokens, cfg: ModelConfig, on_kv=None):
     """The decoder over the whole of ``tokens`` against ``memory``;
     ``on_kv(i, k, v)`` receives layer i's self-attention keys and
     values.  Returns the hidden states."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, vocab=cfg.vocab)
     cos, sin = _rope(x.shape[1], cfg, x.device)
     layer = _remat(_dec_layer, cfg)
     for i in range(cfg.n_dec_layers or cfg.n_layers):
@@ -159,15 +177,10 @@ def _decoder(params, memory, tokens, cfg: ModelConfig, on_kv=None):
     return x
 
 
-def _logits(params, x, cfg: ModelConfig):
-    xn = rmsnorm(x, params["final_norm"], cfg.norm_eps).to(F32)
-    return xn @ params["lm_head"].to(F32)
-
-
 def decode_train(params, memory, tokens, cfg: ModelConfig):
     """Teacher-forced decoder over the full target sequence -> logits
     (B, S, V) f32."""
-    return _logits(params, _decoder(params, memory, tokens, cfg), cfg)
+    return _unembed(params, _decoder(params, memory, tokens, cfg), cfg)
 
 
 def encdec_loss(params, batch: dict, cfg: ModelConfig):
@@ -222,7 +235,7 @@ def encdec_prefill(params, src_embeds, tokens, cfg: ModelConfig,
 
     x = _decoder(params, memory, tokens, cfg, store)
     cache["pos"] = s
-    return _logits(params, x[:, -1:], cfg), cache
+    return _unembed(params, x[:, -1:], cfg), cache
 
 
 def encdec_decode_step(params, token, cache, cfg: ModelConfig):
@@ -253,4 +266,4 @@ def encdec_decode_step(params, token, cache, cfg: ModelConfig):
         x = x + torch.einsum("bshk,hkd->bsd", oc, lp["cross"]["wo"])
         f = swiglu(lp["mlp"], rmsnorm(x, lp["mlp_norm"], cfg.norm_eps))
         x = (x + f).to(x.dtype)
-    return _logits(params, x, cfg), dict(cache, pos=pos + 1)
+    return _unembed(params, x, cfg), dict(cache, pos=pos + 1)

@@ -25,6 +25,11 @@ over the microbatch's tokens on every rank (one sum over the group a
 layer), and the dispatch groups partition the global token order as the
 reference's do, so each rank routes its G / W of them; a group count
 that is not a multiple of W after the reference's halving is refused.
+
+Under tensor parallelism (a ``model`` axis over ranks) the experts
+split over the line where their count divides it, else each expert's
+``expert_mlp`` dim does (:func:`moe_ffn`); the aux terms and the
+dispatch tables come from the whole logits on every rank of the line.
 """
 from __future__ import annotations
 
@@ -75,13 +80,20 @@ def _scatter_last(slot, vals, n: int, fill):
                                   device=vals.device))
 
 
-def _dispatch_one_group(xf, logits, m: MoEConfig, cap: int):
+def _dispatch_one_group(xf, logits, m: MoEConfig, cap: int, gate=None,
+                        experts=None):
     """Route one token group: (T_g, D) -> gathered (E, cap, D) buffers,
     tok_of_slot (E * cap,) int32 (-1 where empty), gate_of_slot f32 and
-    the occupied mask."""
+    the occupied mask.  Under tensor parallelism ``gate`` takes the
+    softmax gates (``collective.to_model``: each rank's combine reads
+    them through its part of the experts' outputs) and ``experts`` =
+    (first, count) keeps those experts' slots: the tables are computed
+    whole from the whole logits, alike on every rank of the line."""
     t, d = xf.shape
     gate_vals, expert_idx = torch.topk(logits, m.top_k, dim=-1)  # (T, k)
     gates = torch.softmax(gate_vals, dim=-1)
+    if gate is not None:
+        gates = gate(gates)
     a = t * m.top_k
     flat_e = expert_idx.reshape(a)
     flat_t = torch.arange(t, dtype=torch.int32,
@@ -98,10 +110,13 @@ def _dispatch_one_group(xf, logits, m: MoEConfig, cap: int):
     tok_of_slot = _scatter_last(slot, torch.where(keep, st_, -1), n, -1)[:-1]
     gate_of_slot = _scatter_last(slot, torch.where(keep, sg, 0.0), n,
                                  0.0)[:-1]
+    first, count = experts or (0, m.n_experts)
+    mine = slice(first * cap, (first + count) * cap)
+    tok_of_slot, gate_of_slot = tok_of_slot[mine], gate_of_slot[mine]
     occupied = tok_of_slot >= 0
     xin = torch.where(occupied[:, None], xf[tok_of_slot.clamp(min=0).long()],
                       torch.zeros((), dtype=xf.dtype, device=xf.device))
-    return (xin.reshape(m.n_experts, cap, d), tok_of_slot, gate_of_slot,
+    return (xin.reshape(count, cap, d), tok_of_slot, gate_of_slot,
             occupied)
 
 
@@ -113,15 +128,50 @@ def _combine_one_group(eo, tok_of_slot, gate_of_slot, occupied, t: int,
         0, idx, contrib)[:-1]
 
 
+def _model_splits(p: dict, m: MoEConfig) -> tuple:
+    """(experts split, expert_mlp split, shared experts split): which of
+    the weights hold the rank's chunk (fewer than the whole extent)
+    under an active model line; all False without one."""
+    if collective.model_line() is None:
+        return False, False, False
+    shared = bool(m.n_shared_experts) and \
+        p["ws1"].shape[-1] < m.d_expert * m.n_shared_experts
+    return (p["we1"].shape[0] < m.n_experts,
+            p["we1"].shape[-1] < m.d_expert, shared)
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) -> (y, aux) with aux = {load_balance, router_z}.
     Tokens are split into ``cfg.moe_dispatch_groups`` groups (halved
-    until they divide B * S) and routed group-locally."""
+    until they divide B * S) and routed group-locally.
+
+    Under tensor parallelism (an active model line) the weights are the
+    rank's chunks, as the guard split them: by ``experts`` (``we*``'s
+    leading dim and the router's columns) where the expert count divides
+    the line, else by ``expert_mlp`` (``we1`` / ``we3`` by column,
+    ``we2`` by row, the router whole); the shared experts by ``mlp``.
+    The router's column chunks are gathered into the whole logits
+    (``collective.gather_from_model``: its backward keeps the rank's
+    slice), from which every rank computes the aux terms and the
+    dispatch tables alike, so the aux terms' gradient is counted once;
+    the gates pass ``collective.to_model``, since each rank's combine
+    reads them through its part of the experts' outputs.  A rank runs
+    its experts' slots (experts split) or its slice of every expert
+    (expert_mlp split) on the tokens through ``to_model``, and the
+    partial sums, the shared experts' with them, leave through one
+    ``collective.from_model``."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    logits = xf.to(F32) @ p["router"].to(F32)
+    e_split, f_split, s_split = _model_splits(p, m)
+    routed_part = e_split or f_split
+    xe = collective.to_model(xf) if routed_part or s_split else xf
+    if e_split:
+        logits = collective.gather_from_model(
+            xe.to(F32) @ p["router"].to(F32))
+    else:
+        logits = xf.to(F32) @ p["router"].to(F32)
     probs = torch.softmax(logits, dim=-1)                         # (T, E)
 
     # ---- aux losses (f32, global) -------------------------------------
@@ -152,10 +202,18 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     cap = int(max(min(tg, 16), round(a_g / m.n_experts * m.capacity_factor)))
     # the reference's activation constraints (identities in one process)
     dp = ("pod", "data")
-    xg = maybe_constrain(xf.reshape(groups, tg, d), (dp, None, None))
+    xg = maybe_constrain((xe if routed_part else xf).reshape(groups, tg, d),
+                         (dp, None, None))
     lg = maybe_constrain(logits.reshape(groups, tg, m.n_experts),
                          (dp, None, None))
-    routed = [_dispatch_one_group(x_, l_, m, cap) for x_, l_ in zip(xg, lg)]
+    kw = {}
+    if routed_part:
+        n_e = p["we1"].shape[0]
+        kw = {"gate": collective.to_model,
+              "experts": (collective.model_line().index * n_e, n_e)
+              if e_split else None}
+    routed = [_dispatch_one_group(x_, l_, m, cap, **kw)
+              for x_, l_ in zip(xg, lg)]
     xin = maybe_constrain(torch.stack([r[0] for r in routed]),
                           (dp, "model", None, None))      # (G, E, cap, D)
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["we1"])) * \
@@ -166,8 +224,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
                     for e, r in zip(eo, routed)])
 
     if m.n_shared_experts:
-        hs = F.silu(xf @ p["ws1"]) * (xf @ p["ws3"])
-        yf = yf + (hs @ p["ws2"]).to(F32)
+        xs = xe if s_split else xf
+        hs = F.silu(xs @ p["ws1"]) * (xs @ p["ws3"])
+        ys = (hs @ p["ws2"]).to(F32)
+        if s_split == routed_part:
+            yf = collective.from_model(yf + ys) if s_split else yf + ys
+        elif s_split:
+            yf = yf + collective.from_model(ys)
+        else:
+            yf = collective.from_model(yf) + ys
+    elif routed_part:
+        yf = collective.from_model(yf)
 
     y = yf.to(x.dtype).reshape(b, s, d)
     return y, {"load_balance": load_balance, "router_z": router_z}

@@ -49,8 +49,9 @@ the hybrid's ``shared`` block and ``shared_proj``) are gathered once
 where the loss begins, so a tied ``embed`` has one gather, one
 gradient and one reduce-scatter.  The norms are never sharded.
 
-Under tensor parallelism (the dense family, the training step over a
-``model`` axis of several ranks: ``collective.model_line()``) each rank
+Under tensor parallelism (the dense, moe and vlm families, the
+training step over a ``model`` axis of several ranks:
+``collective.model_line()``) each rank
 holds its chunks of the weights the guard puts on ``model`` and the
 model reads the split from their shapes: attention runs the rank's
 q heads (``wq`` by column, ``wo`` by row, then
@@ -59,9 +60,11 @@ where the guard left ``wk`` / ``wv`` whole, the kv heads of its own q
 heads, their gradient summed over the line by ``collective.to_model``
 on the weights); the MLP is ``swiglu``'s split; the embedding looks up
 the rank's vocabulary rows (other tokens give zeros) and sums over the
-line; the head gives the rank's vocabulary columns in f32, and the NLL
-takes its logsumexp and the label's logit over the line
-(``collective.model_max`` / ``from_model``).
+line (a vlm's prefix is concatenated after that sum, once); the head
+gives the rank's vocabulary columns in f32, and the NLL takes its
+logsumexp and the label's logit over the line
+(``collective.model_max`` / ``from_model``); the MoE block splits as
+``moe.moe_ffn`` says.
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ f32 into the step's accumulator chunk (:class:`_Gather`).
 Tensor parallelism over processes (the ``model`` axis over ranks):
 the ranks of a :class:`ModelLine` share a microbatch's rows and each
 holds its chunk of every weight that ``default_rules`` puts on
-``model`` (heads, kv heads, mlp, vocab), split by
+``model`` (heads, kv heads, mlp, vocab, experts or expert_mlp), split by
 :func:`model_split` and tagged with that ``Shard`` (:func:`tag_model`);
 the model code runs on those chunks as they are.  Two operators join
 the ranks' parts, Megatron's ``f`` and ``g``: :func:`to_model`
@@ -37,10 +37,11 @@ rank's part of it came through its own chunk) ahead of a column split,
 and :func:`from_model` (the partial sums all-reduced forward; the
 gradient as it is, every rank's downstream being the same) after a row
 split, and the vocabulary split's sums.  :func:`model_max` is that
-split's max.  The active line is :class:`DataParallel`'s
-``model`` (:func:`model_line`).  A chunk under FSDP or ZeRO-1 over
-TP is the data split of the model chunk: :func:`whole` gathers both,
-:func:`cut` cuts both.
+split's max; :func:`gather_from_model` joins a column split whose
+whole output every rank needs (the MoE router's logits).  The active
+line is :class:`DataParallel`'s ``model`` (:func:`model_line`).  A
+chunk under FSDP or ZeRO-1 over TP is the data split of the model
+chunk: :func:`whole` gathers both, :func:`cut` cuts both.
 """
 from __future__ import annotations
 
@@ -195,6 +196,31 @@ def from_model(x: torch.Tensor) -> torch.Tensor:
     split's sums; ``x`` itself with no line."""
     mp = model_line()
     return x if mp is None else _ReduceFromModel.apply(x, mp.group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: the line's chunks of ``x`` concatenated along ``dim`` in
+    rank order (every rank holds the whole).  Backward: this rank's
+    slice of the gradient: what follows runs alike on every rank of the
+    line, so each holds the whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mp):
+        ctx.sh = Shard(dim, x.shape[dim] * mp.size, mp.index, mp.size,
+                       mp.group)
+        return all_gather(x.detach(), ctx.sh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.sh.of(grad), None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor of the line's chunks of ``x`` along ``dim``
+    (:class:`_GatherFromModel`: the MoE router's expert columns); ``x``
+    itself with no line."""
+    mp = model_line()
+    return x if mp is None else _GatherFromModel.apply(x, dim % x.dim(), mp)
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:
@@ -464,7 +490,7 @@ def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
 
 __all__ = ["ModelLine", "DataParallel", "data_parallel", "active",
            "global_sum", "model_line", "to_model", "from_model",
-           "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
+           "gather_from_model", "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
            "model_split", "shard_for", "barrier", "tag", "shard_of",
            "tag_model", "model_of", "whole", "cut", "reduce_scatter",
            "all_gather", "gather", "gathered", "layer", "gather_rows"]

@@ -60,14 +60,17 @@ the step is the reference's GSPMD step on the global batch:
   gathers the parameter and the gradient, updates the whole leaf as
   every rank does alike, and keeps its chunk).
 
-Tensor parallelism (a ``model`` axis of several ranks; the dense
-family): the ranks of a model line take the same rows, and each holds
-its chunk of every parameter whose ``default_rules`` axis (heads, kv
-heads, mlp, vocab) the divisibility guard leaves on ``model``
+Tensor parallelism (a ``model`` axis of several ranks; the dense,
+moe, vlm and encdec families): the ranks of a model line take the same
+rows, and each holds its chunk of every parameter whose
+``default_rules`` axis (heads, kv heads, mlp, vocab, experts or, where
+the expert count does not divide the line, expert_mlp) the
+divisibility guard leaves on ``model``
 (``init_state`` / :func:`shard_params` cut them from the whole tree,
 tagged with their model ``Shard``).  The model runs on the chunks,
 joined by ``collective.to_model`` / ``from_model`` (Megatron's column
-and row splits, the vocabulary-split embedding, head and NLL); a kv
+and row splits, the vocabulary-split embedding, head and NLL, the MoE
+router's logits gathered whole: ``models.moe.moe_ffn``); a kv
 head replicated by the guard carries its gradient summed over the line
 out of the model, so every gradient leaves the loss whole for its
 chunk.  Plain DP, ZeRO-1 and FSDP then run as above on the model
@@ -80,10 +83,9 @@ lines, and keeps its chunk.
 
 The bytes a rank holds (parameters, optimizer state, accumulators) are
 the shard bytes ``abstract_state`` and the gradient shardings describe.
-A model axis over several ranks for the moe, ssm, hybrid, vlm and
-encdec families (ROADMAP Queue A item 8(b)), and a data or model axis
-over several distinct cards in one process, raise
-``NotImplementedError``.
+A model axis over several ranks for the ssm and hybrid families
+(ROADMAP Queue A item 8(b), part 2), and a data or model axis over
+several distinct cards in one process, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -203,14 +205,15 @@ def _model_layout(cfg, run, mesh, dp_axes=None):
     tensor parallelism over a mesh of processes (the ``model`` entry of
     its guarded sharding under ``default_rules(fsdp=run.fsdp)``), or
     None where the guard leaves it whole on the line; None for the whole
-    tree with no model axis of several ranks, or none split.  The
-    families other than the dense one raise ``NotImplementedError``
-    (ROADMAP Queue A item 8(b))."""
+    tree with no model axis of several ranks, or none split.  The ssm
+    and hybrid families raise ``NotImplementedError`` (ROADMAP Queue A
+    item 8(b), part 2: ``in_proj``'s output dim concatenates z, x, B, C
+    and dt, which a contiguous split cuts across)."""
     if mesh is None or getattr(mesh, "group", None) is None \
             or mesh.shape.get(MODEL_AXIS, 1) == 1:
         return None
     n = mesh.shape[MODEL_AXIS]
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"training the {cfg.family} family over a model axis of {n} "
             "ranks (tensor parallelism) is not ported: only the data axes "

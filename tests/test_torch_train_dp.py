@@ -299,11 +299,11 @@ def _fault_loop(rank, mesh, ref_params, tmp):
 def _refusals(rank, mesh, ref_params, batch):
     """What raises: FSDP over a data axis of distinct cards in one
     process, FSDP with a model axis over ranks for a family tensor
-    parallelism does not run yet (the MoE: the step and the state), a
-    batch that does not divide into microbatches x ranks, MoE groups
-    not a multiple of the ranks, and a model axis over ranks for that
-    family (ROADMAP Queue A item 8(b); the dense family's is
-    tests/test_torch_train_tp.py's)."""
+    parallelism does not run yet (the ssm family: the step and the
+    state), a batch that does not divide into microbatches x ranks, MoE
+    groups not a multiple of the ranks, and a model axis over ranks for
+    the ssm family (ROADMAP Queue A item 8(b); the other families' are
+    tests/test_torch_train_tp.py's and test_torch_train_tp_families.py's)."""
     out = {}
     cfg = _cfg("llama3-8b")
     params = params_from_reference(ref_params["llama3-8b"], device="cpu")
@@ -324,8 +324,9 @@ def _refusals(rank, mesh, ref_params, batch):
                         device="cpu")
     moe = _cfg("mixtral-8x7b")
     mp = params_from_reference(ref_params["mixtral-8x7b"], device="cpu")
+    ssm = get_arch("mamba2-780m").reduced()
     out["fsdp_model_state"] = raises(NotImplementedError, lambda: init_state(
-        moe, run, mp, mesh=model))
+        ssm, run, {}, mesh=model))
     run = _run("plain", "adamw", 4, False)
     out["batch"] = raises(ValueError, lambda: build_train_step(
         cfg, run, mesh=mesh)(init_state(cfg, run, params), local))
@@ -335,9 +336,9 @@ def _refusals(rank, mesh, ref_params, batch):
         one_group, run, mesh=mesh)(init_state(one_group, run, mp), shard_rows(
             _tensors(batch["mixtral-8x7b"]), DataShard(rank, W))))
     out["fsdp_model"] = raises(NotImplementedError, lambda: build_train_step(
-        moe, RunConfig(fsdp=True), mesh=model))
+        ssm, RunConfig(fsdp=True), mesh=model))
     out["model"] = raises(NotImplementedError, lambda: build_train_step(
-        moe, RunConfig(), mesh=model))
+        ssm, RunConfig(), mesh=model))
     return out
 
 
