@@ -484,7 +484,11 @@ Phases, each printing lines that start with its name:
             embedding, head and NLL by vocabulary; item 8(b) part 1,
             the moe, vlm and encdec families: experts or expert_mlp,
             the router's gathered logits, the vlm prefix, the encoder
-            and cross-attention), composed with plain DP, ZeRO-1 and
+            and cross-attention; item 8(b) part 2, the ssm and hybrid
+            families: the mamba mixer's ssm_inner chunks, its in_proj
+            output and conv gathered whole, its heads, the gated norm
+            summed over the line, the hybrid's shared block), composed
+            with plain DP, ZeRO-1 and
             FSDP over the data axis.  At count >= 2: train:'s llama3-8b
             at full width, 4 of 32 layers (a CUT line), its global
             batch of 8 x 4,096 tokens in 4 microbatches, on (data 1,
@@ -515,11 +519,14 @@ Phases, each printing lines that start with its name:
             width and a cut depth (CUT lines; the matrices x
             DP_GLOO_SCALE, remat full, TP_FAMILY_ROWS rows a step):
             mixtral (2 layers), kimi (1 layer, 64 experts, Adafactor),
-            llava (2 layers, its prefix) and seamless (2 + 2 layers,
-            more source frames than tokens) on (1, count) plain and at
+            llava (2 layers, its prefix), seamless (2 + 2 layers,
+            more source frames than tokens), mamba2 (4 layers) and
+            zamba2 (6 layers: one super-block, Adafactor) on (1,
+            count) plain and at
             count 4 on (2, 2) under ZeRO-1 or FSDP, each against its
             one-card f32 step at (c)'s bars, with its bytes, exact
-            flash launches, ms a step, tokens/s, NCCL ms, busy share and
+            flash launches, ms a step, tokens/s, NCCL ms (by collective:
+            all-gather, reduce-scatter, all-reduce), busy share and
             peak beside estimate_memory, and a flash row for each shape
             its (1, count) steps gave rank 0's kernel (held by
             flash_verdict, beside SDPA and the f32 bound).  At
@@ -531,7 +538,8 @@ Phases, each printing lines that start with its name:
             (2, 2) plain, ZeRO-1 and FSDP, and TP_GLOO_FAMILIES (the
             reduced mixtral with its experts split and with
             expert_mlp split, kimi with its shared expert, llava,
-            seamless on both meshes), each within DP_GLOO_REL of the
+            seamless on both meshes, mamba2 on (1, 4) plain, zamba2 on
+            (2, 2) FSDP), each within DP_GLOO_REL of the
             one-process step on the card (AdamW's sign flips as
             TP_FLIP_FRAC allows); a mode needing a collective that gloo
             lacks on CUDA tensors is cut on a CUT line.
@@ -727,6 +735,18 @@ FSDP_8BIT_REL = 2e-5
 # TP_NOISE_REL of the leaf's largest, with every first moment within
 # DP_GLOO_REL (as tests/test_torch_train_tp_families.py holds them)
 TP_FLIP_FRAC, TP_NOISE_REL = 1e-4, 1e-5
+# AdamW's second update (DP_GLOO_STEPS = 2; the warm-up's lr is 0 at step
+# 0, so both steps take the same clipped gradient g) is lr * g / (|g| +
+# eps): where g is near eps (the mamba mixer's zero-initialised conv_b,
+# A_log and dt_bias once the clip divides the gradient by its norm) a
+# first moment's rounding moves the update further, so the gloo checks
+# also let an element part by up to twice the difference of that update
+# at the two first moments (tp_adamw_spread; as
+# tests/test_torch_train_tp_ssm.py holds it).  zamba2's reduced f32
+# gradients lie 4.4e-5 of their scale from float64 at matrices x 0.5 (its
+# embeddings joined into every shared block; 2.7e-6 at x 0.25, the CPU),
+# above DP_GLOO_REL, so its gloo run scales them by TP_GLOO_SCALES
+TP_GLOO_SCALES = {"zamba2": 0.25}
 # tp: at count >= 2 train:'s TRAIN_ARCH at full width and TRAIN_LAYERS,
 # its global batch in TRAIN_MICRO microbatches, on TP_MESHES[count]
 # ((data, model, modes) a mesh), TP_STEPS timed steps a mode and one
@@ -754,7 +774,9 @@ TP_GLOO_MESHES = ((1, 4, ("plain",)), (2, 2, ("plain", "zero1", "fsdp")))
 # dispatch groups.  "mixtral-emlp" has 3 experts, a count that divides
 # neither line, so each expert's expert_mlp dim splits (mixtral's 8 on the
 # production line of 16); seamless's vocabulary is 510, which divides by
-# 2 and not by 4, as its 256,206 does
+# 2 and not by 4, as its 256,206 does; mamba2's mixer splits every leaf
+# on ssm_inner (in_proj's output gathered whole, the gated norm's sum
+# over the line), zamba2 adds the shared attention block
 TP_GLOO_FAMILIES = (
     ("mixtral", "mixtral-8x7b", {}, 1, 4, "plain", "adamw"),
     ("mixtral", "mixtral-8x7b", {}, 2, 2, "zero1", "adamw"),
@@ -765,21 +787,28 @@ TP_GLOO_FAMILIES = (
     ("seamless", "seamless-m4t-large-v2", {"vocab": 510}, 1, 4, "plain",
      "adamw"),
     ("seamless", "seamless-m4t-large-v2", {"vocab": 510}, 2, 2, "zero1",
-     "adamw"))
+     "adamw"),
+    ("mamba2", "mamba2-780m", {}, 1, 4, "plain", "adamw"),
+    ("zamba2", "zamba2-2.7b", {}, 2, 2, "fsdp", "adamw"))
 # tp: (d) at count >= 2 the families at full width in f32 (matrices x
 # DP_GLOO_SCALE, remat full), TP_FAMILY_ROWS rows a step in one
 # microbatch, against the one-card f32 step: (label, arch, layers (a
 # stack's, for encdec), experts (None: all), optimizer, positions a row,
 # source frames a row (encdec), the (2, 2) mode); the MoE configs in
 # TP_FAMILY_ROWS dispatch groups (one a data rank on (2, 2), as the
-# dry-run sets them)
+# dry-run sets them); zamba2's 6 layers are one super-block and one
+# invocation of its shared block
 TP_FAMILY_RUNS = (
     ("mixtral", "mixtral-8x7b", 2, None, "adamw", 4_096, None, "zero1"),
     ("kimi", "kimi-k2-1t-a32b", 1, 64, "adafactor", 2_048, None, "fsdp"),
     ("llava", "llava-next-34b", 2, None, "adamw", 4_096, None, "fsdp"),
     ("seamless", "seamless-m4t-large-v2", 2, None, "adamw", 2_048, 4_096,
-     "zero1"))
+     "zero1"),
+    ("mamba2", "mamba2-780m", 4, None, "adamw", 4_096, None, "zero1"),
+    ("zamba2", "zamba2-2.7b", 6, None, "adafactor", 4_096, None, "fsdp"))
 TP_FAMILY_ROWS = 2
+# (a mamba mixer's gathered in_proj output reduce-scatters its gradient
+# in every mode: tp_needs)
 TP_NEEDS = {"plain": ("all_reduce", "all_reduce_max",
                       "all_gather_into_tensor"),
             "zero1": ("all_reduce", "all_reduce_max",
@@ -2090,6 +2119,18 @@ def kernel_row(name, launches, err, call, iters, plain, plain_iters, nbytes,
             "replaces": REPLACES[kernel], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def is_nccl_kernel(name: str) -> bool:
+    """An NCCL kernel's profiler name; not the ``nccl:all_reduce``-style
+    record of the same collective, which torch.profiler gives the
+    kernel's device time too."""
+    return name.lower().startswith(("nccldevkernel", "ncclkernel"))
+
+
+def nccl_ms(top) -> float:
+    """The device ms of the NCCL kernels among ``device_busy``'s ``top``."""
+    return sum(t for n, t in top if is_nccl_kernel(n))
 
 
 def device_busy(fn, n_top: int | None = 6) -> tuple[float, float, list]:
@@ -5746,7 +5787,7 @@ def dp_group_of_one(seed: int, before_profile) -> None:
           f"launches (2 x {TRAIN_LAYERS} layers x {TRAIN_MICRO} "
           f"microbatches); {time.perf_counter() - t0:.1f} s", flush=True)
     flash = sum(t for n, t in top if "flash" in n.lower())
-    nccl = sum(t for n, t in top if "nccl" in n.lower())
+    nccl = nccl_ms(top)
     print(f"dp: (a) one more step of the group under torch.profiler: "
           f"device kernel time {busy:.1f} ms of {wall:.1f} ms wall "
           f"({100 * busy / wall:.2f}%), NCCL kernels {nccl:.3f} ms; "
@@ -6092,7 +6133,7 @@ def dp_nccl_rank(rank, device, seed, world, cfg, seq):
         wall, busy, top = device_busy(
             lambda: step(state, local[DP_STEPS]), n_top=None) if on_card \
             else (1.0, 0.0, [])                 # no device time to read
-        nccl = sum(t for n, t in top if "nccl" in n.lower())
+        nccl = nccl_ms(top)
         flash = sum(t for n, t in top if "flash" in n.lower())
         specs = zoo.model_specs(cfg)
         ab = abstract_state(cfg, run_m, specs, desc, default_rules())
@@ -6403,7 +6444,7 @@ def fsdp_nccl_job(rank, device, seed, world, kimi, layers, optimizer,
         out[mode] = dict(
             loss=losses, norm=norms, times=times, init_s=init_s,
             launches=launches, peak=peak, wall_ms=wall, busy_ms=busy,
-            nccl_ms=sum(t for n, t in top if "nccl" in n.lower()),
+            nccl_ms=nccl_ms(top),
             flash_ms=sum(t for n, t in top if "flash" in n.lower()),
             param_bytes=step.held["param_bytes"],
             opt_bytes=sum(t.numel() * t.element_size()
@@ -7103,7 +7144,8 @@ def tp_nccl_rank(rank, device, seed, cfg, seq, meshes, families=()):
             loss=losses, norm=norms, times=times, dists=dists,
             launches=launches, peak=peak, held=held, want=want,
             wall_ms=wall, busy_ms=busy,
-            nccl_ms=sum(t for n, t in top if "nccl" in n.lower()),
+            nccl_ms=nccl_ms(top),
+            nccl_kinds=nccl_kinds(top),
             flash_ms=sum(t for n, t in top if "flash" in n.lower()),
             model_bytes=rec["mem"]["bytes"]["total"],
             top=[(n, round(t, 3)) for n, t in top[:5]]), ops
@@ -7335,10 +7377,35 @@ def tp_report(got, world, cfg, meshes) -> None:
 def tp_attention_calls(cfg) -> int:
     """Flash launches a step of one microbatch under remat full: each
     attention twice (the forward and the backward's recompute), an
-    encdec decoder layer's two (self and cross) included."""
+    encdec decoder layer's two (self and cross) included, the hybrid's
+    shared block once a super-block, none in an ssm."""
     if cfg.family == "encdec":
         return 2 * (cfg.n_layers + 2 * cfg.n_dec_layers)
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return 2 * (cfg.n_layers // cfg.shared_every)
     return 2 * cfg.n_layers
+
+
+def tp_needs(mode: str, cfg) -> tuple:
+    """The collectives a mode needs of gloo: TP_NEEDS, and a
+    reduce-scatter for a mamba mixer (its gathered in_proj output)."""
+    return TP_NEEDS[mode] + (("reduce_scatter_tensor",) if cfg.ssm
+                             else ())
+
+
+def nccl_kinds(top) -> dict:
+    """NCCL kernel ms of a profiled step by collective (the kernel names
+    torch.profiler gives, cut at 48 characters; nccl_ms's kernels)."""
+    out = {}
+    for n, t in top:
+        if is_nccl_kernel(n):
+            low = n.lower()
+            kind = next((k for k in ("allgather", "reducescatter",
+                                     "allreduce") if k in low), "other")
+            out[kind] = out.get(kind, 0.0) + t
+    return {k: round(v, 3) for k, v in sorted(out.items())}
 
 
 def tp_family_report(got, world, families) -> None:
@@ -7394,9 +7461,11 @@ def tp_family_report(got, world, families) -> None:
 
 
 def tp_profile_line(tag, x, per_step, d, m) -> None:
+    flash = (f"flash_attention {x['flash_ms'] / per_step:.4f} ms a launch"
+             if per_step else "no attention")
     print(f"{tag}: one step under torch.profiler: NCCL kernels "
-          f"{x['nccl_ms']:.3f} ms, flash_attention "
-          f"{x['flash_ms'] / per_step:.4f} ms a launch; device kernel time "
+          f"{x['nccl_ms']:.3f} ms (by collective {x['nccl_kinds']}), "
+          f"{flash}; device kernel time "
           f"{x['busy_ms']:.1f} of {x['wall_ms']:.1f} ms wall "
           f"({100 * x['busy_ms'] / x['wall_ms']:.2f}%, summed over "
           f"streams); peak {x['peak']:,} B beside estimate_memory's "
@@ -7452,9 +7521,17 @@ def tp_over_cards(seed: int, world: int) -> list:
         experts = (f", {c.moe.n_experts} of {full.moe.n_experts} experts "
                    f"(top {c.moe.top_k}), {TP_FAMILY_ROWS} dispatch groups"
                    if c.moe else "")
+        heads = f"{c.n_q_heads} q / {c.n_kv_heads} kv heads of {c.hd}"
+        if c.ssm is not None:
+            d_in = c.ssm.expand * c.d_model
+            ssm = (f"{d_in // c.ssm.head_dim} SSM heads of "
+                   f"{c.ssm.head_dim}, state {c.ssm.d_state}, chunk "
+                   f"{c.ssm.chunk}")
+            heads = ssm if c.family == "ssm" else \
+                f"{ssm}; the shared block's {heads}"
         print(f"tp: CUT: (d) {label} ({run[1]}) in f32 at full width "
-              f"(d_model {c.d_model}, {c.n_q_heads} q / {c.n_kv_heads} kv "
-              f"heads of {c.hd}, vocab {c.vocab}), {depth} layers{experts}, "
+              f"(d_model {c.d_model}, {heads}, vocab {c.vocab}), {depth} "
+              f"layers{experts}, "
               f"remat full, {optimizer}, {TP_FAMILY_ROWS} rows of {tokens} "
               f"positions{f' and {frames} source frames' if frames else ''} "
               f"a step in one microbatch (not train_4k's 256 rows); (1, "
@@ -7472,7 +7549,8 @@ def tp_over_cards(seed: int, world: int) -> list:
     rows = [tp_row(qkv, launches, 2 * TRAIN_LAYERS * TRAIN_MICRO)]
     del qkv
     for label, c, *_ in families:
-        for key, (n, qkv) in got[0]["families"][label]["qkv"].items():
+        for key, (n, qkv) in (got[0]["families"][label]["qkv"]
+                              or {}).items():
             causal, window = key[2], key[4]
             shape = (f"window {window}" if window else "causal" if causal
                      else "non-causal" if key[0][2] == key[1][2]
@@ -7585,9 +7663,10 @@ def tp_gloo_rank(rank, device, params, batch, families):
                 out[d, m, mode] = run_one(cfg, params, batch, d, m, mode,
                                           "adamw")
     for name, _, _, d, m, mode, optimizer in TP_GLOO_FAMILIES:
-        if not any(n in missing for n in TP_NEEDS[mode]):
-            out[name, d, m, mode] = run_one(tp_family_cfg(name), *families[
-                name], d, m, mode, optimizer)
+        fam = tp_family_cfg(name)
+        if not any(n in missing for n in tp_needs(mode, fam)):
+            out[name, d, m, mode] = run_one(fam, *families[name], d, m,
+                                            mode, optimizer)
     return out
 
 
@@ -7608,17 +7687,29 @@ def tp_family_cfg(name: str):
     return cfg
 
 
+def tp_adamw_spread(mu_a, mu_b, lr: float, b1: float = 0.9,
+                    eps: float = 1e-8):
+    """|lr * (f(a) - f(b))| by element: f = g / (|g| + eps), AdamW's second
+    update at the clipped gradient g = mu / (1 - b1**2) of each first
+    moment (both steps' gradient, so sqrt(nu-hat) = |g|)."""
+    def f(mu):
+        g = mu.double() / (1 - b1 ** 2)
+        return g / (g.abs() + eps)
+    return lr * (f(mu_a) - f(mu_b)).abs()
+
+
 def tp_family_inputs(seed: int, name: str):
-    """A TP_GLOO_FAMILIES config's parameters (matrices x DP_GLOO_SCALE)
-    and batch of 4 x 64 positions (a vlm's prefix among them), on the
-    host."""
+    """A TP_GLOO_FAMILIES config's parameters (matrices x DP_GLOO_SCALE,
+    or its TP_GLOO_SCALES entry) and batch of 4 x 64 positions (a vlm's
+    prefix among them), on the host."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.models import zoo
     from repro_torch.models.params import init_params
     from repro_torch.train import optim
     cfg = tp_family_cfg(name)
     params = optim.tree_map(
-        lambda p: p * DP_GLOO_SCALE if p.dim() >= 2 else p,
+        lambda p: p * TP_GLOO_SCALES.get(name, DP_GLOO_SCALE)
+        if p.dim() >= 2 else p,
         init_params(zoo.model_specs(cfg), torch.Generator().manual_seed(seed),
                     "float32", device="cpu"))
     batch = zoo.make_batch(cfg, ShapeCell("t", 64, 4, "train"), seed,
@@ -7665,14 +7756,18 @@ def tp_gloo_finish(seed: int, pending) -> None:
         return want, [p.detach().cpu() for p in
                       optim.tree_leaves(state["params"])], mu
 
-    def hold(key, what, want, want_p, want_mu):
+    from repro_torch.train.optim import lr_schedule
+    lr2 = float(lr_schedule(1e-3, total=10_000)(1))     # run_one's step 2
+
+    def hold(key, what, want, want_p, want_mu, attends=True,
+             scale=DP_GLOO_SCALE):
         worst_m = worst_p = worst_mu = 0.0
-        flips = 0
+        flips = spread = 0
         for r in got:
             ms, ps, launches, _, mus = r[key]
-            check(launches.get("flash_attention", 0) > 0,
-                  f"tp: {what}: no flash_attention launch on a rank "
-                  f"({launches})")
+            check((launches.get("flash_attention", 0) > 0) == attends,
+                  f"tp: {what}: flash_attention launches on a rank "
+                  f"({launches}), expected {'some' if attends else 'none'}")
             for g, w in zip(ms, want):
                 worst_m = max([worst_m] + [
                     abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w])
@@ -7683,6 +7778,12 @@ def tp_gloo_finish(seed: int, pending) -> None:
                     mu = want_mu[i].abs()
                     worst_mu = max(worst_mu, float(
                         (mus[i] - want_mu[i]).abs().max() / mu.max()))
+                    past = far
+                    far = past & ((a - b).abs() > DP_GLOO_REL * b.abs().max()
+                                  + 2 * tp_adamw_spread(mus[i], want_mu[i],
+                                                        lr2))
+                    spread += int((past & ~far).sum())
+                    off = torch.where(past & ~far, 0.0, off)
                 if want_mu is not None and far.any():
                     check(float(far.float().mean()) < TP_FLIP_FRAC and bool(
                         (mu[far] <= TP_NOISE_REL * mu.max()).all()),
@@ -7701,11 +7802,13 @@ def tp_gloo_finish(seed: int, pending) -> None:
               f"step: metrics {worst_m:.3g}, params {worst_p:.3g}, first "
               f"moments {worst_mu:.3g} (bar {DP_GLOO_REL:g})")
         print(f"tp: {what} on four gloo ranks on the card (f32, matrices x "
-              f"{DP_GLOO_SCALE}, 4 x 64 positions in 2 microbatches, "
+              f"{scale}, 4 x 64 positions in 2 microbatches, "
               f"{DP_GLOO_STEPS} steps): metrics within {worst_m:.3g} and "
               f"gathered parameters within {worst_p:.3g} of their scale of "
-              f"the one-process step on the card (bar {DP_GLOO_REL:g}; "
-              f"{flips} elements past it by rank, each where AdamW's first "
+              f"the one-process step on the card (bar {DP_GLOO_REL:g}, "
+              f"past it by rank {spread} elements within twice AdamW's "
+              f"update spread at the two first moments and "
+              f"{flips} past both, each where AdamW's first "
               f"moment is rounding noise, the first moments then within "
               f"{worst_mu:.3g}); "
               f"flash_attention launches per rank "
@@ -7713,11 +7816,11 @@ def tp_gloo_finish(seed: int, pending) -> None:
               f"{max(r[key][3] for r in got):.1f} s on the ranks",
               flush=True)
 
-    def cut(key, what, mode):
+    def cut(key, what, needs):
         if key in got[0]:
             return False
         print(f"tp: CUT: {what} not run on four gloo ranks on the card: it "
-              f"needs {', '.join(n for n in TP_NEEDS[mode] if n in missing)}",
+              f"needs {', '.join(n for n in needs if n in missing)}",
               flush=True)
         return True
 
@@ -7730,11 +7833,12 @@ def tp_gloo_finish(seed: int, pending) -> None:
     for d, m, modes in TP_GLOO_MESHES:
         for mode in modes:
             what = f"({d}, {m}) {mode} (reduced {TRAIN_ARCH}, AdamW)"
-            if not cut((d, m, mode), what, mode):
+            if not cut((d, m, mode), what, TP_NEEDS[mode]):
                 hold((d, m, mode), what, *want)
     print("tp: CUT: the families run reduced (d_model 128, 4 q heads, "
-          "vocab 512, 4 experts of d 64): mixtral-emlp is reduced mixtral "
-          "at 3 experts, a count that divides neither line, so each "
+          "vocab 512, 4 experts of d 64, 16 SSM heads of 16 at state 16, "
+          "zamba2 at 8 layers in 2 super-blocks): mixtral-emlp is reduced "
+          "mixtral at 3 experts, a count that divides neither line, so each "
           "expert's expert_mlp dim splits (mixtral's 8 on the production "
           "line of 16); seamless runs at a vocabulary of 510, which "
           "divides by 2 and not by 4, as its 256,206 does", flush=True)
@@ -7746,20 +7850,22 @@ def tp_gloo_finish(seed: int, pending) -> None:
                 if cfg.moe else f"({d}, {m}) {mode} reduced {name} "
                 f"({arch}, {optimizer}; vocabulary split "
                 f"{cfg.vocab % m == 0}") + ")"
-        if cut((name, d, m, mode), what, mode):
+        if cut((name, d, m, mode), what, tp_needs(mode, cfg)):
             continue
         if (name, optimizer) not in wants:
             wants[name, optimizer] = one_process(
                 cfg, *tp_family_inputs(seed, name), optimizer)
-        hold((name, d, m, mode), what, *wants[name, optimizer])
+        hold((name, d, m, mode), what, *wants[name, optimizer],
+             attends=cfg.family != "ssm",
+             scale=TP_GLOO_SCALES.get(name, DP_GLOO_SCALE))
     print(f"tp: the gloo ranks in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
 def phase_tp(seed: int, count: int, pending=None) -> list:
     """The training step tensor-parallel over processes (ROADMAP Queue A
-    items 8(a) and 8(b) part 1: the dense, moe, vlm and encdec
-    families): over every card where there are several (returns row
+    item 8: the dense, moe, vlm, encdec, ssm and hybrid families): over
+    every card where there are several (returns row
     5-train-tp and the families' flash rows); at one card four gloo
     ranks on the card (``pending``: their ``gloo_start`` where the
     caller started them, else started here; returns no row)."""

@@ -39,10 +39,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
 
 
 def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                  eps: float = 1e-5):
-    """Mamba2 output norm: rmsnorm(x * silu(z)) * w."""
+                  eps: float = 1e-5, width: int | None = None):
+    """Mamba2 output norm: rmsnorm(x * silu(z)) * w.  Under tensor
+    parallelism ``x``, ``z`` and ``w`` hold the rank's columns of the
+    line's ``width``: the mean of squares is the line's
+    (``collective.sum_to_model``)."""
     xf = x.to(F32) * F.silu(z.to(F32))
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if width is None or width == x.shape[-1]:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ms = collective.sum_to_model(
+            torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    y = xf * torch.rsqrt(ms + eps)
     return (y * w.to(F32)).to(x.dtype)
 
 

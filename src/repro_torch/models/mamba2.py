@@ -10,6 +10,21 @@ Plain torch on both devices, as the reference computes it in jnp.
 Shapes: d_inner = expand * d_model; H = d_inner / head_dim heads; state
 N.  in_proj emits [z, x, B, C, dt]; a depthwise causal conv runs over
 (x, B, C).
+
+Under tensor parallelism (the training step over a ``model`` axis of
+several ranks: ``collective.model_line()``) every mixer leaf is held as
+the guard leaves it: a contiguous chunk of its ``ssm_inner`` dim, or
+whole where that dim does not divide the line.  A chunk of ``in_proj``'s
+or ``conv_w``'s columns crosses the z | x | B | C | dt boundaries, so
+:func:`mamba_forward` joins them first: the rank's ``in_proj`` output
+columns and its ``conv_w`` / ``conv_b`` chunks are gathered whole
+(``collective.gather_to_model``, whose backward reduce-scatters), or a
+whole leaf passes ``collective.to_model``; the rank then runs its own
+heads (:func:`model_heads`: z, x and dt by head, the B and C groups
+those heads read, its chunks of ``A_log``, ``dt_bias``, ``D`` and
+``norm_w``), the gated norm's sum of squares summed over the line
+(``collective.sum_to_model``), and the row-split ``out_proj`` leaves
+through ``collective.from_model``.
 """
 from __future__ import annotations
 
@@ -17,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding import collective
 from .layers import gated_rmsnorm
 from .params import ParamSpec
 
@@ -50,6 +66,44 @@ def mamba_specs(cfg: ModelConfig) -> dict:
                             dtype="float32"),
         "out_proj": ParamSpec((d_in, d), ("ssm_inner", "embed")),
     }
+
+
+def model_heads(cfg: ModelConfig, n: int) -> int:
+    """The SSM heads each rank of a model line of ``n`` ranks runs (the
+    guard's ``ssm_inner`` split of the (H,) leaves).  A head count that
+    does not divide the line raises ``NotImplementedError``: a rank's
+    chunk of ``d_inner`` would cut a head (ROADMAP Queue A item 11)."""
+    _, n_heads, _ = mamba_dims(cfg)
+    if n_heads % n:
+        raise NotImplementedError(
+            f"the {cfg.family} family over a model axis of {n} ranks (tensor "
+            f"parallelism) at {n_heads} SSM heads is not ported: the line "
+            "would cut a head (ROADMAP Queue A item 11)")
+    return n_heads // n
+
+
+def _whole_on_line(w: torch.Tensor, full: int) -> torch.Tensor:
+    """A leaf whose last dim is the ``ssm_inner`` concatenation, whole on
+    every rank of the model line: the rank's chunk gathered (its
+    gradient reduce-scattered), or a leaf the guard left whole through
+    ``collective.to_model`` (its gradient, a part on each rank, summed)."""
+    if w.shape[-1] < full:
+        return collective.gather_to_model(w)
+    return collective.to_model(w)
+
+
+def _head_groups(m: torch.Tensor, first: int, hc: int,
+                 n_heads: int) -> torch.Tensor:
+    """The groups of B or C (B, S, G, N) that heads first .. first+hc-1
+    read (group g serves H / G consecutive heads): a slice where those
+    heads take them evenly, else one group a head."""
+    rep = n_heads // m.shape[2]
+    g = [(first + i) // rep for i in range(hc)]
+    lo, used = g[0], g[-1] - g[0] + 1
+    if hc % used == 0 and all(j - lo == i // (hc // used)
+                              for i, j in enumerate(g)):
+        return m[:, :, lo:lo + used]
+    return m[:, :, torch.tensor(g, device=m.device)]
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -110,8 +164,14 @@ def ssd_chunked(x, dt, a_neg, bmat, cmat, chunk: int, init_state=None):
         a = dtk * a_neg[None, None, :]                     # (b, L, h) <= 0
         cums = torch.cumsum(a, dim=1)                      # (b, L, h)
         seg = cums[:, :, None, :] - cums[:, None, :, :]    # (b, i, j, h)
-        lmat = torch.where(li[None, :, :, None], torch.exp(seg),
-                           torch.zeros((), dtype=F32, device=x.device))
+        # masked before the exp (the reference masks after it): above the
+        # diagonal seg is -(a's sum) > 0 and its exp overflows once a chunk
+        # sums past ~88 (mamba2's 256 steps at dt ~0.7), where the
+        # gradient of where(mask, exp(seg), 0) is 0 * inf = NaN; the
+        # values are the reference's, exp(-inf) = 0
+        lmat = torch.exp(torch.where(li[None, :, :, None], seg,
+                                     torch.full((), float("-inf"), dtype=F32,
+                                                device=x.device)))
         bh = torch.repeat_interleave(bk, rep, dim=2).to(F32)  # (b, L, h, n)
         ch = torch.repeat_interleave(ck, rep, dim=2).to(F32)
         gmat = torch.einsum("bihn,bjhn->bijh", ch, bh)
@@ -131,30 +191,66 @@ def ssd_chunked(x, dt, a_neg, bmat, cmat, chunk: int, init_state=None):
     return y.to(x.dtype), state
 
 
+def _refuse_on_line(what: str) -> None:
+    if collective.model_line() is not None:
+        raise NotImplementedError(
+            f"{what} over a model line of ranks is not ported (ROADMAP "
+            "Queue A item 10)")
+
+
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   cache: dict | None = None):
-    """Full-sequence forward.  Returns (y, new cache state or None)."""
+    """Full-sequence forward.  Returns (y, new cache state or None).
+    Under an active model line the rank's heads (the module docstring);
+    a cache there raises ``NotImplementedError`` (item 10)."""
     s = cfg.ssm
-    d_in, n_heads, _ = mamba_dims(cfg)
-    zxbcdt = x @ p["in_proj"]
-    z, xc, bb, ccm, dt = _split_proj(cfg, zxbcdt)
+    d_in, n_heads, conv_dim = mamba_dims(cfg)
+    gn = s.n_groups * s.d_state
+    mp = collective.model_line()
+    if mp is None:
+        first, hc = 0, n_heads
+        zxbcdt = x @ p["in_proj"]
+        z, xc, bb, ccm, dt = _split_proj(cfg, zxbcdt)
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+    else:
+        if cache is not None:
+            _refuse_on_line("a mamba cache (prefill)")
+        hc = model_heads(cfg, mp.size)
+        first = mp.index * hc
+        x = collective.to_model(x)
+        w = p["in_proj"]
+        if w.shape[-1] < 2 * d_in + 2 * gn + n_heads:
+            zxbcdt = collective.gather_to_model(x @ w)
+        else:
+            zxbcdt = x @ collective.to_model(w)
+        z, xc, bb, ccm, dt = _split_proj(cfg, zxbcdt)
+        cols = slice(first * s.head_dim, (first + hc) * s.head_dim)
+        z, xc, dt = z[..., cols], xc[..., cols], dt[..., first:first + hc]
+        conv_w, conv_b = (_whole_on_line(p[k], conv_dim)
+                          for k in ("conv_w", "conv_b"))
+        conv_w = torch.cat([conv_w[:, cols], conv_w[:, d_in:]], dim=-1)
+        conv_b = torch.cat([conv_b[cols], conv_b[d_in:]], dim=-1)
     xbc = torch.cat([xc, bb, ccm], dim=-1)
     conv_state = None if cache is None else cache["conv"]
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    gn = s.n_groups * s.d_state
-    xc, bb, ccm = torch.split(xbc, [d_in, gn, gn], dim=-1)
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
+    xc, bb, ccm = torch.split(xbc, [hc * s.head_dim, gn, gn], dim=-1)
     b_, sl, _ = xc.shape
-    xh = xc.reshape(b_, sl, n_heads, s.head_dim)
+    xh = xc.reshape(b_, sl, hc, s.head_dim)
     bmat = bb.reshape(b_, sl, s.n_groups, s.d_state)
     cmat = ccm.reshape(b_, sl, s.n_groups, s.d_state)
+    if hc < n_heads:
+        bmat, cmat = (_head_groups(m, first, hc, n_heads)
+                      for m in (bmat, cmat))
     dtv = F.softplus(dt.to(F32) + p["dt_bias"][None, None, :])
     a_neg = -torch.exp(p["A_log"].to(F32))
     init = None if cache is None else cache["ssm"]
     y, final = ssd_chunked(xh, dtv, a_neg, bmat, cmat, s.chunk, init)
     y = y + xh.to(F32) * p["D"][None, None, :, None]
-    y = y.reshape(b_, sl, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps)
+    y = y.reshape(b_, sl, hc * s.head_dim).to(x.dtype)
+    y = gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps, width=d_in)
     out = y @ p["out_proj"]
+    if mp is not None:
+        out = collective.from_model(out)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype), "ssm": final}
@@ -162,7 +258,9 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
-    """Single-token recurrent step.  x: (B, 1, D)."""
+    """Single-token recurrent step.  x: (B, 1, D).  Under an active model
+    line it raises ``NotImplementedError`` (item 10)."""
+    _refuse_on_line("mamba decode")
     s = cfg.ssm
     d_in, n_heads, _ = mamba_dims(cfg)
     zxbcdt = x @ p["in_proj"]
@@ -195,5 +293,5 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
                                "ssm": state}
 
 
-__all__ = ["mamba_dims", "mamba_specs", "mamba_forward", "mamba_decode",
-           "ssd_chunked"]
+__all__ = ["mamba_dims", "mamba_specs", "model_heads", "mamba_forward",
+           "mamba_decode", "ssd_chunked"]

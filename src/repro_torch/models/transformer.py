@@ -49,9 +49,8 @@ the hybrid's ``shared`` block and ``shared_proj``) are gathered once
 where the loss begins, so a tied ``embed`` has one gather, one
 gradient and one reduce-scatter.  The norms are never sharded.
 
-Under tensor parallelism (the dense, moe and vlm families, the
-training step over a ``model`` axis of several ranks:
-``collective.model_line()``) each rank
+Under tensor parallelism (the training step over a ``model`` axis of
+several ranks: ``collective.model_line()``) each rank
 holds its chunks of the weights the guard puts on ``model`` and the
 model reads the split from their shapes: attention runs the rank's
 q heads (``wq`` by column, ``wo`` by row, then
@@ -64,7 +63,12 @@ line (a vlm's prefix is concatenated after that sum, once); the head
 gives the rank's vocabulary columns in f32, and the NLL takes its
 logsumexp and the label's logit over the line
 (``collective.model_max`` / ``from_model``); the MoE block splits as
-``moe.moe_ffn`` says.
+``moe.moe_ffn`` says, the mamba mixer as ``mamba2.mamba_forward`` says;
+the hybrid's shared block splits as the attention and MLP above in
+every super-block, behind its ``shared_proj``, which the guard leaves
+whole (every rank computes its input alike).  A tied head (mamba2)
+takes both gradients on the rank's vocabulary rows: the lookup's and
+the head's.
 """
 from __future__ import annotations
 

@@ -38,7 +38,13 @@ and :func:`from_model` (the partial sums all-reduced forward; the
 gradient as it is, every rank's downstream being the same) after a row
 split, and the vocabulary split's sums.  :func:`model_max` is that
 split's max; :func:`gather_from_model` joins a column split whose
-whole output every rank needs (the MoE router's logits).  The active
+whole output every rank needs (the MoE router's logits).  Where each
+rank reads its own part of a joined or summed tensor, the gradient
+must be summed over the line on the way back: :func:`gather_to_model`
+(an all-gather whose backward reduce-scatters, Megatron's
+sequence-parallel gather: the mamba mixer's ``in_proj`` output and
+conv weights) and :func:`sum_to_model` (a sum whose backward sums: the
+gated norm's sum of squares over the rank's heads).  The active
 line is :class:`DataParallel`'s ``model`` (:func:`model_line`).  A
 chunk under FSDP or ZeRO-1 over TP is the data split of the model
 chunk: :func:`whole` gathers both, :func:`cut` cuts both.
@@ -223,6 +229,55 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return x if mp is None else _GatherFromModel.apply(x, dim % x.dim(), mp)
 
 
+class _GatherToModel(torch.autograd.Function):
+    """Forward: the line's chunks of ``x`` concatenated along ``dim`` in
+    rank order.  Backward: the incoming gradient summed over the line in
+    f32, of which this rank keeps its slice: each rank reads its own
+    part of the whole, so each holds a part of the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mp):
+        ctx.sh = Shard(dim, x.shape[dim] * mp.size, mp.index, mp.size,
+                       mp.group)
+        return all_gather(x.detach(), ctx.sh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wide = torch.promote_types(grad.dtype, F32)
+        return reduce_scatter(grad, ctx.sh, wide).to(grad.dtype), None, None
+
+
+def gather_to_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor of the line's chunks of ``x`` along ``dim``, its
+    gradient reduce-scattered (:class:`_GatherToModel`); ``x`` itself
+    with no line."""
+    mp = model_line()
+    return x if mp is None else _GatherToModel.apply(x, dim % x.dim(), mp)
+
+
+class _SumToModel(torch.autograd.Function):
+    """Forward: ``x`` summed over the line (in f32).  Backward: the
+    gradient summed over the line too: each rank's downstream differs
+    (its own columns normalised by the same total), so the total's
+    gradient is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _f32_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _f32_sum(grad, ctx.group), None
+
+
+def sum_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active model line, its gradient summed too
+    (:class:`_SumToModel`); ``x`` itself with no line."""
+    mp = model_line()
+    return x if mp is None else _SumToModel.apply(x, mp.group)
+
+
 def model_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over the active model line, outside
     autograd (a logsumexp's shift, whose gradient cancels)."""
@@ -388,13 +443,14 @@ def _chunks_first(x: torch.Tensor, sh: Shard, dtype) -> torch.Tensor:
     return torch.empty(y.shape, dtype=dtype, device=x.device).copy_(y)
 
 
-def reduce_scatter(x: torch.Tensor, sh: Shard) -> torch.Tensor:
-    """The sum over ``sh.group`` of the whole tensor ``x``, in f32, of
-    which this rank keeps its chunk (a new contiguous tensor).  The
-    chunks go in as one tensor whose dim 0 is the chunks' dim 0s end to
-    end (gloo checks the shapes, not only the sizes)."""
-    out = torch.empty(sh.shape(x.shape), dtype=F32, device=x.device)
-    dist.reduce_scatter_tensor(out, _chunks_first(x, sh, F32).flatten(0, 1),
+def reduce_scatter(x: torch.Tensor, sh: Shard,
+                   dtype: torch.dtype = F32) -> torch.Tensor:
+    """The sum over ``sh.group`` of the whole tensor ``x``, in ``dtype``
+    (f32), of which this rank keeps its chunk (a new contiguous tensor).
+    The chunks go in as one tensor whose dim 0 is the chunks' dim 0s end
+    to end (gloo checks the shapes, not only the sizes)."""
+    out = torch.empty(sh.shape(x.shape), dtype=dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, _chunks_first(x, sh, dtype).flatten(0, 1),
                                group=sh.group)
     return out
 
@@ -490,7 +546,8 @@ def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
 
 __all__ = ["ModelLine", "DataParallel", "data_parallel", "active",
            "global_sum", "model_line", "to_model", "from_model",
-           "gather_from_model", "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
+           "gather_from_model", "gather_to_model", "sum_to_model",
+           "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
            "model_split", "shard_for", "barrier", "tag", "shard_of",
            "tag_model", "model_of", "whole", "cut", "reduce_scatter",
            "all_gather", "gather", "gathered", "layer", "gather_rows"]

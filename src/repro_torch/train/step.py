@@ -60,17 +60,18 @@ the step is the reference's GSPMD step on the global batch:
   gathers the parameter and the gradient, updates the whole leaf as
   every rank does alike, and keeps its chunk).
 
-Tensor parallelism (a ``model`` axis of several ranks; the dense,
-moe, vlm and encdec families): the ranks of a model line take the same
-rows, and each holds its chunk of every parameter whose
-``default_rules`` axis (heads, kv heads, mlp, vocab, experts or, where
-the expert count does not divide the line, expert_mlp) the
-divisibility guard leaves on ``model``
+Tensor parallelism (a ``model`` axis of several ranks; every family):
+the ranks of a model line take the same rows, and each holds its chunk
+of every parameter whose ``default_rules`` axis (heads, kv heads, mlp,
+vocab, experts or, where the expert count does not divide the line,
+expert_mlp, and ssm_inner) the divisibility guard leaves on ``model``
 (``init_state`` / :func:`shard_params` cut them from the whole tree,
 tagged with their model ``Shard``).  The model runs on the chunks,
 joined by ``collective.to_model`` / ``from_model`` (Megatron's column
 and row splits, the vocabulary-split embedding, head and NLL, the MoE
-router's logits gathered whole: ``models.moe.moe_ffn``); a kv
+router's logits gathered whole: ``models.moe.moe_ffn``; the mamba
+mixer's joined ``in_proj`` output and conv, its heads and its gated
+norm summed over the line: ``models.mamba2.mamba_forward``); a kv
 head replicated by the guard carries its gradient summed over the line
 out of the model, so every gradient leaves the loss whole for its
 chunk.  Plain DP, ZeRO-1 and FSDP then run as above on the model
@@ -83,9 +84,9 @@ lines, and keeps its chunk.
 
 The bytes a rank holds (parameters, optimizer state, accumulators) are
 the shard bytes ``abstract_state`` and the gradient shardings describe.
-A model axis over several ranks for the ssm and hybrid families
-(ROADMAP Queue A item 8(b), part 2), and a data or model axis over
-several distinct cards in one process, raise ``NotImplementedError``.
+An SSM head count that does not divide the model axis (ROADMAP Queue A
+item 11), and a data or model axis over several distinct cards in one
+process, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -98,6 +99,7 @@ import torch.distributed as dist
 
 from ..configs.base import ModelConfig, RunConfig
 from ..models import zoo
+from ..models.mamba2 import model_heads
 from ..models.params import ParamSpec, abstract, abstract_params, map_specs
 from ..data.pipeline import DataShard, microbatch_rows
 from ..sharding import collective
@@ -205,19 +207,15 @@ def _model_layout(cfg, run, mesh, dp_axes=None):
     tensor parallelism over a mesh of processes (the ``model`` entry of
     its guarded sharding under ``default_rules(fsdp=run.fsdp)``), or
     None where the guard leaves it whole on the line; None for the whole
-    tree with no model axis of several ranks, or none split.  The ssm
-    and hybrid families raise ``NotImplementedError`` (ROADMAP Queue A
-    item 8(b), part 2: ``in_proj``'s output dim concatenates z, x, B, C
-    and dt, which a contiguous split cuts across)."""
+    tree with no model axis of several ranks, or none split.  Every
+    family runs there; an ssm or hybrid config whose SSM head count does
+    not divide the line raises ``NotImplementedError``
+    (``mamba2.model_heads``: ROADMAP Queue A item 11)."""
     if mesh is None or getattr(mesh, "group", None) is None \
             or mesh.shape.get(MODEL_AXIS, 1) == 1:
         return None
-    n = mesh.shape[MODEL_AXIS]
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.family} family over a model axis of {n} "
-            "ranks (tensor parallelism) is not ported: only the data axes "
-            "span ranks for it (ROADMAP Queue A item 8(b))")
+    if cfg.ssm is not None:
+        model_heads(cfg, mesh.shape[MODEL_AXIS])
     rules = default_rules(fsdp=run.fsdp, seq_shard=run.seq_shard_activations)
     dp = tuple(a for a in (dp_axes or DP_AXES) if a in mesh.axis_names)
     mlay = [collective.model_split(

@@ -298,12 +298,12 @@ def _fault_loop(rank, mesh, ref_params, tmp):
 
 def _refusals(rank, mesh, ref_params, batch):
     """What raises: FSDP over a data axis of distinct cards in one
-    process, FSDP with a model axis over ranks for a family tensor
-    parallelism does not run yet (the ssm family: the step and the
+    process, FSDP with a model axis over ranks that would cut an SSM
+    head (an ssm config of 3 heads on a line of 2: the step and the
     state), a batch that does not divide into microbatches x ranks, MoE
     groups not a multiple of the ranks, and a model axis over ranks for
-    the ssm family (ROADMAP Queue A item 8(b); the other families' are
-    tests/test_torch_train_tp.py's and test_torch_train_tp_families.py's)."""
+    that config (ROADMAP Queue A item 11; the families' tensor
+    parallelism is tests/test_torch_train_tp*.py's)."""
     out = {}
     cfg = _cfg("llama3-8b")
     params = params_from_reference(ref_params["llama3-8b"], device="cpu")
@@ -324,7 +324,9 @@ def _refusals(rank, mesh, ref_params, batch):
                         device="cpu")
     moe = _cfg("mixtral-8x7b")
     mp = params_from_reference(ref_params["mixtral-8x7b"], device="cpu")
-    ssm = get_arch("mamba2-780m").reduced()
+    base = get_arch("mamba2-780m").reduced()
+    ssm = dataclasses.replace(base, d_model=96, ssm=dataclasses.replace(
+        base.ssm, head_dim=64))              # 3 heads of 64 over d_in 192
     out["fsdp_model_state"] = raises(NotImplementedError, lambda: init_state(
         ssm, run, {}, mesh=model))
     run = _run("plain", "adamw", 4, False)
@@ -647,9 +649,9 @@ def test_fault_loop_restores_every_rank(ranks):
 @pytest.mark.parametrize("what,match", [
     ("fsdp_cards", "FSDP over a data axis 'data' of several distinct "
                    "devices in one process"),
-    ("fsdp_model_state", "only the data axes"),
+    ("fsdp_model_state", "would cut a head"),
     ("batch", "does not divide"), ("groups", "multiple of the ranks"),
-    ("fsdp_model", "tensor parallelism"), ("model", "item 8")])
+    ("fsdp_model", "tensor parallelism"), ("model", "item 11")])
 def test_refusals(ranks, what, match):
     for r in ranks:
         assert r["refuse"][what] is not None and match in r["refuse"][what], \

@@ -41,10 +41,10 @@ Besides: each rank's parameter, optimizer-state and accumulator bytes
 equal ``abstract_state``'s shard bytes on the mesh; a 2 x 2 FSDP + TP
 checkpoint restores into one process and back and continues bit-equal,
 and the elastic reshard gives back the live chunks; the fault loop
-restores every rank; whole weights under TP raise; the ssm and hybrid
-families raise naming ROADMAP Queue A item 8(b) (the moe, vlm and
-encdec families are tests/test_torch_train_tp_families.py's), and a
-model axis over several cards in one process stays refused.  ``jax`` and
+restores every rank; whole weights under TP raise (the other families
+are tests/test_torch_train_tp_families.py's and
+test_torch_train_tp_ssm.py's), and a model axis over several cards in
+one process stays refused.  ``jax`` and
 ``repro`` are imported in the parent's fixtures only.  The ``gpu`` test
 runs two NCCL ranks on ``model`` where there are two cards.
 """
@@ -113,7 +113,6 @@ IDS = [c[0] for c in CASES]
 # float64 gradient checks at the fan_in weights: (id, mesh, config)
 F64_CASES = [("tp4", "tp4", "llama"), ("dp2tp2", "dp2tp2", "llama"),
              ("uneven-kv", "dp2tp2", "uneven")]
-FAMILIES = ["mamba2-780m", "zamba2-2.7b"]
 
 
 def _cfg(remat="none", dtype="float32", uneven=False):
@@ -353,8 +352,7 @@ def _fault_loop(rank, mesh, ref_params, tmp):
 
 
 def _refusals(mesh, ref_params, batch):
-    """What raises under TP: a step given whole weights, and the ssm and
-    hybrid families (the step and the state)."""
+    """What raises under TP: a step given whole weights."""
     def raises(kind, fn):
         try:
             fn()
@@ -364,15 +362,8 @@ def _refusals(mesh, ref_params, batch):
     cfg, run = _cfg(), _run("plain", "adamw", 1, False)
     whole = init_state(cfg, run, params_from_reference(ref_params,
                                                        device="cpu"))
-    out = {"whole": raises(ValueError, lambda: build_train_step(
+    return {"whole": raises(ValueError, lambda: build_train_step(
         cfg, run, mesh=mesh)(whole, _local(mesh, batch)))}
-    for arch in FAMILIES:
-        fam = get_arch(arch).reduced()
-        out[arch] = raises(NotImplementedError,
-                           lambda: build_train_step(fam, run, mesh=mesh))
-        out[arch + "/state"] = raises(NotImplementedError, lambda: init_state(
-            fam, run, {}, mesh=mesh))
-    return out
 
 
 def _rank_body(rank, device, ref_params, params64, batch, tmp):
@@ -639,17 +630,6 @@ def test_tp_refuses_whole_weights(ranks):
     for r in ranks:
         got = r["refuse"]["whole"]
         assert got is not None and "not this rank's chunk" in got, got
-
-
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_tp_refuses_the_other_families(ranks, arch):
-    """The ssm and hybrid families on a model axis of several ranks
-    raise, in the step and in the state, naming ROADMAP Queue A item
-    8(b)."""
-    for r in ranks:
-        for key in (arch, arch + "/state"):
-            got = r["refuse"][key]
-            assert got is not None and "item 8(b)" in got, (key, got)
 
 
 def test_model_axis_over_cards_in_one_process_stays_refused():
