@@ -3,14 +3,15 @@
 loop, index builder, serving lifecycle, paged storage tier,
 cluster-sharded executor, replica-set serving frontend and LM serving
 path (dense, then the moe, ssm, hybrid, vlm and encdec families), the
-paper's baselines beside the executor, and LM training on one CUDA card
-(or more, for the sharded phase's mesh, the frontend's replicas and the
-data-parallel training step's ranks).
+paper's baselines beside the executor, LM training, and LM prefill and
+decode over ranks on one CUDA card (or more, for the sharded phase's
+mesh, the frontend's replicas and the ranks of the training step and of
+serving).
 
     python3 chip_smoke.py [--n 1000000] [--batches 3] [--linf-n 200000]
                           [--seed 0] [--sharded-only | --frontend-only |
                           --families-only | --train-only | --dp-only |
-                          --fsdp-only | --tp-only]
+                          --fsdp-only | --tp-only | --serve-tp-only]
 
 Phases, each printing lines that start with its name:
 
@@ -543,6 +544,41 @@ Phases, each printing lines that start with its name:
             one-process step on the card (AdamW's sign flips as
             TP_FLIP_FRAC allows); a mode needing a collective that gloo
             lacks on CUDA tensors is cut on a CUT line.
+20. serve_tp (after tp; --serve-tp-only runs phases 1, 2 and this one)
+            LM prefill and decode over ranks (ROADMAP Queue A item
+            10(a), the dense, moe and vlm families): each rank takes its
+            chunks of the weights (zoo.rank_params) and its rows of the
+            batch, runs zoo.prefill_fn / zoo.decode_fn with the mesh, and
+            holds its chunk of the KV cache as the reference lays it
+            out (batch on data, kv_seq on model, or kv_heads where
+            kv_seq does not divide the line).  At one card (a CUT line):
+            four gloo ranks on the card, started at the phase's start
+            while the parent runs the one-process references on the
+            card, SERVE_TP_GLOO_RUNS reduced in f32 (matrices x
+            DP_GLOO_SCALE; llama on (1, 4) and (2, 2), a 31-slot cache,
+            mixtral's window with a ring-wrapping decode, kimi's shared
+            expert, llava's prefix, internlm2's FSDP weights), prefill
+            and SERVE_TP_STEPS greedy steps with the launch counters zeroed
+            just before and read just after on every rank: logits within
+            SERVE_TP_GLOO_REL of the one-process run's scale, tokens equal,
+            every rank of a model line holding the same logits,
+            flash_attention one launch a layer a rank, cache bytes equal
+            to the dry-run's cache_specs shard bytes; the flash row at
+            the first run's rank shape against its plain version (1e-4
+            absolute, f32).  At count >= 2: NCCL ranks, llama3-8b at full
+            width in bf16 at SERVE_TP_LAYERS layers (CUT lines): a
+            SERVE_TP_PREFILL prefill and SERVE_TP_DECODE decode steps from a
+            cache of N(0, 1) keys and values on (1, count) and (2, 2),
+            timed (its logits read, not held: their noise floor sits at
+            their scale); the same in f32 with the matrices x
+            DP_GLOO_SCALE (SERVE_TP_F32) on the same meshes, and mixtral
+            in f32 at its window on (1, count) (timed on its own routing,
+            compared on the one-card routes), each against rank 0's
+            one-card run of the first rows within TP_FLOOR_X x its noise
+            floor, the floor below SERVE_TP_FLOOR_CAP; ms of prefill and a
+            step, tokens/s, NCCL ms by collective, busy share, peak a
+            card beside estimate_memory; the flash row at a rank's
+            prefill shape.
 
 The whole run, the build included, must end within 1,200 s; the
 ``total:`` line prints its seconds.  Before the last line it prints the
@@ -815,6 +851,75 @@ TP_NEEDS = {"plain": ("all_reduce", "all_reduce_max",
                       "all_gather_into_tensor", "reduce_scatter_tensor"),
             "fsdp": ("all_reduce", "all_reduce_max",
                      "all_gather_into_tensor", "reduce_scatter_tensor")}
+
+# serve_tp: LM prefill and decode over ranks (ROADMAP Queue A item
+# 10(a)).  At one card four gloo ranks on the card run SERVE_TP_GLOO_RUNS
+# ((label, arch, changes to the reduced config, cache_len, prompt
+# tokens, data, model, FSDP weights)) reduced in f32 (matrices x
+# DP_GLOO_SCALE), SERVE_TP_ROWS rows, prefill and SERVE_TP_STEPS greedy
+# decode steps held to the one-process prefill and decode on the card
+# within SERVE_TP_GLOO_REL of the logits' max |value|
+# (tests/test_torch_serve_tp.py holds the same at 1e-5 on the CPU,
+# reading 1.7e-6 at most).  The runs: llama with its cache's kv_seq on
+# model (ranks 2 and 3 of (1, 4) hold no valid slot until decode reaches
+# them) and on (2, 2); a cache of 31 slots, which no line divides (whole
+# on (1, 4)); mixtral's window of 32 with a 44-token prompt (prefill
+# rolls the ring; decode writes slots 12-19, across the (1, 4) shard
+# boundary at 16); kimi's shared expert on (2, 2); llava's prefix;
+# internlm2's FSDP weights on (2, 2).  At count >= 2 (--serve-tp-only on
+# four cards) SERVE_TP_ARCH at full width in bf16 at SERVE_TP_LAYERS
+# layers: SERVE_TP_PREFILL (rows, tokens) of prefill_32k,
+# SERVE_TP_DECODE (rows, cache slots) of decode_32k from a cache of
+# N(0, 1) keys and values, and SERVE_TP_MIXTRAL ((arch, layers, rows,
+# prompt): decode slots 1020-1027 cross the 1,024-slot shard boundary of
+# (1, 4)) in f32, each compared with rank 0's one-card run of the first
+# SERVE_TP_ONE_ROWS (prefill, decode) rows within TP_FLOOR_X x the noise
+# floor of that run rounded another way (llama's bf16 run is only timed:
+# below): its q, k, v projections summed
+# in two half contractions (serve_split_qkv), prefill's attention by the
+# chunked plain attention, decode's weights kept in f32 before P V (as
+# the ranks' merge keeps them; the reference casts them to the cache's
+# dtype); the bf16 flash row's f64 check reads the first
+# SERVE_TP_VERDICT_ROWS query rows of sequence 0
+SERVE_TP_STEPS, SERVE_TP_ROWS, SERVE_TP_GLOO_REL = 8, 4, 1e-5
+SERVE_TP_GLOO_RUNS = (
+    ("llama", "llama3-8b", {}, 64, 20, 1, 4, False),
+    ("llama", "llama3-8b", {}, 64, 20, 2, 2, False),
+    ("llama-t31", "llama3-8b", {}, 31, 20, 1, 4, False),
+    ("mixtral", "mixtral-8x7b", {"moe_dispatch_groups": 2}, 64, 44, 1, 4,
+     False),
+    ("kimi", "kimi-k2-1t-a32b", {"moe_dispatch_groups": 2}, 64, 20, 2, 2,
+     False),
+    ("llava", "llava-next-34b", {}, 64, 20, 1, 4, False),
+    ("internlm2", "internlm2-20b", {}, 64, 20, 2, 2, True))
+SERVE_TP_ARCH, SERVE_TP_LAYERS = "llama3-8b", 4
+SERVE_TP_PREFILL, SERVE_TP_DECODE = (16, 32_768), (128, 32_768)
+SERVE_TP_ONE_ROWS = (2, 8)
+SERVE_TP_MIXTRAL = ("mixtral-8x7b", 2, 8, 5_116)
+SERVE_TP_VERDICT_ROWS = 2_048
+# mixtral at 8 x 5,116 tokens: any rounding flips some token's top-k at a
+# near-tie of its router logits in every row (the noise floor's run did,
+# measured on four H100s), and a flipped expert moves that row's logits far
+# above rounding.  So the ranks and the floor's run dispatch every token
+# to the one-card run's experts (serve_routes), and each token whose own
+# top-k differs must be a near-tie: the gap between its k-th and
+# (k+1)-th router logit within SERVE_TP_ROUTE_GAP of its largest |router
+# logit| (the ranks' router logits part from one card's by 6.0e-5 of
+# their scale at full width in f32, measured on one H100)
+SERVE_TP_ROUTE_GAP = 1e-3
+# llama's bf16 run is timed, not held (SERVE_TP_TIMED): at random fan_in
+# weights its one-card run rounded another way parts from itself by
+# 1.157 / 0.536 of the logits' scale (prefill / decode, four H100s), so
+# a bar drawn from that floor passes logits of all zeros.  The same
+# model in f32 with its matrices x DP_GLOO_SCALE (SERVE_TP_SCALES), on
+# the same meshes, SERVE_TP_F32 ((rows, prompt tokens, one-card rows))
+# prefill and SERVE_TP_STEPS decode steps on its own cache, is held;
+# every held run's noise floor must lie below SERVE_TP_FLOOR_CAP of the
+# logits' scale, or its bar could not catch a fault
+SERVE_TP_TIMED = ("llama",)
+SERVE_TP_SCALES = {"llama-f32": DP_GLOO_SCALE}
+SERVE_TP_F32 = (4, 4_096, 2)
+SERVE_TP_FLOOR_CAP = 1e-2
 
 LM_ARCH = "llama3-8b"
 # (a)'s cut depth, and its bar on max |diff| relative to the compared
@@ -7576,7 +7681,8 @@ def tp_row(qkv, launches: int, per_step: int) -> dict:
     err, readings = check_flash_bf16(
         fa.flash_attention(q, k, v, causal=True, kv_len=s), q, k, v, s,
         "tp: flash_attention at a model rank's training shape")
-    live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None)
+    live, flops, nbytes = flash_work(b, hq, hk, d, s, s, True, None,
+                                     itemsize=q.element_size())
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)
     print(f"tp: flash_attention at ({b}, {hq}, {s}, {d}) x ({b}, {hk}, {s}, "
@@ -7883,6 +7989,864 @@ def phase_tp(seed: int, count: int, pending=None) -> list:
     return rows
 
 
+# ------------------------------------------------------------ serve_tp
+def serve_run(prefill, decode, params, batch, steps: int, tokens=None):
+    """Prefill, then ``steps`` decode steps, each fed the argmax of the
+    last logits (greedy) or, with ``tokens`` (steps, rows), those
+    tokens: (the logits of each on the host, the tokens fed, the cache,
+    the prefill's and each step's seconds, each ended by a device
+    synchronise)."""
+    def wait(x):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    wait(logits)
+    times = [time.perf_counter() - t0]
+    out, fed = [logits.float().cpu()], []
+    for i in range(steps):
+        tok = (torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+               if tokens is None else tokens[i].to(logits.device))
+        fed.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tok, cache)
+        wait(logits)
+        times.append(time.perf_counter() - t0)
+        out.append(logits.float().cpu())
+    return out, fed, cache, times
+
+
+def serve_gloo_cfg(run):
+    """A SERVE_TP_GLOO_RUNS entry's config: the arch's reduced config in f32
+    with the entry's changes."""
+    from repro_torch.configs.registry import get_arch
+    _, arch, changes, *_ = run
+    return dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                               **changes)
+
+
+def serve_gloo_inputs(seed: int) -> dict:
+    """Per SERVE_TP_GLOO_RUNS label its parameters (matrices x
+    DP_GLOO_SCALE, as numpy on the host) and its batch of SERVE_TP_ROWS
+    rows (a vlm's prefix too)."""
+    from repro_torch.models import zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim
+    out = {}
+    for run in SERVE_TP_GLOO_RUNS:
+        label, _, _, _, prompt, *_ = run
+        if label in out:
+            continue
+        cfg = serve_gloo_cfg(run)
+        params = optim.tree_map(
+            lambda p: (p * DP_GLOO_SCALE if p.dim() >= 2 else p).numpy(),
+            init_params(zoo.model_specs(cfg), torch.Generator().manual_seed(
+                seed), "float32", device="cpu"))
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (SERVE_TP_ROWS, prompt)).astype(np.int32))}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.from_numpy(rng.normal(
+                0, 0.02, (SERVE_TP_ROWS, cfg.n_prefix_embeds, cfg.d_model))
+                .astype(np.float32))
+        out[label] = (params, batch)
+    return out
+
+
+def serve_gloo_rank(rank, device, inputs):
+    """The one-card rank body: each SERVE_TP_GLOO_RUNS entry on its mesh,
+    the rank's chunks of the parameters and its rows of the batch,
+    prefill and SERVE_TP_STEPS greedy decode steps with the launch counters
+    zeroed just before and read just after; its logits, tokens, cache
+    bytes and layout; rank 0 keeps the first flash operands of the
+    first run.  One thread a rank."""
+    torch.set_num_threads(1)
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data.pipeline import DataShard, shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import zoo
+    from repro_torch.sharding import collective
+    meshes = {}
+    out = {}
+    (tally, first), spy = family_flash_spy()
+    for i, run in enumerate(SERVE_TP_GLOO_RUNS):
+        label, _, _, cache_len, _, d, m, fsdp = run
+        if (d, m) not in meshes:
+            meshes[d, m] = make_host_mesh(model_parallel=m, device=device)
+        mesh, cfg = meshes[d, m], serve_gloo_cfg(run)
+        host, batch = inputs[label]
+        chunks = zoo.rank_params(cfg, params_from_reference(
+            host, device=device), mesh, fsdp=fsdp)
+        local = {k: v.to(device) for k, v in shard_rows(
+            batch, DataShard(mesh.coords()["data"], d)).items()}
+        prefill = zoo.prefill_fn(cfg, cache_len, mesh)
+        decode = zoo.decode_fn(cfg, mesh)
+        _cuda.reset_launches()
+        with spy if i == 0 else contextlib.nullcontext():
+            logits, fed, cache, times = serve_run(prefill, decode, chunks,
+                                                  local, SERVE_TP_STEPS)
+        launches = dict(_cuda.LAUNCHES)
+        split = collective.model_of(cache["k"])
+        out[i] = {"logits": logits, "tokens": fed, "launches": launches,
+                  "seconds": sum(times), "data": mesh.coords()["data"],
+                  "bytes": {k: v.numel() * v.element_size()
+                            for k, v in cache.items() if k != "pos"},
+                  "layout": None if split is None else split.dim}
+    out["qkv"] = {key: (n, tuple(t.cpu() for t in first[key]))
+                  for key, n in tally.items()} if rank == 0 else None
+    return out
+
+
+def serve_gloo_start(seed: int):
+    """The one-card check started: four gloo ranks on the card."""
+    return gloo_start(serve_gloo_rank, (serve_gloo_inputs(seed),),
+                      "serve_tp:", world=4)
+
+
+def serve_gloo_finish(seed: int, pending) -> list:
+    """The one-card check finished: each run's logits (prefill and every
+    step, the ranks' rows joined in data order) within SERVE_TP_GLOO_REL of
+    the logits' max |value| of the one-process prefill and decode on
+    the card, the greedy tokens equal, every rank of a model line
+    holding the same logits, each rank's flash launches one a layer
+    (prefill; decode attends in plain torch), its cache bytes equal to
+    the dry-run's cache_specs shard bytes on the mesh and its cache
+    split as the guard lays it out.  Returns the flash row at the first
+    run's rank shape."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch.dryrun import cache_specs
+    from repro_torch.models import zoo
+    from repro_torch.sharding.logical import LogicalMesh, default_rules
+    inputs = serve_gloo_inputs(seed)
+    wants = {}
+    for run in SERVE_TP_GLOO_RUNS:                     # beside the ranks
+        label, _, _, cache_len, *_ = run
+        cfg = serve_gloo_cfg(run)
+        host, batch = inputs[label]
+        key = (label, cache_len)
+        if key not in wants:
+            wants[key] = serve_run(
+                zoo.prefill_fn(cfg, cache_len), zoo.decode_fn(cfg),
+                params_from_reference(host, device=DEVICE),
+                {k: v.to(DEVICE) for k, v in batch.items()}, SERVE_TP_STEPS)
+    t0 = pending[-1]
+    got = gloo_join(pending)
+    for i, run in enumerate(SERVE_TP_GLOO_RUNS):
+        label, arch, _, cache_len, prompt, d, m, fsdp = run
+        cfg = serve_gloo_cfg(run)
+        want, want_tok, want_cache, _ = wants[label, cache_len]
+        what = (f"({d}, {m}) reduced {label} ({arch}{', FSDP' if fsdp else ''}"
+                f", cache {cache_len}, prompt {prompt})")
+        for r in range(4):
+            lead = got[r - r % m][i]
+            check(all(torch.equal(a, b) for a, b in
+                      zip(got[r][i]["logits"], lead["logits"])),
+                  f"serve_tp: {what}: rank {r}'s logits differ from its "
+                  "model line's first rank's")
+        joined = [torch.cat(parts) for parts in zip(
+            *(got[k * m][i]["logits"] for k in range(d)))]
+        toks = [torch.cat(parts) for parts in zip(
+            *(got[k * m][i]["tokens"] for k in range(d)))]
+        worst = max(float((a - w).abs().max() / w.abs().max())
+                    for a, w in zip(joined, want))
+        check(worst <= SERVE_TP_GLOO_REL,
+              f"serve_tp: {what}: logits {worst:.3g} of their scale from "
+              f"the one-process prefill and decode (bar "
+              f"{SERVE_TP_GLOO_REL:g})")
+        check(all(torch.equal(a, w) for a, w in zip(toks, want_tok)),
+              f"serve_tp: {what}: greedy tokens differ from the one-process "
+              "decode's")
+        launches = [got[r][i]["launches"].get("flash_attention", 0)
+                    for r in range(4)]
+        check(launches == [cfg.n_layers] * 4,
+              f"serve_tp: {what}: flash_attention launches per rank "
+              f"{launches}, expected {cfg.n_layers} (one a layer in prefill)")
+        specs = cache_specs(cfg, ShapeCell("serve", cache_len, SERVE_TP_ROWS,
+                                           "decode"),
+                            LogicalMesh(("data", "model"), (d, m)),
+                            default_rules())
+        shard = {k: int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
+                 * t.element_size() for k, t in specs.items() if t.dim()}
+        check(all(got[r][i]["bytes"] == shard for r in range(4)),
+              f"serve_tp: {what}: cache bytes {got[0][i]['bytes']} on rank "
+              f"0, cache_specs' shard bytes {shard}")
+        check(all(got[r][i]["data"] == r // m for r in range(4)),
+              f"serve_tp: {what}: ranks off their data coordinates")
+        layout = {None: "whole on the line", 2: "kv_seq on model",
+                  3: "kv_heads on model"}[got[0][i]["layout"]]
+        print(f"serve_tp: {what} on four gloo ranks on the card (f32, "
+              f"matrices x {DP_GLOO_SCALE}, {SERVE_TP_ROWS} rows, "
+              f"{SERVE_TP_STEPS} greedy steps): logits within {worst:.3g} of "
+              f"their scale of the one-process prefill and decode on the "
+              f"card (bar {SERVE_TP_GLOO_REL:g}), tokens equal; cache "
+              f"{layout}, {sum(shard.values()):,} B a rank as cache_specs "
+              f"says; flash_attention launches per rank {launches}; "
+              f"{max(got[r][i]['seconds'] for r in range(4)):.2f} s on the "
+              f"ranks", flush=True)
+    print(f"serve_tp: the gloo ranks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    (key, (n, qkv)), = list(got[0]["qkv"].items())[:1]
+    return serve_f32_row("serve-tp " + SERVE_TP_GLOO_RUNS[0][0], key,
+                         tuple(t.to(DEVICE) for t in qkv),
+                         got[0][0]["launches"]["flash_attention"])
+
+
+def serve_f32_row(label, key, qkv, launches) -> dict:
+    """The flash kernel at a rank's f32 prefill shape (its share of the q
+    and kv heads), on the first operands the rank gave it: within 1e-4
+    absolute of flash_attention_ref (the f32 bar of the repo's gpu
+    tests), and no further from the f64 answer than the plain version
+    plus that; timed beside the plain version, SDPA and flash_work's
+    bound at the f32 rate."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
+    (qs, ks, causal, kv_len, window), (q, k, v) = key, qkv
+    b, hq, sq, d = qs
+    hk = ks[1]
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                             window=window).double()
+    plain, exact = flash_refs(q, k, v, kv_len, causal, window)
+    err = float((got - plain).abs().max())
+    off, plain_off = (float((x - exact).abs().max()) for x in (got, plain))
+    check(err <= 1e-4 and off <= plain_off + 1e-4,
+          f"serve_tp: flash_attention {label}: max |diff| from plain "
+          f"{err:.3g}, from the f64 answer {off:.3g} (plain {plain_off:.3g})")
+    # the rows past kv_len are ops.flash_attention's padding to 128: the
+    # function's query rows are kv_len, as SDPA's below
+    live, flops, nbytes = flash_work(b, hq, hk, d, kv_len, kv_len, causal,
+                                     window, itemsize=q.element_size())
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, :kv_len], k[:, :, :kv_len], v[:, :, :kv_len],
+        is_causal=causal, enable_gqa=True)
+    print(f"serve_tp: flash_attention {label} at ({b}, {hq}, {sq}, {d}) x "
+          f"({b}, {hk}, {ks[2]}, {d}) f32 causal={causal} kv_len={kv_len} "
+          f"window={window}: {launches} launches on rank 0's path; max "
+          f"|diff| from plain {err:.3g}, from the f64 answer {off:.3g} "
+          f"(plain {plain_off:.3g})", flush=True)
+    return kernel_row(
+        f"flash_attention {label}", launches, err,
+        lambda: fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                   window=window), 10,
+        lambda: flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                    window=window), 3,
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_F32,
+        kernel="flash_attention",
+        note=f"a (data, model) rank's share of the heads, reduced f32")
+
+
+def serve_cache_fill(cache, rows: range, seed: int) -> None:
+    """Fill a k / v cache (this rank's chunk, or a whole one) with the
+    cache of the global ``rows``: each (layer, row) slab of every slot
+    and kv head N(0, 1) from its own seed, the rank keeping its chunk of
+    the slab, so any layout holds the same values."""
+    from repro_torch.sharding import collective
+    for name, off in (("k", 0), ("v", 1)):
+        x = cache[name]
+        split = collective.model_of(x)
+        n_layers, _, t, hk, hd = x.shape
+        full = (split.full if split is not None and split.dim == 2 else t,
+                split.full if split is not None and split.dim == 3 else hk)
+        gen = torch.Generator(device=x.device)
+        for i in range(n_layers):
+            for j, g in enumerate(rows):
+                gen.manual_seed(((seed * 2 + off) * 1_000 + i) * 100_000 + g)
+                slab = torch.randn(full + (hd,), generator=gen,
+                                   device=x.device, dtype=torch.float32)
+                if split is not None:
+                    slab = slab.narrow(split.dim - 2, split.index * split.size,
+                                       split.size)
+                x[i, j].copy_(slab)
+            del slab
+
+
+def serve_split_qkv():
+    """A context under which the q, k and v projections sum their
+    contraction in two halves (two products added): the projections
+    rounded another way, as a rank's products of its heads' columns
+    round otherwise than the whole matmul's.  At random fan_in weights
+    attention scores reach the hundreds, so softmax turns such a
+    rounding into a change of the output far above the dtype's eps."""
+    from repro_torch.models import layers, transformer
+
+    def qkv(p, xn, cfg, cos, sin):
+        h = xn.shape[-1] // 2
+
+        def proj(w):
+            return (torch.einsum("bsd,dhk->bshk", xn[..., :h], w[:h])
+                    + torch.einsum("bsd,dhk->bshk", xn[..., h:], w[h:]))
+        rot = int(cfg.hd * cfg.partial_rotary)
+        return (layers.apply_rope(proj(p["wq"]), cos, sin, rot),
+                layers.apply_rope(proj(p["wk"]), cos, sin, rot),
+                proj(p["wv"]))
+    return mock.patch.object(transformer, "_qkv", qkv)
+
+
+def serve_floor_decode():
+    """A context under which a decode step rounds another way: the
+    split projections (serve_split_qkv) and the partial softmax of
+    layers.decode_partial over the whole cache, normalised in f32 (the
+    ranks' merge of one part), in place of the reference's weights cast
+    to the cache's dtype before P V."""
+    from repro_torch.models import layers, transformer
+
+    def f32_weights(q, k, v, pos, window=None):
+        m, l, o = layers.decode_partial(q, k, v, pos, 0, k.shape[1], window)
+        return (o / l[..., None]).to(v.dtype).reshape(q.shape)
+    return serve_patches(serve_split_qkv(), mock.patch.object(
+        transformer, "decode_attention", f32_weights))
+
+
+def serve_floor_prefill(chunk: int):
+    """A context under which prefill rounds another way: the split
+    projections (serve_split_qkv) and the chunked plain attention
+    (``chunk`` rows and keys a block) in place of the kernel (tp:'s
+    noise floor)."""
+    from repro_torch.models import layers, transformer
+
+    def plain(q, k, v, cfg):
+        ck = min(chunk, max(1, q.shape[1] // 4))
+        return layers.chunked_attention(q, k, v, causal=True,
+                                        window=cfg.sliding_window,
+                                        chunk_q=ck, chunk_k=ck)
+    return serve_patches(serve_split_qkv(),
+                         mock.patch.object(transformer, "attention", plain))
+
+
+@contextlib.contextmanager
+def serve_patches(*patches):
+    """Every patch in ``patches`` entered when the block is (not when
+    this is called), left when it ends."""
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield
+
+
+def serve_routes(routes: list, force=None):
+    """A context under which every MoE dispatch group appends to
+    ``routes`` its tokens' own top-k experts (sorted), the gap between
+    the k-th and the (k+1)-th router logit and each token's largest
+    |router logit|, on the host; with ``force`` (another run's
+    ``routes``, group by group) the group is dispatched to those experts
+    instead, at their own logits (so the gates are this run's)."""
+    from repro_torch.models import moe
+    real = moe._dispatch_one_group
+    want = iter(force or ())
+
+    def spy(xf, logits, m, cap, gate=None, experts=None):
+        v, i = torch.topk(logits, m.top_k + 1, dim=-1)
+        routes.append((torch.sort(i[:, :m.top_k], dim=-1).values.cpu(),
+                       (v[:, m.top_k - 1] - v[:, m.top_k]).cpu(),
+                       logits.abs().amax(dim=-1).cpu()))
+        if force is not None:
+            idx = next(want)[0].to(logits.device)
+            logits = torch.full_like(logits, float("-inf")).scatter(
+                1, idx, logits.gather(1, idx))
+        return real(xf, logits, m, cap, gate, experts)
+    return mock.patch.object(moe, "_dispatch_one_group", spy)
+
+
+def serve_route_flips(got, want) -> tuple:
+    """(tokens whose own top-k in ``got`` differs from ``want``'s, the
+    largest gap of such a token in ``want`` relative to its largest
+    |router logit|): two serve_routes lists, group by group."""
+    n, worst = 0, 0.0
+    for (a, _, _), (b, gap, top) in zip(got, want):
+        diff = (a != b).any(dim=-1)
+        if diff.any():
+            n += int(diff.sum())
+            worst = max(worst, float((gap[diff] / top[diff]).max()))
+    return n, worst
+
+
+def serve_dist(got, want) -> float:
+    """max |got - want| over max |want|, over a list of logits."""
+    return max(float((a - w).abs().max() / w.abs().max())
+               for a, w in zip(got, want))
+
+
+def serve_nccl_rank(rank, device, seed, runs):
+    """The W-card rank body: per ``runs`` entry (label, config, meshes
+    ((data, model) a mesh), prefill (rows, tokens), decode (rows, cache
+    slots) or None, the one-card rows (prefill, decode)), the rank first
+    holds rank 0's one-card prefill and decode of the first rows (and
+    each with its attention rounded another way: the noise floor), then
+    on each mesh: the prefill of the global rows split over the data
+    axis, timed, then again under torch.profiler; and, for a decode
+    cell, a cache of the decode rows at its last SERVE_TP_STEPS slots
+    (serve_cache_fill; pos = slots - SERVE_TP_STEPS), SERVE_TP_STEPS decode
+    steps fed the same seeded tokens, the last under torch.profiler.
+    Without a decode cell the prefill's own cache takes SERVE_TP_STEPS
+    steps; a MoE's run then goes twice: timed on its own routing, then
+    untimed with its tokens dispatched to rank 0's one-card routes
+    (serve_routes), whose logits are compared.  Matrices x
+    SERVE_TP_SCALES[label] where given.  Peak memory a card beside
+    estimate_memory; rank 0 keeps the first flash operands of the first
+    mesh's prefill."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.data.pipeline import DataShard, shard_rows
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dryrun import cache_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer, zoo
+    from repro_torch.models.params import init_params
+    from repro_torch.roofline.analysis import estimate_memory
+    from repro_torch.sharding.logical import default_rules
+    from repro_torch.train import optim
+    on_card = device.type == "cuda"
+
+    def wait():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(device) if on_card else 0
+
+    out = {}
+    meshes = {}
+    kept = None
+    for label, cfg, mesh_list, (pb, ps), dec, (one_p, one_d) in runs:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        whole = init_params(zoo.model_specs(cfg), gen, cfg.dtype,
+                            device=device)
+        if label in SERVE_TP_SCALES:
+            whole = optim.tree_map(
+                lambda p: p * SERVE_TP_SCALES[label] if p.dim() >= 2 else p,
+                whole)
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (pb, ps))
+                                  .astype(np.int32))
+        steps = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (SERVE_TP_STEPS, dec[0] if dec else pb))
+            .astype(np.int32))
+        res = {"one": None}
+        if rank == 0:
+            # the one-card prefill and decode of the first rows, and the
+            # same with the attention rounded another way
+            one = {}
+            batch = {"tokens": tokens[:one_p].to(device)}
+            if dec is None:
+                # decode reads the prefill's cache: the floor rounds both;
+                # a MoE's floor takes the one-card run's routes
+                for tag, ctxs in (("one", ()), ("floor", (
+                        serve_floor_prefill(TP_FLOOR_CHUNK),
+                        serve_floor_decode()))):
+                    routes = []
+                    with contextlib.ExitStack() as stack:
+                        for ctx in ctxs + (serve_routes(
+                                routes, one.get("one_routes")),):
+                            stack.enter_context(ctx)
+                        lg, _, _, _ = serve_run(
+                            zoo.prefill_fn(cfg, ps + SERVE_TP_STEPS),
+                            zoo.decode_fn(cfg), whole, batch, SERVE_TP_STEPS,
+                            steps[:, :one_p])
+                    one[tag + "_prefill"], one[tag + "_decode"] = \
+                        lg[0], lg[1:]
+                    one[tag + "_routes"] = routes
+                    free()
+            else:
+                for tag, ctx in (("one", contextlib.nullcontext()),
+                                 ("floor",
+                                  serve_floor_prefill(TP_FLOOR_CHUNK))):
+                    with ctx:
+                        lg, _ = zoo.prefill_fn(cfg, ps + SERVE_TP_STEPS)(
+                            whole, batch)
+                    one[tag + "_prefill"] = lg.float().cpu()
+                    free()
+                rows, slots = dec
+                for tag, ctx in (("one", contextlib.nullcontext()),
+                                 ("floor", serve_floor_decode())):
+                    cache = transformer.init_cache(cfg, one_d, slots,
+                                                   device=device)
+                    serve_cache_fill(cache, range(one_d), seed)
+                    cache["pos"] = slots - SERVE_TP_STEPS
+                    lgs = []
+                    with ctx:
+                        for i in range(SERVE_TP_STEPS):
+                            lg, cache = zoo.decode_fn(cfg)(
+                                whole, steps[i, :one_d].to(device), cache)
+                            lgs.append(lg.float().cpu())
+                    one[tag + "_decode"] = lgs
+                    del cache
+                    free()
+            res["one"] = one
+        # every rank dispatches a MoE's tokens to rank 0's one-card routes
+        # (its own are kept and read against them): the logits then part
+        # by rounding alone, not by a top-k flipped at a near-tie
+        forced = [res["one"]["one_routes"] if rank == 0 and dec is None
+                  else None]
+        dist.broadcast_object_list(forced, src=0)
+        dist.barrier()
+        for d, m in mesh_list:
+            if (d, m) not in meshes:
+                meshes[d, m] = make_host_mesh(model_parallel=m, device=device)
+            mesh = meshes[d, m]
+            coord = mesh.coords()["data"]
+            chunks = zoo.rank_params(cfg, whole, mesh)
+            free()
+            local = {"tokens": shard_rows({"tokens": tokens},
+                                          DataShard(coord, d))["tokens"]
+                     .to(device)}
+            cache_len = ps + SERVE_TP_STEPS if dec is None else ps
+            prefill = zoo.prefill_fn(cfg, cache_len, mesh)
+            decode = zoo.decode_fn(cfg, mesh)
+
+            def one_pass(timed: bool):
+                """Prefill, then SERVE_TP_STEPS decode steps: (what the
+                pass read, its last cache); ``timed`` adds the ms, the
+                profiled calls and the peaks."""
+                nonlocal kept
+                (tally, first), spy = family_flash_spy()
+                peak_reset()
+                _cuda.reset_launches()
+                wait()
+                t0 = time.perf_counter()
+                with spy:
+                    lg, cache = prefill(chunks, local)
+                wait()
+                ms_prefill = (time.perf_counter() - t0) * 1e3
+                launches = dict(_cuda.LAUNCHES).get("flash_attention", 0)
+                got = {"prefill": lg[:one_p].float().cpu() if coord == 0
+                       else None, "ms_prefill": ms_prefill,
+                       "launches": launches, "peak_prefill": peak()}
+                if rank == 0 and kept is None:
+                    kept = next(iter(first.items()))
+                    kept = (kept[0], tally[kept[0]], kept[1], launches)
+                del lg
+                if dec is None:
+                    step_rows = range(coord * (pb // d),
+                                      (coord + 1) * (pb // d))
+                else:
+                    del cache
+                    free()
+                    wall, busy, top = device_busy(
+                        lambda: prefill(chunks, local), None)
+                    got["prefill_busy"] = (wall, busy, nccl_kinds(top))
+                    free()
+                    rows, slots = dec
+                    per = rows // d
+                    step_rows = range(coord * per, (coord + 1) * per)
+                    cache = transformer.init_cache(cfg, rows, slots,
+                                                   device=device, mesh=mesh)
+                    serve_cache_fill(cache, step_rows, seed)
+                    cache["pos"] = slots - SERVE_TP_STEPS
+                peak_reset()
+                lgs, times = [], []
+                for i in range(SERVE_TP_STEPS):
+                    tok = steps[i, step_rows.start:step_rows.stop].to(device)
+                    if timed and i == SERVE_TP_STEPS - 1:
+                        box = {}
+
+                        def last():
+                            box["out"] = decode(chunks, tok, cache)
+                        wall, busy, top = device_busy(last, None)
+                        lg, cache = box["out"]
+                        got["decode_busy"] = (wall, busy, nccl_kinds(top))
+                    else:
+                        wait()
+                        t0 = time.perf_counter()
+                        lg, cache = decode(chunks, tok, cache)
+                        wait()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    lgs.append(lg[:one_d].float().cpu() if coord == 0
+                               else None)
+                got["decode"] = lgs
+                got["ms_steps"] = times
+                got["peak_decode"] = peak()
+                return got, cache
+
+            if cfg.moe is not None and dec is None:
+                # timed on the port's own routing; then, untimed, the
+                # logits compared with the tokens dispatched to the
+                # one-card routes (the spy copies each group's top-k to
+                # the host)
+                got, cache = one_pass(True)
+                del cache
+                free()
+                routes = []
+                with serve_routes(routes, forced[0]):
+                    held, cache = one_pass(False)
+                got.update(prefill=held["prefill"], decode=held["decode"],
+                           routes=routes if rank == 0 else None)
+            else:
+                got, cache = one_pass(True)
+            got["cache_bytes"] = sum(v.numel() * v.element_size()
+                                     for k, v in cache.items() if k != "pos")
+            cell = ShapeCell("serve", dec[1] if dec else cache_len,
+                             dec[0] if dec else pb, "decode")
+            specs = cache_specs(cfg, cell, mesh, default_rules())
+            got["cache_specs"] = sum(
+                int(np.prod(t.sharding.shard_shape(tuple(t.shape))))
+                * t.element_size() for t in specs.values() if t.dim())
+            rules = default_rules()
+            est = {}
+            for kind, (rws, sq) in (("prefill", (pb, ps)),
+                                    ("decode", dec or (pb, cache_len))):
+                est[kind] = estimate_memory(
+                    cfg, RunConfig(), zoo.model_specs(cfg),
+                    ShapeCell("serve", sq, rws, kind), mesh, rules,
+                    cache_abstract=specs if kind == "decode" else None
+                )["total"]
+            got["estimate"] = est
+            del cache, chunks
+            free()
+            res[d, m] = got
+        out[label] = res
+        del whole
+        free()
+    if rank == 0:
+        key, n, qkv, launches = kept
+        out["row"] = serve_bf16_row(f"serve-tp {runs[0][0]}", key, qkv,
+                                    launches)
+    dist.barrier()
+    return out
+
+
+def serve_bf16_row(label, key, qkv, launches) -> dict:
+    """The flash kernel at a rank's bf16 prefill shape, on the first
+    operands the first mesh's prefill gave rank 0's kernel: held to the
+    plain version and the f64 answer (flash_verdict, the dense rows'
+    strict bar) on the first SERVE_TP_VERDICT_ROWS query rows of the first
+    sequence (causal: those rows read no later key, so the kernel's
+    output there is the output on the cut operands; the f64 answer of a
+    whole 32,768-token head does not fit), timed at the whole shape
+    beside the plain version, SDPA and flash_work's bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import flash_work
+    (qs, ks, causal, kv_len, window), (q, k, v) = key, qkv
+    b, hq, sq, d = qs
+    hk = ks[1]
+    cut = min(SERVE_TP_VERDICT_ROWS, kv_len)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                             window=window)[:1, :, :cut]
+    ok, err, readings = flash_verdict(got, *flash_refs(
+        q[:1, :, :cut], k[:1, :, :cut], v[:1, :, :cut], cut, causal,
+        window))
+    check(ok, f"serve_tp: flash_attention {label}: {readings}")
+    del got
+    live, flops, nbytes = flash_work(b, hq, hk, d, kv_len, kv_len, causal,
+                                     window, itemsize=q.element_size())
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+    print(f"serve_tp: flash_attention {label} at ({b}, {hq}, {sq}, {d}) x "
+          f"({b}, {hk}, {ks[2]}, {d}) bf16 causal={causal} window={window}: "
+          f"{launches} launches on rank 0's prefill; on the first {cut} "
+          f"query rows of sequence 0 against flash_attention_ref and the "
+          f"f64 answer: {readings}", flush=True)
+    return kernel_row(
+        f"flash_attention {label}", launches, err,
+        lambda: fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                   window=window), 5,
+        lambda: flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                    window=window), 1,
+        nbytes, flops, library=sdpa, flop_per_s=hw.PEAK_FLOPS_BF16,
+        kernel="flash_attention",
+        note="a (1, W) rank's share of the q and kv heads in prefill")
+
+
+def serve_report(got, world, runs) -> None:
+    """Each run on each mesh against rank 0's one-card prefill and
+    decode of the first rows: the logits' distance (max |diff| over
+    max |value|) within TP_FLOOR_X x the noise floor's (the one-card
+    run with its attention rounded another way), or within
+    SERVE_TP_GLOO_REL, the floor itself below SERVE_TP_FLOOR_CAP (the
+    bar then holds the greedy tokens too: a token can flip only where
+    the one-card logits' top two part by less than twice the distance,
+    so their agreement is printed, not checked again); a SERVE_TP_TIMED
+    run's logits are only finite and read, not held; flash launches one
+    a layer; cache
+    bytes equal to cache_specs' shard bytes; the times, tokens/s, NCCL
+    ms by collective, busy share and peak a card beside
+    estimate_memory."""
+    for label, cfg, mesh_list, (pb, ps), dec, (one_p, one_d) in runs:
+        one = got[0][label]["one"]
+        floor_p = serve_dist([one["floor_prefill"]], [one["one_prefill"]])
+        floor_d = serve_dist(one["floor_decode"], one["one_decode"])
+        for d, m in mesh_list:
+            what = f"{label} on ({d}, {m})"
+            x = got[0][label][d, m]
+            flips = ""
+            if cfg.moe is not None and dec is None:
+                n, gap = serve_route_flips(x["routes"], one["one_routes"])
+                check(gap <= SERVE_TP_ROUTE_GAP,
+                      f"serve_tp: {what}: {n} tokens' own top-k experts "
+                      f"differ from the one-card run's, one at a top-k gap "
+                      f"of {gap:.3g} of its largest router logit (near-tie "
+                      f"bar {SERVE_TP_ROUTE_GAP:g})")
+                fn, fgap = serve_route_flips(one["floor_routes"],
+                                             one["one_routes"])
+                tokens = sum(r[0].shape[0] for r in one["one_routes"])
+                flips = (f"; the ranks' own top-k differs from the one-card "
+                         f"run's at {n} of {tokens} routed tokens (the noise "
+                         f"floor's run at {fn}), each a near-tie (gap at most "
+                         f"{gap:.3g} of the largest router logit; floor "
+                         f"{fgap:.3g}); both dispatched to the one-card "
+                         f"routes")
+            dist_p = serve_dist([x["prefill"]], [one["one_prefill"]])
+            dist_d = serve_dist(x["decode"], one["one_decode"])
+            pairs = list(zip([x["prefill"]] + x["decode"],
+                             [one["one_prefill"]] + one["one_decode"]))
+            agree = float(np.mean([
+                torch.equal(torch.argmax(a[:, -1], -1),
+                            torch.argmax(w[:, -1], -1))
+                for a, w in pairs]))
+            check(all(bool(torch.isfinite(a).all()) for a, _ in pairs),
+                  f"serve_tp: {what}: logits not finite")
+            bar_p = max(TP_FLOOR_X * floor_p, SERVE_TP_GLOO_REL)
+            bar_d = max(TP_FLOOR_X * floor_d, SERVE_TP_GLOO_REL)
+            held = label not in SERVE_TP_TIMED
+            if held:
+                check(max(floor_p, floor_d) <= SERVE_TP_FLOOR_CAP,
+                      f"serve_tp: {what}: noise floors {floor_p:.4g}, "
+                      f"{floor_d:.4g} of the logits' scale, above "
+                      f"{SERVE_TP_FLOOR_CAP:g}: a bar drawn from them "
+                      f"would not catch a fault")
+                check(dist_p <= bar_p and dist_d <= bar_d,
+                      f"serve_tp: {what}: prefill logits {dist_p:.4g} and "
+                      f"decode logits {dist_d:.4g} of their scale from the "
+                      f"one-card run (bars {bar_p:.4g}, {bar_d:.4g}: "
+                      f"{TP_FLOOR_X:g} x the noise floors {floor_p:.4g}, "
+                      f"{floor_d:.4g})")
+            launches = [g[label][d, m]["launches"] for g in got]
+            check(launches == [cfg.n_layers] * world,
+                  f"serve_tp: {what}: flash_attention launches per rank "
+                  f"{launches}, expected {cfg.n_layers}")
+            check(all(g[label][d, m]["cache_bytes"]
+                      == g[label][d, m]["cache_specs"] for g in got),
+                  f"serve_tp: {what}: cache bytes "
+                  f"{[g[label][d, m]['cache_bytes'] for g in got]}, "
+                  f"cache_specs' {x['cache_specs']}")
+            ms_p = max(g[label][d, m]["ms_prefill"] for g in got)
+            step = float(np.median([t for g in got
+                                    for t in g[label][d, m]["ms_steps"]]))
+            rows = dec[0] if dec else pb
+            peaks = [max(g[label][d, m]["peak_prefill"],
+                         g[label][d, m]["peak_decode"]) for g in got]
+            line = (f"serve_tp: {what} {str(cfg.dtype)} (NCCL, {world} "
+                    f"cards): prefill "
+                    f"{pb} x {ps} tokens in {ms_p:.1f} ms "
+                    f"({pb * ps / ms_p * 1e3:,.0f} tokens/s), "
+                    f"{x['launches']} flash launches a rank; decode "
+                    f"{rows} rows" + (f" at {dec[1]:,} cache slots"
+                                      if dec else "")
+                    + f": {step:.2f} ms a step (median of the timed steps "
+                    f"of every rank; {rows / step * 1e3:,.0f} tokens/s); "
+                    f"logits from the one-card run of the first rows"
+                    + ("" if held else " (read, not held: the floors sit "
+                       "at the logits' scale)")
+                    + f": prefill {dist_p:.4g}, decode {dist_d:.4g} (noise "
+                    f"floors {floor_p:.4g}, {floor_d:.4g}), greedy tokens "
+                    f"of the first rows equal at {agree:.3f} of the calls; "
+                    f"cache {x['cache_bytes']:,} B a rank as cache_specs "
+                    f"says{flips}")
+            for kind in ("prefill_busy", "decode_busy"):
+                if kind in x:
+                    wall, busy, kinds = x[kind]
+                    line += (f"; rank 0's profiled {kind[:-5]}: {wall:.1f} "
+                             f"ms wall, device busy {busy / wall:.3f}, NCCL "
+                             f"ms by collective {kinds}")
+            est = x["estimate"]
+            line += (f"; peak a card {max(peaks):,} B (rank 0 prefill "
+                     f"{x['peak_prefill']:,}, decode {x['peak_decode']:,}) "
+                     f"beside estimate_memory's prefill {est['prefill']:,}, "
+                     f"decode {est['decode']:,}")
+            print(line, flush=True)
+
+
+def serve_over_cards(seed: int, world: int) -> list:
+    """At count >= 2: W NCCL ranks, one card each: SERVE_TP_ARCH at full
+    width at SERVE_TP_LAYERS layers on (1, W) (and (2, 2) at W = 4), in
+    bf16 (timed) and in f32 (SERVE_TP_F32, held), and SERVE_TP_MIXTRAL's
+    window on (1, W), each against rank 0's one-card run
+    (serve_nccl_rank, serve_report); returns the flash row at the rank
+    shape."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    full = get_arch(SERVE_TP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_TP_LAYERS)
+    meshes = ((1, world),) + (((2, world // 2),) if world == 4 else ())
+    arch, layers, rows, prompt = SERVE_TP_MIXTRAL
+    mix = get_arch(arch)
+    mcfg = dataclasses.replace(mix, n_layers=layers, dtype="float32")
+    f32_rows, f32_prompt, f32_one = SERVE_TP_F32
+    runs = (("llama", cfg, meshes, SERVE_TP_PREFILL, SERVE_TP_DECODE,
+             SERVE_TP_ONE_ROWS),
+            ("llama-f32", dataclasses.replace(cfg, dtype="float32"), meshes,
+             (f32_rows, f32_prompt), None, (f32_one, f32_one)),
+            ("mixtral", mcfg, ((1, world),), (rows, prompt), None,
+             (rows, rows)))
+    print(f"serve_tp: CUT: {SERVE_TP_ARCH} runs {SERVE_TP_LAYERS} of "
+          f"{full.n_layers} layers at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_q_heads} q / {cfg.n_kv_heads} kv heads, vocab "
+          f"{cfg.vocab}) in bf16; prefill_32k's cell cut to "
+          f"{SERVE_TP_PREFILL[0]} of 32 rows of {SERVE_TP_PREFILL[1]:,} "
+          f"tokens; "
+          f"decode_32k's {SERVE_TP_DECODE[0]} rows at {SERVE_TP_DECODE[1]:,} "
+          f"cache slots, the cache filled with N(0, 1) keys and values "
+          f"(not a prefill of 4M tokens) and {SERVE_TP_STEPS} decode steps "
+          f"from slot {SERVE_TP_DECODE[1] - SERVE_TP_STEPS}; the one-card "
+          f"comparison at the first {SERVE_TP_ONE_ROWS[0]} prefill and "
+          f"{SERVE_TP_ONE_ROWS[1]} decode rows; meshes (data, model) "
+          f"{meshes}; timed, its logits read and not held (their noise "
+          f"floor sits at their scale)", flush=True)
+    print(f"serve_tp: CUT: llama-f32 is the same {SERVE_TP_LAYERS} layers "
+          f"in f32 with the matrices x {DP_GLOO_SCALE}, {f32_rows} rows of "
+          f"a {f32_prompt:,}-token prompt and {SERVE_TP_STEPS} decode steps "
+          f"on its cache, on {meshes}, held to the one-card run of the "
+          f"first {f32_one} rows", flush=True)
+    print(f"serve_tp: CUT: {arch} runs {layers} of {mix.n_layers} layers "
+          f"at full width in f32, {rows} rows of a {prompt:,}-token "
+          f"prompt "
+          f"(window {mix.sliding_window}: prefill rolls the last "
+          f"{mix.sliding_window} positions into the ring; decode slots "
+          f"{prompt % mix.sliding_window}-"
+          f"{(prompt + SERVE_TP_STEPS - 1) % mix.sliding_window} cross the "
+          f"{mix.sliding_window // world}-slot shard boundary) on (1, "
+          f"{world})", flush=True)
+    got = run_ranks(serve_nccl_rank, world, (seed, runs), timeout_s=1500)
+    serve_report(got, world, runs)
+    print(f"serve_tp: over {world} cards in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return [got[0]["row"]]
+
+
+def phase_serve_tp(seed: int, count: int) -> list:
+    """LM prefill and decode over ranks (ROADMAP Queue A item 10(a), the
+    dense, moe and vlm families): over every card where there are
+    several (serve_over_cards); at one card four gloo ranks on the card
+    at the reduced f32 configs (serve_gloo_finish).  Returns the flash
+    row at a rank's prefill shape."""
+    t_phase = time.perf_counter()
+    if count >= 2:
+        rows = serve_over_cards(seed, count)
+    else:
+        print("serve_tp: CUT: one card: NCCL takes one card a rank, so the "
+              "phase runs four gloo ranks on the card at reduced f32 "
+              "configs, not llama3-8b's width over several cards",
+              flush=True)
+        rows = [serve_gloo_finish(seed, serve_gloo_start(seed))]
+    print(f"serve_tp: all in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
+
+
 # --------------------------------------------------------------- retrieval
 def phase_retrieval(seed: int):
     """The port's twin of examples/retrieval_serving.py steps 1-4."""
@@ -8017,6 +8981,8 @@ def main() -> int:
                     help="run only the device, build and fsdp phases")
     ap.add_argument("--tp-only", action="store_true",
                     help="run only the device, build and tp phases")
+    ap.add_argument("--serve-tp-only", action="store_true",
+                    help="run only the device, build and serve_tp phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -8041,8 +9007,8 @@ def main() -> int:
     for line in env.describe().splitlines():
         print(f"env: {line}", flush=True)
     only = (args.families_only or args.train_only or args.dp_only
-            or args.fsdp_only or args.tp_only or args.sharded_only
-            or args.frontend_only)
+            or args.fsdp_only or args.tp_only or args.serve_tp_only
+            or args.sharded_only or args.frontend_only)
     built = in_background(phase_build)
     if only:
         built()
@@ -8062,6 +9028,9 @@ def main() -> int:
         return 0
     if args.tp_only:
         finish(phase_tp(args.seed, count), t_start, smi, name, count)
+        return 0
+    if args.serve_tp_only:
+        finish(phase_serve_tp(args.seed, count), t_start, smi, name, count)
         return 0
 
     X = gauss_mix(args.n, D, seed=0)
@@ -8191,6 +9160,8 @@ def main() -> int:
     kernels.append(phase_fsdp(args.seed, count, ranks.get("fsdp")))
     mark("tp", t_start)
     kernels += phase_tp(args.seed, count, ranks.get("tp"))
+    mark("serve_tp", t_start)
+    kernels += phase_serve_tp(args.seed, count)
     finish(kernels, t_start, smi, name, count)
     return 0
 

@@ -16,9 +16,15 @@ and writes (K, m, n_max) directly.  For l2 (and cosine, which has no
 kernel) it keeps the reference's chunked launch: pivots of a cluster
 chunk form the query rows, the chunk's member rows the point rows, and
 the block diagonal of the resulting (cc·m, cc·n_max) matrix is gathered
-per cluster, cc times the cells it needs.  Both give the same f32
-values cell for cell.  These f32 columns feed the rank-model fits only:
-the exact f64 columns exactness depends on are recomputed on the host.
+per cluster, cc times the cells it needs.  The grouped and the chunked
+l1 / linf launches give the same f32 values cell for cell.  Cosine's
+chunked plain ``cdist`` takes its dot products in a (cc·m, cc·n_max)
+matmul, whose summation order the host library picks by shape: a cell
+parts from a per-cluster ``cdist`` by at most d·eps (f32 eps; the rows
+are normalised alike, and reordering a dot of two unit rows moves it by
+at most (d-1)·eps before ``1 - dot`` rounds once).  These f32 columns
+feed the rank-model fits only: the exact f64 columns exactness depends
+on are recomputed on the host.
 """
 from __future__ import annotations
 

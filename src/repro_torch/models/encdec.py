@@ -34,9 +34,9 @@ from .layers import (apply_rope, attention_specs, chunked_attention,
                      mlp_specs, rmsnorm, rope_tables, swiglu)
 from .params import ParamSpec, torch_dtype
 from ..sharding import collective
-from .transformer import (_embed, _nll_loss, _qkv, _rank_heads, _remat,
-                          _rope, _stack, _unembed, gather_outside,
-                          layer_params, zeros_cache)
+from .transformer import (_embed, _nll_loss, _qkv, _rank_heads,
+                          _refuse_on_line, _remat, _rope, _stack, _unembed,
+                          gather_outside, layer_params, zeros_cache)
 
 
 def enc_block_specs(cfg: ModelConfig) -> dict:
@@ -216,16 +216,22 @@ def encdec_prefill(params, src_embeds, tokens, cfg: ModelConfig,
     """Encode the source, prime the decoder with ``tokens`` (B, S),
     build the caches (self-attention k/v and the cross-attention's
     memory k/v, computed once a request).  Returns (last-token logits
-    (B, 1, V) f32, cache)."""
+    (B, 1, V) f32, cache).  Over the data axes of a mesh of ranks the
+    rows are the rank's (its FSDP chunks gathered where read); under a
+    model line it raises ``NotImplementedError`` (ROADMAP Queue A item
+    10(b))."""
+    _refuse_on_line(cfg, "prefill")
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens exceeds cache_len "
                          f"{cache_len}")
+    params = gather_outside(params, ("enc_layers", "dec_layers"))
     memory = encode(params, src_embeds, cfg)
     cache = zeros_cache(encdec_cache_spec(cfg, b, cache_len,
                                           memory.shape[1]), tokens.device)
     for i in range(cfg.n_dec_layers or cfg.n_layers):
-        cross = layer_params(params["dec_layers"], i)["cross"]
+        cross = collective.gathered(
+            layer_params(params["dec_layers"], i)["cross"])
         cache["mem_k"][i] = torch.einsum("bsd,dhk->bshk", memory, cross["wk"])
         cache["mem_v"][i] = torch.einsum("bsd,dhk->bshk", memory, cross["wv"])
 
@@ -241,7 +247,9 @@ def encdec_prefill(params, src_embeds, tokens, cfg: ModelConfig,
 def encdec_decode_step(params, token, cache, cfg: ModelConfig):
     """token: (B,) int, the token at position ``cache["pos"]``.  Returns
     (logits (B, 1, V) f32, cache), the self-attention cache updated in
-    place."""
+    place.  Over ranks as :func:`encdec_prefill`."""
+    _refuse_on_line(cfg, "a decode step")
+    params = gather_outside(params, ("enc_layers", "dec_layers"))
     pos = int(cache["pos"])
     kall, vall = cache["k"], cache["v"]
     if pos >= kall.shape[2]:
@@ -251,7 +259,7 @@ def encdec_decode_step(params, token, cache, cfg: ModelConfig):
                            int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
     mem_last = cache["mem_k"].shape[2] - 1
     for i in range(cfg.n_dec_layers or cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
+        lp = collective.gathered(layer_params(params["dec_layers"], i))
         xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, kn, vn = _qkv(lp["attn"], xn, cfg, cos, sin)
         kall[i, :, pos] = kn[:, 0].to(kall.dtype)

@@ -234,22 +234,54 @@ def decode_attention(q, k_cache, v_cache, pos: int,
     the sliding window) are masked.  The scores contract against the
     cache layout directly (no transposed copy of the cache)."""
     b, _, hq, hd = q.shape
-    t, hk = k_cache.shape[1], k_cache.shape[2]
-    g = hq // hk
-    qg = q.reshape(b, hk, g, hd) * (hd ** -0.5)
-    s = torch.einsum("bkgh,btkh->bkgt", qg.to(F32), k_cache.to(F32))
-    idx = torch.arange(t, device=q.device)
-    if window is None:
-        ok = idx <= pos
-    else:
-        # ring buffer (cache size t == min(window, seq)): slot i holds the
-        # largest absolute position p <= pos with p % t == i; p >= 0 means
-        # valid (p is within the window because t <= window)
-        ok = (pos - torch.remainder(pos - idx, t)) >= 0
+    t = k_cache.shape[1]
+    s = _decode_scores(q, k_cache)
+    ok = _valid_slots(torch.arange(t, device=q.device), pos, t, window)
     s = torch.where(ok[None, None, None], s, _NEG)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkh->bkgh", w.to(v_cache.dtype), v_cache)
     return o.reshape(b, 1, hq, hd)
+
+
+def _decode_scores(q, k_cache):
+    """q (B, 1, Hq, hd) against a cache (B, T, Hk, hd): the grouped f32
+    scores (B, Hk, G, T), q scaled in its own dtype first."""
+    b, _, hq, hd = q.shape
+    hk = k_cache.shape[2]
+    qg = q.reshape(b, hk, hq // hk, hd) * (hd ** -0.5)
+    return torch.einsum("bkgh,btkh->bkgt", qg.to(F32), k_cache.to(F32))
+
+
+def _valid_slots(idx, pos: int, t: int, window: int | None):
+    """Which of the cache slots ``idx`` (of ``t``) hold a position the
+    token at ``pos`` attends to."""
+    if window is None:
+        return idx <= pos
+    # ring buffer (cache size t == min(window, seq)): slot i holds the
+    # largest absolute position p <= pos with p % t == i; p >= 0 means
+    # valid (p is within the window because t <= window)
+    return (pos - torch.remainder(pos - idx, t)) >= 0
+
+
+def decode_partial(q, k_cache, v_cache, pos: int, first: int, slots: int,
+                   window: int | None = None):
+    """A rank's part of :func:`decode_attention` over its chunk of the
+    cache: slots ``first`` .. ``first`` + T - 1 of ``slots``, the mask
+    read at those global slot indices.  Returns f32 (m, l, o): per (B,
+    Hk, G) row the largest valid score (``_NEG`` where the chunk holds
+    no valid slot), the sum of ``exp(s - m)`` over the valid slots and
+    that sum of ``exp(s - m) v`` (B, Hk, G, hd), unnormalised; an
+    invalid slot adds exactly 0 (``collective.merge_softmax`` merges the
+    ranks' parts)."""
+    t = k_cache.shape[1]
+    s = _decode_scores(q, k_cache)
+    ok = _valid_slots(first + torch.arange(t, device=q.device), pos, slots,
+                      window)[None, None, None]
+    s = torch.where(ok, s, _NEG)
+    m = s.amax(dim=-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bkgt,btkh->bkgh", p, v_cache.to(F32))
+    return m, p.sum(dim=-1), o
 
 
 # -------------------------------------------------------------------- MLP

@@ -195,14 +195,14 @@ def _refuse_on_line(what: str) -> None:
     if collective.model_line() is not None:
         raise NotImplementedError(
             f"{what} over a model line of ranks is not ported (ROADMAP "
-            "Queue A item 10)")
+            "Queue A item 10(b))")
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   cache: dict | None = None):
     """Full-sequence forward.  Returns (y, new cache state or None).
     Under an active model line the rank's heads (the module docstring);
-    a cache there raises ``NotImplementedError`` (item 10)."""
+    a cache there raises ``NotImplementedError`` (item 10(b))."""
     s = cfg.ssm
     d_in, n_heads, conv_dim = mamba_dims(cfg)
     gn = s.n_groups * s.d_state
@@ -259,7 +259,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     """Single-token recurrent step.  x: (B, 1, D).  Under an active model
-    line it raises ``NotImplementedError`` (item 10)."""
+    line it raises ``NotImplementedError`` (item 10(b))."""
     _refuse_on_line("mamba decode")
     s = cfg.ssm
     d_in, n_heads, _ = mamba_dims(cfg)

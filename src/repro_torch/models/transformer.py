@@ -69,6 +69,16 @@ every super-block, behind its ``shared_proj``, which the guard leaves
 whole (every rank computes its input alike).  A tied head (mamba2)
 takes both gradients on the rank's vocabulary rows: the lookup's and
 the head's.
+
+Serving over ranks (``zoo.prefill_fn`` / ``decode_fn`` with a mesh of
+processes) runs the same forward on the rank's rows and chunks, with
+the cache as the rank's chunk of the reference's layout
+(:func:`cache_splits`): prefill's keys and values are joined whole over
+the model line and each rank keeps its slots (:func:`_store_kv`); a
+decode step attends every head over the rank's slots and merges the
+ranks' partial softmax (:func:`_decode_attn_line`); the logits are
+joined whole (:func:`_logits`).  The ssm and hybrid families serve over
+the data axes alone (ROADMAP Queue A item 10(b)).
 """
 from __future__ import annotations
 
@@ -81,9 +91,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..kernels.dispatch import resolve_device
 from ..sharding import collective
+from ..sharding.logical import default_rules, guarded_sharding
 from .layers import (F32, apply_rope, attention_specs, chunked_attention,
-                     decode_attention, dense_attention, flash_attention,
-                     mlp_specs, rmsnorm, rope_tables, swiglu)
+                     decode_attention, decode_partial, dense_attention,
+                     flash_attention, mlp_specs, rmsnorm, rope_tables,
+                     swiglu)
 from .mamba2 import mamba_decode, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_ffn, moe_specs
 from .params import ParamSpec, map_specs, torch_dtype
@@ -263,25 +275,50 @@ def _rank_heads(p: dict, cfg: ModelConfig) -> tuple:
         return p, False
     if p["wk"].shape[-2] < cfg.n_kv_heads:
         return p, True                     # the kv heads split alike
-    g = cfg.n_q_heads // cfg.n_kv_heads
-    first = mp.index * h
-    kv = [(first + i) // g for i in range(h)]
-    lo, used = kv[0], kv[-1] - kv[0] + 1
-    if h % used == 0 and all(j - lo == i // (h // used)
-                             for i, j in enumerate(kv)):
-        pick = slice(lo, lo + used)
-    else:
-        pick = torch.tensor(kv, device=p["wk"].device)
+    pick = _kv_pick(h, cfg, mp.index, p["wk"].device)
     return dict(p, wk=collective.to_model(p["wk"])[..., pick, :],
                 wv=collective.to_model(p["wv"])[..., pick, :]), True
 
 
-def attn_block(p: dict, x, cfg: ModelConfig, cos, sin):
+def _kv_pick(h: int, cfg: ModelConfig, index: int, device):
+    """The kv heads of rank ``index``'s ``h`` q heads: a slice where they
+    group evenly (as GQA groups them), else one kv head a q head (an
+    index tensor)."""
+    g = cfg.n_q_heads // cfg.n_kv_heads
+    first = index * h
+    kv = [(first + i) // g for i in range(h)]
+    lo, used = kv[0], kv[-1] - kv[0] + 1
+    if h % used == 0 and all(j - lo == i // (h // used)
+                             for i, j in enumerate(kv)):
+        return slice(lo, lo + used)
+    return torch.tensor(kv, device=device)
+
+
+def _whole_kv_weights(p: dict, cfg: ModelConfig) -> bool:
+    """Whether, under a model line, the rank's q heads are a split while
+    ``wk`` / ``wv`` are whole (the guard left the kv heads whole)."""
+    return collective.model_line() is not None and \
+        p["wq"].shape[-2] < cfg.n_q_heads and \
+        p["wk"].shape[-2] == cfg.n_kv_heads
+
+
+def attn_block(p: dict, x, cfg: ModelConfig, cos, sin,
+               whole_kv: bool = False):
     """Full-sequence attention sub-block (pre-norm, residual outside).
     Returns (output, (k, v)).  Under tensor parallelism the rank's heads
     (:func:`_rank_heads`), the output's partial sums summed over the
-    model line."""
+    model line.  ``whole_kv`` (prefill over ranks, no gradient): where
+    the kv weights are whole on the line, the keys and values of every
+    kv head, computed from them (the rank's q heads attend to their own
+    kv heads of those), for the cache."""
     xn = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    if whole_kv and _whole_kv_weights(p["attn"], cfg):
+        q, k, v = _qkv(p["attn"], xn, cfg, cos, sin)
+        pick = _kv_pick(q.shape[2], cfg, collective.model_line().index,
+                        k.device)
+        o = attention(q, k[:, :, pick], v[:, :, pick], cfg)
+        out = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+        return collective.from_model(out), (k, v)
     attn, split = _rank_heads(p["attn"], cfg)
     if split:
         xn = collective.to_model(xn)
@@ -303,9 +340,10 @@ def ffn_block(p: dict, x, cfg: ModelConfig):
     return swiglu(p["mlp"], xn, cfg.d_ff), _zero_aux(x.device)
 
 
-def transformer_layer(p, x, cfg: ModelConfig, cos, sin):
+def transformer_layer(p, x, cfg: ModelConfig, cos, sin,
+                      whole_kv: bool = False):
     p = collective.gathered(p)
-    a, kv = attn_block(p, x, cfg, cos, sin)
+    a, kv = attn_block(p, x, cfg, cos, sin, whole_kv)
     x = x + a
     f, aux = ffn_block(p, x, cfg)
     return (x + f).to(x.dtype), aux, kv
@@ -367,16 +405,19 @@ def _rope(s: int, cfg: ModelConfig, device):
                        int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
 
 
-def _run_layers(params, x, cfg: ModelConfig, on_kv=None):
+def _run_layers(params, x, cfg: ModelConfig, on_kv=None,
+                whole_kv: bool = False):
     """Run every transformer layer over embedded ``x``; ``on_kv(i, k,
-    v)`` receives layer i's keys and values (B, S, Hk, hd).  Returns
-    (hidden, aux summed over the layers)."""
+    v)`` receives layer i's keys and values (B, S, Hk, hd; under a model
+    line the rank's kv heads, or with ``whole_kv`` every kv head where
+    the kv weights are whole).  Returns (hidden, aux summed over the
+    layers)."""
     cos, sin = _rope(x.shape[1], cfg, x.device)
     aux = _zero_aux(x.device)
     layer = _remat(transformer_layer, cfg)
     for i in range(cfg.n_layers):
         x, a, (k, v) = layer(layer_params(params["layers"], i), x, cfg, cos,
-                             sin)
+                             sin, whole_kv)
         aux = {n: aux[n] + a[n] for n in aux}
         if on_kv is not None:
             on_kv(i, k, v)
@@ -532,58 +573,146 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
     return out
 
 
-def zeros_cache(spec: dict, device) -> dict:
+def zeros_cache(spec: dict, device, splits: dict | None = None) -> dict:
     """Zeroed tensors of a cache spec on ``device``, and ``pos`` = 0,
     which the port keeps as a Python int: the host always knows it, so
-    a decode step never waits for the card to read it."""
+    a decode step never waits for the card to read it.  ``splits``
+    (:func:`cache_splits`) gives each tensor as a rank holds it: its
+    chunk, tagged with its data and model ``Shard``s."""
     dev = resolve_device(device)
-    out = {name: torch.zeros(shape, dtype=torch_dtype(dt), device=dev)
-           for name, (shape, _, dt) in spec.items() if shape}
+    out = {}
+    for name, (shape, _, dt) in spec.items():
+        if not shape:
+            continue
+        sh, m = (splits or {}).get(name, (None, None))
+        for x in (sh, m):
+            if x is not None:
+                shape = x.shape(shape)
+        out[name] = collective.tag_model(collective.tag(torch.zeros(
+            shape, dtype=torch_dtype(dt), device=dev), sh), m)
     out["pos"] = 0
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+def cache_splits(cfg: ModelConfig, batch: int, cache_len: int,
+                 mesh) -> dict:
+    """Per cache tensor (``cache_spec`` of the global ``batch``) the
+    (data ``Shard``, model ``Shard``) of this rank's chunk over a mesh of
+    ranks, from its guarded sharding under ``default_rules()`` (FSDP
+    moves no cache axis), as the reference's dry-run lays the cache out:
+    ``batch`` on the data axes, ``kv_seq`` on ``model``, ``kv_heads`` on
+    ``model`` only where ``kv_seq`` does not divide the line (the guard
+    uses an axis once a tensor), each None where the guard leaves the
+    dim whole."""
+    rules = default_rules()
+    dp = tuple(a for a in collective.DP_AXES if a in mesh.axis_names)
+    out = {}
+    for name, (shape, axes, _) in cache_spec(cfg, batch, cache_len).items():
+        if not shape:
+            continue
+        spec = guarded_sharding(shape, axes, rules, mesh).spec
+        out[name] = (collective.shard_for(spec, shape, mesh, dp),
+                     collective.model_split(spec, shape, mesh, dp))
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               mesh=None):
     """The zeroed cache of :func:`cache_spec` on ``device`` (default
-    ``cuda``)."""
-    return zeros_cache(cache_spec(cfg, batch, cache_len), device)
+    ``cuda``); over a mesh of ranks (``mesh.group``) this rank's chunks
+    of it (:func:`cache_splits`, ``batch`` the global batch)."""
+    splits = None
+    if mesh is not None and getattr(mesh, "group", None) is not None:
+        splits = cache_splits(cfg, batch, cache_len, mesh)
+    return zeros_cache(cache_spec(cfg, batch, cache_len), device, splits)
+
+
+def _cache_slots(k: torch.Tensor) -> int:
+    """The whole cache's slot count of a (chunk of a) k cache."""
+    m = collective.model_of(k)
+    return m.full if m is not None and m.dim == 2 else k.shape[2]
 
 
 def _store_kv(cache, total: int, roll: bool):
     """``on_kv`` writing layer i's keys and values straight into the
     cache: positions 0..total-1 from slot 0, or, for a sliding window
     with more positions than slots, the last t rotated so slot =
-    pos % t (``transformer.py:305-312``)."""
-    t = cache["k"].shape[2]
+    pos % t (``transformer.py:305-312``).  Over a model line the cache
+    may hold the rank's chunk of the slots (``kv_seq``) or of the kv
+    heads: the rank's kv heads are gathered whole over the line where
+    the cache holds them all (the roll then runs on the whole, so slot
+    s lives on the rank that owns s), and a rank keeps its own slots or
+    heads."""
+    split = collective.model_of(cache["k"])
+    slots, heads = _cache_slots(cache["k"]), cache["k"].shape[3]
+
+    def fit(x):
+        if x.shape[2] < heads:          # the rank's kv heads of all
+            x = collective.model_gather(x, 2)
+        elif x.shape[2] > heads:        # all kv heads, the rank's kept
+            x = x.narrow(2, split.index * heads, heads)
+        if roll and total > slots:
+            x = torch.roll(x[:, total - slots:], total % slots, dims=1)
+        if split is not None and split.dim == 2:
+            x = x[:, split.index * split.size:(split.index + 1) * split.size]
+        return x
 
     def store(i, k, v):
-        if roll and total > t:
-            shift = total % t
-            cache["k"][i] = torch.roll(k[:, total - t:], shift, dims=1)
-            cache["v"][i] = torch.roll(v[:, total - t:], shift, dims=1)
-        else:
-            cache["k"][i, :, :total] = k
-            cache["v"][i, :, :total] = v
+        k, v = fit(k), fit(v)
+        cache["k"][i, :, :k.shape[1]] = k
+        cache["v"][i, :, :v.shape[1]] = v
     return store
 
 
+def _refuse_on_line(cfg: ModelConfig, what: str) -> None:
+    if collective.model_line() is not None and \
+            cfg.family not in ATTN_FAMILIES:
+        raise NotImplementedError(
+            f"{what} of the {cfg.family} family over a model line of ranks "
+            "is not ported (ROADMAP Queue A item 10(b))")
+
+
+def _logits(params, x, cfg: ModelConfig):
+    """The f32 logits of every vocabulary entry: under a model line with
+    the head split by vocabulary, the ranks' columns gathered."""
+    out = _unembed(params, x, cfg)
+    if out.shape[-1] < cfg.vocab:
+        out = collective.model_gather(out, -1)
+    return out
+
+
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
-            prefix_embeds=None):
+            prefix_embeds=None, mesh=None):
     """Run the prompt (B, S) (after ``prefix_embeds`` (B, P, D) for a
     vlm), return (last-token logits (B, 1, V) f32, populated cache).
     Each layer's keys and values go straight into the cache, not
-    through a stacked copy."""
+    through a stacked copy.
+
+    Over a mesh of ranks (``mesh.group``, inside the group of
+    ``zoo.prefill_fn``'s ``mesh``: ``collective.data_parallel``, whose
+    size is the data line's) the rows are this rank's block of the
+    batch, the parameters its chunks (``zoo.rank_params``; FSDP chunks
+    are gathered a layer at a time) and the cache its chunk
+    (:func:`cache_splits`); the forward is the tensor-parallel one of
+    the training step, and the logits are whole.  The ssm and hybrid families run over the data
+    axes only: under a model line they raise ``NotImplementedError``
+    (ROADMAP Queue A item 10(b))."""
+    _refuse_on_line(cfg, "prefill")
     b, s = tokens.shape
     total = s + (0 if prefix_embeds is None else prefix_embeds.shape[1])
     if total > cache_len and (cfg.sliding_window is None
                               or cfg.family not in ATTN_FAMILIES):
         raise ValueError(f"prompt of {total} positions exceeds cache_len "
                          f"{cache_len}")
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    x = _embed(params, tokens, prefix_embeds)
+    dp = collective.active() if mesh is not None else None
+    cache = init_cache(cfg, b * (dp.size if dp is not None else 1),
+                       cache_len, device=tokens.device, mesh=mesh)
+    params = gather_outside(params, ("layers",))
+    x = _embed(params, tokens, prefix_embeds, cfg.vocab)
     if cfg.family in ATTN_FAMILIES:
         x, _ = _run_layers(params, x, cfg, _store_kv(
-            cache, total, roll=cfg.sliding_window is not None))
+            cache, total, roll=cfg.sliding_window is not None),
+            whole_kv=collective.model_line() is not None)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x, nc = _mamba_layer(layer_params(params["layers"], i), x, cfg,
@@ -596,13 +725,17 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
     else:
         raise ValueError(cfg.family)
     cache["pos"] = total
-    return _unembed(params, x[:, -1:], cfg), cache
+    return _logits(params, x[:, -1:], cfg), cache
 
 
 def _decode_attn(p: dict, xn, kall, vall, i: int, slot: int, pos: int,
                  cfg: ModelConfig, cos, sin, window):
     """One token's attention sub-block against cache layer ``i``: its
-    key and value written at ``slot``; returns the projected output."""
+    key and value written at ``slot``; returns the projected output
+    (under a model line :func:`_decode_attn_line`)."""
+    if collective.model_line() is not None:
+        return _decode_attn_line(p, xn, kall, vall, i, slot, pos, cfg, cos,
+                                 sin, window)
     q, kn, vn = _qkv(p["attn"], xn, cfg, cos, sin)
     kall[i, :, slot] = kn[:, 0].to(kall.dtype)
     vall[i, :, slot] = vn[:, 0].to(vall.dtype)
@@ -610,17 +743,73 @@ def _decode_attn(p: dict, xn, kall, vall, i: int, slot: int, pos: int,
     return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
 
 
+def _decode_attn_line(p: dict, xn, kall, vall, i: int, slot: int, pos: int,
+                      cfg: ModelConfig, cos, sin, window):
+    """:func:`_decode_attn` over a model line.  The rank computes q and
+    the new key and value of its heads (:func:`_rank_heads`).  Where the
+    cache holds the rank's kv heads (``kv_heads`` on ``model``) it
+    writes them and attends its own heads.  Otherwise the new key and
+    value are joined whole (gathered, or computed from whole kv
+    weights), written by the rank that holds ``slot`` (every rank where
+    the cache is whole on the line), q is gathered whole, and each rank
+    attends every head over its slots (the mask read at global slot
+    indices: ``layers.decode_partial``), the parts merged over the line
+    in f32 (``collective.merge_softmax``); the rank keeps its heads of
+    the output.  The row-split ``wo``'s partial sums are summed over the
+    line."""
+    mp = collective.model_line()
+    attn, split = _rank_heads(p["attn"], cfg)
+    h = attn["wq"].shape[-2]
+    cs = collective.model_of(kall)
+    if cs is not None and cs.dim == 3:
+        q, kn, vn = _qkv(attn, xn, cfg, cos, sin)
+        if kn.shape[2] != kall.shape[3]:
+            raise ValueError(f"the cache holds {kall.shape[3]} kv heads a "
+                             f"rank, the weights {kn.shape[2]}")
+        kall[i, :, slot] = kn[:, 0].to(kall.dtype)
+        vall[i, :, slot] = vn[:, 0].to(vall.dtype)
+        o = decode_attention(q, kall[i], vall[i], pos, window=window)
+    else:
+        whole = _whole_kv_weights(p["attn"], cfg)
+        q, kn, vn = _qkv(p["attn"] if whole else attn, xn, cfg, cos, sin)
+        if kn.shape[2] < cfg.n_kv_heads:
+            kn, vn = (collective.model_gather(kn, 2),
+                      collective.model_gather(vn, 2))
+        if split:
+            q = collective.model_gather(q, 2)
+        lo = 0 if cs is None else cs.index * cs.size
+        if lo <= slot < lo + kall.shape[2]:
+            kall[i, :, slot - lo] = kn[:, 0].to(kall.dtype)
+            vall[i, :, slot - lo] = vn[:, 0].to(vall.dtype)
+        if cs is None:
+            o = decode_attention(q, kall[i], vall[i], pos, window=window)
+        else:
+            m, l, part = decode_partial(q, kall[i], vall[i], pos, lo,
+                                        cs.full, window)
+            o = collective.merge_softmax(m, l, part).to(vall.dtype) \
+                .reshape(q.shape)
+        if split:
+            o = o[:, :, mp.index * h:(mp.index + 1) * h]
+    out = torch.einsum("bshk,hkd->bsd", o, attn["wo"])
+    return collective.from_model(out) if split else out
+
+
 def decode_step(params, token, cache, cfg: ModelConfig):
     """token: (B,) int, the token at position ``cache["pos"]``.  Returns
     (logits (B, 1, V) f32, cache).  The cache tensors are updated in
     place (one slot per layer, or the layer's conv and ssm state); the
-    returned dict holds them and the advanced ``pos``."""
+    returned dict holds them and the advanced ``pos``.  Over ranks (as
+    :func:`prefill`) the cache is the rank's chunk that prefill made,
+    the layers' FSDP chunks are gathered one layer at a time, and the
+    attention runs as :func:`_decode_attn_line` says."""
+    _refuse_on_line(cfg, "a decode step")
     pos = int(cache["pos"])
-    x = _embed(params, token)[:, None, :]                  # (B, 1, D)
+    params = gather_outside(params, ("layers",))
+    x = _embed(params, token, vocab=cfg.vocab)[:, None, :]  # (B, 1, D)
     cos, sin = rope_tables(torch.tensor([pos], device=x.device),
                            int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
     if "k" in cache:
-        t = cache["k"].shape[2]
+        t = _cache_slots(cache["k"])
         window = cfg.sliding_window if cfg.family in ATTN_FAMILIES else None
         if window is None and pos >= t:
             raise ValueError(f"the cache of {t} slots is full")
@@ -628,7 +817,7 @@ def decode_step(params, token, cache, cfg: ModelConfig):
 
     if cfg.family in ATTN_FAMILIES:
         for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
+            lp = collective.gathered(layer_params(params["layers"], i))
             xn = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
             x = x + _decode_attn(lp, xn, cache["k"], cache["v"], i, slot,
                                  pos, cfg, cos, sin, window)
@@ -641,12 +830,12 @@ def decode_step(params, token, cache, cfg: ModelConfig):
         x = _hybrid_decode(params, x, cache, cfg, cos, sin, pos)
     else:
         raise ValueError(cfg.family)
-    logits = _unembed(params, x, cfg)
+    logits = _logits(params, x, cfg)
     return logits, dict(cache, pos=pos + 1)
 
 
 def _mamba_decode_layer(params, h, cache, cfg: ModelConfig, i: int):
-    lp = layer_params(params["layers"], i)
+    lp = collective.gathered(layer_params(params["layers"], i))
     y, nc = mamba_decode(lp["mixer"], rmsnorm(h, lp["norm"], cfg.norm_eps),
                          cfg, {"conv": cache["conv"][i],
                                "ssm": cache["ssm"][i]})

@@ -38,7 +38,11 @@ and :func:`from_model` (the partial sums all-reduced forward; the
 gradient as it is, every rank's downstream being the same) after a row
 split, and the vocabulary split's sums.  :func:`model_max` is that
 split's max; :func:`gather_from_model` joins a column split whose
-whole output every rank needs (the MoE router's logits).  Where each
+whole output every rank needs (the MoE router's logits).  Serving
+(prefill and decode over the line, forward only) adds two:
+:func:`model_gather`, a decode step's new keys and values and its q
+heads joined whole, and :func:`merge_softmax`, the merge of each rank's
+partial softmax statistics over its slots of the KV cache.  Where each
 rank reads its own part of a joined or summed tensor, the gradient
 must be summed over the line on the way back: :func:`gather_to_model`
 (an all-gather whose backward reduce-scatters, Megatron's
@@ -286,6 +290,40 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
     if mp is not None:
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mp.group)
     return y
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The line's chunks of ``x`` concatenated along ``dim`` in rank
+    order, outside autograd (serving: a decode step's new keys and
+    values of the rank's kv heads, its q heads); ``x`` itself with no
+    line."""
+    mp = model_line()
+    if mp is None:
+        return x
+    dim %= x.dim()
+    return all_gather(x.detach(), Shard(dim, x.shape[dim] * mp.size,
+                                        mp.index, mp.size, mp.group))
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor,
+                  o: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted sum over the line's slots from each rank's
+    partial statistics over its own: ``m`` (...,) its largest score,
+    ``l`` (...,) its sum of ``exp(s - m)``, ``o`` (..., hd) its sum of
+    ``exp(s - m) v``, all f32 (a rank with no valid slot holds l = 0 and
+    o = 0, so its ``m`` counts for nothing).  One all-reduce max of
+    ``m``, then one f32 sum of ``l e^(m_r - M)`` and ``o e^(m_r - M)``;
+    returns the sum of o over the sum of l, f32, outside autograd.  With
+    no line, ``o / l``."""
+    mp = model_line()
+    if mp is None:
+        return o / l[..., None]
+    top = m.detach().clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mp.group)
+    a = torch.exp(m - top)
+    both = torch.cat([(l * a)[..., None], o * a[..., None]], dim=-1)
+    dist.all_reduce(both, group=mp.group)
+    return both[..., 1:] / both[..., :1]
 
 
 # ------------------------------------------------------------------ shards
@@ -547,7 +585,8 @@ def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
 __all__ = ["ModelLine", "DataParallel", "data_parallel", "active",
            "global_sum", "model_line", "to_model", "from_model",
            "gather_from_model", "gather_to_model", "sum_to_model",
-           "model_max", "Shard", "DP_AXES", "MODEL_AXIS",
+           "model_max", "model_gather", "merge_softmax", "Shard",
+           "DP_AXES", "MODEL_AXIS",
            "model_split", "shard_for", "barrier", "tag", "shard_of",
            "tag_model", "model_of", "whole", "cut", "reduce_scatter",
            "all_gather", "gather", "gathered", "layer", "gather_rows"]

@@ -38,8 +38,10 @@ the results to:
 * the port's own one-process step at ``PORT_METRIC_RTOL`` and
   ``PORT_PARAM_REL``, every first moment too, with the AdamW sign-flip
   allowance of tests/test_torch_train_tp_families.py (``FLIP_FRAC``,
-  ``NOISE_REL``), and under 8-bit Adam parting only on a flipped moment
-  code, as tests/test_torch_train_tp.py allows.  Besides, AdamW's second
+  ``NOISE_REL``), and under 8-bit Adam parting only on a moment code
+  flipped by one step (in the state the last update was handed, or in
+  the one it left; fewer than ``CODE_FLIP_FRAC`` of a leaf's codes), as
+  tests/test_torch_train_tp.py allows.  Besides, AdamW's second
   update is ``lr * f`` with ``f = g / (|g| + eps)`` (the warm-up's lr is
   0 at step 0, so both steps take the same clipped gradient g): where g
   is near eps (the mixer's zero-initialised ``conv_b``, ``A_log`` and
@@ -112,6 +114,11 @@ PORT_PARAM_REL = 2e-5           # of each parameter's scale, ditto
 F64_REL = 1e-5                  # float64 gradients, of each leaf's scale
 F64_FLOOR_X = 4.0               # x the one-process f32-inside-f64 floor
 FLIP_FRAC = 1e-4                # of a leaf's elements, where signs flip
+# of a leaf's 8-bit moment codes that may flip by one step over ranks:
+# read at 2 of 16,384 (1.2e-4) on an AMD EPYC host (the shared block's
+# wo, zamba2 tp4 plain), 0 elsewhere; a quantiser that rounds the other
+# way flips about half
+CODE_FLIP_FRAC = 1e-3
 NOISE_REL = 1e-5                # of a leaf's largest first moment
 LR = 5e-3
 ROWS, SEQ = 4, 32
@@ -680,8 +687,17 @@ def test_tp_ssm_step_matches_one_process_port(ranks, one_process, cid):
     PORT_PARAM_REL of their scale.  Under AdamW fewer than FLIP_FRAC of a
     leaf's parameters may part further, each where the one-process first
     moment is within NOISE_REL of the leaf's largest; under 8-bit Adam
-    fewer than FLIP_FRAC of a leaf's moment codes may differ, and a
-    parameter may part further only where one did."""
+    a moment code may differ only by one step (a rounding flip), in the
+    state the last update was handed and in the one it left, at fewer
+    than CODE_FLIP_FRAC of a leaf's codes, and fewer than FLIP_FRAC of a
+    leaf's parameters may part further, each where a code of either
+    state flipped, as tests/test_torch_train_tp.py holds them.  (A code
+    flipped in the handed state moves the last update and can be
+    rounded back by it: on an AMD EPYC host one ``nu_q`` code of
+    zamba2's ``out_proj`` does so, and its parameter parts by 3.5e-6
+    against a bar of 1.4e-6; two of the 16,384 final ``nu_q`` codes of
+    the shared block's ``wo`` flip there, past FLIP_FRAC, the earlier
+    bar on codes.)"""
     want_m, want_p, want_mu, want_q, want_in = one_process[cid]
     got = ranks[0]["cases"][cid]
     for g, w in zip(got["metrics"], want_m):
@@ -702,9 +718,14 @@ def test_tp_ssm_step_matches_one_process_port(ranks, one_process, cid):
             w).max() + 2 * _eight_bit_spread(want_in[k], g)
         flipped = np.zeros(w.size, dtype=bool)
         for part in ("mu_q", "nu_q"):
-            a, b = got["codes"][f"{k}/{part}"], want_q[f"{k}/{part}"]
-            assert (a != b).mean() < FLIP_FRAC, (k, part)
-            flipped |= (a != b).reshape(-1)[:w.size]
+            for a, b in ((got["codes"][f"{k}/{part}"], want_q[f"{k}/{part}"]),
+                         (got["inputs"][k][1][part], want_in[k][1][part])):
+                step = np.abs(a.astype(np.int16) - b.astype(np.int16))
+                assert step.max() <= 1, (k, part)   # adjacent codes only
+                assert (step != 0).mean() < CODE_FLIP_FRAC, \
+                    (k, part, int((step != 0).sum()), step.size)
+                flipped |= (step != 0).reshape(-1)[:w.size]
+        assert far.mean() < FLIP_FRAC, (k, int(far.sum()))
         assert not (far.reshape(-1) & ~flipped).any(), k
 
 
